@@ -1,0 +1,88 @@
+"""Read (and write) the JAX package's checkpoint files without JAX.
+
+A ``model_best.ckpt`` (``adyolo_tpu/engine/checkpoint.py:55-68``) is a
+pickle of ``{"arrays": <flax msgpack bytes>, "host": {...}}``.  The bytes
+are flax's msgpack encoding of ``{"params", "batch_stats", "opt_state",
+"step"}``: ext type 1 is an ndarray packed as ``(shape, dtype name, C-order
+buffer)``, ext type 3 a numpy scalar packed the same way.  Plain
+``msgpack`` decodes it.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Any, Dict, Tuple
+
+import msgpack
+import numpy as np
+
+__all__ = ["load_jax_checkpoint", "save_jax_checkpoint"]
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+def _array_from_bytes(data: bytes) -> np.ndarray:
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    name = dtype_name.decode()
+    if name == "bfloat16":
+        raise NotImplementedError("bfloat16 checkpoint arrays are not supported")
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape).copy()
+
+
+def _ext_hook(code: int, data: bytes):
+    if code == _EXT_NDARRAY:
+        return _array_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _array_from_bytes(data)[()]
+    raise ValueError(f"unsupported msgpack ext type {code} in checkpoint")
+
+
+def _ext_default(obj):
+    if isinstance(obj, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, msgpack.packb(
+            (obj.shape, obj.dtype.name, obj.tobytes("C")), use_bin_type=True))
+    if isinstance(obj, np.generic):
+        a = np.asarray(obj)
+        return msgpack.ExtType(_EXT_NPSCALAR, msgpack.packb(
+            (a.shape, a.dtype.name, a.tobytes("C")), use_bin_type=True))
+    raise TypeError(f"cannot serialise {type(obj)}")
+
+
+def _check_unchunked(tree):
+    if isinstance(tree, dict):
+        if "__msgpack_chunked_array__" in tree:
+            raise NotImplementedError("chunked (>1 GiB) checkpoint arrays")
+        for v in tree.values():
+            _check_unchunked(v)
+
+
+def load_jax_checkpoint(path: str) -> Tuple[Dict, Dict[str, Any]]:
+    """Returns ``(variables, host)``: ``variables = {"params": ...,
+    "batch_stats": ...}`` as nested dicts of numpy arrays, ``host`` the
+    checkpoint's host state (``epoch_nb``, ``confidence_thresh``, ...).
+    The file must come from this project's trainer: it is unpickled."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    tree = msgpack.unpackb(payload["arrays"], ext_hook=_ext_hook, raw=False)
+    _check_unchunked(tree)
+    variables = {"params": tree["params"],
+                 "batch_stats": tree.get("batch_stats", {})}
+    return variables, payload["host"]
+
+
+def save_jax_checkpoint(path: str, variables: Dict, host: Dict[str, Any]) -> None:
+    """Write ``variables`` (``{"params", "batch_stats"}`` of numpy arrays)
+    and ``host`` in the checkpoint file format.  It carries no optimizer
+    state, so :func:`load_jax_checkpoint` reads it but the JAX trainer
+    cannot resume from it."""
+    tree = {"params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {}),
+            "opt_state": {}, "step": np.zeros((), np.int32)}
+    payload = {"arrays": msgpack.packb(tree, default=_ext_default,
+                                       use_bin_type=True),
+               "host": host}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)

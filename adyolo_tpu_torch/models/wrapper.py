@@ -1,0 +1,86 @@
+"""Model factory (counterpart of :mod:`adyolo_tpu.models.wrapper`).
+
+Only the serving configuration is ported: the SE-ResNet34 encoder with the
+AD-YOLO head.  Any other encoder or loss raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from adyolo_tpu.config import Config
+
+from .heads import ADYOLOHead
+from .layers import BatchNorm
+from .seresnet34 import SEResNet34
+
+__all__ = ["SELDModel", "build_model", "init_params"]
+
+# flax lecun_normal: truncated normal at +-2 std, rescaled to variance 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+class SELDModel(nn.Module):
+    """SE-ResNet34 + AD-YOLO head.  ``forward(feat, feat_lengths=None)``:
+    feat (B, T, F, C) -> raw logits (B, T // 4, G0*G1*A*(K+3))."""
+
+    def __init__(self, nb_classes: int = 13,
+                 grid_size: Tuple[float, float] = (45.0, 45.0),
+                 nb_anchors: int = 5, in_channels: int = 7,
+                 enc_out_dim: int = 256):
+        super().__init__()
+        self.encoder = SEResNet34(in_channels, enc_out_dim)
+        self.head = ADYOLOHead(nb_classes, grid_size, nb_anchors, enc_out_dim,
+                               enc_out_dim)
+
+    def forward(self, feat: torch.Tensor,
+                feat_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.head(self.encoder(feat, feat_lengths))
+
+
+@torch.no_grad()
+def init_params(model: SELDModel, generator: torch.Generator) -> SELDModel:
+    """Seeded random init with the JAX package's initialisers: lecun-normal
+    conv / Dense kernels, xavier-uniform head, U(-1/sqrt(H), 1/sqrt(H)) GRU,
+    zero biases, identity norms."""
+    g = generator
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if name.startswith("head."):
+                nn.init.xavier_uniform_(mod.weight, generator=g)
+            else:
+                fan_in = mod.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.GRU):
+            k = 1.0 / math.sqrt(mod.hidden_size)
+            for p in mod.parameters():
+                nn.init.uniform_(p, -k, k, generator=g)
+        elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+    return model
+
+
+def build_model(cfg: Config, device="cpu",
+                generator: Optional[torch.Generator] = None) -> SELDModel:
+    """The eval model for ``cfg`` on ``device``.  With ``generator`` the
+    weights are a seeded random init (drawn on the CPU); otherwise they
+    are to be loaded (:mod:`adyolo_tpu_torch.convert`)."""
+    if cfg.args.encoder != "se-resnet34":
+        raise NotImplementedError(f"not yet ported: encoder {cfg.args.encoder!r}")
+    if cfg.args.loss != "adyolo":
+        raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
+    model = SELDModel(nb_classes=cfg.data.nb_classes,
+                      grid_size=tuple(cfg.train.grid_size),
+                      nb_anchors=cfg.train.nb_anchors,
+                      in_channels=cfg.data.nb_feature_channels)
+    if generator is not None:
+        init_params(model, generator)
+    return model.to(device).eval()

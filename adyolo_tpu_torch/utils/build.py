@@ -1,0 +1,110 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+Every ``adyolo_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds)::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/adyolo_tpu_torch/libadyolo_kernels_<hash>.so \\
+         adyolo_tpu_torch/csrc/*.cu
+
+The library is named by a hash of the sources and the flags, built on
+first use, and reused while neither changes.  A failed build raises
+:class:`KernelBuildError` carrying nvcc's stderr; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+__all__ = ["KernelBuildError", "BUILD_DIR", "NVCC_FLAGS", "sources",
+           "nvcc_path", "library_path", "build", "load_library"]
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "adyolo_tpu_torch")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def sources() -> list:
+    """The kernel sources (``csrc/*.cu``), sorted."""
+    return sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu")))
+
+
+def nvcc_path() -> str:
+    """The nvcc executable ($CUDA_HOME/bin, /usr/local/cuda/bin, PATH)."""
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelBuildError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH)")
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cuh"))):
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libadyolo_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(force: bool = False) -> dict:
+    """Compile the kernels unless the hashed library exists (or ``force``).
+
+    Returns ``{"path", "built", "seconds", "ptxas"}``; ``ptxas`` is nvcc's
+    ``-Xptxas=-v`` report (registers, shared memory, spills per kernel).
+    """
+    path = library_path()
+    log = path[:-3] + ".log"
+    if os.path.isfile(path) and not force:
+        ptxas = ""
+        if os.path.isfile(log):
+            with open(log) as f:
+                ptxas = f.read()
+        return {"path": path, "built": False, "seconds": 0.0, "ptxas": ptxas}
+    srcs = sources()
+    if not srcs:
+        raise KernelBuildError(f"no CUDA sources under {_CSRC_DIR}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic against concurrent builds
+    with open(log, "w") as f:
+        f.write(proc.stderr)
+    return {"path": path, "built": True, "seconds": seconds,
+            "ptxas": proc.stderr}
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(build()["path"])
+        return _lib
