@@ -6,9 +6,10 @@ Usage:
         [--results_dir results] [--device cuda]
 
 Reads ``<results_dir>/<exp_id>/hyp_exp.yaml`` and ``model_best.ckpt`` as
-the JAX trainer wrote them, restores the arbitrated confidence threshold
-from the checkpoint, and writes one CSV per wav to
-``<results_dir>/<exp_id>/output_infer/``.  ``train``, ``val``, ``test``,
+the JAX trainer wrote them, for either encoder the config names
+(``se-resnet34`` or ``resnet-conformer``, with the ``adyolo`` loss),
+restores the arbitrated confidence threshold from the checkpoint, and
+writes one CSV per wav to ``<results_dir>/<exp_id>/output_infer/``.  ``train``, ``val``, ``test``,
 ``export`` and ``preprocess`` are not ported yet.
 """
 from __future__ import annotations
@@ -50,7 +51,8 @@ def run_infer(eval_pth: str, infer_pth: str, results_dir: str = "results",
     cfg = load_config(os.path.join(exp_dir, "hyp_exp.yaml"))
     variables, host = load_jax_checkpoint(os.path.join(exp_dir, "model_best.ckpt"))
     model = build_model(cfg, "cpu")
-    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(variables, cfg.args.encoder),
+                          strict=True)
     model = model.to(device)
     frontend = make_frontend(cfg, device)
     postprocessor = PostProcessor(cfg)

@@ -10,25 +10,33 @@ returns it) onto :class:`adyolo_tpu_torch.models.wrapper.SELDModel`:
   ``weight/bias/running_mean/running_var``; LayerNorm ``scale`` -> ``weight``;
 * GRU ``w_ih`` (D, 3H) -> ``weight_ih_l0`` (3H, D), likewise ``w_hh``;
   ``b_ih/b_hh`` -> ``bias_ih_l0/bias_hh_l0``; gate order r | z | n in both;
-* the SE block's ``Dense_0/Dense_1`` -> ``fc1/fc2``.
+* the conformer conv module's depthwise ``dw_kernel`` (3, D) and
+  ``dw_bias`` (D,) -> ``dw_conv.weight`` (D, 1, 3), ``w[k, c] ->
+  weight[c, 0, k]``, and ``dw_conv.bias``;
+* auto-named flax modules: ``Dense_0/Dense_1`` -> ``fc1/fc2`` and
+  ``LayerNorm_0`` -> ``ln``, everywhere.  The names hold in both encoders
+  because the port names its modules to fit them: the SE block's
+  squeeze-excite linears and the conformer FFN's linears are both
+  ``fc1/fc2``, the FFN's and the conv module's LayerNorm are ``ln``.
 
-Conversion is strict: a flax leaf with no place in the model, or a model
-entry that no leaf fills, raises.  :func:`flax_from_state_dict` is the
-inverse.
+Conversion is strict and depends on the encoder: a flax leaf with no place
+in that encoder's model, or a model entry that no leaf fills, raises.
+:func:`flax_from_state_dict` is the exact inverse.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "flax_from_state_dict", "expected_keys"]
+__all__ = ["state_dict_from_flax", "module_state_dict", "flax_from_state_dict",
+           "expected_keys"]
 
 _GRU = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0",
         "b_ih": "bias_ih_l0", "b_hh": "bias_hh_l0"}
 _GRU_INV = {v: k for k, v in _GRU.items()}
-_MODULE = {"Dense_0": "fc1", "Dense_1": "fc2"}
+_MODULE = {"Dense_0": "fc1", "Dense_1": "fc2", "LayerNorm_0": "ln"}
 _MODULE_INV = {v: k for k, v in _MODULE.items()}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_INV = {v: k for k, v in _STATS.items()}
@@ -42,13 +50,13 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def expected_keys() -> set:
-    """The state-dict keys of the ported model (independent of the class
-    count and grid, which only change shapes)."""
+def expected_keys(encoder: str = "se-resnet34") -> set:
+    """The state-dict keys of the ported model with ``encoder`` (independent
+    of the class count and grid, which only change shapes)."""
     from .models.wrapper import SELDModel
 
     with torch.device("meta"):
-        return set(SELDModel().state_dict().keys())
+        return set(SELDModel(encoder).state_dict().keys())
 
 
 def _to_torch(collection: str, path: Tuple[str, ...], a: np.ndarray):
@@ -58,6 +66,12 @@ def _to_torch(collection: str, path: Tuple[str, ...], a: np.ndarray):
         if leaf not in _STATS:
             raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
         return ".".join(mods + [_STATS[leaf]]), a
+    if leaf == "dw_kernel":
+        if a.ndim != 2:
+            raise KeyError(f"dw_kernel of rank {a.ndim} at {'/'.join(path)}")
+        return ".".join(mods + ["dw_conv", "weight"]), a.T[:, None, :]
+    if leaf == "dw_bias":
+        return ".".join(mods + ["dw_conv", "bias"]), a
     if leaf in _GRU:
         return ".".join(mods + [_GRU[leaf]]), a.T if a.ndim == 2 else a
     if leaf == "kernel":
@@ -73,27 +87,40 @@ def _to_torch(collection: str, path: Tuple[str, ...], a: np.ndarray):
     raise KeyError(f"unknown leaf {'/'.join(path)}")
 
 
-def state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` (nested dicts of arrays) -> the
-    port's state dict, float32 CPU tensors."""
+def _convert(variables: Dict, want: Optional[set]) -> Dict[str, torch.Tensor]:
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unused flax collections: {sorted(unknown)}")
-    want = expected_keys()
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, a in _leaves(variables.get(collection, {})):
             key, arr = _to_torch(collection, path, a)
-            if key not in want:
+            if want is not None and key not in want:
                 raise KeyError(f"unused flax leaf {collection}/{'/'.join(path)}"
                                f" (would map to {key!r})")
             if key in out:
                 raise KeyError(f"two flax leaves map to {key!r}")
             out[key] = torch.tensor(arr, dtype=torch.float32)
-    missing = want - set(out)
-    if missing:
-        raise KeyError(f"missing flax leaves for {sorted(missing)}")
+    if want is not None:
+        missing = want - set(out)
+        if missing:
+            raise KeyError(f"missing flax leaves for {sorted(missing)}")
     return out
+
+
+def state_dict_from_flax(variables: Dict, encoder: str = "se-resnet34"
+                         ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` (nested dicts of arrays) of a
+    ``SELDModel`` with ``encoder`` -> the port's state dict, float32 CPU
+    tensors."""
+    return _convert(variables, expected_keys(encoder))
+
+
+def module_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables of any one ported module (a conformer block, an MHSA
+    ...) -> its state dict.  A leaf the bridge cannot place raises; load the
+    result with ``strict=True`` to hold it against the module."""
+    return _convert(variables, None)
 
 
 def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
@@ -105,7 +132,15 @@ def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
         mods = [_MODULE_INV.get(m, m) for m in mods]
         a = t.detach().cpu().numpy().astype(np.float32)
         collection = "params"
-        if leaf in _STATS_INV:
+        if mods and mods[-1] == "dw_conv":
+            mods = mods[:-1]
+            if leaf == "weight":
+                leaf, a = "dw_kernel", a[:, 0, :].T
+            elif leaf == "bias":
+                leaf = "dw_bias"
+            else:
+                raise KeyError(f"unknown state-dict entry {key!r}")
+        elif leaf in _STATS_INV:
             collection, leaf = "batch_stats", _STATS_INV[leaf]
         elif leaf in _GRU_INV:
             leaf = _GRU_INV[leaf]

@@ -3,8 +3,11 @@
 
 ``infer`` runs a wav folder through the serving path: ``SELDDataset`` +
 ``EvalLoader`` (length-bucketed hop-block audio) -> :class:`FeatureFrontend`
-(Hopper STFT kernel on CUDA) -> SE-ResNet34 + AD-YOLO -> device decode +
-host NMS -> one DCASE-format CSV per clip.  ``val``/``test`` wait for the
+(Hopper STFT kernel on CUDA) -> SE-ResNet34 or ResNet-Conformer (Hopper
+attention kernel on CUDA) + AD-YOLO -> device decode + host NMS -> one
+DCASE-format CSV per clip.  The model is whatever ``build_model`` made for
+the experiment's config; a conformer experiment written by the JAX
+trainer serves the same way.  ``val``/``test`` wait for the
 AD-YOLO loss, whose value they print.
 """
 from __future__ import annotations

@@ -48,13 +48,17 @@ def pool_mask(frame_mask: Optional[torch.Tensor], factor: int
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over dim 1: ``x * mul + shift`` with
+    """Eval BatchNorm: ``x * mul + shift`` with
     ``mul = rsqrt(var + eps) * weight`` and ``shift = bias - mean * mul``,
-    the JAX package's folding (``layers.py:150-155``)."""
+    the JAX package's folding (``layers.py:150-155``).  Channels are dim 1
+    (NCHW convs), or the last dim with ``channel_last=True`` (the conformer
+    conv module's ``(B, T, C)``, normalised in place of a transpose)."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 channel_last: bool = False):
         super().__init__()
         self.eps = eps
+        self.channel_last = channel_last
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -65,6 +69,8 @@ class BatchNorm(nn.Module):
             raise NotImplementedError(f"BatchNorm: {_NOT_TRAINED}")
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         shift = self.bias - self.running_mean * mul
+        if self.channel_last:
+            return x * mul + shift
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return x * mul.reshape(shape) + shift.reshape(shape)
 

@@ -1,0 +1,211 @@
+"""ResNet34 + Conformer SELD encoder (counterpart of
+:mod:`adyolo_tpu.models.resnet_conformer`), eval only.
+
+* stem: 7x7 conv, stride (1, 2), no bias -> ReLU -> BN (the reverse of the
+  blocks' order, as in the reference) -> 3x3 max-pool, stride (1, 2), with
+  padded frames at ``finfo.min`` so they behave like the pool's own padding
+* 4 stages of torchvision BasicBlocks [3, 4, 5, 3] x [64, 128, 256, 512],
+  frequency-only stride 2 at each stage entry: F 64 -> 1, T unchanged
+* bottleneck Linear 512 -> 256, no bias
+* 8 Conformer blocks: half-step FFN, 4-head MHSA, GLU + depthwise conv
+  module with dilation ``2**i``, half-step FFN, LayerNorm
+* mean over 4 frames, then LayerNorm (``pool_norm``)
+
+Every MHSA goes through :func:`adyolo_tpu_torch.ops.hopper_attention.
+flash_attention`: the hand-written Hopper kernel on CUDA (route ``k2`` for
+T <= 2400 frames, ``k4`` above), the plain PyTorch attention on the CPU.
+The JAX package's packed convolutions, ``remat``, ``force_flash`` and its
+``ADYOLO_*`` switches are TPU-only and not ported.  Dropout is the identity
+in eval; a module in training mode raises.
+
+Input ``(B, T, F, C)`` channel-last, as in the JAX package; the conv stack
+runs NCHW.  DCASE shapes: (B, 800, 64, 7) -> (B, 200, 256).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.hopper_attention import flash_attention
+from .layers import (_NOT_TRAINED, BatchNorm, Conv3x3, apply_frame_mask,
+                     pool_mask)
+
+__all__ = ["TVBasicBlock", "FeedForwardModule", "MHSA",
+           "ConformerConvModule", "ConformerBlock", "ResNetConformer"]
+
+_LAYERS = (3, 4, 5, 3)
+_FILTERS = (64, 128, 256, 512)
+
+
+def _swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+class TVBasicBlock(nn.Module):
+    """torchvision BasicBlock: conv3x3 (stride (1, f_stride)) -> BN -> ReLU
+    -> conv3x3 -> BN (+ 1x1 conv + BN when the stride or width changes)
+    -> ReLU; padded frames re-zeroed after each BN.  NCHW."""
+
+    def __init__(self, in_ch: int, planes: int, f_stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, planes, 3, stride=(1, f_stride),
+                               padding=1, bias=False)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = Conv3x3(planes, planes)
+        self.bn2 = BatchNorm(planes)
+        if f_stride != 1 or in_ch != planes:
+            self.down_conv = nn.Conv2d(in_ch, planes, 1, stride=(1, f_stride),
+                                       bias=False)
+            self.down_bn = BatchNorm(planes)
+        else:
+            self.down_conv = None
+
+    def forward(self, x: torch.Tensor, frame_mask=None) -> torch.Tensor:
+        out = apply_frame_mask(F.relu(self.bn1(self.conv1(x))), frame_mask, 2)
+        out = apply_frame_mask(self.bn2(self.conv2(out)), frame_mask, 2)
+        residual = x
+        if self.down_conv is not None:
+            residual = apply_frame_mask(self.down_bn(self.down_conv(x)),
+                                        frame_mask, 2)
+        return apply_frame_mask(F.relu(out + residual), frame_mask, 2)
+
+
+class FeedForwardModule(nn.Module):
+    """LN -> Linear(d -> 4d) -> swish -> Linear(4d -> d).  The linears are
+    named ``fc1``/``fc2`` on purpose: the flax tree's auto-named
+    ``Dense_0``/``Dense_1`` map onto them (:mod:`adyolo_tpu_torch.convert`)."""
+
+    def __init__(self, dim: int, expansion: int = 4):
+        super().__init__()
+        self.ln = nn.LayerNorm(dim, eps=1e-5)
+        self.fc1 = nn.Linear(dim, dim * expansion)
+        self.fc2 = nn.Linear(dim * expansion, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(f"FeedForwardModule: {_NOT_TRAINED}")
+        return self.fc2(_swish(self.fc1(self.ln(x))))
+
+
+class MHSA(nn.Module):
+    """Multi-head self-attention, heads split as ``reshape(B, T, H, dh)``;
+    keys past ``kv_len[b]`` are masked (``kv_len`` None: all valid)."""
+
+    def __init__(self, dim: int, heads: int = 4):
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.linear = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor,
+                kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(f"MHSA: {_NOT_TRAINED}")
+        B, T, D = x.shape
+        shape = (B, T, self.heads, D // self.heads)
+        ctx = flash_attention(self.query(x).reshape(shape),
+                              self.key(x).reshape(shape),
+                              self.value(x).reshape(shape), kv_len)
+        return self.linear(ctx.reshape(B, T, D))
+
+
+class ConformerConvModule(nn.Module):
+    """LN -> pw1 (d -> 2d) -> BN -> GLU -> mask -> depthwise dilated conv
+    (k=3) + bias -> BN -> swish -> pw2 -> mask, on ``(B, T, d)``."""
+
+    def __init__(self, dim: int, dilation: int = 1):
+        super().__init__()
+        self.ln = nn.LayerNorm(dim, eps=1e-5)
+        self.pw1 = nn.Linear(dim, 2 * dim)
+        self.bn1 = BatchNorm(2 * dim, channel_last=True)
+        self.dw_conv = nn.Conv1d(dim, dim, 3, groups=dim, dilation=dilation,
+                                 padding=dilation)
+        self.bn2 = BatchNorm(dim, channel_last=True)
+        self.pw2 = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, frame_mask=None) -> torch.Tensor:
+        a, b = self.bn1(self.pw1(self.ln(x))).chunk(2, dim=-1)
+        x = apply_frame_mask(a * torch.sigmoid(b), frame_mask)  # GLU
+        x = self.dw_conv(x.transpose(1, 2)).transpose(1, 2)
+        x = self.pw2(_swish(self.bn2(x)))
+        return apply_frame_mask(x, frame_mask)
+
+
+class ConformerBlock(nn.Module):
+    """FFN (x0.5) -> MHSA (x0.5) -> conv module -> FFN (x0.5) -> LN."""
+
+    def __init__(self, dim: int, dilation: int):
+        super().__init__()
+        self.ffn1 = FeedForwardModule(dim)
+        self.mhsa_ln = nn.LayerNorm(dim, eps=1e-5)
+        self.mhsa = MHSA(dim)
+        self.conv = ConformerConvModule(dim, dilation)
+        self.ffn2 = FeedForwardModule(dim)
+        self.final_ln = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, frame_mask=None,
+                kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + 0.5 * self.ffn1(x)
+        x = x + 0.5 * self.mhsa(self.mhsa_ln(x), kv_len)
+        x = x + self.conv(x, frame_mask)
+        x = x + 0.5 * self.ffn2(x)
+        return self.final_ln(x)
+
+
+class ResNetConformer(nn.Module):
+    def __init__(self, in_channels: int = 7, emb_dim: int = 256,
+                 num_layers: int = 8, time_pool: int = 4):
+        super().__init__()
+        self.time_pool = time_pool
+        self.num_layers = num_layers
+        self.conv1 = nn.Conv2d(in_channels, _FILTERS[0], 7, stride=(1, 2),
+                               padding=3, bias=False)
+        self.bn1 = BatchNorm(_FILTERS[0])
+        self.blocks = []
+        in_ch = _FILTERS[0]
+        for stage, (n_blocks, planes) in enumerate(zip(_LAYERS, _FILTERS)):
+            for b in range(n_blocks):
+                name = f"layer{stage + 1}_block{b}"
+                self.add_module(name, TVBasicBlock(in_ch, planes,
+                                                   f_stride=2 if b == 0 else 1))
+                self.blocks.append(name)
+                in_ch = planes
+        self.bottleneck = nn.Linear(in_ch, emb_dim, bias=False)
+        for i in range(num_layers):
+            self.add_module(f"conformer{i}", ConformerBlock(emb_dim, 2 ** i))
+        self.pool_norm = nn.LayerNorm(emb_dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor,
+                feat_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, T, F, C), ``T % time_pool == 0``; feat_lengths: optional
+        (B,) valid frame counts.  Returns (B, T // time_pool, emb_dim)."""
+        frame_mask = kv_len = None
+        if feat_lengths is not None:
+            t = torch.arange(x.shape[1], device=x.device)
+            frame_mask = t[None, :] < feat_lengths.to(x.device)[:, None]
+            kv_len = frame_mask.sum(1, dtype=torch.int32)  # stays on device
+            x = apply_frame_mask(x, frame_mask)
+
+        x = x.permute(0, 3, 1, 2).contiguous()  # (B, C, T, F)
+        x = self.bn1(F.relu(self.conv1(x)))
+        if frame_mask is not None:
+            x = torch.where(frame_mask[:, None, :, None], x,
+                            torch.finfo(x.dtype).min)
+        x = F.max_pool2d(x, 3, stride=(1, 2), padding=1)
+        x = apply_frame_mask(x, frame_mask, 2)
+        for name in self.blocks:
+            x = getattr(self, name)(x, frame_mask)
+        B, C, T, Fq = x.shape
+        x = self.bottleneck(x.permute(0, 2, 3, 1).reshape(B, T, Fq * C))
+
+        for i in range(self.num_layers):
+            x = getattr(self, f"conformer{i}")(x, frame_mask, kv_len)
+
+        x = x.reshape(B, T // self.time_pool, self.time_pool, -1).mean(dim=2)
+        x = self.pool_norm(x)
+        return apply_frame_mask(x, pool_mask(frame_mask, self.time_pool))

@@ -1,7 +1,7 @@
 """Model factory (counterpart of :mod:`adyolo_tpu.models.wrapper`).
 
-Only the serving configuration is ported: the SE-ResNet34 encoder with the
-AD-YOLO head.  Any other encoder or loss raises ``NotImplementedError``.
+Both encoders are ported for serving, SE-ResNet34 and ResNet-Conformer,
+each with the AD-YOLO head.  Any other loss raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from adyolo_tpu.config import Config
 
 from .heads import ADYOLOHead
 from .layers import BatchNorm
+from .resnet_conformer import ResNetConformer
 from .seresnet34 import SEResNet34
 
 __all__ = ["SELDModel", "build_model", "init_params"]
@@ -22,17 +23,21 @@ __all__ = ["SELDModel", "build_model", "init_params"]
 # flax lecun_normal: truncated normal at +-2 std, rescaled to variance 1/fan_in
 _TRUNC_STD = 0.87962566103423978
 
+ENCODERS = {"se-resnet34": SEResNet34, "resnet-conformer": ResNetConformer}
+
 
 class SELDModel(nn.Module):
-    """SE-ResNet34 + AD-YOLO head.  ``forward(feat, feat_lengths=None)``:
+    """Encoder + AD-YOLO head.  ``forward(feat, feat_lengths=None)``:
     feat (B, T, F, C) -> raw logits (B, T // 4, G0*G1*A*(K+3))."""
 
-    def __init__(self, nb_classes: int = 13,
+    def __init__(self, encoder: str = "se-resnet34", nb_classes: int = 13,
                  grid_size: Tuple[float, float] = (45.0, 45.0),
                  nb_anchors: int = 5, in_channels: int = 7,
                  enc_out_dim: int = 256):
         super().__init__()
-        self.encoder = SEResNet34(in_channels, enc_out_dim)
+        if encoder not in ENCODERS:
+            raise NotImplementedError(f"not yet ported: encoder {encoder!r}")
+        self.encoder = ENCODERS[encoder](in_channels, enc_out_dim)
         self.head = ADYOLOHead(nb_classes, grid_size, nb_anchors, enc_out_dim,
                                enc_out_dim)
 
@@ -44,12 +49,13 @@ class SELDModel(nn.Module):
 @torch.no_grad()
 def init_params(model: SELDModel, generator: torch.Generator) -> SELDModel:
     """Seeded random init with the JAX package's initialisers: lecun-normal
-    conv / Dense kernels, xavier-uniform head, U(-1/sqrt(H), 1/sqrt(H)) GRU,
+    conv / Dense kernels (the depthwise conv's fan-in is its 3 taps),
+    xavier-uniform head and conformer FFN, U(-1/sqrt(H), 1/sqrt(H)) GRU,
     zero biases, identity norms."""
     g = generator
     for name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            if name.startswith("head."):
+        if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            if name.startswith("head.") or ".ffn" in name:
                 nn.init.xavier_uniform_(mod.weight, generator=g)
             else:
                 fan_in = mod.weight[0].numel()
@@ -73,11 +79,10 @@ def build_model(cfg: Config, device="cpu",
     """The eval model for ``cfg`` on ``device``.  With ``generator`` the
     weights are a seeded random init (drawn on the CPU); otherwise they
     are to be loaded (:mod:`adyolo_tpu_torch.convert`)."""
-    if cfg.args.encoder != "se-resnet34":
-        raise NotImplementedError(f"not yet ported: encoder {cfg.args.encoder!r}")
     if cfg.args.loss != "adyolo":
         raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
-    model = SELDModel(nb_classes=cfg.data.nb_classes,
+    model = SELDModel(encoder=cfg.args.encoder,
+                      nb_classes=cfg.data.nb_classes,
                       grid_size=tuple(cfg.train.grid_size),
                       nb_anchors=cfg.train.nb_anchors,
                       in_channels=cfg.data.nb_feature_channels)

@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Every ``adyolo_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds)::
+Every ``adyolo_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``,
+all started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds)::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/adyolo_tpu_torch/libadyolo_kernels_<hash>.so \\
-         adyolo_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas=-v -c -o <name>.o adyolo_tpu_torch/csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/adyolo_tpu_torch/libadyolo_kernels_<hash>.so *.o
 
 The library is named by a hash of the sources and the flags, built on
 first use, and reused while neither changes.  A failed build raises
@@ -24,7 +25,7 @@ import threading
 import time
 from typing import Optional
 
-__all__ = ["KernelBuildError", "BUILD_DIR", "NVCC_FLAGS", "sources",
+__all__ = ["KernelBuildError", "BUILD_DIR", "NVCC_FLAGS", "LINK_FLAGS", "sources",
            "nvcc_path", "library_path", "build", "load_library"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,7 +33,8 @@ _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "adyolo_tpu_torch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -60,7 +62,7 @@ def nvcc_path() -> str:
 
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources() + sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -86,19 +88,38 @@ def build(force: bool = False) -> dict:
     if not srcs:
         raise KernelBuildError(f"no CUDA sources under {_CSRC_DIR}")
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = []
+        for proc in procs:  # all compile at once; read every one's output
+            _, err = proc.communicate()
+            logs.append((proc, err))
+        for proc, err in logs:
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n{err}")
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({link.returncode}): {' '.join(cmd)}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, path)  # atomic against concurrent builds
+    ptxas = "".join(err for _, err in logs)
     with open(log, "w") as f:
-        f.write(proc.stderr)
-    return {"path": path, "built": True, "seconds": seconds,
-            "ptxas": proc.stderr}
+        f.write(ptxas)
+    return {"path": path, "built": True, "seconds": seconds, "ptxas": ptxas}
 
 
 def load_library() -> ctypes.CDLL:

@@ -23,8 +23,10 @@ print(json.dumps({"modules": names,
                                 if m in sys.modules)}))
 """
 
-_SLICE = ("ops.stft", "ops.hopper_stft", "ops.features", "ops.decode",
-          "models.layers", "models.seresnet34", "models.heads",
+_SLICE = ("ops.stft", "ops.hopper_stft", "ops.attention",
+          "ops.hopper_attention", "ops.features", "ops.decode",
+          "models.layers", "models.seresnet34", "models.resnet_conformer",
+          "models.heads",
           "models.wrapper", "convert", "engine.checkpoint",
           "engine.evaluate", "utils.build", "cli")
 

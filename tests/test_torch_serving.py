@@ -1,6 +1,7 @@
-"""The ported serving slice as a whole vs the JAX package's ``infer``.
+"""The ported serving slice as a whole vs the JAX package's ``infer``, for
+each ported encoder (SE-ResNet34 and ResNet-Conformer, AD-YOLO head).
 
-One experiment directory is written by the JAX package's own
+One experiment directory per encoder is written by the JAX package's own
 ``save_config`` / ``save_checkpoint`` from a seeded (untrained) init, with
 a non-identity ``scaler_wts.pkl`` beside the data.  The JAX
 ``test_model({"action": "infer", ...})`` and the port's
@@ -63,8 +64,9 @@ def _gap_threshold(cls_conf):
     return float((v[i] + v[i + 1]) / 2), float(gaps.max())
 
 
-@pytest.fixture(scope="module")
-def experiment(tmp_path_factory):
+@pytest.fixture(scope="module", params=["se-resnet34", "resnet-conformer"])
+def experiment(request, tmp_path_factory):
+    encoder = request.param
     root = str(tmp_path_factory.mktemp("serve"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=1, n_val=2,
                               n_test=1, eval_secs=7, seed=3)
@@ -77,7 +79,7 @@ def experiment(tmp_path_factory):
         pickle.dump(scaler, f)
     cfg = Config()
     cfg = dataclasses.replace(
-        cfg, args=dataclasses.replace(cfg.args, exp_id=EXP),
+        cfg, args=dataclasses.replace(cfg.args, exp_id=EXP, encoder=encoder),
         data=dataclasses.replace(cfg.data, data_pth=data,
                                  name_pth=os.path.join(data, "classes.txt")))
     model = jax_build_model(cfg, "float32")
@@ -90,7 +92,8 @@ def experiment(tmp_path_factory):
     tm = build_model(cfg)
     tm.load_state_dict(state_dict_from_flax(
         {"params": jax.tree_util.tree_map(np.asarray, state.params),
-         "batch_stats": jax.tree_util.tree_map(np.asarray, state.batch_stats)}))
+         "batch_stats": jax.tree_util.tree_map(np.asarray, state.batch_stats)},
+        encoder))
     frontend = make_frontend(cfg)
     c_inf = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, infer_pth=wav_dir))
     confs = []
