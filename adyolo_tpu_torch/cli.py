@@ -39,8 +39,7 @@ def run_infer(eval_pth: str, infer_pth: str, results_dir: str = "results",
               device: str = "cuda"):
     """Returns the per-clip times of
     :func:`adyolo_tpu_torch.engine.evaluate.infer`."""
-    from adyolo_tpu.config import load_config
-
+    from .config import load_config
     from .convert import state_dict_from_flax
     from .engine.checkpoint import load_jax_checkpoint
     from .engine.evaluate import infer, make_frontend
@@ -50,7 +49,7 @@ def run_infer(eval_pth: str, infer_pth: str, results_dir: str = "results",
     exp_dir = os.path.join(results_dir, eval_pth)
     cfg = load_config(os.path.join(exp_dir, "hyp_exp.yaml"))
     variables, host = load_jax_checkpoint(os.path.join(exp_dir, "model_best.ckpt"))
-    model = build_model(cfg, "cpu")
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(variables, cfg.args.encoder),
                           strict=True)
     model = model.to(device)

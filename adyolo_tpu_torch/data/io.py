@@ -1,0 +1,109 @@
+"""DCASE-format file IO (wav + metadata CSV): the port's copy of
+:mod:`adyolo_tpu.data.io`, the wav reader on the port's native loader.
+
+Mirrors the reference IO helpers (``src/utils/utility.py:219-261``,
+``src/utils/seld_metrics.py:13-49``) using scipy (no soundfile/librosa dependency):
+
+* wav files are int16 multichannel; the reference normalizes with
+  ``audio / 32768.0 + 1e-8`` (``src/datasets.py:147``),
+* metadata CSV rows are ``frame,class,source,azi,ele`` (polar, 5 cols) or
+  ``frame,class,source,x,y,z`` (cartesian, 6 cols),
+* SELD output CSV rows are ``frame,class,0,x,y,z``
+  (``src/test.py:26-30``).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import scipy.io.wavfile as _wav
+
+LabelDict = Dict[int, List[List[float]]]
+
+_wavlib = None
+_wavlib_tried = False
+
+
+def _native_wav() -> Optional[ctypes.CDLL]:
+    """The bundled C++ PCM16 reader (native/wavload.cpp); ctypes drops the
+    GIL around the call.  None (no g++) -> scipy, which is also the
+    oracle."""
+    global _wavlib, _wavlib_tried
+    if not _wavlib_tried:
+        _wavlib_tried = True
+        from ..utils.native import load_or_build
+
+        lib = load_or_build("wavload")
+        if lib is not None:
+            lib.wav_info_i16.restype = ctypes.c_long
+            lib.wav_info_i16.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int)]
+            lib.wav_read_i16.restype = ctypes.c_int
+            lib.wav_read_i16.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_long,
+                ctypes.c_int]
+        _wavlib = lib
+    return _wavlib
+
+
+def read_wav(path: str) -> np.ndarray:
+    """Returns raw audio as stored, shape (N, C).  int16 files stay int16
+    (normalization is the caller's job, matching src/datasets.py:140-147)."""
+    lib = _native_wav()
+    if lib is not None:
+        p = path.encode()
+        n_ch = ctypes.c_int(0)
+        sr = ctypes.c_int(0)
+        frames = lib.wav_info_i16(p, ctypes.byref(n_ch), ctypes.byref(sr))
+        if frames >= 0:
+            out = np.empty((frames, n_ch.value), np.int16)
+            if lib.wav_read_i16(p, out.ctypes.data_as(ctypes.c_void_p),
+                                frames, n_ch.value) == 0:
+                return out
+        # negative codes (non-PCM16/malformed) fall through to scipy
+    _, audio = _wav.read(path)
+    if audio.ndim == 1:
+        audio = audio[:, None]
+    return audio
+
+
+def write_wav(path: str, audio: np.ndarray, sr: int) -> None:
+    _wav.write(path, sr, audio)
+
+
+def normalize_audio(audio: np.ndarray) -> np.ndarray:
+    """int16 -> [-1, 1] float with the reference's epsilon offset
+    (src/datasets.py:147: ``audio / 32768.0 + 1e-8``)."""
+    return (audio / 32768.0 + 1e-8).astype(np.float32)
+
+
+def read_label_csv(path: str) -> LabelDict:
+    """Load a DCASE metadata/output CSV into {frame: [[cls, src, ...]]}
+    (reference: utility.py:234-247 / seld_metrics.py:13-33)."""
+    label: LabelDict = {}
+    with open(path, "r") as f:
+        for line in f:
+            words = line.strip().split(",")
+            if not words or words[0] == "":
+                continue
+            frame = int(words[0])
+            row = [int(words[1]), int(words[2])] + [float(w) for w in words[3:]]
+            label.setdefault(frame, []).append(row)
+    return label
+
+
+def write_seld_output_csv(path: str, output: Dict[int, List[List[float]]]) -> None:
+    """Write predictions as ``frame,class,0,x,y,z`` (src/test.py:26-30)."""
+    with open(path, "w") as f:
+        for frame, rows in output.items():
+            for row in rows:
+                cls, x, y, z = row[0], row[1], row[2], row[3]
+                f.write(f"{int(frame)},{int(cls)},0,{float(x)},{float(y)},{float(z)}\n")
+
+
+def list_clips(directory: str, ext: str = ".wav") -> List[str]:
+    """Sorted clip basenames (without extension) in a directory."""
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(directory) if f.endswith(ext))

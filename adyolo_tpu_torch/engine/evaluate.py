@@ -21,10 +21,9 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from adyolo_tpu.config import Config
-from adyolo_tpu.data.dataset import EvalLoader, SELDDataset
-from adyolo_tpu.data.io import write_seld_output_csv
-
+from ..config import Config
+from ..data.dataset import EvalLoader, SELDDataset
+from ..data.io import write_seld_output_csv
 from ..models.wrapper import SELDModel
 from ..ops.decode import PostProcessor
 from ..ops.features import FeatureFrontend, Scaler, identity_scaler
@@ -39,7 +38,7 @@ def delete_and_create_folder(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
 
-def make_frontend(cfg: Config, device="cpu") -> FeatureFrontend:
+def make_frontend(cfg: Config, device="cuda") -> FeatureFrontend:
     """Frontend with the dataset's scaler stats (``scaler_wts.pkl``);
     identity stats, with a warning, when the file is absent."""
     pkl = os.path.join(cfg.data.data_pth, "scaler_wts.pkl")

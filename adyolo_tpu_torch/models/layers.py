@@ -1,5 +1,5 @@
 """Shared model building blocks (counterpart of
-:mod:`adyolo_tpu.models.layers`), eval semantics.
+:mod:`adyolo_tpu.models.layers`).
 
 Convolutions run NCHW ``(B, C, T, F)`` inside the encoder; the JAX package
 runs ``(B, T, F, C)``.  Every block takes an optional ``frame_mask (B, T)``
@@ -7,9 +7,11 @@ so bucketed clips reproduce exact-length numerics: padded frames are
 re-zeroed after every conv and BN, and the SE squeeze averages over valid
 frames only.
 
-Train-mode BatchNorm (biased-variance running update, torch momentum 0.1
-for flax momentum 0.9) and the GRU's inter-layer dropout wait for the
-port of the train step; a module in training mode raises.
+In training mode ``BatchNorm`` normalises with the batch statistics and
+updates its running stats the JAX package's way (biased variance, flax
+momentum 0.9), and :class:`U8Dropout` drops with the u8 threshold.  The
+GRU's training (and its inter-layer dropout) waits for SE-ResNet34
+training: ``BiGRU`` in training mode raises.
 """
 from __future__ import annotations
 
@@ -19,12 +21,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["apply_frame_mask", "pool_mask", "BatchNorm", "Conv3x3",
-           "SELayer", "SEBasicBlock", "SelfAttentionPooling",
+__all__ = ["apply_frame_mask", "pool_mask", "BatchNorm", "U8Dropout",
+           "Conv3x3", "SELayer", "SEBasicBlock", "SelfAttentionPooling",
            "reverse_sequence", "BiGRU"]
 
 _NOT_TRAINED = ("training mode is not yet ported (ROADMAP.md, port queue: "
-                "train-mode BN, the AD-YOLO loss and the train step)")
+                "SE-ResNet34 training)")
 
 
 def apply_frame_mask(x: torch.Tensor, frame_mask: Optional[torch.Tensor],
@@ -48,16 +50,24 @@ def pool_mask(frame_mask: Optional[torch.Tensor], factor: int
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm: ``x * mul + shift`` with
-    ``mul = rsqrt(var + eps) * weight`` and ``shift = bias - mean * mul``,
-    the JAX package's folding (``layers.py:150-155``).  Channels are dim 1
-    (NCHW convs), or the last dim with ``channel_last=True`` (the conformer
-    conv module's ``(B, T, C)``, normalised in place of a transpose)."""
+    """BatchNorm as the JAX package computes it (``layers.py:133-155``):
+    ``x * mul + shift`` with ``mul = rsqrt(var + eps) * weight`` and
+    ``shift = bias - mean * mul``.  Channels are dim 1 (NCHW convs), or the
+    last dim with ``channel_last=True`` (the conformer conv module's
+    ``(B, T, C)``, normalised in place of a transpose).
+
+    Eval uses the running stats.  Training uses the batch's: one-pass
+    ``E[x²] − E[x]²`` **biased** variance, clamped at 0, and updates the
+    running stats in place to ``momentum * ra + (1 - momentum) * batch``
+    with that biased variance (torch's ``nn.BatchNorm2d`` would use the
+    unbiased one).  Building the module runs no forward, so building
+    updates nothing (flax's ``is_initializing`` guard)."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
-                 channel_last: bool = False):
+                 channel_last: bool = False, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.channel_last = channel_last
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -66,13 +76,46 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(f"BatchNorm: {_NOT_TRAINED}")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        shift = self.bias - self.running_mean * mul
+            axes = tuple(range(x.ndim - 1)) if self.channel_last else \
+                (0,) + tuple(range(2, x.ndim))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * mul
         if self.channel_last:
             return x * mul + shift
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return x * mul.reshape(shape) + shift.reshape(shape)
+
+
+class U8Dropout(nn.Module):
+    """Dropout driven by uint8 random bits (``layers.py:158-188``): the rate
+    is quantized to ``t = round(rate * 256)`` (0.2 -> 51), an element is
+    kept when its bits are ``>= t`` and scaled by ``256 / (256 - t)``;
+    ``t >= 256`` gives zeros.  The bits come from ``generator`` (the
+    device's default one when None), not from JAX's threefry stream.
+    Identity in eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        thresh = int(round(self.rate * 256.0))
+        if not self.training or thresh <= 0:
+            return x
+        if thresh >= 256:  # uint8(256) would wrap to "keep all"
+            return torch.zeros_like(x)
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                             device=x.device, generator=generator)
+        return torch.where(bits >= thresh, x * (256.0 / (256.0 - thresh)), 0.0)
 
 
 def Conv3x3(in_ch: int, out_ch: int, bias: bool = False) -> nn.Conv2d:

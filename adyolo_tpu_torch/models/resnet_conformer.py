@@ -1,5 +1,5 @@
 """ResNet34 + Conformer SELD encoder (counterpart of
-:mod:`adyolo_tpu.models.resnet_conformer`), eval only.
+:mod:`adyolo_tpu.models.resnet_conformer`), eval and training.
 
 * stem: 7x7 conv, stride (1, 2), no bias -> ReLU -> BN (the reverse of the
   blocks' order, as in the reference) -> 3x3 max-pool, stride (1, 2), with
@@ -12,11 +12,19 @@
 * mean over 4 frames, then LayerNorm (``pool_norm``)
 
 Every MHSA goes through :func:`adyolo_tpu_torch.ops.hopper_attention.
-flash_attention`: the hand-written Hopper kernel on CUDA (route ``k2`` for
-T <= 2400 frames, ``k4`` above), the plain PyTorch attention on the CPU.
-The JAX package's packed convolutions, ``remat``, ``force_flash`` and its
-``ADYOLO_*`` switches are TPU-only and not ported.  Dropout is the identity
-in eval; a module in training mode raises.
+flash_attention`: the hand-written Hopper kernels on CUDA (eval routes
+``k2`` for T <= 2400 frames and ``k4`` above; in training the forward with
+dropout ``k2_dropout`` and the backward ``k3``), the plain PyTorch
+attention on the CPU.  The JAX package's packed convolutions, ``remat``,
+``force_flash`` and its ``ADYOLO_*`` switches are TPU-only and not ported.
+
+Training: BatchNorm uses the batch statistics and updates its running
+stats; dropout at rate 0.2 sits where the JAX package has it (the FFN's two
+sites, the attention probabilities, after the MHSA, after the conv
+module's pw2), its bits drawn from the ``generator`` passed to
+``forward`` (each MHSA draws one int32 attention seed per call).
+Training chunks must be T <= 2400 frames, as in the JAX package, whose
+longer chunks would take the XLA attention.
 
 Input ``(B, T, F, C)`` channel-last, as in the JAX package; the conv stack
 runs NCHW.  DCASE shapes: (B, 800, 64, 7) -> (B, 200, 256).
@@ -29,15 +37,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import attention
 from ..ops.hopper_attention import flash_attention
-from .layers import (_NOT_TRAINED, BatchNorm, Conv3x3, apply_frame_mask,
-                     pool_mask)
+from .layers import BatchNorm, Conv3x3, U8Dropout, apply_frame_mask, pool_mask
 
 __all__ = ["TVBasicBlock", "FeedForwardModule", "MHSA",
            "ConformerConvModule", "ConformerBlock", "ResNetConformer"]
 
 _LAYERS = (3, 4, 5, 3)
 _FILTERS = (64, 128, 256, 512)
+_DROPOUT = 0.2
 
 
 def _swish(x: torch.Tensor) -> torch.Tensor:
@@ -74,51 +83,64 @@ class TVBasicBlock(nn.Module):
 
 
 class FeedForwardModule(nn.Module):
-    """LN -> Linear(d -> 4d) -> swish -> Linear(4d -> d).  The linears are
-    named ``fc1``/``fc2`` on purpose: the flax tree's auto-named
-    ``Dense_0``/``Dense_1`` map onto them (:mod:`adyolo_tpu_torch.convert`)."""
+    """LN -> Linear(d -> 4d) -> swish -> dropout -> Linear(4d -> d) ->
+    dropout.  The linears are named ``fc1``/``fc2`` on purpose: the flax
+    tree's auto-named ``Dense_0``/``Dense_1`` map onto them
+    (:mod:`adyolo_tpu_torch.convert`)."""
 
-    def __init__(self, dim: int, expansion: int = 4):
+    def __init__(self, dim: int, expansion: int = 4, dropout: float = _DROPOUT):
         super().__init__()
         self.ln = nn.LayerNorm(dim, eps=1e-5)
         self.fc1 = nn.Linear(dim, dim * expansion)
+        self.drop1 = U8Dropout(dropout)
         self.fc2 = nn.Linear(dim * expansion, dim)
+        self.drop2 = U8Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(f"FeedForwardModule: {_NOT_TRAINED}")
-        return self.fc2(_swish(self.fc1(self.ln(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.drop1(_swish(self.fc1(self.ln(x))), generator)
+        return self.drop2(self.fc2(x), generator)
 
 
 class MHSA(nn.Module):
     """Multi-head self-attention, heads split as ``reshape(B, T, H, dh)``;
-    keys past ``kv_len[b]`` are masked (``kv_len`` None: all valid)."""
+    keys past ``kv_len[b]`` are masked (``kv_len`` None: all valid).  In
+    training, dropout at rate ``dropout`` on the probabilities, its int32
+    seed drawn from ``generator``."""
 
-    def __init__(self, dim: int, heads: int = 4):
+    def __init__(self, dim: int, heads: int = 4, dropout: float = _DROPOUT):
         super().__init__()
         self.heads = heads
+        self.dropout = dropout
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.linear = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(f"MHSA: {_NOT_TRAINED}")
+    def forward(self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, D = x.shape
+        rate, seed = 0.0, None
+        if self.training:
+            if T > attention.BLOCK_THRESHOLD:
+                raise ValueError(f"MHSA training needs T <= "
+                                 f"{attention.BLOCK_THRESHOLD} frames, got {T}")
+            rate = self.dropout
+            seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                                 device=x.device, generator=generator)
         shape = (B, T, self.heads, D // self.heads)
         ctx = flash_attention(self.query(x).reshape(shape),
                               self.key(x).reshape(shape),
-                              self.value(x).reshape(shape), kv_len)
+                              self.value(x).reshape(shape), kv_len,
+                              rate=rate, seed=seed)
         return self.linear(ctx.reshape(B, T, D))
 
 
 class ConformerConvModule(nn.Module):
     """LN -> pw1 (d -> 2d) -> BN -> GLU -> mask -> depthwise dilated conv
-    (k=3) + bias -> BN -> swish -> pw2 -> mask, on ``(B, T, d)``."""
+    (k=3) + bias -> BN -> swish -> pw2 -> dropout -> mask, on ``(B, T, d)``."""
 
-    def __init__(self, dim: int, dilation: int = 1):
+    def __init__(self, dim: int, dilation: int = 1, dropout: float = _DROPOUT):
         super().__init__()
         self.ln = nn.LayerNorm(dim, eps=1e-5)
         self.pw1 = nn.Linear(dim, 2 * dim)
@@ -127,33 +149,39 @@ class ConformerConvModule(nn.Module):
                                  padding=dilation)
         self.bn2 = BatchNorm(dim, channel_last=True)
         self.pw2 = nn.Linear(dim, dim)
+        self.drop = U8Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, frame_mask=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         a, b = self.bn1(self.pw1(self.ln(x))).chunk(2, dim=-1)
         x = apply_frame_mask(a * torch.sigmoid(b), frame_mask)  # GLU
         x = self.dw_conv(x.transpose(1, 2)).transpose(1, 2)
-        x = self.pw2(_swish(self.bn2(x)))
+        x = self.drop(self.pw2(_swish(self.bn2(x))), generator)
         return apply_frame_mask(x, frame_mask)
 
 
 class ConformerBlock(nn.Module):
-    """FFN (x0.5) -> MHSA (x0.5) -> conv module -> FFN (x0.5) -> LN."""
+    """FFN (x0.5) -> MHSA + dropout (x0.5) -> conv module -> FFN (x0.5) ->
+    LN."""
 
     def __init__(self, dim: int, dilation: int):
         super().__init__()
         self.ffn1 = FeedForwardModule(dim)
         self.mhsa_ln = nn.LayerNorm(dim, eps=1e-5)
         self.mhsa = MHSA(dim)
+        self.mhsa_drop = U8Dropout(_DROPOUT)
         self.conv = ConformerConvModule(dim, dilation)
         self.ffn2 = FeedForwardModule(dim)
         self.final_ln = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, frame_mask=None,
-                kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + 0.5 * self.ffn1(x)
-        x = x + 0.5 * self.mhsa(self.mhsa_ln(x), kv_len)
-        x = x + self.conv(x, frame_mask)
-        x = x + 0.5 * self.ffn2(x)
+                kv_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + 0.5 * self.ffn1(x, generator)
+        h = self.mhsa(self.mhsa_ln(x), kv_len, generator)
+        x = x + 0.5 * self.mhsa_drop(h, generator)
+        x = x + self.conv(x, frame_mask, generator)
+        x = x + 0.5 * self.ffn2(x, generator)
         return self.final_ln(x)
 
 
@@ -181,9 +209,11 @@ class ResNetConformer(nn.Module):
         self.pool_norm = nn.LayerNorm(emb_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor,
-                feat_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                feat_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T, F, C), ``T % time_pool == 0``; feat_lengths: optional
-        (B,) valid frame counts.  Returns (B, T // time_pool, emb_dim)."""
+        (B,) valid frame counts; generator: the dropout bits' source in
+        training.  Returns (B, T // time_pool, emb_dim)."""
         frame_mask = kv_len = None
         if feat_lengths is not None:
             t = torch.arange(x.shape[1], device=x.device)
@@ -204,7 +234,7 @@ class ResNetConformer(nn.Module):
         x = self.bottleneck(x.permute(0, 2, 3, 1).reshape(B, T, Fq * C))
 
         for i in range(self.num_layers):
-            x = getattr(self, f"conformer{i}")(x, frame_mask, kv_len)
+            x = getattr(self, f"conformer{i}")(x, frame_mask, kv_len, generator)
 
         x = x.reshape(B, T // self.time_pool, self.time_pool, -1).mean(dim=2)
         x = self.pool_norm(x)

@@ -1,5 +1,6 @@
 """SE-ResNet34 + BiGRU SELD encoder (counterpart of
-:mod:`adyolo_tpu.models.seresnet34`), eval only.
+:mod:`adyolo_tpu.models.seresnet34`), eval only: its BiGRU raises in
+training.
 
 * stem: 3x3 conv (bias) -> ReLU -> BN
 * 4 stages of SEBasicBlocks [3, 4, 6, 3] x [32, 64, 128, 256] channels;
@@ -51,9 +52,12 @@ class SEResNet34(nn.Module):
         self.norm = nn.LayerNorm(enc_out_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor,
-                feat_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                feat_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T, F, C); feat_lengths: optional (B,) valid frame counts.
-        Returns (B, T // 4, enc_out_dim)."""
+        Returns (B, T // 4, enc_out_dim).  ``generator`` is for the
+        conformer's interface: training this encoder (the BiGRU) is not
+        ported yet."""
         frame_mask = None
         if feat_lengths is not None:
             feat_lengths = feat_lengths.to(x.device)

@@ -1,24 +1,28 @@
-"""Model factory (counterpart of :mod:`adyolo_tpu.models.wrapper`).
+"""Model and criterion factories (counterpart of
+:mod:`adyolo_tpu.models.wrapper`).
 
 Both encoders are ported for serving, SE-ResNet34 and ResNet-Conformer,
-each with the AD-YOLO head.  Any other loss raises ``NotImplementedError``.
+each with the AD-YOLO head; ResNet-Conformer also trains (f32).  Any other
+loss raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from adyolo_tpu.config import Config
-
+from ..config import Config
+from ..ops.grid import GridGeometry
+from . import losses
 from .heads import ADYOLOHead
 from .layers import BatchNorm
 from .resnet_conformer import ResNetConformer
 from .seresnet34 import SEResNet34
 
-__all__ = ["SELDModel", "build_model", "init_params"]
+__all__ = ["SELDModel", "build_model", "init_params", "make_grid_geometry",
+           "make_criterion"]
 
 # flax lecun_normal: truncated normal at +-2 std, rescaled to variance 1/fan_in
 _TRUNC_STD = 0.87962566103423978
@@ -27,8 +31,9 @@ ENCODERS = {"se-resnet34": SEResNet34, "resnet-conformer": ResNetConformer}
 
 
 class SELDModel(nn.Module):
-    """Encoder + AD-YOLO head.  ``forward(feat, feat_lengths=None)``:
-    feat (B, T, F, C) -> raw logits (B, T // 4, G0*G1*A*(K+3))."""
+    """Encoder + AD-YOLO head.  ``forward(feat, feat_lengths=None,
+    generator=None)``: feat (B, T, F, C) -> raw logits
+    (B, T // 4, G0*G1*A*(K+3)); ``generator`` drives dropout in training."""
 
     def __init__(self, encoder: str = "se-resnet34", nb_classes: int = 13,
                  grid_size: Tuple[float, float] = (45.0, 45.0),
@@ -42,8 +47,9 @@ class SELDModel(nn.Module):
                                enc_out_dim)
 
     def forward(self, feat: torch.Tensor,
-                feat_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.head(self.encoder(feat, feat_lengths))
+                feat_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.head(self.encoder(feat, feat_lengths, generator))
 
 
 @torch.no_grad()
@@ -74,11 +80,37 @@ def init_params(model: SELDModel, generator: torch.Generator) -> SELDModel:
     return model
 
 
-def build_model(cfg: Config, device="cpu",
-                generator: Optional[torch.Generator] = None) -> SELDModel:
-    """The eval model for ``cfg`` on ``device``.  With ``generator`` the
-    weights are a seeded random init (drawn on the CPU); otherwise they
-    are to be loaded (:mod:`adyolo_tpu_torch.convert`)."""
+def make_grid_geometry(cfg: Config) -> GridGeometry:
+    return GridGeometry(grid_size=tuple(cfg.train.grid_size),
+                        g_overlap=cfg.train.g_overlap,
+                        nb_anchors=cfg.train.nb_anchors)
+
+
+def make_criterion(cfg: Config) -> Callable:
+    """``loss_fn(output, target, target_mask, frame_mask=None) -> scalar``:
+    the AD-YOLO loss with the config's grid, gains and unify thresholds
+    (``adyolo_tpu/models/wrapper.py:90-121``, adyolo branch)."""
+    if cfg.args.loss != "adyolo":
+        raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
+    geom = make_grid_geometry(cfg)
+    nb = cfg.data.nb_classes
+    gains = cfg.train.loss_gains
+    taus = tuple(cfg.train.train_unify)
+
+    def loss_fn(output, target, target_mask, frame_mask=None):
+        return losses.adyolo_loss(output, target, target_mask, geom, nb, taus,
+                                  gains, frame_mask=frame_mask)
+
+    return loss_fn
+
+
+def build_model(cfg: Config, device="cuda",
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> SELDModel:
+    """The model for ``cfg`` on ``device``, in eval mode or, with
+    ``train``, in training mode.  With ``generator`` the weights are a
+    seeded random init (drawn on the CPU); otherwise they are to be loaded
+    (:mod:`adyolo_tpu_torch.convert`)."""
     if cfg.args.loss != "adyolo":
         raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
     model = SELDModel(encoder=cfg.args.encoder,
@@ -88,4 +120,4 @@ def build_model(cfg: Config, device="cpu",
                       in_channels=cfg.data.nb_feature_channels)
     if generator is not None:
         init_params(model, generator)
-    return model.to(device).eval()
+    return model.to(device).train(train)

@@ -1,19 +1,29 @@
 """Plain PyTorch multi-head attention: the reference the Hopper attention
-kernel is held against.
+kernels are held against.
 
 Counterpart of ``MHSA.attend`` in :mod:`adyolo_tpu.models.resnet_conformer`
-(``:234-246``) and its query-blocked route (``:254-267``), eval only (no
-dropout).  Layout ``(B, T, H, dh)`` as the Dense layers give it; scores are
-float32, scaled by ``dh ** -0.5``; keys ``j >= kv_len[b]`` get
-``finfo(float32).min`` before the softmax.
+(``:234-246``), its query-blocked route (``:254-267``) and, with dropout,
+of the flash kernels' ``_fwd_kernel`` / ``_bwd_kernel``
+(``adyolo_tpu/ops/flash_mhsa.py:74-146``).  Layout ``(B, T, H, dh)`` as the
+Dense layers give it; scores are float32, scaled by ``dh ** -0.5``; keys
+``j >= kv_len[b]`` get ``finfo(float32).min`` before the softmax.
 
 * ``T <= BLOCK_THRESHOLD``: one fused pass over the ``(B, H, T, T)`` scores.
 * ``T > BLOCK_THRESHOLD``: query blocks of ``bq`` rows, ``bq`` the first of
   ``(800, 600, 400, 240, 160, 80, 8)`` that divides ``T`` and is ``< T``, so
-  a 38400-frame clip never allocates ``(B, H, T, T)``.
+  a 38400-frame clip never allocates ``(B, H, T, T)``.  Eval only.
 
 A batch row with ``kv_len == 0`` returns zeros, as the long-clip kernel does
-(``adyolo_tpu/ops/flash_mhsa.py:316-325``).
+(``adyolo_tpu/ops/flash_mhsa.py:316-325``), and gets zero gradients.
+
+Dropout on the probabilities (training): the rate is quantized to
+``thresh = round(rate * 256)``; a probability is kept when its 32-bit hash
+is ``>= thresh << 24`` and then scaled by ``256 / (256 - thresh)``; the
+softmax normaliser sums the undropped probabilities.  The bits are the
+splitmix32 position hash of the JAX kernels' interpret mode
+(``flash_mhsa.py:64-71``), indexed by the JAX blocking (:func:`dropout_bits`),
+so the masks agree bit for bit with ``flash_mhsa(..., interpret=True)`` and
+with the Hopper kernels.
 
 On a CUDA device the model does not run this module: it goes through
 :func:`adyolo_tpu_torch.ops.hopper_attention.flash_attention`.
@@ -24,10 +34,13 @@ from typing import Optional
 
 import torch
 
-__all__ = ["BLOCK_THRESHOLD", "query_block", "mhsa_attention"]
+__all__ = ["BLOCK_THRESHOLD", "query_block", "pick_bq", "dropout_thresh",
+           "dropout_bits", "mhsa_attention", "mhsa_attention_bwd"]
 
 BLOCK_THRESHOLD = 2400  # frames; read at call time (tests monkeypatch it)
 _BQ = (800, 600, 400, 240, 160, 80, 8)
+_JAX_BQ = (512, 400, 256, 200, 160, 128, 80, 64, 40, 32, 16, 8)
+_M32 = 0xFFFFFFFF
 
 
 def query_block(T: int) -> Optional[int]:
@@ -35,32 +48,136 @@ def query_block(T: int) -> Optional[int]:
     return next((c for c in _BQ if T % c == 0 and c < T), None)
 
 
-def _attend(q, k, v, key_mask, scale):
+def pick_bq(T: int) -> int:
+    """The JAX flash kernel's query block (``flash_mhsa.py:149-154``); the
+    dropout hash is indexed by it."""
+    return next((min(c, T) for c in _JAX_BQ if T % c == 0), T)
+
+
+def dropout_thresh(rate: float) -> int:
+    """The u8 drop threshold of ``rate``: ``round(rate * 256)``, 0.2 -> 51."""
+    return int(round(rate * 256.0))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), without int64
+    overflow (the constant is split into 16-bit halves)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_bits(B: int, H: int, T: int, seed: torch.Tensor) -> torch.Tensor:
+    """The uint32 keep bits of every (b, h, query, key), as int64
+    ``(B, H, T, T)`` on ``seed``'s device.
+
+    ``x = i*Tp + j + seed*0x9E3779B9 + lane*0x85EBCA6B`` (mod 2**32) with the
+    JAX blocking ``bq = pick_bq(T)``, ``nq = T // bq``,
+    ``Tp = ceil(T / 128) * 128``, ``lane = (b*H + h)*nq + q // bq``,
+    ``i = q % bq`` and ``j`` the key; then two xor-shift-multiply rounds and
+    ``x ^ (x >> 16)``.  ``seed``: int32 tensor of one element."""
+    dev = seed.device
+    bq = pick_bq(T)
+    nq, Tp = T // bq, -(-T // 128) * 128
+    q = torch.arange(T, device=dev, dtype=torch.int64)
+    bh = torch.arange(B * H, device=dev, dtype=torch.int64).reshape(B, H, 1, 1)
+    lane = bh * nq + (q // bq)[:, None]  # (B, H, T, 1)
+    base = (_mul32(seed.reshape(()).to(torch.int64) & _M32, 0x9E3779B9)
+            + _mul32(lane & _M32, 0x85EBCA6B))
+    x = ((q % bq)[:, None] * Tp + q[None, :] + base) & _M32
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _keep(B, H, T, thresh, seed):
+    """(keep mask (B, H, T, T), keep-scale), or (None, 1.0) at thresh 0."""
+    if thresh <= 0:
+        return None, 1.0
+    if seed is None:
+        raise ValueError("dropout needs a seed")
+    return (dropout_bits(B, H, T, seed) >= (thresh << 24),
+            256.0 / (256.0 - thresh))
+
+
+def _probs(q, k, key_mask, scale):
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if key_mask is not None:
         s = torch.where(key_mask[:, None, None, :], s,
                         torch.finfo(torch.float32).min)
-    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    return torch.softmax(s, dim=-1)
+
+
+def _attend(q, k, v, key_mask, scale, keep=None, kscale=1.0):
+    p = _probs(q, k, key_mask, scale)
+    if keep is not None:
+        p = torch.where(keep, p * kscale, 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _key_mask(kv_len, T, device):
+    if kv_len is None:
+        return None
+    return torch.arange(T, device=device)[None, :] < kv_len.to(device)[:, None]
+
+
+def _zero_empty_rows(x, kv_len):
+    if kv_len is None:
+        return x
+    return x * (kv_len.to(x.device) > 0).to(x.dtype)[:, None, None, None]
 
 
 def mhsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(mask(q·kᵀ·dh^-0.5))·v over ``(B, T, H, dh)`` float32 q/k/v.
+                   kv_len: Optional[torch.Tensor] = None, *, rate: float = 0.0,
+                   seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dropout(softmax(mask(q·kᵀ·dh^-0.5)))·v over ``(B, T, H, dh)`` float32
+    q/k/v; differentiable by autograd.
 
     ``kv_len``: optional ``(B,)`` count of valid keys (a prefix); None means
-    every key is valid.  Returns ``(B, T, H, dh)``."""
+    every key is valid.  ``rate``/``seed``: dropout on the probabilities
+    (``seed`` an int32 tensor of one element; needed when ``rate > 0``,
+    which takes the fused route only).  Returns ``(B, T, H, dh)``."""
     B, T, H, dh = q.shape
+    thresh = dropout_thresh(rate)
+    if thresh >= 256:  # everything dropped (U8Dropout's convention)
+        return torch.zeros_like(q)
     scale = dh ** -0.5
-    key_mask = None
-    if kv_len is not None:
-        kv_len = kv_len.to(q.device)
-        key_mask = torch.arange(T, device=q.device)[None, :] < kv_len[:, None]
+    key_mask = _key_mask(kv_len, T, q.device)
     bq = query_block(T)
     if T <= BLOCK_THRESHOLD or bq is None:
-        out = _attend(q, k, v, key_mask, scale)
+        keep, kscale = _keep(B, H, T, thresh, seed)
+        out = _attend(q, k, v, key_mask, scale, keep, kscale)
+    elif thresh > 0:
+        raise ValueError(f"attention dropout needs T <= {BLOCK_THRESHOLD}, "
+                         f"got T={T}")
     else:
         out = torch.cat([_attend(q[:, i:i + bq], k, v, key_mask, scale)
                          for i in range(0, T, bq)], dim=1)
-    if kv_len is not None:
-        out = out * (kv_len > 0).to(out.dtype)[:, None, None, None]
-    return out
+    return _zero_empty_rows(out, kv_len)
+
+
+def mhsa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_len: Optional[torch.Tensor], do: torch.Tensor, *,
+                       rate: float = 0.0, seed: Optional[torch.Tensor] = None):
+    """``(dq, dk, dv)`` of :func:`mhsa_attention` for the output gradient
+    ``do``, written out as the TPU kernel K3 computes them
+    (``flash_mhsa.py:107-146``): recompute p and the keep mask;
+    ``dpd = do·vᵀ``; ``dp = keep·kscale·dpd``;
+    ``ds = p∘(dp − rowsum(dp∘p))·scale``; ``dq = ds·k``, ``dk = dsᵀ·q``,
+    ``dv = pdᵀ·do`` with ``pd = keep·kscale·p``.  Fused route only."""
+    B, T, H, dh = q.shape
+    thresh = dropout_thresh(rate)
+    if thresh >= 256:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    scale = dh ** -0.5
+    p = _probs(q, k, _key_mask(kv_len, T, q.device), scale)
+    dpd = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    keep, kscale = _keep(B, H, T, thresh, seed)
+    if keep is None:
+        pd, dp = p, dpd
+    else:
+        pd = torch.where(keep, p * kscale, 0.0)
+        dp = torch.where(keep, dpd * kscale, 0.0)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, do)
+    return tuple(_zero_empty_rows(g, kv_len) for g in (dq, dk, dv))

@@ -7,7 +7,7 @@ Counterpart of the AD-YOLO branch of :mod:`adyolo_tpu.ops.decode`:
   class confidence = class x objectness, then a per-frame top-k compaction
   by objectness so only ``k`` candidates per frame cross to the host;
 * on the host: the confidence filters and the per-class NMS of the native
-  kernel (``adyolo_tpu.ops.nms_native``, ``native/nms.cpp``).
+  kernel (:mod:`adyolo_tpu_torch.ops.nms_native`, ``native/nms.cpp``).
 
 The top-k is exact whenever at most ``k`` anchors of every frame clear the
 confidence threshold; otherwise the full grid is decoded instead.  Other
@@ -20,9 +20,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from adyolo_tpu.config import Config
-from adyolo_tpu.ops import nms_native
-from adyolo_tpu.ops.grid import GridGeometry
+from ..config import Config
+from . import nms_native
+from .grid import GridGeometry
 
 __all__ = ["adyolo_decode_grid", "PostProcessor"]
 

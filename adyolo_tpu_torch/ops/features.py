@@ -23,10 +23,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from adyolo_tpu.config import DataConfig
-from adyolo_tpu.ops.dsp import analysis_window, dft_matrices, mel_filterbank
-
+from ..config import DataConfig
 from . import hopper_stft
+from .dsp import analysis_window, dft_matrices, mel_filterbank
 
 __all__ = ["power_to_db", "FeatureFrontend", "Scaler", "identity_scaler"]
 
@@ -112,7 +111,7 @@ class FeatureFrontend:
     """
 
     def __init__(self, data_cfg: DataConfig, scaler: Optional[Scaler] = None,
-                 device="cpu"):
+                 device="cuda"):
         if data_cfg.audio_format != "foa":
             raise NotImplementedError(
                 f"audio_format={data_cfg.audio_format!r}: MIC/GCC-PHAT "

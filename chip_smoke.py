@@ -15,37 +15,59 @@ before the last line:
 3. kernel  -- the Hopper STFT kernel vs its plain PyTorch version at the
               serving shape (16, 800, 600, 4) and a ragged (3, 803) case:
               max|kernel - plain| <= 2e-5 * max|plain|; median times over
-              30 runs each, CUDA events.
+              30 runs each, CUDA events, in turns with the plain version
+              and ``torch.stft`` (the library yardstick, checked to compute
+              the same function within 1e-4 * max).
 4. attn_kernel -- the Hopper attention kernel vs the plain attention at
               (B, T, 4, 64): (16, 800) all keys valid and with random
               kv_len (one row 0), (1, 1200) len 920, (1, 2400) len 1400
               (route k2); (1, 4800) len 3000, (1, 9600) len 8000 (route
               k4): max|kernel - plain| <= 2e-5 * max|plain| over all rows,
               finite, zeros on the kv_len == 0 row; medians of 30 runs in
-              turns with the plain version at (16, 800) and (1, 4800).
-5. forward -- FeatureFrontend + SE-ResNet34 + AD-YOLO at full width (13
+              turns with the plain version and SDPA at (16, 800) and
+              (1, 4800).
+5. attn_train_kernel -- routes k2_dropout (forward, rate 0.2) and k3
+              (backward) vs the plain attention and its written-out
+              backward at (16, 800, 4, 64), all keys valid and random
+              kv_len with one row 0: output within 2e-5 * max|plain|,
+              dq/dk/dv within 1e-4 * max|plain grad|, zeros on the empty
+              row, keep share 205/256 +- 0.005, rate 0 equal to route k2;
+              medians of 30 runs of forward, backward and both, in turns
+              with the plain version and SDPA (dropout_p 0.2).
+6. forward -- FeatureFrontend + SE-ResNet34 + AD-YOLO at full width (13
               classes, seeded random init, eval, fp32) on 16 x 20-s clips:
               finite (16, 200, 2560) logits, the kernel launched, and
               within 1e-3 * max|logit| of the same model on plain-STFT
               features (DCASE2022 scaler stats); audio-seconds per second.
-6. forward_conformer -- the same with ResNet-Conformer + AD-YOLO (emb 256,
+7. forward_conformer -- the same with ResNet-Conformer + AD-YOLO (emb 256,
               8 blocks, 4 heads): the STFT kernel launched once and the
               attention kernel 8 times (route k2), within 1e-3 *
               max|logit| of the model on plain STFT and plain attention.
-7. serve   -- three odd-length FOA wavs (23, 28, 35 s) through
+8. serve   -- three odd-length FOA wavs (23, 28, 35 s) through
               ``engine.evaluate.infer`` and then ``cli.main(["infer",
               ...])`` on an SE-ResNet34 experiment dir written in the JAX
               checkpoint format: three CSVs each, the same detections, the
               STFT kernel launched once per clip; p50 per-clip latency.
-8. serve_conformer -- the same on a ResNet-Conformer experiment dir with
+9. serve_conformer -- the same on a ResNet-Conformer experiment dir with
               wavs of 23, 35 and 75 s (buckets 1200, 2400, 4800): the STFT
               kernel once per clip, route k2 at least 16 times and route
               k4 at least 8 times in the CLI run.
+10. train_conformer -- ``parallel.train_step`` on ResNet-Conformer +
+              AD-YOLO at full width, fp32, Adam lr 1e-3, dropout 0.2 from
+              one CUDA generator: 5 steps on B = 16 x 20-s int16 chunks with
+              synthetic AD-YOLO targets; every loss finite; per step the
+              STFT kernel once, k2_dropout 8 times, k3 8 times; step 1
+              within 1e-4 rel (loss) and 1e-3 * max|grad| (every gradient,
+              and the global norm within 1e-3 rel) of the same step from
+              the same weights and generator seed on the plain attention;
+              median step ms, audio-s/s, peak memory; then a
+              ``torch.profiler`` breakdown of two more steps.
 
-Then one line ``{"kernels": [...]}`` (``launches`` counted over a
-``cli.main`` run only: the SE-ResNet34 one for the STFT, the conformer one
-for attention), the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+Then one line ``{"kernels": [...]}`` (``launches`` counted over each
+path's main run only: the SE-ResNet34 ``cli.main`` run for the STFT, the
+conformer one for routes k2/k4, the train steps for k2_dropout/k3), the
+card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Nothing of JAX or of the JAX package ``adyolo_tpu`` is imported.
 """
 import contextlib
 import dataclasses
@@ -59,27 +81,43 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from adyolo_tpu.config import Config, save_config, with_conf_thresh  # noqa: E402
-from adyolo_tpu.data.io import write_wav  # noqa: E402
-from adyolo_tpu.ops.grid import GridGeometry  # noqa: E402
 from adyolo_tpu_torch import cli  # noqa: E402
+from adyolo_tpu_torch.config import Config, save_config, with_conf_thresh  # noqa: E402
 from adyolo_tpu_torch.convert import flax_from_state_dict  # noqa: E402
+from adyolo_tpu_torch.data.io import write_wav  # noqa: E402
+from adyolo_tpu_torch.data.labels import encode_adyolo, pad_yolo_targets  # noqa: E402
 from adyolo_tpu_torch.engine.checkpoint import save_jax_checkpoint  # noqa: E402
 from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa: E402
                                               make_frontend)
 from adyolo_tpu_torch.models import resnet_conformer  # noqa: E402
-from adyolo_tpu_torch.models.wrapper import build_model  # noqa: E402
+from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry  # noqa: E402
 from adyolo_tpu_torch.ops import attention, hopper_attention, hopper_stft  # noqa: E402
 from adyolo_tpu_torch.ops import stft as plain_stft  # noqa: E402
 from adyolo_tpu_torch.ops.decode import PostProcessor, _device_decode  # noqa: E402
+from adyolo_tpu_torch.ops.dsp import analysis_window  # noqa: E402
+from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
 
 HOP = 600
 KERNEL_TOL = 2e-5
+GRAD_KERNEL_TOL = 1e-4  # kernel vs plain attention gradients, x max|grad|
+LIBRARY_TOL = 1e-4  # torch.stft / SDPA vs the plain version, x max|plain|
 FORWARD_TOL = 1e-3
+TRAIN_LOSS_TOL = 1e-4  # step 1 on the kernels vs on plain attention, relative
+TRAIN_GRAD_TOL = 1e-3  # the same step's gradients, x max|grad|
+RATE = 0.2  # the conformer's dropout; thresh 51, keep share 205/256
+TRAIN_STEPS = 5
+
+# One H100 SXM (NVIDIA's data sheet): fp32 FFMA peak outside the tensor
+# cores and HBM3 bandwidth.  A kernel's bound is the larger of its FLOP
+# over the first and its bytes (inputs read once, outputs written once)
+# over the second.
+FP32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 
 
 def emit(obj):
@@ -115,9 +153,18 @@ def cuda_ms(fn, n):
     return out
 
 
+def bound(flop, nbytes):
+    """The least time (ms) the card could take for ``flop`` fp32 FLOP that
+    move ``nbytes``, and which of the two bounds it."""
+    t_op, t_mem = flop / FP32_FLOPS, nbytes / HBM_BYTES_S
+    return {"bound_ms": max(t_op, t_mem) * 1e3,
+            "bound_by": "operations" if t_op >= t_mem else "bytes"}
+
+
 def zero_counts():
     hopper_stft.LAUNCHES = 0
-    hopper_attention.LAUNCHES.update(k2=0, k4=0)
+    for rt in hopper_attention.LAUNCHES:
+        hopper_attention.LAUNCHES[rt] = 0
 
 
 def counts():
@@ -191,19 +238,77 @@ def phase_kernel(smi, fe):
                "max_abs_plain": max(s for _, s in errs.values()),
                "tol_rel": KERNEL_TOL}
         if tag == "serving":
-            k_ms, p_ms = [], []
-            for _ in range(3):  # in turns: kernel, plain, ...
+            # the library yardstick: torch.stft (cuFFT) over the B*4
+            # channels as flat signals, centred with reflect padding; its
+            # first T frames are this function
+            xs = x.reshape(B, T * HOP, 4).permute(0, 2, 1).reshape(B * 4, T * HOP).contiguous()
+            win = torch.as_tensor(analysis_window(fe.cfg.window, fe.cfg.win_length,
+                                                  fe.cfg.n_fft), device="cuda")
+
+            def library():
+                return torch.stft(xs, n_fft=2 * HOP, hop_length=HOP, window=win,
+                                  center=True, pad_mode="reflect", return_complex=True)
+
+            lib = library()[..., :T].reshape(B, 4, HOP + 1, T).permute(0, 3, 2, 1)
+            pr, pi = plain_stft.stft(x, fe.w_re, fe.w_im, HOP)
+            scale = float(torch.maximum(pr.abs().max(), pi.abs().max()))
+            lib_err = float(torch.maximum((lib.real - pr).abs().max(),
+                                          (lib.imag - pi).abs().max()))
+            require(lib_err <= LIBRARY_TOL * scale,
+                    f"torch.stft is not the STFT's function: {lib_err} > {LIBRARY_TOL} * {scale}")
+            del lib, pr, pi
+            k_ms, p_ms, l_ms = [], [], []
+            for _ in range(3):  # in turns: kernel, plain, library, ...
                 k_ms += cuda_ms(lambda: hopper_stft.stft_hop_blocks(x, fe.w_re, fe.w_im), 10)
                 p_ms += cuda_ms(lambda: plain_stft.stft(x, fe.w_re, fe.w_im, HOP), 10)
-            flop = 2.0 * (B * T * 4) * (2 * HOP) * (2 * (HOP + 1))
+                l_ms += cuda_ms(library, 10)
+            # the bound counts the function's least work: a real FFT per
+            # frame and channel, 2.5 n log2 n FLOP (+ the window), audio in
+            # and re/im out.  The kernel computes the DFT as a matrix
+            # product instead, 2 FLOP per sample, bin and re/im: `tflops`.
+            K, n_fft = HOP + 1, 2 * HOP
+            fft_flop = B * T * 4 * (2.5 * n_fft * np.log2(n_fft) + n_fft)
+            nbytes = 4.0 * (B * T * HOP * 4 + n_fft + 2 * B * T * K * 4)
+            flop = 2.0 * (B * T * 4) * n_fft * (2 * K)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
+                        "library_ms": float(np.median(l_ms)), "library": "torch.stft",
+                        "library_max_abs_err": lib_err, **bound(fft_flop, nbytes),
                         "runs": len(k_ms), "tflops": flop / (np.median(k_ms) * 1e-3) / 1e12,
                         "plain_tflops": flop / (np.median(p_ms) * 1e-3) / 1e12,
                         "card": smi})
+            del xs
         res[tag] = row
         emit(row)
         del x
     return res
+
+
+def attn_flop(H, T, lens, per=4):
+    """FLOP of attention over the valid keys: ``per`` x T x L x 64 for each
+    (b, h); 4 forward (q.k and p.v), 10 backward (s recomputed, dO.v, dq,
+    dk, dv)."""
+    return float(per) * H * T * float(np.sum(lens)) * 64
+
+
+def attn_bytes(B, T, H, lens, q_rows, kv_reads, kv_writes=0, stats=0):
+    """Bytes attention must move: ``q_rows`` full (B, T, H, 64) tensors
+    (q, out, dO, dq), ``kv_reads`` key-side tensors over the valid keys
+    only, ``kv_writes`` full key-side outputs (dk, dv), ``stats`` (B, H, T)
+    rows (the logsumexp), and kv_len."""
+    row = 4.0 * H * 64
+    return (row * (q_rows * B * T + kv_reads * float(np.sum(lens)) + kv_writes * B * T)
+            + 4.0 * (B * H * T * stats + B))
+
+
+def sdpa(q, k, v, kv, dropout_p=0.0):
+    """One ``F.scaled_dot_product_attention`` call on the same (B, T, H, dh)
+    inputs (transposed views) with a boolean key mask: the library yardstick,
+    timed here and used nowhere in the port."""
+    T = q.shape[1]
+    mask = (torch.arange(T, device=q.device)[None, :] < kv[:, None])[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  dropout_p=dropout_p)
 
 
 def phase_attn_kernel(smi):
@@ -240,20 +345,273 @@ def phase_attn_kernel(smi):
                "max_abs_err": err, "max_abs_plain": scale, "tol_rel": KERNEL_TOL}
         res[rt]["max_abs_err"] = max(res[rt]["max_abs_err"], err)
         if timed:
-            k_ms, p_ms = [], []
-            for _ in range(3):  # in turns: kernel, plain, ...
+            library = sdpa(q, k, v, kv)
+            lib_err = float((library().transpose(1, 2) - want).abs().max())
+            require(lib_err <= LIBRARY_TOL * scale,
+                    f"SDPA is not attention {rt}'s function: {lib_err} > {LIBRARY_TOL} * {scale}")
+            k_ms, p_ms, l_ms = [], [], []
+            for _ in range(3):  # in turns: kernel, plain, library, ...
                 k_ms += cuda_ms(lambda: hopper_attention.flash_attention(q, k, v, kv), 10)
                 p_ms += cuda_ms(lambda: attention.mhsa_attention(q, k, v, kv), 10)
-            flop = 4.0 * 4 * T * float(np.sum(lens)) * 64
+                l_ms += cuda_ms(library, 10)
+            flop = attn_flop(4, T, lens)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
+                        "library_ms": float(np.median(l_ms)),
+                        "library": "F.scaled_dot_product_attention",
+                        "library_max_abs_err": lib_err,
+                        **bound(flop, attn_bytes(B, T, 4, lens, q_rows=2, kv_reads=2)),
                         "runs": len(k_ms),
                         "tflops": flop / (np.median(k_ms) * 1e-3) / 1e12,
                         "plain_tflops": flop / (np.median(p_ms) * 1e-3) / 1e12,
                         "card": smi})
-            res[rt].update(ms=row["ms"], plain_ms=row["plain_ms"])
+            res[rt].update({n: row[n] for n in ("ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by")})
         emit(row)
         del q, k, v, got, want
     return res
+
+
+def phase_attn_train_kernel(smi):
+    """Routes k2_dropout (forward) and k3 (backward) against the plain
+    attention and its written-out backward at (16, 800, 4, 64), rate 0.2,
+    all keys valid and random kv_len with one row at 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    B, T, H = 16, 800, 4
+    thresh = attention.dropout_thresh(RATE)
+    seed = torch.tensor([int(rng.integers(-2 ** 31, 2 ** 31))], dtype=torch.int32,
+                        device="cuda")
+    lens_r = rng.integers(1, T + 1, B)
+    lens_r[5] = 0
+    res = {"k2_dropout": {"max_abs_err": 0.0}, "k3": {"max_abs_err": 0.0}}
+    for tag, lens in (("full", [T] * B), ("ragged", lens_r)):
+        q, k, v, do = (torch.tensor(rng.standard_normal((B, T, H, 64)), dtype=torch.float32,
+                                    device="cuda") for _ in range(4))
+        kv = torch.tensor(np.asarray(lens), dtype=torch.int32, device="cuda")
+        args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed)
+        grads = torch.autograd.grad(out, args, do, retain_graph=True)
+        want = attention.mhsa_attention(q, k, v, kv, rate=RATE, seed=seed)
+        wgrads = attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)
+        torch.cuda.synchronize()
+        row = {"phase": "attn_train_kernel", "case": tag, "shape": [B, T, H, 64],
+               "rate": RATE, "thresh": thresh,
+               "kv_len": {"min": int(min(lens)), "max": int(max(lens))}}
+        err = float((out.detach() - want).abs().max())
+        scale = float(want.abs().max())
+        require(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL * scale,
+                f"k2_dropout {tag}: max err {err} > {KERNEL_TOL} * {scale}")
+        row.update(max_abs_err=err, max_abs_plain=scale, tol_rel=KERNEL_TOL)
+        res["k2_dropout"]["max_abs_err"] = max(res["k2_dropout"]["max_abs_err"], err)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, wgrads):
+            gerr = float((g - w).abs().max())
+            gscale = float(w.abs().max())
+            require(bool(torch.isfinite(g).all()) and gerr <= GRAD_KERNEL_TOL * gscale,
+                    f"k3 {tag} {name}: max err {gerr} > {GRAD_KERNEL_TOL} * {gscale}")
+            row[name] = {"max_abs_err": gerr, "max_abs_plain": gscale}
+            res["k3"]["max_abs_err"] = max(res["k3"]["max_abs_err"], gerr)
+        for b, n in enumerate(lens):
+            if n == 0:
+                require(bool((out[b] == 0).all()) and all(bool((g[b] == 0).all())
+                                                          for g in grads),
+                        f"k2_dropout/k3 {tag}: the kv_len 0 row is not 0")
+        row["grad_tol_rel"] = GRAD_KERNEL_TOL
+        if tag == "full":
+            share = float((attention.dropout_bits(B, H, T, seed) >= (thresh << 24))
+                          .float().mean())
+            require(abs(share - (256 - thresh) / 256) <= 0.005,
+                    f"keep share {share}, want {(256 - thresh) / 256} +- 0.005")
+            with torch.no_grad():
+                eval_out = hopper_attention.flash_attention(q, k, v, kv)
+            rate0 = hopper_attention.flash_attention(*args, kv, rate=0.0)
+            err0 = float((rate0.detach() - eval_out).abs().max())
+            require(err0 <= KERNEL_TOL * float(eval_out.abs().max()),
+                    f"k2_dropout at rate 0 vs k2: {err0}")
+            row.update(keep_share=share, rate0_vs_k2=err0)
+
+            # times: forward, backward, both; kernel, plain, library in turns
+            sdpa_args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            lib_fwd = sdpa(*sdpa_args, kv, dropout_p=RATE)
+            lib_out = lib_fwd()
+            do_t = do.transpose(1, 2)
+            fns = {
+                "kernel_fwd": lambda: hopper_attention.flash_attention(
+                    *args, kv, rate=RATE, seed=seed),
+                "kernel_bwd": lambda: torch.autograd.grad(out, args, do, retain_graph=True),
+                "kernel_fwd_bwd": lambda: torch.autograd.grad(
+                    hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed),
+                    args, do),
+                "plain_fwd": lambda: attention.mhsa_attention(q, k, v, kv, rate=RATE,
+                                                              seed=seed),
+                "plain_bwd": lambda: attention.mhsa_attention_bwd(q, k, v, kv, do,
+                                                                  rate=RATE, seed=seed),
+                "library_fwd": lib_fwd,
+                "library_bwd": lambda: torch.autograd.grad(lib_out, sdpa_args, do_t,
+                                                           retain_graph=True),
+                "library_fwd_bwd": lambda: torch.autograd.grad(lib_fwd(), sdpa_args, do_t),
+            }
+            ms = {n: [] for n in fns}
+            for _ in range(3):
+                for n, fn in fns.items():
+                    ms[n] += cuda_ms(fn, 10)
+            ms = {n: float(np.median(t)) for n, t in ms.items()}
+            row.update(ms=ms, runs=30, card=smi)
+            fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
+            res["k2_dropout"].update(
+                ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"], library_ms=ms["library_fwd"],
+                **bound(fl_f, attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1)))
+            res["k3"].update(
+                ms=ms["kernel_bwd"], plain_ms=ms["plain_bwd"], library_ms=ms["library_bwd"],
+                **bound(fl_b, attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2,
+                                         kv_writes=2, stats=1)))
+            row.update(tflops_fwd=fl_f / (ms["kernel_fwd"] * 1e-3) / 1e12,
+                       tflops_bwd=fl_b / (ms["kernel_bwd"] * 1e-3) / 1e12)
+            del sdpa_args, lib_out
+        emit(row)
+        del q, k, v, do, args, out, grads, want, wgrads
+    return res
+
+
+def synthetic_batch(cfg, rng, B):
+    """B 20-s int16 FOA chunks in the hop-block layout (B, 800, 600, 4), on
+    the card, with AD-YOLO targets of random events (one to three a label
+    frame on 70 % of the frames) from the port's encoder."""
+    geom = make_grid_geometry(cfg)
+    frames = cfg.data.chunk_label_frames
+    per_clip = []
+    for _ in range(B):
+        label = {}
+        for f in range(frames):
+            if rng.random() < 0.7:
+                label[f] = [[int(rng.integers(cfg.data.nb_classes)), i,
+                             float(rng.uniform(-180, 180)), float(rng.uniform(-90, 90))]
+                            for i in range(int(rng.integers(1, 4)))]
+        per_clip.append(encode_adyolo(label, frames, geom))
+    targets, mask = pad_yolo_targets(per_clip, cfg.train.max_targets_per_clip * B)
+    T = cfg.data.chunk_samples // HOP
+    audio = (rng.standard_normal((B, T, HOP, 4)) * 1500).astype(np.int16)
+    return {"audio": torch.tensor(audio, device="cuda"),
+            "targets": torch.tensor(targets, device="cuda"),
+            "target_mask": torch.tensor(mask, device="cuda")}
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+_PROFILE_GROUPS = (  # kernel-name substrings, first match wins
+    ("K1 STFT", ("stft_hop_blocks",)),
+    ("attention fwd", ("mhsa_fwd",)),
+    ("attention bwd", ("mhsa_bwd",)),
+    ("optimizer", ("multi_tensor", "adam")),
+    ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit",
+                      "nchw", "nhwc", "cudnn")),
+    ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk")),
+)
+
+
+def profile_steps(step, batches, gen, n):
+    """Device time by kernel group over ``n`` steps under torch.profiler, and
+    the device's busy and idle share of the host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {g: 0.0 for g, _ in _PROFILE_GROUPS}
+    groups["other (elementwise, reductions, copies)"] = 0.0
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        name = e.name.lower()
+        us = e.time_range.elapsed_us()
+        grp = next((g for g, keys in _PROFILE_GROUPS if any(s in name for s in keys)),
+                   "other (elementwise, reductions, copies)")
+        groups[grp] += us / 1e3 / n
+    busy = sum(groups.values())
+    require(n_kernels > 0, "the profiler recorded no device time")
+    return {"steps": n, "wall_ms_per_step": wall_ms / n, "busy_ms_per_step": busy,
+            "idle_share": 1.0 - busy / (wall_ms / n), "kernels_per_step": n_kernels / n,
+            "ms_per_step": groups}
+
+
+def phase_train_conformer(smi, cfg, fe):
+    """ResNet-Conformer + AD-YOLO train steps at full width, fp32: B = 16 x
+    20-s chunks, Adam, dropout 0.2 from one CUDA generator.  The main path:
+    TRAIN_STEPS steps with the launch counts set to 0 just before and read
+    after each.  Step 1 is held against the same step from the same weights
+    and generator seed on the plain attention."""
+    B = 16
+    rng = np.random.default_rng(5)
+    batches = [synthetic_batch(cfg, rng, B) for _ in range(TRAIN_STEPS)]
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0), train=True)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    step = build_train_step(cfg, model, fe)
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()  # the main path's count starts here
+    losses, step_ms, per_step = [], [], []
+    for i, b in enumerate(batches):
+        before = counts()
+        t0 = time.perf_counter()
+        loss = float(step(b, gen))  # a device -> host copy: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: c - before[n] for n, c in counts().items()})
+        losses.append(loss)
+        if i == 0:
+            grads1 = grads_of(model)
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(all(np.isfinite(losses)), f"train_conformer: loss not finite: {losses}")
+    for i, n in enumerate(per_step):
+        require(n["stft"] == 1 and n["k2_dropout"] == 8 and n["k3"] == 8
+                and n["k2"] == 0 and n["k4"] == 0,
+                f"train_conformer step {i + 1}: launches {n}, want stft 1, "
+                "k2_dropout 8, k3 8")
+
+    # step 1 again from the same weights and generator seed, plain attention
+    ref = build_model(cfg, train=True)
+    ref.load_state_dict(init)
+    ref_step = build_train_step(cfg, ref, fe)
+    with plain_attention():
+        ref_loss = float(ref_step(batches[0], torch.Generator(device="cuda").manual_seed(1234)))
+    ref_grads = grads_of(ref)
+    loss_err = abs(losses[0] - ref_loss)
+    require(loss_err <= TRAIN_LOSS_TOL * abs(ref_loss),
+            f"train_conformer step 1 loss {losses[0]} vs plain {ref_loss}")
+    gmax = max(float(g.abs().max()) for g in ref_grads.values())
+    grad_err = max(float((grads1[n] - g).abs().max()) for n, g in ref_grads.items())
+    require(grad_err <= TRAIN_GRAD_TOL * gmax,
+            f"train_conformer step 1 grads: max err {grad_err} > {TRAIN_GRAD_TOL} * {gmax}")
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads1.values()])))
+    ref_norm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in ref_grads.values()])))
+    require(abs(norm - ref_norm) <= TRAIN_GRAD_TOL * ref_norm,
+            f"train_conformer step 1 grad norm {norm} vs plain {ref_norm}")
+    del ref, ref_step, ref_grads, grads1
+
+    t = float(np.median(step_ms[1:]))  # step 1 pays cuDNN's first calls
+    emit({"phase": "train_conformer", "batch": [B, 800, HOP, 4], "steps": TRAIN_STEPS,
+          "losses": losses, "launches": launched, "launches_per_step": per_step,
+          "step1_vs_plain": {"loss": [losses[0], ref_loss], "loss_abs_err": loss_err,
+                             "grad_max_abs_err": grad_err, "grad_max_abs": gmax,
+                             "grad_norm": [norm, ref_norm],
+                             "tol": {"loss_rel": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL}},
+          "step_ms": step_ms, "median_step_ms": t,
+          "audio_s_per_s": B * 20.0 / (t * 1e-3), "peak_mem_gb": peak_gb, "card": smi})
+    # where the time goes: two more steps on the kernels, profiled
+    emit({"phase": "train_conformer_profile", **profile_steps(step, batches, gen, 2),
+          "card": smi})
+    return launched
 
 
 def phase_forward(smi, fe, model, phase):
@@ -292,9 +650,7 @@ def phase_forward(smi, fe, model, phase):
 def pick_threshold(cfg, logits):
     """A confidence threshold that 0.1 % of the (frame, anchor, class)
     confidences of the forward phase clear: some anchors pass, most not."""
-    geom = GridGeometry(tuple(cfg.train.grid_size), cfg.train.g_overlap,
-                        cfg.train.nb_anchors)
-    cls, _, _ = _device_decode(logits, geom, cfg.data.nb_classes)
+    cls, _, _ = _device_decode(logits, make_grid_geometry(cfg), cfg.data.nb_classes)
     flat = cls.reshape(-1)
     return float(torch.topk(flat, flat.numel() // 1000).values[-1])
 
@@ -396,13 +752,13 @@ def main():
         cfg.data, data_pth=data, name_pth=os.path.join(data, "classes.txt")))
     conf_cfg = dataclasses.replace(
         cfg, args=dataclasses.replace(cfg.args, encoder="resnet-conformer"))
-    fe = make_frontend(cfg, "cuda")
+    fe = make_frontend(cfg)
     stft_k = phase_kernel(smi, fe)
     attn_k = phase_attn_kernel(smi)
-    model = build_model(cfg, "cuda", generator=torch.Generator().manual_seed(0))
+    train_k = phase_attn_train_kernel(smi)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
     tau = pick_threshold(cfg, phase_forward(smi, fe, model, "forward"))
-    conformer = build_model(conf_cfg, "cuda",
-                            generator=torch.Generator().manual_seed(0))
+    conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
     conf_tau = pick_threshold(conf_cfg, phase_forward(smi, fe, conformer,
                                                       "forward_conformer"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -411,24 +767,32 @@ def main():
         conf = phase_serve_conformer(smi, conf_cfg, fe, conformer, conf_tau, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    del model, conformer
+    train = phase_train_conformer(smi, conf_cfg, fe)
 
-    require("jax" not in sys.modules and "flax" not in sys.modules,
-            "JAX was imported")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
+    require(not foreign, f"the JAX package or JAX was imported: {foreign}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k = stft_k["serving"]
-    attn = {"name": "flash_attention", "route": "cuda",
-            "source": "adyolo_tpu_torch/csrc/attention.cu"}
+    attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
     emit({"kernels": [
         {"name": "stft_hop_blocks", "route": "cuda",
          "source": "adyolo_tpu_torch/csrc/stft.cu",
          "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
-         "launches": se["stft"], "max_abs_err": k["max_abs_err"],
-         "ms": k["ms"], "plain_ms": k["plain_ms"]},
+         "launches": se["stft"], **{n: k[n] for n in keys}},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
-         "launches": conf["k2"], **attn_k["k2"]},
+         "launches": conf["k2"], **{n: attn_k["k2"][n] for n in keys}},
         {**attn, "name": "flash_attention/k4",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:358",
-         "launches": conf["k4"], **attn_k["k4"]}]})
+         "launches": conf["k4"], **{n: attn_k["k4"][n] for n in keys}},
+        {**attn, "name": "flash_attention/k2_dropout",
+         "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
+         "launches": train["k2_dropout"], **{n: train_k["k2_dropout"][n] for n in keys}},
+        {**attn, "name": "flash_attention_bwd/k3",
+         "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
+         "launches": train["k3"], **{n: train_k["k3"][n] for n in keys}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

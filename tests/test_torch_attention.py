@@ -8,13 +8,20 @@ Hopper wrapper's CPU dispatch are held against:
 * K4, ``flash_mhsa_long(..., interpret=True)``, with trailing all-masked
   key blocks and a ``kv_len == 0`` row (with the prefix masks the model
   makes, the leading key block is all-masked only in that row);
-* the JAX ``MHSA.attend`` XLA path, fused and query-blocked.
+* the JAX ``MHSA.attend`` XLA path, fused and query-blocked;
+* with dropout (rate 0.2, thresh 51), K2 and K3: the forward against
+  ``flash_mhsa(..., rate=0.2, rng_key=key, interpret=True)`` and the
+  gradients, of the plain path by autograd and of ``mhsa_attention_bwd``
+  written out, against ``jax.grad`` through it (the K3 custom VJP).  The
+  seed is the int32 the JAX wrapper derives from ``key``
+  (``flash_mhsa.py:246``); the keep bits are the same hash, so the masks
+  agree bit for bit and the outputs agree to float32 rounding.
 
-Tolerance 2e-6 abs / 1e-5 rel, as ``tests/test_flash_mhsa.py`` holds the
-TPU kernels to their XLA reference (float32 sums in another order).  The
-kernel itself runs only on a CUDA device (``-m cuda``); flax is imported
-inside the tests that need it, so that the kernel test runs where it is
-missing.
+Tolerance 2e-6 abs / 1e-5 rel for forwards, as ``tests/test_flash_mhsa.py``
+holds the TPU kernels to their XLA reference (float32 sums in another
+order), 1e-5 abs for gradients.  The kernels themselves run only on a CUDA
+device (``-m cuda``); flax is imported inside the tests that need it, so
+that the kernel tests run where it is missing.
 """
 import numpy as np
 import jax
@@ -26,7 +33,10 @@ from adyolo_tpu.ops.flash_mhsa import flash_mhsa, flash_mhsa_long
 from adyolo_tpu_torch.ops import attention, hopper_attention
 
 ATOL, RTOL = 2e-6, 1e-5
+GRAD_TOL = 1e-5
 KERNEL_TOL = 2e-5  # kernel vs plain on the card, relative to max|plain|
+GRAD_KERNEL_TOL = 1e-4  # kernel vs plain gradients, relative to max|grad|
+RATE = 0.2
 
 
 def _qkv(B, T, H, dh, seed):
@@ -149,6 +159,102 @@ def test_wrapper_takes_plain_on_cpu_and_checks_inputs():
                                          v.to("meta"), None)
 
 
+def _jax_seed(key):
+    """The int32 seed ``flash_mhsa`` derives from ``rng_key`` (``:246``)."""
+    return torch.tensor(np.asarray(
+        jax.random.bits(key, (1,), jnp.uint32).astype(jnp.int32)))
+
+
+def _lens_t(lens):
+    return None if lens is None else torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dh", [8, 64])
+@pytest.mark.parametrize("lens", [None, (48, 33)])
+def test_plain_dropout_matches_k2_interpret(dh, lens):
+    """B=2, T=48 (bq 16, nq 3, Tp 128), H=2."""
+    B, T, H = 2, 48, 2
+    q, k, v = _qkv(B, T, H, dh, seed=20 + dh)
+    key = jax.random.PRNGKey(dh)
+    mask = None if lens is None else jnp.asarray(_mask(T, lens))
+    want = flash_mhsa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask,
+                      rate=RATE, rng_key=key, interpret=True)
+    got = hopper_attention.flash_attention(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), _lens_t(lens),
+        rate=RATE, seed=_jax_seed(key))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+    # dropout did drop: rate 0 gives another output
+    assert float(np.abs(_plain(q, k, v, lens) - np.asarray(want)).max()) > 1e-2
+
+
+@pytest.mark.parametrize("lens", [None, (48, 33)])
+def test_dropout_grads_match_jax_k3(lens):
+    B, T, H, dh = 2, 48, 2, 8
+    q, k, v = _qkv(B, T, H, dh, seed=30)
+    do = np.random.default_rng(31).standard_normal((B, T, H, dh)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    mask = None if lens is None else jnp.asarray(_mask(T, lens))
+
+    def f(q, k, v):
+        return jnp.sum(flash_mhsa(q, k, v, mask, rate=RATE, rng_key=key,
+                                  interpret=True) * do)
+
+    want = jax.grad(f, (0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    seed = _jax_seed(key)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = attention.mhsa_attention(tq, tk, tv, _lens_t(lens), rate=RATE, seed=seed)
+    (out * torch.tensor(do)).sum().backward()
+    written = attention.mhsa_attention_bwd(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), _lens_t(lens),
+        torch.tensor(do), rate=RATE, seed=seed)
+    for w, auto, wr in zip(want, (tq.grad, tk.grad, tv.grad), written):
+        np.testing.assert_allclose(auto.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=0)
+        np.testing.assert_allclose(wr.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=0)
+
+
+def test_dropout_grads_finite_difference():
+    """f64 central differences of <out, do> with dropout on: the mask is a
+    function of the seed alone, so the loss is smooth in q, k, v."""
+    B, T, H, dh = 1, 16, 2, 4
+    rng = np.random.default_rng(40)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, T, H, dh)), dtype=torch.float64)
+                   for _ in range(4))
+    kv, seed = torch.tensor([11], dtype=torch.int32), torch.tensor([77], dtype=torch.int32)
+    grads = attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)
+    eps = 1e-6
+    for x, g in zip((q, k, v), grads):
+        for idx in ((0, 3, 1, 2), (0, 10, 0, 0), (0, 15, 1, 3)):
+            xp, xm = x.clone(), x.clone()
+            xp[idx] += eps
+            xm[idx] -= eps
+            args_p = [xp if a is x else a for a in (q, k, v)]
+            args_m = [xm if a is x else a for a in (q, k, v)]
+            fd = ((attention.mhsa_attention(*args_p, kv, rate=RATE, seed=seed) * do).sum()
+                  - (attention.mhsa_attention(*args_m, kv, rate=RATE, seed=seed) * do).sum()
+                  ) / (2 * eps)
+            assert abs(float(fd) - float(g[idx])) <= 1e-7 * max(1.0, abs(float(fd))), idx
+    assert float(grads[1][0, 11:].abs().max()) == 0.0  # masked keys: no gradient
+    assert float(grads[2][0, 11:].abs().max()) == 0.0
+
+
+def test_dropout_bits_keep_share_and_full_drop():
+    """The hash keeps ~205/256 of the probabilities at thresh 51; rate 1.0
+    (thresh 256) gives zeros and zero gradients, as in JAX."""
+    bits = attention.dropout_bits(2, 4, 200, torch.tensor([123], dtype=torch.int32))
+    share = float((bits >= (51 << 24)).double().mean())
+    assert abs(share - 205 / 256) < 0.005, share
+    q, k, v = (torch.tensor(a) for a in _qkv(2, 48, 2, 8, seed=50))
+    out = hopper_attention.flash_attention(q, k, v, None, rate=1.0, seed=None)
+    assert float(out.abs().max()) == 0.0
+    want = flash_mhsa(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                      jnp.asarray(v.numpy()), rate=1.0, interpret=True)
+    assert float(np.abs(np.asarray(want)).max()) == 0.0
+    assert all(float(g.abs().max()) == 0.0 for g in attention.mhsa_attention_bwd(
+        q, k, v, None, q, rate=1.0))
+    with pytest.raises(ValueError, match="seed"):
+        attention.mhsa_attention(q, k, v, None, rate=RATE)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -176,3 +282,36 @@ def test_kernel_matches_plain_on_cuda(cuda_device, B, T, lens, rt):
             assert bool((got[b] == 0).all())
     err = float((got - want).abs().max())
     assert err <= KERNEL_TOL * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,lens,rate", [(3, 200, (200, 77, 0), RATE),
+                                           (2, 48, (48, 33), RATE),
+                                           (2, 130, (130, 70), 0.0)])
+def test_train_kernels_match_plain_on_cuda(cuda_device, B, T, lens, rate):
+    """Routes k2_dropout (forward) and k3 (backward) against the plain
+    version and its autograd: outputs within 2e-5 * max, gradients within
+    1e-4 * max; a kv_len == 0 row gets zeros and zero gradients."""
+    rng = np.random.default_rng(T)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, T, 4, 64)), dtype=torch.float32,
+                                device=cuda_device) for _ in range(4))
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([1234], dtype=torch.int32, device=cuda_device)
+    before = dict(hopper_attention.LAUNCHES)
+    args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = hopper_attention.flash_attention(*args, kv, rate=rate, seed=seed)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert hopper_attention.LAUNCHES["k2_dropout"] == before["k2_dropout"] + 1
+    assert hopper_attention.LAUNCHES["k3"] == before["k3"] + 1
+    want = attention.mhsa_attention(q, k, v, kv, rate=rate, seed=seed)
+    err = float((out - want).abs().max())
+    assert err <= KERNEL_TOL * float(want.abs().max()), err
+    for got, ref in zip((a.grad for a in args),
+                        attention.mhsa_attention_bwd(q, k, v, kv, do, rate=rate, seed=seed)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - ref).abs().max())
+        assert err <= GRAD_KERNEL_TOL * float(ref.abs().max()), err
+        for b, n in enumerate(lens):
+            if n == 0:
+                assert bool((got[b] == 0).all())

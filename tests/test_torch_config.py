@@ -1,0 +1,74 @@
+"""The port's own ``Config`` and its device defaults.
+
+* (config) ``adyolo_tpu_torch.config`` reads a ``hyp_exp.yaml`` that the
+  JAX package's ``save_config`` wrote, and the repository's
+  ``configs/*.yaml`` presets, to the same values as ``adyolo_tpu.config``;
+  what the port writes, the JAX package reads back the same.
+* (devices) ``build_model``, ``make_frontend`` and ``FeatureFrontend`` run
+  on ``cuda`` unless the caller asks for the CPU.
+
+:func:`port_config` is how the other port tests build the port's
+``Config`` from the same YAML as the JAX one they hand to JAX functions.
+"""
+import dataclasses
+import inspect
+import os
+
+import pytest
+
+from adyolo_tpu import config as jax_config
+from adyolo_tpu_torch import config as port_config_mod
+from adyolo_tpu_torch.engine.evaluate import make_frontend
+from adyolo_tpu_torch.models.wrapper import build_model
+from adyolo_tpu_torch.ops.features import FeatureFrontend
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_config(jcfg):
+    """The port's ``Config`` read from the YAML of the JAX ``jcfg``."""
+    return port_config_mod.config_from_yaml(jax_config.config_to_yaml(jcfg))
+
+
+def _as_dict(cfg):
+    return dataclasses.asdict(cfg)
+
+
+def test_port_config_reads_jax_written_yaml(tmp_path):
+    jcfg = jax_config.Config()
+    jcfg = dataclasses.replace(
+        jcfg,
+        args=dataclasses.replace(jcfg.args, encoder="resnet-conformer", exp_id="e1",
+                                 logging_meta={"run": "x"}),
+        train=dataclasses.replace(jcfg.train, lr=3e-4, grid_size=(30.0, 45.0),
+                                  loss_gains=jax_config.LossGains(class_gain=2.0)),
+        data=dataclasses.replace(jcfg.data, nb_classes=12))
+    path = str(tmp_path / "hyp_exp.yaml")
+    jax_config.save_config(jcfg, path)
+    got = port_config_mod.load_config(path)
+    assert isinstance(got, port_config_mod.Config)
+    assert _as_dict(got) == _as_dict(jax_config.load_config(path))
+    assert got.train.grid_size == (30.0, 45.0) and got.train.loss_gains.class_gain == 2.0
+    # and the other way round
+    back = str(tmp_path / "port.yaml")
+    port_config_mod.save_config(got, back)
+    assert _as_dict(jax_config.load_config(back)) == _as_dict(jcfg)
+
+
+def test_port_config_reads_repository_presets():
+    cdir = os.path.join(_REPO, "configs")
+    args = {"dataset": "DCASE2022", "encoder": "resnet-conformer", "lr": 5e-4}
+    want = jax_config.build_config(args, config_dir=cdir)
+    got = port_config_mod.build_config(args, config_dir=cdir)
+    assert _as_dict(got) == _as_dict(want)
+    assert _as_dict(port_config(want)) == _as_dict(want)
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (build_model, make_frontend, FeatureFrontend.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    cfg = port_config_mod.Config()
+    assert build_model(cfg, device="cpu").head.yolo_fc1.weight.device.type == "cpu"
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            FeatureFrontend(cfg.data)  # no card: the default device fails

@@ -16,7 +16,10 @@ import torch
 from adyolo_tpu.config import Config
 from adyolo_tpu.ops.decode import PostProcessor as JaxPostProcessor
 from adyolo_tpu_torch.ops.decode import PostProcessor, adyolo_decode_grid
+from adyolo_tpu_torch.ops.grid import GridGeometry
 from adyolo_tpu.models.losses import adyolo_decode_grid as jax_decode_grid
+
+from tests.test_torch_config import port_config
 
 XYZ_TOL = 1e-5
 G0, G1, A, K = 8, 4, 5, 13
@@ -52,7 +55,7 @@ def test_postprocess_matches_jax(hot, guard_taken, nms):
     cfg = Config()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, nms=nms))
     x = _logits(T=24, hot_per_frame=hot, seed=hot)
-    jp, tp = JaxPostProcessor(cfg), PostProcessor(cfg)
+    jp, tp = JaxPostProcessor(cfg), PostProcessor(port_config(cfg))
     for p in (jp, tp):
         p.set_conf_thresh(0.6)
     # which decode the guard picks
@@ -69,7 +72,11 @@ def test_decode_grid_matches_jax():
     geom = JaxPostProcessor(cfg).geom
     x = _logits(T=6, hot_per_frame=2, seed=9) * 3.0  # push tanh to the clamps
     jc, juv = jax_decode_grid(jnp.asarray(x), geom, K, clamp_ele=(-90.0, 90.0 - 1e-7))
-    tc, tuv = adyolo_decode_grid(torch.tensor(x), geom, K, clamp_ele=(-90.0, 90.0 - 1e-7))
+    tgeom = GridGeometry(tuple(cfg.train.grid_size), cfg.train.g_overlap,
+                         cfg.train.nb_anchors)
+    for name in ("offset", "lb", "ub"):
+        np.testing.assert_array_equal(getattr(tgeom, name), getattr(geom, name))
+    tc, tuv = adyolo_decode_grid(torch.tensor(x), tgeom, K, clamp_ele=(-90.0, 90.0 - 1e-7))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_allclose(tuv.numpy(), np.asarray(juv), atol=1e-4)
     assert float(tuv[..., 0].max()) < 180.0 and float(tuv[..., 0].min()) >= -180.0

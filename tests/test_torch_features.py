@@ -17,6 +17,7 @@ import torch
 from adyolo_tpu.config import DataConfig
 from adyolo_tpu.ops.features import FeatureFrontend as JaxFrontend
 from adyolo_tpu.ops.features import Scaler as JaxScaler
+from adyolo_tpu_torch.config import DataConfig as PortDataConfig
 from adyolo_tpu_torch.ops.features import FeatureFrontend, Scaler, power_to_db
 
 MEL_DB_TOL = 5e-5
@@ -53,8 +54,8 @@ def _compare(got, want, d):
 @pytest.fixture(scope="module")
 def frontends():
     d = _scaler_dict()
-    cfg = DataConfig()
-    return JaxFrontend(cfg, JaxScaler.from_dict(d)), FeatureFrontend(cfg, Scaler.from_dict(d)), d
+    return (JaxFrontend(DataConfig(), JaxScaler.from_dict(d)),
+            FeatureFrontend(PortDataConfig(), Scaler.from_dict(d), device="cpu"), d)
 
 
 @pytest.mark.parametrize("layout", ["hop_block", "flat"])
@@ -93,4 +94,5 @@ def test_power_to_db_peak_over_valid_frames():
 
 def test_mic_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FeatureFrontend(dataclasses.replace(DataConfig(), audio_format="mic"))
+        FeatureFrontend(dataclasses.replace(PortDataConfig(), audio_format="mic"),
+                        device="cpu")

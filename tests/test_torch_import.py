@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither jax nor flax.
+"""The PyTorch port imports neither jax nor flax, nor anything of the JAX
+package ``adyolo_tpu``, and neither does ``chip_smoke.py``.
 
 Checked in a subprocess: this test process has jax loaded already
 (tests/conftest.py imports it).
@@ -16,19 +17,22 @@ import adyolo_tpu_torch
 names = ["adyolo_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(adyolo_tpu_torch.__path__,
                                           "adyolo_tpu_torch.")]
-for n in names:
+for n in names + ["chip_smoke"]:
     importlib.import_module(n)
 print(json.dumps({"modules": names,
-                  "jax": sorted(m for m in ("jax", "jaxlib", "flax")
-                                if m in sys.modules)}))
+                  "jax": sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                       "adyolo_tpu"))}))
 """
 
-_SLICE = ("ops.stft", "ops.hopper_stft", "ops.attention",
-          "ops.hopper_attention", "ops.features", "ops.decode",
-          "models.layers", "models.seresnet34", "models.resnet_conformer",
-          "models.heads",
-          "models.wrapper", "convert", "engine.checkpoint",
-          "engine.evaluate", "utils.build", "cli")
+_SLICE = ("config", "ops.stft", "ops.hopper_stft", "ops.attention",
+          "ops.hopper_attention", "ops.features", "ops.decode", "ops.dsp",
+          "ops.grid", "ops.nms_native", "ops.angular", "data.io",
+          "data.labels", "data.dataset", "models.layers", "models.seresnet34",
+          "models.resnet_conformer", "models.heads", "models.losses",
+          "models.wrapper", "parallel.train_step", "convert",
+          "engine.checkpoint", "engine.evaluate", "utils.build",
+          "utils.native", "cli")
 
 
 def test_port_imports_no_jax():
@@ -37,6 +41,6 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["jax"] == [], f"the port imported {res['jax']}"
+    assert res["jax"] == [], f"the port or chip_smoke imported {res['jax']}"
     missing = [m for m in _SLICE if f"adyolo_tpu_torch.{m}" not in res["modules"]]
     assert not missing, missing

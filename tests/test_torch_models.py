@@ -15,10 +15,12 @@ import torch
 
 from adyolo_tpu.config import Config
 from adyolo_tpu.models.wrapper import build_model as jax_build_model
+from adyolo_tpu_torch.config import Config as PortConfig
 from adyolo_tpu_torch.convert import (expected_keys, flax_from_state_dict,
                                       state_dict_from_flax)
 from adyolo_tpu_torch.models.layers import reverse_sequence
 from adyolo_tpu_torch.models.wrapper import build_model
+from adyolo_tpu_torch.parallel.train_step import build_train_step
 
 TOL = 1e-4
 
@@ -58,7 +60,7 @@ def pair():
     rng = np.random.default_rng(1)
     v = {"params": _perturb_bn_affine(v["params"], rng),
          "batch_stats": _perturb(v["batch_stats"], rng)}
-    tm = build_model(cfg)
+    tm = build_model(PortConfig(), device="cpu")
     tm.load_state_dict(state_dict_from_flax(v), strict=True)
     x = np.random.default_rng(2).standard_normal((2, 32, 64, 7)).astype(np.float32)
     return jm, v, tm, x
@@ -114,15 +116,27 @@ def test_converter_round_trip_and_strictness(pair):
 
 
 def test_unported_configurations_raise():
+    """Other losses, SE-ResNet34 training (its BiGRU), and the parts of the
+    train step that are not ported (SpecAugment, bf16, remat) raise; the
+    conformer trains (``tests/test_torch_train_step.py``)."""
     import dataclasses
 
-    cfg = Config()
+    from adyolo_tpu_torch.ops.features import FeatureFrontend
+
+    cfg = PortConfig()
     c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, loss="accdoa"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(c)
-    for enc in ("se-resnet34", "resnet-conformer"):
-        c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, encoder=enc))
-        with pytest.raises(NotImplementedError):
-            build_model(c).train()(torch.zeros(1, 8, 64, 7))
-    with pytest.raises(NotImplementedError):  # dropout is not ported either
-        build_model(c).encoder.conformer0.mhsa.train()(torch.zeros(1, 8, 256))
+        build_model(c, device="cpu")
+    with pytest.raises(NotImplementedError, match="SE-ResNet34 training"):
+        build_model(cfg, device="cpu", train=True)(torch.zeros(1, 8, 64, 7))
+    c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args,
+                                                          encoder="resnet-conformer"))
+    model = build_model(c, device="cpu", train=True)
+    assert model.encoder.conformer0.mhsa.training
+    fe = FeatureFrontend(c.data, device="cpu")
+    for bad in (dataclasses.replace(c, aug=dataclasses.replace(c.aug, spec_augment=True)),
+                dataclasses.replace(c, train=dataclasses.replace(
+                    c.train, compute_dtype="bfloat16")),
+                dataclasses.replace(c, train=dataclasses.replace(c.train, remat=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_train_step(bad, model, fe)

@@ -25,20 +25,20 @@ import torch
 
 from adyolo_tpu.config import Config, save_config, with_conf_thresh
 from adyolo_tpu.engine.checkpoint import save_checkpoint
-from adyolo_tpu.data.dataset import EvalLoader, SELDDataset
 from adyolo_tpu.engine import evaluate as jax_evaluate
 from adyolo_tpu.models.wrapper import build_model as jax_build_model
-from adyolo_tpu.ops.grid import GridGeometry
 from adyolo_tpu.parallel.train_step import init_state
 from adyolo_tpu_torch import cli
 from adyolo_tpu_torch.convert import state_dict_from_flax
+from adyolo_tpu_torch.data.dataset import EvalLoader, SELDDataset
 from adyolo_tpu_torch.engine.checkpoint import (load_jax_checkpoint,
                                                 save_jax_checkpoint)
 from adyolo_tpu_torch.engine.evaluate import make_frontend
-from adyolo_tpu_torch.models.wrapper import build_model
+from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry
 from adyolo_tpu_torch.ops.decode import _device_decode
 
 from tests.synth_data import make_synth_dataset
+from tests.test_torch_config import port_config
 
 XYZ_TOL = 1e-4
 EXP = "exp-serve"
@@ -87,15 +87,15 @@ def experiment(request, tmp_path_factory):
     wav_dir = os.path.join(data, "foa_dev", "dev-val")
 
     # threshold from the port's own logits on every clip
-    geom = GridGeometry(tuple(cfg.train.grid_size), cfg.train.g_overlap,
-                        cfg.train.nb_anchors)
-    tm = build_model(cfg)
+    pcfg = port_config(cfg)
+    geom = make_grid_geometry(pcfg)
+    tm = build_model(pcfg, device="cpu")
     tm.load_state_dict(state_dict_from_flax(
         {"params": jax.tree_util.tree_map(np.asarray, state.params),
          "batch_stats": jax.tree_util.tree_map(np.asarray, state.batch_stats)},
         encoder))
-    frontend = make_frontend(cfg)
-    c_inf = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, infer_pth=wav_dir))
+    frontend = make_frontend(pcfg, device="cpu")
+    c_inf = dataclasses.replace(pcfg, args=dataclasses.replace(pcfg.args, infer_pth=wav_dir))
     confs = []
     for item in EvalLoader(SELDDataset(c_inf, "infer", is_valid=True), c_inf):
         valid = torch.tensor(item["valid_feat_frames"])
