@@ -58,16 +58,17 @@ class BatchNorm(nn.Module):
 
     Eval uses the running stats.  Training uses the batch's: one-pass
     ``E[x²] − E[x]²`` **biased** variance, clamped at 0, and updates the
-    running stats in place to ``momentum * ra + (1 - momentum) * batch``
+    running stats in place to ``0.9 * ra + 0.1 * batch`` (flax's momentum)
     with that biased variance (torch's ``nn.BatchNorm2d`` would use the
     unbiased one).  Building the module runs no forward, so building
     updates nothing (flax's ``is_initializing`` guard)."""
 
+    momentum = 0.9
+
     def __init__(self, channels: int, eps: float = 1e-5,
-                 channel_last: bool = False, momentum: float = 0.9):
+                 channel_last: bool = False):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.channel_last = channel_last
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))

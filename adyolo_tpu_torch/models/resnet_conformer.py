@@ -24,7 +24,8 @@ sites, the attention probabilities, after the MHSA, after the conv
 module's pw2), its bits drawn from the ``generator`` passed to
 ``forward`` (each MHSA draws one int32 attention seed per call).
 Training chunks must be T <= 2400 frames, as in the JAX package, whose
-longer chunks would take the XLA attention.
+longer chunks would take the XLA attention; the attention raises on longer
+ones.
 
 Input ``(B, T, F, C)`` channel-last, as in the JAX package; the conv stack
 runs NCHW.  DCASE shapes: (B, 800, 64, 7) -> (B, 200, 256).
@@ -37,7 +38,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import attention
 from ..ops.hopper_attention import flash_attention
 from .layers import BatchNorm, Conv3x3, U8Dropout, apply_frame_mask, pool_mask
 
@@ -88,13 +88,13 @@ class FeedForwardModule(nn.Module):
     tree's auto-named ``Dense_0``/``Dense_1`` map onto them
     (:mod:`adyolo_tpu_torch.convert`)."""
 
-    def __init__(self, dim: int, expansion: int = 4, dropout: float = _DROPOUT):
+    def __init__(self, dim: int, expansion: int = 4):
         super().__init__()
         self.ln = nn.LayerNorm(dim, eps=1e-5)
         self.fc1 = nn.Linear(dim, dim * expansion)
-        self.drop1 = U8Dropout(dropout)
+        self.drop1 = U8Dropout(_DROPOUT)
         self.fc2 = nn.Linear(dim * expansion, dim)
-        self.drop2 = U8Dropout(dropout)
+        self.drop2 = U8Dropout(_DROPOUT)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -105,13 +105,13 @@ class FeedForwardModule(nn.Module):
 class MHSA(nn.Module):
     """Multi-head self-attention, heads split as ``reshape(B, T, H, dh)``;
     keys past ``kv_len[b]`` are masked (``kv_len`` None: all valid).  In
-    training, dropout at rate ``dropout`` on the probabilities, its int32
-    seed drawn from ``generator``."""
+    training, dropout at rate ``self.dropout`` on the probabilities, its
+    int32 seed drawn from ``generator``."""
 
-    def __init__(self, dim: int, heads: int = 4, dropout: float = _DROPOUT):
+    def __init__(self, dim: int, heads: int = 4):
         super().__init__()
         self.heads = heads
-        self.dropout = dropout
+        self.dropout = _DROPOUT
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
@@ -122,9 +122,6 @@ class MHSA(nn.Module):
         B, T, D = x.shape
         rate, seed = 0.0, None
         if self.training:
-            if T > attention.BLOCK_THRESHOLD:
-                raise ValueError(f"MHSA training needs T <= "
-                                 f"{attention.BLOCK_THRESHOLD} frames, got {T}")
             rate = self.dropout
             seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                                  device=x.device, generator=generator)
@@ -140,7 +137,7 @@ class ConformerConvModule(nn.Module):
     """LN -> pw1 (d -> 2d) -> BN -> GLU -> mask -> depthwise dilated conv
     (k=3) + bias -> BN -> swish -> pw2 -> dropout -> mask, on ``(B, T, d)``."""
 
-    def __init__(self, dim: int, dilation: int = 1, dropout: float = _DROPOUT):
+    def __init__(self, dim: int, dilation: int = 1):
         super().__init__()
         self.ln = nn.LayerNorm(dim, eps=1e-5)
         self.pw1 = nn.Linear(dim, 2 * dim)
@@ -149,7 +146,7 @@ class ConformerConvModule(nn.Module):
                                  padding=dilation)
         self.bn2 = BatchNorm(dim, channel_last=True)
         self.pw2 = nn.Linear(dim, dim)
-        self.drop = U8Dropout(dropout)
+        self.drop = U8Dropout(_DROPOUT)
 
     def forward(self, x: torch.Tensor, frame_mask=None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

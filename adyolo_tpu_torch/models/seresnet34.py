@@ -52,12 +52,9 @@ class SEResNet34(nn.Module):
         self.norm = nn.LayerNorm(enc_out_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor,
-                feat_lengths: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                feat_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, T, F, C); feat_lengths: optional (B,) valid frame counts.
-        Returns (B, T // 4, enc_out_dim).  ``generator`` is for the
-        conformer's interface: training this encoder (the BiGRU) is not
-        ported yet."""
+        Returns (B, T // 4, enc_out_dim)."""
         frame_mask = None
         if feat_lengths is not None:
             feat_lengths = feat_lengths.to(x.device)

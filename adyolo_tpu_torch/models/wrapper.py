@@ -33,7 +33,8 @@ ENCODERS = {"se-resnet34": SEResNet34, "resnet-conformer": ResNetConformer}
 class SELDModel(nn.Module):
     """Encoder + AD-YOLO head.  ``forward(feat, feat_lengths=None,
     generator=None)``: feat (B, T, F, C) -> raw logits
-    (B, T // 4, G0*G1*A*(K+3)); ``generator`` drives dropout in training."""
+    (B, T // 4, G0*G1*A*(K+3)); ``generator`` drives dropout in training
+    and goes only to an encoder that trains with dropout (the conformer)."""
 
     def __init__(self, encoder: str = "se-resnet34", nb_classes: int = 13,
                  grid_size: Tuple[float, float] = (45.0, 45.0),
@@ -49,6 +50,8 @@ class SELDModel(nn.Module):
     def forward(self, feat: torch.Tensor,
                 feat_lengths: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is None:
+            return self.head(self.encoder(feat, feat_lengths))
         return self.head(self.encoder(feat, feat_lengths, generator))
 
 
