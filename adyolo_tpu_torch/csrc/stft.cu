@@ -1,197 +1,297 @@
-// Fused framed STFT for Hopper (sm_90a), fp32 FFMA.
+// Framed STFT for Hopper (sm_90a): a mixed-radix Stockham FFT in shared
+// memory.
 //
 // Replaces the TPU kernel adyolo_tpu/ops/pallas_stft.py::_make_kernel /
 // _pallas_stft_impl (the Pallas fused framed STFT).  It computes what that
-// kernel computes -- the windowed real DFT of librosa center=True frames,
-// re/im = sum over the frame of samples x window-folded DFT matrices -- for
-// the DCASE geometry n_fft == 2*hop, straight from the hop-block audio
-// (B, T, hop, 4) that the loaders produce.  Frames are never built.
+// kernel computes -- the windowed real DFT of librosa center=True frames --
+// for the DCASE geometry n = n_fft = 2*hop, straight from the hop-block
+// audio (B, T, hop, 4) that the loaders produce (or flat (B, N, 4), read as
+// its hop-block view):
+//   re/im[b, t, k, c] = Re/Im sum_{m < n} frame_t[m, c] w[m] e^{-2 pi i k m / n},
+//   k <= n/2, frame t = [block t-1, block t], and frame 0's left half the
+//   reflect block refl[m] = x_flat[b, hop - m] (read from the index).
+// The TPU kernel contracts the frames against window-folded DFT matrices
+// on the MXU; this kernel runs an FFT instead, n log n work, no matrix.
 //
-// As a GEMM:  C[(b,t), k] = sum_n A[(b,t), n] * W[n, k],  n < n_fft,
-//   * every A element is a float4: the 4 FOA channels travel together;
-//   * n <  hop, t >= 1: A = chunks[b, t-1, n]
-//   * n <  hop, t == 0: A = x_flat[b, hop - n]   (reflect block, from the
-//                                                   index; no padded copy)
-//   * n >= hop:         A = chunks[b, t, n-hop]
-//   For t >= 1 both halves are the contiguous run x_flat[b, (t-1)*hop + n].
-//   * W = [W_re | W_im], packed by the wrapper as (n_fft, 2*KP) with each
-//     half zero-padded from K = 1 + n_fft/2 to KP, a multiple of BN.
+// Design.  A block owns F = CAP / n consecutive frames of one clip (F = 2
+// at n = 1200) and reads the F + 1 hop-blocks they span once, as float4
+// (the 4 FOA channels), coalesced, each thread issuing all its loads
+// before its first store, so that a block keeps ~29 KB in flight.  Each
+// sample is windowed into the left half of one frame and the right half
+// of the one before it, in shared memory.  A float4 is two complex sequences, z0 = c0 + i c1 and
+// z1 = c2 + i c3, so one complex n-point FFT per float4 lane pair does two
+// real channels; both share every twiddle.  The FFT is a Stockham autosort
+// in passes of radix 4, 2, 3 and 5 (4, 4, 3, 5, 5 at n = 1200; the plan
+// comes from ops/hopper_stft.py::fft_plan), between two shared-memory
+// buffers, one barrier a pass; a thread holds one butterfly at a time, so
+// nothing spills.  The twiddles e^{-2 pi i m / n} and the window come from
+// a float32 table built in float64 on the host (no __sinf/__cosf), read
+// through L1.  The last step splits the pairs,
+//   X_a[k] = (Z[k] + conj Z[n-k]) / 2,  X_b[k] = (Z[k] - conj Z[n-k]) / 2i,
+// and writes bins 0..n/2 as float4 re and im, channel-last, coalesced.
 //
-// What bounds it on an H100: at B=16 and 20-s clips (T=800) the contraction
-// is 2*(16*800*4)*1200*1202 = 1.48e11 FLOP against ~123 MB of audio in,
-// ~246 MB of re/im out and 5.8 MB of W: ~390 FLOP/byte, compute-bound at
-// fp32 (67 TFLOP/s FFMA peak vs 3.35 TB/s).  TF32 tensor cores would be
-// faster but too coarse for the front-end's error budget, so the design is
-// a plain shared-memory-tiled SGEMM with register blocking: a 64x64
-// (frames x bins) block tile, a 16-deep k-step, a 4x4 (x4 channels, x re/im)
-// register tile per thread -- 128 FFMA per 24 shared-memory words read --
-// and the next k-step's global loads prefetched into registers while the
-// current one is multiplied.  Channel-innermost layouts give 16-byte
-// coalesced float4 loads of audio and stores of re/im.  wgmma/TMA
-// (3xTF32) and fusing the power/mel/IV epilogue are later work.
+// What bounds it on an H100: memory.  At B = 16, T = 800 it reads 123 MB
+// of audio and writes 246 MB of re/im (0.110 ms at 3.35 TB/s) for 1.6
+// GFLOP of FFT.  Inside the block, the passes move each frame through
+// shared memory ~13 times (~3.2 GB in all, ~0.1 ms at the card's shared-
+// memory rate); 77 KB of shared memory a block, 2 blocks per SM.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64;        // frames per block tile
-constexpr int BN = 64;        // frequency bins per block tile
-constexpr int BK = 16;        // depth per k-step
-constexpr int TM = 4;         // frames per thread (strided by 16)
-constexpr int TN = 4;         // bins per thread (strided by 16)
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int A_PER_THREAD = BM * BK / THREADS;   // 4 float4
-constexpr int B_ROWS_PER_PASS = THREADS / (BN / 4);  // 16
+constexpr int THREADS = 256;
+constexpr int CAP = 2400;        // float4 slots of each of a block's two buffers: the largest n
+constexpr int MAX_PASSES = 16;
 
-__device__ __forceinline__ void fma4(float4& acc, const float4& a, float w) {
-    acc.x = fmaf(a.x, w, acc.x);
-    acc.y = fmaf(a.y, w, acc.y);
-    acc.z = fmaf(a.z, w, acc.z);
-    acc.w = fmaf(a.w, w, acc.w);
+struct Plan {
+    int n_pass;
+    int radix[MAX_PASSES];
+};
+
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-__global__ void __launch_bounds__(THREADS)
-stft_hop_blocks_kernel(const float4* __restrict__ x, long long clip_stride,
-                       int T, int M, int hop,
-                       const float* __restrict__ w, int KP, int K,
-                       float4* __restrict__ re, float4* __restrict__ im) {
-    __shared__ float4 As[BK][BM + 1];  // +1: conflict-free transposed stores
-    __shared__ __align__(16) float Bre[BK][BN];
-    __shared__ __align__(16) float Bim[BK][BN];
+__device__ __forceinline__ float4 sub(float4 a, float4 b) {
+    return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+__device__ __forceinline__ float4 scale(float4 a, float s) {
+    return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+// a + s * b
+__device__ __forceinline__ float4 axpy(float4 a, float s, float4 b) {
+    return make_float4(fmaf(s, b.x, a.x), fmaf(s, b.y, a.y), fmaf(s, b.z, a.z),
+                       fmaf(s, b.w, a.w));
+}
+
+// both complex numbers times -i: (x + iy)(-i) = y - ix
+__device__ __forceinline__ float4 times_minus_i(float4 a) {
+    return make_float4(a.y, -a.x, a.w, -a.z);
+}
+
+// both complex numbers times w
+__device__ __forceinline__ float4 twiddle(float4 a, float2 w) {
+    return make_float4(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x,
+                       a.z * w.x - a.w * w.y, a.z * w.y + a.w * w.x);
+}
+
+// In-place forward DFT of radix R (e^{-2 pi i / R}) on v[0..R).
+template <int R>
+__device__ __forceinline__ void dft(float4* v);
+
+template <>
+__device__ __forceinline__ void dft<2>(float4* v) {
+    const float4 a = v[0];
+    v[0] = add(a, v[1]);
+    v[1] = sub(a, v[1]);
+}
+
+template <>
+__device__ __forceinline__ void dft<3>(float4* v) {
+    constexpr float S3 = 0.86602540378443865f;  // sin(2 pi / 3)
+    const float4 t1 = add(v[1], v[2]);
+    const float4 t2 = axpy(v[0], -0.5f, t1);
+    const float4 t3 = times_minus_i(scale(sub(v[1], v[2]), S3));
+    v[0] = add(v[0], t1);
+    v[1] = add(t2, t3);
+    v[2] = sub(t2, t3);
+}
+
+template <>
+__device__ __forceinline__ void dft<4>(float4* v) {
+    const float4 t0 = add(v[0], v[2]);
+    const float4 t1 = sub(v[0], v[2]);
+    const float4 t2 = add(v[1], v[3]);
+    const float4 t3 = times_minus_i(sub(v[1], v[3]));
+    v[0] = add(t0, t2);
+    v[2] = sub(t0, t2);
+    v[1] = add(t1, t3);
+    v[3] = sub(t1, t3);
+}
+
+template <>
+__device__ __forceinline__ void dft<5>(float4* v) {
+    constexpr float C1 = 0.30901699437494742f;   // cos(2 pi / 5)
+    constexpr float C2 = -0.80901699437494742f;  // cos(4 pi / 5)
+    constexpr float S1 = 0.95105651629515357f;   // sin(2 pi / 5)
+    constexpr float S2 = 0.58778525229247314f;   // sin(4 pi / 5)
+    const float4 a1 = add(v[1], v[4]), b1 = sub(v[1], v[4]);
+    const float4 a2 = add(v[2], v[3]), b2 = sub(v[2], v[3]);
+    const float4 m1 = axpy(axpy(v[0], C1, a1), C2, a2);
+    const float4 m2 = axpy(axpy(v[0], C2, a1), C1, a2);
+    const float4 n1 = times_minus_i(axpy(scale(b1, S1), S2, b2));
+    const float4 n2 = times_minus_i(axpy(scale(b1, S2), -S1, b2));
+    v[0] = add(v[0], add(a1, a2));
+    v[1] = add(m1, n1);
+    v[4] = sub(m1, n1);
+    v[2] = add(m2, n2);
+    v[3] = sub(m2, n2);
+}
+
+// floor(a / b) for 0 <= a < 2^20 and 0 < b <= 2 CAP, by a float reciprocal:
+// (a + 0.5) / b lies at least 0.5 / b from an integer, far above the
+// float rounding of the product.
+__device__ __forceinline__ int div_small(int a, float inv_b) {
+    return __float2int_rz((static_cast<float>(a) + 0.5f) * inv_b);
+}
+
+// One Stockham pass of radix R over `frames` frames of n points each, from
+// `src` to `dst`.  Butterfly j < n/R of a frame reads x[j + r n/R], r < R,
+// turns input r by e^{-2 pi i r k / (ns R)} (k = j mod ns), runs the
+// R-point DFT and writes y[(j - k) R + k + r ns].
+template <int R>
+__device__ __forceinline__ void radix_pass(const float4* src, float4* dst,
+                                           const float2* __restrict__ tw, int n, int frames,
+                                           int ns) {
+    const int m = n / R;
+    const int stride = n / (ns * R);  // twiddle table step
+    const float inv_m = 1.0f / static_cast<float>(m);
+    const float inv_ns = 1.0f / static_cast<float>(ns);
+    for (int g = threadIdx.x; g < frames * m; g += THREADS) {
+        const int f = div_small(g, inv_m);
+        const int j = g - f * m;
+        const int k = j - div_small(j, inv_ns) * ns;
+        const float4* in = src + f * n + j;
+        float4 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = in[r * m];
+        if (ns > 1) {
+#pragma unroll
+            for (int r = 1; r < R; ++r) v[r] = twiddle(v[r], __ldg(tw + r * k * stride));
+        }
+        dft<R>(v);
+        float4* out = dst + f * n + (j - k) * R + k;
+#pragma unroll
+        for (int r = 0; r < R; ++r) out[r * ns] = v[r];
+    }
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+stft_hop_blocks_fft_kernel(const float4* __restrict__ x, long long clip_stride, int T,
+                           int hop, const float* __restrict__ table, Plan plan,
+                           int frames, int blocks_per_clip, float4* __restrict__ re,
+                           float4* __restrict__ im) {
+    extern __shared__ __align__(16) float4 smem[];
+    const int n = 2 * hop;
+    const int K = hop + 1;
+    float4* buf[2] = {smem, smem + CAP};  // ping-pong, [frames][n] each
+    const float2* tw = reinterpret_cast<const float2*>(table);  // [n] e^{-2 pi i m / n}
+    const float* win = table + 2 * n;                              // [n] the window
 
     const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    const int k0 = blockIdx.x * BN;
-    const long long m0 = (long long)blockIdx.y * BM;
-    const int n_fft = 2 * hop;
+    const int b = blockIdx.x / blocks_per_clip;
+    const int t0 = (blockIdx.x - b * blocks_per_clip) * frames;
 
-    // A loads: thread reads depth column ac of rows ar + 16*p
-    const int ac = tid % BK;
-    const int ar = tid / BK;
-    // a_base: float4 index of x_flat[b, (t-1)*hop] for t >= 1, of
-    // x_flat[b, 0] for t == 0 (reflect block)
-    long long a_base[A_PER_THREAD];
-    bool a_first[A_PER_THREAD];
-    bool a_valid[A_PER_THREAD];
+    // hop-blocks t0 - 1 .. t0 + frames - 1, each read once: sample s of
+    // block t0 - 1 + u is the right half of local frame u - 1 and the left
+    // half of local frame u.  Blocks past T are zeros (their frames are not
+    // stored); block -1 is the reflect block.
+    const float4* clip = x + (long long)b * clip_stride;
+    const float inv_hop = 1.0f / static_cast<float>(hop);
+    {
+        // (frames + 1) hop <= CAP: every load is issued before any store
+        constexpr int STAGE = (CAP + THREADS - 1) / THREADS;
+        const int total = (frames + 1) * hop;
+        float4 v[STAGE];
 #pragma unroll
-    for (int p = 0; p < A_PER_THREAD; ++p) {
-        const long long m = m0 + ar + 16 * p;
-        const long long b = m / T;
-        const long long t = m - b * T;
-        a_valid[p] = m < M;
-        a_first[p] = (t == 0);
-        a_base[p] = b * clip_stride + (t == 0 ? 0 : (t - 1) * hop);
-    }
-    // B loads: thread reads float4 columns bc..bc+3 of depth rows br + 16*q
-    const int bc = (tid % (BN / 4)) * 4;
-    const int br = tid / (BN / 4);
-    const long long w_stride = 2LL * KP;
-
-    float4 a_reg[A_PER_THREAD];
-    float4 bre_reg[BK / B_ROWS_PER_PASS];
-    float4 bim_reg[BK / B_ROWS_PER_PASS];
-
-    auto load_global = [&](int kt) {
-        const int n = kt + ac;
-#pragma unroll
-        for (int p = 0; p < A_PER_THREAD; ++p) {
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (a_valid[p]) {
-                int off = n;
-                if (a_first[p]) off = n < hop ? hop - n : n - hop;  // refl[n] = x_flat[hop - n]
-                v = __ldg(x + a_base[p] + off);
-            }
-            a_reg[p] = v;
-        }
-#pragma unroll
-        for (int q = 0; q < BK / B_ROWS_PER_PASS; ++q) {
-            const float* row = w + (long long)(kt + br + q * B_ROWS_PER_PASS) * w_stride;
-            bre_reg[q] = __ldg(reinterpret_cast<const float4*>(row + k0 + bc));
-            bim_reg[q] = __ldg(reinterpret_cast<const float4*>(row + KP + k0 + bc));
-        }
-    };
-
-    float4 acc_re[TM][TN];
-    float4 acc_im[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            acc_re[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-            acc_im[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-    }
-
-    load_global(0);
-    for (int kt = 0; kt < n_fft; kt += BK) {
-#pragma unroll
-        for (int p = 0; p < A_PER_THREAD; ++p) As[ac][ar + 16 * p] = a_reg[p];
-#pragma unroll
-        for (int q = 0; q < BK / B_ROWS_PER_PASS; ++q) {
-            *reinterpret_cast<float4*>(&Bre[br + q * B_ROWS_PER_PASS][bc]) = bre_reg[q];
-            *reinterpret_cast<float4*>(&Bim[br + q * B_ROWS_PER_PASS][bc]) = bim_reg[q];
-        }
-        __syncthreads();
-        if (kt + BK < n_fft) load_global(kt + BK);  // overlaps the FFMAs below
-
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            float4 a[TM];
-            float wr[TN], wi[TN];
-#pragma unroll
-            for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                wr[j] = Bre[kk][tx + 16 * j];
-                wi[j] = Bim[kk][tx + 16 * j];
-            }
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-#pragma unroll
-                for (int j = 0; j < TN; ++j) {
-                    fma4(acc_re[i][j], a[i], wr[j]);
-                    fma4(acc_im[i][j], a[i], wi[j]);
+        for (int i = 0; i < STAGE; ++i) {
+            const int idx = tid + i * THREADS;
+            v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (idx < total) {
+                const int u = div_small(idx, inv_hop);
+                const int s = idx - u * hop;
+                const int blk = t0 - 1 + u;
+                if (blk < 0) {
+                    v[i] = __ldg(clip + hop - s);
+                } else if (blk < T) {
+                    v[i] = __ldg(clip + (long long)blk * hop + s);
                 }
             }
         }
-        __syncthreads();
-    }
-
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long m = m0 + ty + 16 * i;
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int k = k0 + tx + 16 * j;
-            if (k < K) {
-                re[m * K + k] = acc_re[i][j];
-                im[m * K + k] = acc_im[i][j];
+        for (int i = 0; i < STAGE; ++i) {
+            const int idx = tid + i * THREADS;
+            if (idx < total) {
+                const int u = div_small(idx, inv_hop);
+                const int s = idx - u * hop;
+                if (u >= 1) buf[0][(u - 1) * n + hop + s] = scale(v[i], __ldg(win + hop + s));
+                if (u < frames) buf[0][u * n + s] = scale(v[i], __ldg(win + s));
             }
         }
+    }
+    __syncthreads();
+
+    int ns = 1, cur = 0;
+    for (int p = 0; p < plan.n_pass; ++p, cur ^= 1) {
+        switch (plan.radix[p]) {
+            case 2: radix_pass<2>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+            case 3: radix_pass<3>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+            case 4: radix_pass<4>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+            default: radix_pass<5>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+        }
+        ns *= plan.radix[p];
+    }
+
+    // split the pairs: z0 = (x, y) carries c0 + i c1, z1 = (z, w) c2 + i c3
+    const float4* Z = buf[cur];
+    const int nf = min(frames, T - t0);
+    const long long out0 = ((long long)b * T + t0) * K;
+    const float inv_k = 1.0f / static_cast<float>(K);
+    for (int idx = tid; idx < nf * K; idx += THREADS) {
+        const int f = div_small(idx, inv_k);
+        const int k = idx - f * K;
+        const float4 z = Z[f * n + k];
+        const float4 c = Z[f * n + (k == 0 ? 0 : n - k)];  // Z[n - k], conjugated below
+        re[out0 + idx] = make_float4(0.5f * (z.x + c.x), 0.5f * (z.y + c.y),
+                                     0.5f * (z.z + c.z), 0.5f * (z.w + c.w));
+        im[out0 + idx] = make_float4(0.5f * (z.y - c.y), 0.5f * (c.x - z.x),
+                                     0.5f * (z.w - c.w), 0.5f * (c.z - z.z));
     }
 }
 
 }  // namespace
 
+// Dynamic shared memory of a launch: the two frame buffers.
+extern "C" long long adyolo_stft_smem_bytes() {
+    return (long long)(2 * CAP * sizeof(float4));
+}
+
 // C entry point (bound with ctypes).  x: (B, T, hop, 4) float32 hop-block
-// audio, or flat (B, N, 4) with clip_stride = N (float4 units); w: packed
-// (2*hop, 2*KP) float32; re, im: (B, T, K, 4) float32.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int adyolo_stft_hop_blocks(const void* x, int clip_stride, int B,
-                                      int T, int hop, const void* w, int KP,
-                                      int K, void* re, void* im,
-                                      void* stream) {
-    const long long M = (long long)B * T;
-    if (B < 1 || T < 2 || hop < 1 || (2 * hop) % BK != 0 || KP % BN != 0 ||
-        K > KP || M > 0x7fffffffLL || (M + BM - 1) / BM > 65535) {
+// audio, or flat (B, N, 4) with clip_stride = N (float4 units); table:
+// (3 * n,) float32, n = 2 * hop: the twiddles e^{-2 pi i m / n} as (re, im)
+// pairs, then the window; radices: the n_pass radices of the plan (each
+// 2, 3, 4 or 5, product n); re, im: (B, T, hop + 1, 4) float32.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int adyolo_stft_fft(const void* x, long long clip_stride, int B, int T, int hop,
+                               const void* table, const int* radices, int n_pass, void* re,
+                               void* im, void* stream) {
+    const int n = 2 * hop;
+    if (B < 1 || T < 2 || hop < 1 || n > CAP || n_pass < 1 || n_pass > MAX_PASSES ||
+        clip_stride < (long long)T * hop) {
         return (int)cudaErrorInvalidValue;
     }
-    dim3 grid(KP / BN, (unsigned)((M + BM - 1) / BM));
-    stft_hop_blocks_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        static_cast<const float4*>(x), (long long)clip_stride, T, (int)M, hop,
-        static_cast<const float*>(w), KP, K, static_cast<float4*>(re),
-        static_cast<float4*>(im));
+    Plan plan;
+    plan.n_pass = n_pass;
+    long long prod = 1;
+    for (int p = 0; p < n_pass; ++p) {
+        if (radices[p] < 2 || radices[p] > 5) return (int)cudaErrorInvalidValue;
+        plan.radix[p] = radices[p];
+        prod *= radices[p];
+    }
+    if (prod != n) return (int)cudaErrorInvalidValue;
+    const int frames = CAP / n;
+    const int blocks_per_clip = (T + frames - 1) / frames;
+    if ((long long)B * blocks_per_clip > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)adyolo_stft_smem_bytes();
+    cudaError_t e = cudaFuncSetAttribute(stft_hop_blocks_fft_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    stft_hop_blocks_fft_kernel<<<B * blocks_per_clip, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const float4*>(x), clip_stride, T, hop, static_cast<const float*>(table),
+        plan, frames, blocks_per_clip, static_cast<float4*>(re), static_cast<float4*>(im));
     return (int)cudaGetLastError();
 }

@@ -109,7 +109,7 @@ def dft_matrices(n_fft: int, window: np.ndarray) -> tuple[np.ndarray, np.ndarray
     Returns ``(W_re, W_im)`` of shape ``(n_fft, 1 + n_fft//2)`` such that for
     a frame ``x`` (length ``n_fft``), ``x @ W_re + 1j * (x @ W_im)`` equals
     ``rfft(window * x)``: the whole STFT is one matrix product per frame
-    (the Hopper kernel ``csrc/stft.cu`` and ``ops/stft.py`` take them).
+    (the plain version ``ops/stft.py`` takes them).
     """
     k = np.arange(n_fft, dtype=np.float64)[:, None]  # sample index
     f = np.arange(1 + n_fft // 2, dtype=np.float64)[None, :]  # bin index

@@ -25,7 +25,7 @@ import torch
 
 from ..config import DataConfig
 from . import hopper_stft
-from .dsp import analysis_window, dft_matrices, mel_filterbank
+from .dsp import analysis_window, mel_filterbank
 
 __all__ = ["power_to_db", "FeatureFrontend", "Scaler", "identity_scaler"]
 
@@ -120,9 +120,7 @@ class FeatureFrontend:
         self.cfg = data_cfg
         self.device = torch.device(device)
         w = analysis_window(data_cfg.window, data_cfg.win_length, data_cfg.n_fft)
-        w_re, w_im = dft_matrices(data_cfg.n_fft, w)
-        self.w_re = torch.as_tensor(w_re, device=self.device)
-        self.w_im = torch.as_tensor(w_im, device=self.device)
+        self.fft = hopper_stft.fft_plan(w, self.device)  # twiddles + window
         mel = mel_filterbank(data_cfg.sr, data_cfg.n_fft, data_cfg.mel_bins)
         self.mel_t = torch.as_tensor(np.ascontiguousarray(mel.T),
                                      device=self.device)  # (K, mel_bins)
@@ -137,7 +135,7 @@ class FeatureFrontend:
                       scaler.aux_std))
 
     def stft(self, audio: torch.Tensor):
-        return hopper_stft.stft_hop_blocks(audio, self.w_re, self.w_im)
+        return hopper_stft.stft_hop_blocks(audio, self.fft)
 
     def features_from_stft(self, re, im, valid_frames=None) -> torch.Tensor:
         """Log-mel + IV + scaler from an STFT ``(re, im)`` (B, T, K, 4)."""

@@ -2,10 +2,13 @@
 
 The kernel replaces the Pallas fused framed STFT
 (``adyolo_tpu/ops/pallas_stft.py::_pallas_stft_impl``) and, on the serving
-path, XLA's ``framed_dft_chunked``.  Dispatch is by the tensor's device:
-a CPU tensor goes to the plain :func:`adyolo_tpu_torch.ops.stft.stft`; a
-CUDA tensor goes to the kernel, or the call raises.  There is no fallback
-from one to the other.
+path, XLA's ``framed_dft_chunked``.  It is a mixed-radix FFT that reads
+its twiddles and window from the table of an :class:`FFTPlan`, built once
+on the host in float64 by :func:`fft_plan`.  Dispatch is by the tensor's
+device: a CPU tensor goes to the plain :func:`adyolo_tpu_torch.ops.stft.stft`
+(a contraction against the window-folded DFT matrices of the same window);
+a CUDA tensor goes to the kernel, or the call raises.  There is no
+fallback from one to the other.
 
 ``LAUNCHES`` counts kernel launches; it is bumped right after a launch is
 accepted, and nowhere else.
@@ -14,18 +17,19 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..utils.build import load_library
 from . import stft as plain_stft
+from .dsp import dft_matrices
 
-__all__ = ["stft_hop_blocks", "pack_dft", "LAUNCHES"]
+__all__ = ["FFTPlan", "fft_plan", "radix_plan", "stft_hop_blocks", "LAUNCHES"]
 
 LAUNCHES = 0
 
-_BN = 64  # bin tile of the kernel; W is zero-padded to a multiple of it
-_BK = 16  # depth tile; n_fft must be a multiple of it
 _C = 4  # channels the kernel carries together (one float4)
+_MAX_N = 2400  # frame slots of a kernel buffer (stft.cu CAP): the largest n_fft
 
 _bound = None
 
@@ -33,28 +37,72 @@ _bound = None
 def _entry():
     global _bound
     if _bound is None:
-        fn = load_library().adyolo_stft_hop_blocks
+        fn = load_library().adyolo_stft_fft
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         _bound = fn
     return _bound
 
 
-def pack_dft(w_re: torch.Tensor, w_im: torch.Tensor) -> torch.Tensor:
-    """``[W_re | W_im]`` as ``(n_fft, 2*KP)``, each half zero-padded from
-    ``K`` to ``KP``, the next multiple of the kernel's bin tile."""
-    n_fft, K = w_re.shape
-    kp = -(-K // _BN) * _BN
-    w = w_re.new_zeros((n_fft, 2 * kp))
-    w[:, :K] = w_re
-    w[:, kp:kp + K] = w_im
-    return w
+def radix_plan(n_fft: int) -> tuple:
+    """The kernel's pass radices for ``n_fft``: 4s, then a 2, then 3s, then
+    5s (``(4, 4, 3, 5, 5)`` at 1200)."""
+    radices, n = [], n_fft
+    for r in (4, 2, 3, 5):  # after the 4s at most one 2 is left
+        while n > 1 and n % r == 0:
+            radices.append(r)
+            n //= r
+    if n != 1:
+        raise ValueError(f"n_fft must factor into 2, 3 and 5, got {n_fft}")
+    return tuple(radices)
 
 
-def _check(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor):
+class FFTPlan:
+    """What the kernel reads besides the audio (built by :func:`fft_plan`).
+
+    ``table``: ``(3 * n_fft,)`` float32 on the device, the twiddles
+    ``e^{-2 pi i m / n_fft}`` (``m < n_fft``) as (re, im) pairs, then the
+    window.  ``radices``: the pass order.  ``window``: the float32 window
+    on the host, from which the plain version's DFT matrices are built on
+    first use (CPU tensors).
+    """
+
+    def __init__(self, radices, table, window):
+        self.n_fft = window.shape[0]
+        self.radices = radices
+        self.table = table
+        self.window = window
+        self._radices_c = (ctypes.c_int * len(radices))(*radices)
+        self._dft = None
+
+    def dft(self):
+        """``(w_re, w_im)`` of the plain version, as CPU tensors."""
+        if self._dft is None:
+            self._dft = tuple(torch.as_tensor(w) for w in dft_matrices(self.n_fft, self.window))
+        return self._dft
+
+
+def fft_plan(window, device="cuda") -> FFTPlan:
+    """The :class:`FFTPlan` of an analysis ``window`` of length ``n_fft``:
+    twiddles and window computed in float64 and rounded once to float32."""
+    window = np.asarray(window, np.float32)
+    n = window.shape[0]
+    if window.ndim != 1 or n < 2 or n % 2:
+        raise ValueError(f"the window must be 1-D of even length n_fft, got "
+                         f"{window.shape}")
+    if n > _MAX_N:
+        raise ValueError(f"the kernel takes n_fft <= {_MAX_N}, got {n}")
+    radices = radix_plan(n)
+    tw = np.exp(-2j * np.pi * np.arange(n, dtype=np.float64) / n)
+    table = np.concatenate([np.stack([tw.real, tw.imag], -1).ravel(),
+                            window.astype(np.float64)])
+    return FFTPlan(radices, torch.as_tensor(table.astype(np.float32), device=device), window)
+
+
+def _check(x: torch.Tensor, plan: FFTPlan):
     if x.dtype != torch.float32:
         raise TypeError(f"audio must be float32, got {x.dtype}")
     if x.ndim not in (3, 4):
@@ -65,46 +113,40 @@ def _check(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor):
                          f"{x.shape[-1]}")
     if not x.is_contiguous():
         raise ValueError("audio must be contiguous")
-    if w_re.shape != w_im.shape or w_re.ndim != 2:
-        raise ValueError(f"DFT matrices must be (n_fft, K), got "
-                         f"{tuple(w_re.shape)} / {tuple(w_im.shape)}")
-    for w in (w_re, w_im):
-        if w.device != x.device or w.dtype != torch.float32:
-            raise ValueError("DFT matrices must be float32 on the audio's device")
-    n_fft = w_re.shape[0]
+    if plan.table.device != x.device:
+        raise ValueError(f"the plan's table must be on the audio's device, got "
+                         f"{plan.table.device} for {x.device}")
+    n_fft = plan.n_fft
     hop = n_fft // 2
-    if n_fft != 2 * hop or (x.ndim == 4 and x.shape[2] != hop):
-        raise ValueError(f"the kernel needs n_fft == 2*hop, got n_fft={n_fft}"
-                         + (f", hop={x.shape[2]}" if x.ndim == 4 else ""))
-    if n_fft % _BK:
-        raise ValueError(f"n_fft must be a multiple of {_BK}, got {n_fft}")
+    if x.ndim == 4 and x.shape[2] != hop:
+        raise ValueError(f"the kernel needs n_fft == 2*hop, got n_fft={n_fft}, "
+                         f"hop={x.shape[2]}")
     T = x.shape[1] if x.ndim == 4 else x.shape[1] // hop
     if T < 2:
         raise ValueError(f"need at least 2 hop-blocks, got T={T}")
     return hop, T
 
 
-def stft_hop_blocks(x: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor):
-    """``(re, im)``, each ``(B, T, K, 4)`` float32, of hop-block audio
-    ``(B, T, hop, 4)`` or flat audio ``(B, N, 4)`` (``T = N // hop``; the
-    kernel reads the hop-block view of the first ``T*hop`` samples)."""
-    hop, T = _check(x, w_re, w_im)
+def stft_hop_blocks(x: torch.Tensor, plan: FFTPlan):
+    """``(re, im)``, each ``(B, T, K, 4)`` float32 (``K = 1 + n_fft // 2``),
+    of hop-block audio ``(B, T, hop, 4)`` or flat audio ``(B, N, 4)``
+    (``T = N // hop``; the kernel reads the hop-block view of the first
+    ``T*hop`` samples), with ``hop = plan.n_fft // 2``."""
+    hop, T = _check(x, plan)
     if x.device.type == "cpu":
-        return plain_stft.stft(x, w_re, w_im, hop)
+        return plain_stft.stft(x, *plan.dft(), hop)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     global LAUNCHES
     B = x.shape[0]
-    K = w_re.shape[1]
     clip_stride = T * hop if x.ndim == 4 else x.shape[1]  # in float4 units
     fn = _entry()
     with torch.cuda.device(x.device):
-        w = pack_dft(w_re, w_im)
-        re = torch.empty((B, T, K, _C), device=x.device, dtype=torch.float32)
+        re = torch.empty((B, T, hop + 1, _C), device=x.device, dtype=torch.float32)
         im = torch.empty_like(re)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), clip_stride, B, T, hop, w.data_ptr(),
-                w.shape[1] // 2, K, re.data_ptr(), im.data_ptr(), stream)
+        rc = fn(x.data_ptr(), clip_stride, B, T, hop, plan.table.data_ptr(),
+                plan._radices_c, len(plan.radices), re.data_ptr(), im.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"STFT kernel launch refused: cudaError {rc}")
     LAUNCHES += 1

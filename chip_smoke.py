@@ -11,13 +11,17 @@ before the last line:
 1. env     -- a CUDA device must be present; card name and power limit
               (nvidia-smi), torch / CUDA / nvcc versions.
 2. build   -- compile ``adyolo_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
-              one nvcc per source, all at once.
-3. kernel  -- the Hopper STFT kernel vs its plain PyTorch version at the
-              serving shape (16, 800, 600, 4) and a ragged (3, 803) case:
-              max|kernel - plain| <= 2e-5 * max|plain|; median times over
-              30 runs each, CUDA events, in turns with the plain version
-              and ``torch.stft`` (the library yardstick, checked to compute
-              the same function within 1e-4 * max).
+              one nvcc per source, all at once; per kernel its registers,
+              spills and shared memory (ptxas, and the dynamic size the
+              launch asks for).
+3. kernel  -- the Hopper STFT kernel (an FFT) vs its plain PyTorch
+              version at the serving shape (16, 800, 600, 4), a ragged
+              (3, 803) case, the shortest (1, 2) and (2, 1201), whose last
+              2-frame run holds one frame: max|kernel - plain| <= 2e-5 *
+              max|plain|; median times over 30 runs each, CUDA events, in
+              turns with the plain version and ``torch.stft`` (the library
+              yardstick, checked to compute the same function within
+              1e-4 * max).
 4. attn_kernel -- the Hopper attention kernel vs the plain attention at
               (B, T, 4, 64): (16, 800) all keys valid and with random
               kv_len (one row 0), (1, 1200) len 920, (1, 2400) len 1400
@@ -27,9 +31,10 @@ before the last line:
               turns with the plain version and SDPA at (16, 800) and
               (1, 4800).
 5. attn_train_kernel -- routes k2_dropout (forward, rate 0.2) and k3
-              (backward) vs the plain attention and its written-out
-              backward at (16, 800, 4, 64), all keys valid and random
-              kv_len with one row 0: output within 2e-5 * max|plain|,
+              (backward, 3xTF32 tensor cores) vs the plain attention and
+              its written-out backward at (16, 800, 4, 64), all keys valid
+              and random kv_len with one row 0, and at (1, 1200) len 920
+              and (1, 2400) len 1400: output within 2e-5 * max|plain|,
               dq/dk/dv within 1e-4 * max|plain grad|, zeros on the empty
               row, keep share 205/256 +- 0.005, rate 0 equal to route k2;
               medians of 30 runs of forward, backward and both, in turns
@@ -70,6 +75,7 @@ card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package ``adyolo_tpu`` is imported.
 """
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -113,10 +119,13 @@ RATE = 0.2  # the conformer's dropout; thresh 51, keep share 205/256
 TRAIN_STEPS = 5
 
 # One H100 SXM (NVIDIA's data sheet): fp32 FFMA peak outside the tensor
-# cores and HBM3 bandwidth.  A kernel's bound is the larger of its FLOP
-# over the first and its bytes (inputs read once, outputs written once)
-# over the second.
+# cores, dense TF32 tensor-core peak and HBM3 bandwidth.  A kernel's bound
+# is the larger of its FLOP over a peak and its bytes (inputs read once,
+# outputs written once) over the bandwidth.  3xTF32 does each product
+# three times on the tensor cores, so it counts 3x the FLOP at the TF32
+# peak (165 TFLOP/s effective).
 FP32_FLOPS = 67e12
+TF32_TC_FLOPS = 494.7e12
 HBM_BYTES_S = 3.35e12
 
 
@@ -159,6 +168,19 @@ def bound(flop, nbytes):
     t_op, t_mem = flop / FP32_FLOPS, nbytes / HBM_BYTES_S
     return {"bound_ms": max(t_op, t_mem) * 1e3,
             "bound_by": "operations" if t_op >= t_mem else "bytes"}
+
+
+def attn_bound(flop, nbytes):
+    """An attention route's bound: the lesser of the fp32 FFMA bound and
+    the 3xTF32 tensor-core bound (3 x ``flop`` at the TF32 peak), with the
+    units that give it (``bound_units``) and the FFMA figure beside it."""
+    ffma = bound(flop, nbytes)
+    t_op, t_mem = 3.0 * flop / TF32_TC_FLOPS, nbytes / HBM_BYTES_S
+    tc = {"bound_ms": max(t_op, t_mem) * 1e3,
+          "bound_by": "operations" if t_op >= t_mem else "bytes"}
+    best = tc if tc["bound_ms"] <= ffma["bound_ms"] else ffma
+    return {**best, "bound_units": "3xTF32 tensor cores" if best is tc else "fp32 FFMA",
+            "bound_ffma_ms": ffma["bound_ms"]}
 
 
 def zero_counts():
@@ -207,22 +229,55 @@ def phase_env():
     return smi
 
 
+def ptxas_kernels(log):
+    """Per kernel: registers, spill bytes and static shared memory from
+    nvcc's ``-Xptxas=-v`` report."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            name = next(k for k in ("stft_hop_blocks_fft_kernel", "mhsa_fwd_kernelILb1",
+                                    "mhsa_fwd_kernelILb0", "mhsa_bwd_dq_kernel",
+                                    "mhsa_bwd_dkdv_kernel", mangled) if k in mangled)
+            name = name.replace("ILb1", "<true>").replace("ILb0", "<false>")
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            out[name]["spill_store_bytes"] = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used ")[1].split(" registers")[0])
+            out[name]["static_smem_bytes"] = (int(ln.split(" bytes smem")[0].split(",")[-1])
+                                              if "bytes smem" in ln else 0)
+    return out
+
+
 def phase_build():
     info = build.build(force=True)
-    regs = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln]
+    lib = build.load_library()
+    lib.adyolo_stft_smem_bytes.restype = ctypes.c_longlong
+    lib.adyolo_mhsa_smem_bytes.restype = ctypes.c_longlong
+    kernels = ptxas_kernels(info["ptxas"])
+    dyn = {"stft_hop_blocks_fft_kernel": lib.adyolo_stft_smem_bytes(),
+           "mhsa_fwd_kernel<true>": lib.adyolo_mhsa_smem_bytes(0),
+           "mhsa_fwd_kernel<false>": lib.adyolo_mhsa_smem_bytes(0),
+           "mhsa_bwd_dq_kernel": lib.adyolo_mhsa_smem_bytes(1),
+           "mhsa_bwd_dkdv_kernel": lib.adyolo_mhsa_smem_bytes(2)}
+    for name, n in dyn.items():
+        require(name in kernels, f"ptxas reported no kernel {name}: {sorted(kernels)}")
+        kernels[name]["dynamic_smem_bytes"] = int(n)
     emit({"phase": "build", "seconds": round(info["seconds"], 3),
-          "library": os.path.relpath(info["path"]), "ptxas": regs})
+          "library": os.path.relpath(info["path"]), "kernels": kernels})
 
 
-def phase_kernel(smi, fe):
+def phase_kernel(smi, fe, dft):
     rng = np.random.default_rng(0)
     res = {}
-    for tag, (B, T) in (("serving", (16, 800)), ("ragged", (3, 803))):
+    for tag, (B, T) in (("serving", (16, 800)), ("ragged", (3, 803)), ("pair", (1, 2)),
+                        ("run_tail", (2, 1201))):
         a = foa_audio(rng, (B, T, HOP, 4))
         a[:, 0] = rng.uniform(-0.5, 0.5, (B, HOP, 4))  # t=0 reflect block
         x = torch.tensor(a, device="cuda")
-        kr, ki = hopper_stft.stft_hop_blocks(x, fe.w_re, fe.w_im)
-        pr, pi = plain_stft.stft(x, fe.w_re, fe.w_im, HOP)
+        kr, ki = hopper_stft.stft_hop_blocks(x, fe.fft)
+        pr, pi = plain_stft.stft(x, *dft, HOP)
         torch.cuda.synchronize()
         errs = {}
         for nm, k, p in (("re", kr, pr), ("im", ki, pi)):
@@ -250,7 +305,7 @@ def phase_kernel(smi, fe):
                                   center=True, pad_mode="reflect", return_complex=True)
 
             lib = library()[..., :T].reshape(B, 4, HOP + 1, T).permute(0, 3, 2, 1)
-            pr, pi = plain_stft.stft(x, fe.w_re, fe.w_im, HOP)
+            pr, pi = plain_stft.stft(x, *dft, HOP)
             scale = float(torch.maximum(pr.abs().max(), pi.abs().max()))
             lib_err = float(torch.maximum((lib.real - pr).abs().max(),
                                           (lib.imag - pi).abs().max()))
@@ -259,22 +314,19 @@ def phase_kernel(smi, fe):
             del lib, pr, pi
             k_ms, p_ms, l_ms = [], [], []
             for _ in range(3):  # in turns: kernel, plain, library, ...
-                k_ms += cuda_ms(lambda: hopper_stft.stft_hop_blocks(x, fe.w_re, fe.w_im), 10)
-                p_ms += cuda_ms(lambda: plain_stft.stft(x, fe.w_re, fe.w_im, HOP), 10)
+                k_ms += cuda_ms(lambda: hopper_stft.stft_hop_blocks(x, fe.fft), 10)
+                p_ms += cuda_ms(lambda: plain_stft.stft(x, *dft, HOP), 10)
                 l_ms += cuda_ms(library, 10)
             # the bound counts the function's least work: a real FFT per
             # frame and channel, 2.5 n log2 n FLOP (+ the window), audio in
-            # and re/im out.  The kernel computes the DFT as a matrix
-            # product instead, 2 FLOP per sample, bin and re/im: `tflops`.
+            # and re/im out
             K, n_fft = HOP + 1, 2 * HOP
             fft_flop = B * T * 4 * (2.5 * n_fft * np.log2(n_fft) + n_fft)
             nbytes = 4.0 * (B * T * HOP * 4 + n_fft + 2 * B * T * K * 4)
-            flop = 2.0 * (B * T * 4) * n_fft * (2 * K)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
                         "library_ms": float(np.median(l_ms)), "library": "torch.stft",
                         "library_max_abs_err": lib_err, **bound(fft_flop, nbytes),
-                        "runs": len(k_ms), "tflops": flop / (np.median(k_ms) * 1e-3) / 1e12,
-                        "plain_tflops": flop / (np.median(p_ms) * 1e-3) / 1e12,
+                        "runs": len(k_ms), "gb_s": nbytes / (np.median(k_ms) * 1e-3) / 1e9,
                         "card": smi})
             del xs
         res[tag] = row
@@ -359,13 +411,13 @@ def phase_attn_kernel(smi):
                         "library_ms": float(np.median(l_ms)),
                         "library": "F.scaled_dot_product_attention",
                         "library_max_abs_err": lib_err,
-                        **bound(flop, attn_bytes(B, T, 4, lens, q_rows=2, kv_reads=2)),
+                        **attn_bound(flop, attn_bytes(B, T, 4, lens, q_rows=2, kv_reads=2)),
                         "runs": len(k_ms),
                         "tflops": flop / (np.median(k_ms) * 1e-3) / 1e12,
                         "plain_tflops": flop / (np.median(p_ms) * 1e-3) / 1e12,
                         "card": smi})
-            res[rt].update({n: row[n] for n in ("ms", "plain_ms", "library_ms",
-                                                "bound_ms", "bound_by")})
+            res[rt].update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by", "bound_units", "bound_ffma_ms")})
         emit(row)
         del q, k, v, got, want
     return res
@@ -373,18 +425,20 @@ def phase_attn_kernel(smi):
 
 def phase_attn_train_kernel(smi):
     """Routes k2_dropout (forward) and k3 (backward) against the plain
-    attention and its written-out backward at (16, 800, 4, 64), rate 0.2,
-    all keys valid and random kv_len with one row at 0."""
+    attention and its written-out backward at rate 0.2: (16, 800, 4, 64)
+    with all keys valid (also timed) and with random kv_len and one row at
+    0; (1, 1200) len 920 and (1, 2400) len 1400, checked for error only."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(4)
-    B, T, H = 16, 800, 4
+    H = 4
     thresh = attention.dropout_thresh(RATE)
     seed = torch.tensor([int(rng.integers(-2 ** 31, 2 ** 31))], dtype=torch.int32,
                         device="cuda")
-    lens_r = rng.integers(1, T + 1, B)
+    lens_r = rng.integers(1, 800 + 1, 16)
     lens_r[5] = 0
     res = {"k2_dropout": {"max_abs_err": 0.0}, "k3": {"max_abs_err": 0.0}}
-    for tag, lens in (("full", [T] * B), ("ragged", lens_r)):
+    for tag, B, T, lens in (("full", 16, 800, [800] * 16), ("ragged", 16, 800, lens_r),
+                            ("long", 1, 1200, [920]), ("longer", 1, 2400, [1400])):
         q, k, v, do = (torch.tensor(rng.standard_normal((B, T, H, 64)), dtype=torch.float32,
                                     device="cuda") for _ in range(4))
         kv = torch.tensor(np.asarray(lens), dtype=torch.int32, device="cuda")
@@ -396,7 +450,8 @@ def phase_attn_train_kernel(smi):
         torch.cuda.synchronize()
         row = {"phase": "attn_train_kernel", "case": tag, "shape": [B, T, H, 64],
                "rate": RATE, "thresh": thresh,
-               "kv_len": {"min": int(min(lens)), "max": int(max(lens))}}
+               "kv_len": [int(n) for n in lens] if B == 1 else
+               {"min": int(min(lens)), "max": int(max(lens))}}
         err = float((out.detach() - want).abs().max())
         scale = float(want.abs().max())
         require(bool(torch.isfinite(out).all()) and err <= KERNEL_TOL * scale,
@@ -459,11 +514,11 @@ def phase_attn_train_kernel(smi):
             fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
             res["k2_dropout"].update(
                 ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"], library_ms=ms["library_fwd"],
-                **bound(fl_f, attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1)))
+                **attn_bound(fl_f, attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1)))
             res["k3"].update(
                 ms=ms["kernel_bwd"], plain_ms=ms["plain_bwd"], library_ms=ms["library_bwd"],
-                **bound(fl_b, attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2,
-                                         kv_writes=2, stats=1)))
+                **attn_bound(fl_b, attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2,
+                                              kv_writes=2, stats=1)))
             row.update(tflops_fwd=fl_f / (ms["kernel_fwd"] * 1e-3) / 1e12,
                        tflops_bwd=fl_b / (ms["kernel_bwd"] * 1e-3) / 1e12)
             del sdpa_args, lib_out
@@ -614,7 +669,7 @@ def phase_train_conformer(smi, cfg, fe):
     return launched
 
 
-def phase_forward(smi, fe, model, phase):
+def phase_forward(smi, fe, dft, model, phase):
     """Features + model on 16 x 20-s clips, against the same model on the
     plain STFT and (conformer) the plain attention."""
     fwd = build_eval_forward(model, fe)  # fp32: TF32 off for convs and matmuls
@@ -631,7 +686,7 @@ def phase_forward(smi, fe, model, phase):
     require(tuple(logits.shape) == (16, 200, 2560), f"logits {tuple(logits.shape)}")
     require(bool(torch.isfinite(logits).all()), "non-finite logits")
     with torch.inference_mode(), plain_attention():
-        re, im = plain_stft.stft(x, fe.w_re, fe.w_im, HOP)
+        re, im = plain_stft.stft(x, *dft, HOP)
         ref = model(fe.features_from_stft(re, im))
         del re, im
     err = float((logits - ref).abs().max())
@@ -753,13 +808,14 @@ def main():
     conf_cfg = dataclasses.replace(
         cfg, args=dataclasses.replace(cfg.args, encoder="resnet-conformer"))
     fe = make_frontend(cfg)
-    stft_k = phase_kernel(smi, fe)
+    dft = [w.to("cuda") for w in fe.fft.dft()]  # the plain STFT's matrices
+    stft_k = phase_kernel(smi, fe, dft)
     attn_k = phase_attn_kernel(smi)
     train_k = phase_attn_train_kernel(smi)
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
-    tau = pick_threshold(cfg, phase_forward(smi, fe, model, "forward"))
+    tau = pick_threshold(cfg, phase_forward(smi, fe, dft, model, "forward"))
     conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
-    conf_tau = pick_threshold(conf_cfg, phase_forward(smi, fe, conformer,
+    conf_tau = pick_threshold(conf_cfg, phase_forward(smi, fe, dft, conformer,
                                                       "forward_conformer"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -775,7 +831,9 @@ def main():
     require(not foreign, f"the JAX package or JAX was imported: {foreign}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k = stft_k["serving"]
+    k["max_abs_err"] = max(r["max_abs_err"] for r in stft_k.values())
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
+    keys_a = keys + ("bound_units", "bound_ffma_ms")
     emit({"kernels": [
         {"name": "stft_hop_blocks", "route": "cuda",
          "source": "adyolo_tpu_torch/csrc/stft.cu",
@@ -783,16 +841,16 @@ def main():
          "launches": se["stft"], **{n: k[n] for n in keys}},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
-         "launches": conf["k2"], **{n: attn_k["k2"][n] for n in keys}},
+         "launches": conf["k2"], **{n: attn_k["k2"][n] for n in keys_a}},
         {**attn, "name": "flash_attention/k4",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:358",
-         "launches": conf["k4"], **{n: attn_k["k4"][n] for n in keys}},
+         "launches": conf["k4"], **{n: attn_k["k4"][n] for n in keys_a}},
         {**attn, "name": "flash_attention/k2_dropout",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
-         "launches": train["k2_dropout"], **{n: train_k["k2_dropout"][n] for n in keys}},
+         "launches": train["k2_dropout"], **{n: train_k["k2_dropout"][n] for n in keys_a}},
         {**attn, "name": "flash_attention_bwd/k3",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
-         "launches": train["k3"], **{n: train_k["k3"][n] for n in keys}}]})
+         "launches": train["k3"], **{n: train_k["k3"][n] for n in keys_a}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -255,6 +255,61 @@ def test_dropout_bits_keep_share_and_full_drop():
         attention.mhsa_attention(q, k, v, None, rate=RATE)
 
 
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest, ties away from
+    zero: ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(eq, a, b):
+    """K3's product in 3xTF32: a = a_hi + a_lo (each TF32), the same for b,
+    and a_lo.b_hi + a_hi.b_lo + a_hi.b_hi summed in float32 (the products of
+    TF32 values are exact in float32; a_lo.b_lo is dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def _mm_1xtf32(eq, a, b):
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _bwd_with(mm, q, k, v, kv_len, do, rate, seed):
+    """``mhsa_attention_bwd`` with each of its five products done by ``mm``."""
+    B, T, H, dh = q.shape
+    scale = dh ** -0.5
+    s = mm("bqhd,bkhd->bhqk", q, k) * scale
+    s = torch.where(attention._key_mask(kv_len, T, q.device)[:, None, None, :], s,
+                    torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1)
+    dpd = mm("bqhd,bkhd->bhqk", do, v)
+    keep, kscale = attention._keep(B, H, T, attention.dropout_thresh(rate), seed)
+    pd = torch.where(keep, p * kscale, 0.0)
+    dp = torch.where(keep, dpd * kscale, 0.0)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    grads = (mm("bhqk,bkhd->bqhd", ds, k), mm("bhqk,bqhd->bkhd", ds, q),
+             mm("bhqk,bqhd->bkhd", pd, do))
+    return tuple(attention._zero_empty_rows(g, kv_len) for g in grads)
+
+
+def test_3xtf32_backward_keeps_fp32_accuracy():
+    """K3's products emulated in 3xTF32 stay within 1e-5 * max of the plain
+    float32 backward at (2, 160, 4, 64), rate 0.2, ragged kv_len; plain
+    TF32 does not (it is ~1e-3 * max off)."""
+    rng = np.random.default_rng(60)
+    q, k, v, do = (torch.tensor(rng.standard_normal((2, 160, 4, 64)), dtype=torch.float32)
+                   for _ in range(4))
+    kv, seed = torch.tensor([160, 97], dtype=torch.int32), torch.tensor([99], dtype=torch.int32)
+    assert float(_tf32(torch.tensor([1.0 + 2.0 ** -11]))) == 1.0 + 2.0 ** -10  # tie: away
+    want = attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)
+    three = _bwd_with(_mm_3xtf32, q, k, v, kv, do, RATE, seed)
+    one = _bwd_with(_mm_1xtf32, q, k, v, kv, do, RATE, seed)
+    for g3, g1, w in zip(three, one, want):
+        scale = float(w.abs().max())
+        assert float((g3 - w).abs().max()) <= 1e-5 * scale
+        assert float((g1 - w).abs().max()) > 1e-4 * scale
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -287,7 +342,9 @@ def test_kernel_matches_plain_on_cuda(cuda_device, B, T, lens, rt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,lens,rate", [(3, 200, (200, 77, 0), RATE),
                                            (2, 48, (48, 33), RATE),
-                                           (2, 130, (130, 70), 0.0)])
+                                           (2, 130, (130, 70), 0.0),
+                                           (1, 2, (2,), RATE),
+                                           (2, 2400, (2400, 1400), RATE)])
 def test_train_kernels_match_plain_on_cuda(cuda_device, B, T, lens, rate):
     """Routes k2_dropout (forward) and k3 (backward) against the plain
     version and its autograd: outputs within 2e-5 * max, gradients within
