@@ -6,7 +6,8 @@ path, XLA's ``framed_dft_chunked``.  It is a mixed-radix FFT that reads
 its twiddles and window from the table of an :class:`FFTPlan`, built once
 on the host in float64 by :func:`fft_plan`.  Dispatch is by the tensor's
 device: a CPU tensor goes to the plain :func:`adyolo_tpu_torch.ops.stft.stft`
-(a contraction against the window-folded DFT matrices of the same window);
+(a contraction against the window-folded DFT matrices of the table's
+window, :func:`adyolo_tpu_torch.ops.stft.window_dft`);
 a CUDA tensor goes to the kernel, or the call raises.  There is no
 fallback from one to the other.
 
@@ -22,7 +23,6 @@ import torch
 
 from ..utils.build import load_library
 from . import stft as plain_stft
-from .dsp import dft_matrices
 
 __all__ = ["FFTPlan", "fft_plan", "radix_plan", "stft_hop_blocks", "LAUNCHES"]
 
@@ -65,24 +65,14 @@ class FFTPlan:
 
     ``table``: ``(3 * n_fft,)`` float32 on the device, the twiddles
     ``e^{-2 pi i m / n_fft}`` (``m < n_fft``) as (re, im) pairs, then the
-    window.  ``radices``: the pass order.  ``window``: the float32 window
-    on the host, from which the plain version's DFT matrices are built on
-    first use (CPU tensors).
+    window.  ``radices``: the pass order.
     """
 
-    def __init__(self, radices, table, window):
-        self.n_fft = window.shape[0]
+    def __init__(self, radices, table):
+        self.n_fft = table.shape[0] // 3
         self.radices = radices
         self.table = table
-        self.window = window
         self._radices_c = (ctypes.c_int * len(radices))(*radices)
-        self._dft = None
-
-    def dft(self):
-        """``(w_re, w_im)`` of the plain version, as CPU tensors."""
-        if self._dft is None:
-            self._dft = tuple(torch.as_tensor(w) for w in dft_matrices(self.n_fft, self.window))
-        return self._dft
 
 
 def fft_plan(window, device="cuda") -> FFTPlan:
@@ -99,7 +89,7 @@ def fft_plan(window, device="cuda") -> FFTPlan:
     tw = np.exp(-2j * np.pi * np.arange(n, dtype=np.float64) / n)
     table = np.concatenate([np.stack([tw.real, tw.imag], -1).ravel(),
                             window.astype(np.float64)])
-    return FFTPlan(radices, torch.as_tensor(table.astype(np.float32), device=device), window)
+    return FFTPlan(radices, torch.as_tensor(table.astype(np.float32), device=device))
 
 
 def _check(x: torch.Tensor, plan: FFTPlan):
@@ -134,7 +124,8 @@ def stft_hop_blocks(x: torch.Tensor, plan: FFTPlan):
     ``T*hop`` samples), with ``hop = plan.n_fft // 2``."""
     hop, T = _check(x, plan)
     if x.device.type == "cpu":
-        return plain_stft.stft(x, *plan.dft(), hop)
+        window = plan.table[2 * plan.n_fft:]
+        return plain_stft.stft(x, *plain_stft.window_dft(window), hop)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     global LAUNCHES

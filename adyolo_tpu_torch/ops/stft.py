@@ -12,10 +12,27 @@ kernel computes :func:`framed_dft_chunked` without building any frame.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["framed_dft_chunked", "framed_dft_flat", "stft"]
+from .dsp import dft_matrices
+
+__all__ = ["window_dft", "framed_dft_chunked", "framed_dft_flat", "stft"]
+
+
+@functools.lru_cache(maxsize=8)
+def _window_dft(window_bytes: bytes):
+    window = np.frombuffer(window_bytes, np.float32)
+    return tuple(torch.as_tensor(w) for w in dft_matrices(window.shape[0], window))
+
+
+def window_dft(window: torch.Tensor):
+    """``(w_re, w_im)``, CPU tensors, of the window-folded DFT matrices of
+    a float32 CPU ``window``; built once per window."""
+    return _window_dft(window.numpy().astype(np.float32).tobytes())
 
 
 def _slab(part: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

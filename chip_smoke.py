@@ -17,7 +17,9 @@ before the last line:
 3. kernel  -- the Hopper STFT kernel (an FFT) vs its plain PyTorch
               version at the serving shape (16, 800, 600, 4), a ragged
               (3, 803) case, the shortest (1, 2) and (2, 1201), whose last
-              2-frame run holds one frame: max|kernel - plain| <= 2e-5 *
+              2-frame run holds one frame; and the plans with a radix-2
+              pass, hop 300 (4-frame runs, (2, 403)) and hop 1200 (1-frame
+              runs, (2, 201)): max|kernel - plain| <= 2e-5 *
               max|plain|; median times over 30 runs each, CUDA events, in
               turns with the plain version and ``torch.stft`` (the library
               yardstick, checked to compute the same function within
@@ -43,7 +45,8 @@ before the last line:
               classes, seeded random init, eval, fp32) on 16 x 20-s clips:
               finite (16, 200, 2560) logits, the kernel launched, and
               within 1e-3 * max|logit| of the same model on plain-STFT
-              features (DCASE2022 scaler stats); audio-seconds per second.
+              features (DCASE2022 scaler stats); audio-seconds per second;
+              then a ``torch.profiler`` breakdown of two more forwards.
 7. forward_conformer -- the same with ResNet-Conformer + AD-YOLO (emb 256,
               8 blocks, 4 heads): the STFT kernel launched once and the
               attention kernel 8 times (route k2), within 1e-3 *
@@ -104,7 +107,7 @@ from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry  # n
 from adyolo_tpu_torch.ops import attention, hopper_attention, hopper_stft  # noqa: E402
 from adyolo_tpu_torch.ops import stft as plain_stft  # noqa: E402
 from adyolo_tpu_torch.ops.decode import PostProcessor, _device_decode  # noqa: E402
-from adyolo_tpu_torch.ops.dsp import analysis_window  # noqa: E402
+from adyolo_tpu_torch.ops.dsp import analysis_window, dft_matrices  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
 
@@ -268,16 +271,29 @@ def phase_build():
           "library": os.path.relpath(info["path"]), "kernels": kernels})
 
 
+def window_dft(window, win_length, n_fft):
+    """The plain STFT's window-folded DFT matrices, on the card."""
+    w = analysis_window(window, win_length, n_fft)
+    return [torch.as_tensor(m, device="cuda") for m in dft_matrices(n_fft, w)]
+
+
 def phase_kernel(smi, fe, dft):
     rng = np.random.default_rng(0)
     res = {}
-    for tag, (B, T) in (("serving", (16, 800)), ("ragged", (3, 803)), ("pair", (1, 2)),
-                        ("run_tail", (2, 1201))):
-        a = foa_audio(rng, (B, T, HOP, 4))
-        a[:, 0] = rng.uniform(-0.5, 0.5, (B, HOP, 4))  # t=0 reflect block
+    # hop 300 (n_fft 600: radices 4 2 3 5 5, 4-frame runs) and hop 1200
+    # (n_fft 2400: 4 4 2 3 5 5, 1-frame runs) reach the radix-2 pass
+    name = fe.cfg.window
+    other = {h: (hopper_stft.fft_plan(analysis_window(name, 2 * h, 2 * h), "cuda"),
+                 window_dft(name, 2 * h, 2 * h)) for h in (300, 1200)}
+    for tag, (B, T), hop in (("serving", (16, 800), HOP), ("ragged", (3, 803), HOP),
+                             ("pair", (1, 2), HOP), ("run_tail", (2, 1201), HOP),
+                             ("hop300", (2, 403), 300), ("hop1200", (2, 201), 1200)):
+        plan, mats = other[hop] if hop != HOP else (fe.fft, dft)
+        a = foa_audio(rng, (B, T, hop, 4))
+        a[:, 0] = rng.uniform(-0.5, 0.5, (B, hop, 4))  # t=0 reflect block
         x = torch.tensor(a, device="cuda")
-        kr, ki = hopper_stft.stft_hop_blocks(x, fe.fft)
-        pr, pi = plain_stft.stft(x, *dft, HOP)
+        kr, ki = hopper_stft.stft_hop_blocks(x, plan)
+        pr, pi = plain_stft.stft(x, *mats, hop)
         torch.cuda.synchronize()
         errs = {}
         for nm, k, p in (("re", kr, pr), ("im", ki, pi)):
@@ -288,7 +304,8 @@ def phase_kernel(smi, fe, dft):
                     f"{KERNEL_TOL} * {scale}")
             errs[nm] = (err, scale)
         del kr, ki, pr, pi
-        row = {"phase": "kernel", "case": tag, "shape": [B, T, HOP, 4],
+        row = {"phase": "kernel", "case": tag, "shape": [B, T, hop, 4],
+               "radices": list(plan.radices),
                "max_abs_err": max(e for e, _ in errs.values()),
                "max_abs_plain": max(s for _, s in errs.values()),
                "tol_rel": KERNEL_TOL}
@@ -699,6 +716,9 @@ def phase_forward(smi, fe, dft, model, phase):
           "max_abs_err": err, "max_abs_logit": scale, "tol_rel": FORWARD_TOL,
           "ms": t, "audio_s_per_s": 16 * 20.0 / (t * 1e-3),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    # where the time goes: two more forwards, profiled
+    emit({"phase": phase + "_profile",
+          **profile_steps(lambda b, _: fwd(b), [x], None, 2), "card": smi})
     return logits
 
 
@@ -808,7 +828,7 @@ def main():
     conf_cfg = dataclasses.replace(
         cfg, args=dataclasses.replace(cfg.args, encoder="resnet-conformer"))
     fe = make_frontend(cfg)
-    dft = [w.to("cuda") for w in fe.fft.dft()]  # the plain STFT's matrices
+    dft = window_dft(cfg.data.window, cfg.data.win_length, cfg.data.n_fft)
     stft_k = phase_kernel(smi, fe, dft)
     attn_k = phase_attn_kernel(smi)
     train_k = phase_attn_train_kernel(smi)

@@ -26,23 +26,29 @@ HOP, NFFT = 600, 1200
 TOL = 2e-5
 
 
-def _dft():
-    w_re, w_im = dft_matrices(NFFT, analysis_window("han", NFFT, NFFT))
+def _dft(n=NFFT):
+    w_re, w_im = dft_matrices(n, analysis_window("han", n, n))
     return w_re, w_im
 
 
-def _plan(device="cpu"):
-    return hopper_stft.fft_plan(port_window("han", NFFT, NFFT), device)
+def _plan(device="cpu", n=NFFT):
+    return hopper_stft.fft_plan(port_window("han", n, n), device)
 
 
-def _audio(B, T, seed):
+def _audio(B, T, seed, hop=HOP):
     """Hop-block audio whose first hop-block differs from the rest, so the
     t=0 reflect block is exercised."""
     rng = np.random.default_rng(seed)
-    a = (rng.standard_normal((B, T, HOP, 4)) * 0.1).astype(np.float32)
-    a[:, 0] = (rng.uniform(-1, 1, (B, HOP, 4)) * 0.8
-               + np.linspace(0, 0.5, HOP)[None, :, None]).astype(np.float32)
+    a = (rng.standard_normal((B, T, hop, 4)) * 0.1).astype(np.float32)
+    a[:, 0] = (rng.uniform(-1, 1, (B, hop, 4)) * 0.8
+               + np.linspace(0, 0.5, hop)[None, :, None]).astype(np.float32)
     return a
+
+
+# plans with a radix-2 pass and frame runs other than the kernel's 2 at
+# n_fft 1200: hop -> (radices, frames a block owns = 2400 // n_fft, (B, T))
+OTHER_PLANS = {300: ((4, 2, 3, 5, 5), 4, (2, 11)),
+               1200: ((4, 4, 2, 3, 5, 5), 1, (1, 3))}
 
 
 def _close(got, want):
@@ -145,6 +151,31 @@ def test_fft_model_matches_jax_chunked(B, T):
     _close(mi, ji)
 
 
+@pytest.mark.parametrize("hop", sorted(OTHER_PLANS))
+def test_other_plans_match_jax_chunked(hop):
+    """The FFT model and the CPU dispatch at the plans that reach the
+    radix-2 pass (T not a multiple of the frame run)."""
+    radices, frames, (B, T) = OTHER_PLANS[hop]
+    plan = _plan(n=2 * hop)
+    assert plan.radices == radices and 2400 // plan.n_fft == frames
+    assert T % frames != 0 or frames == 1
+    w_re, w_im = _dft(2 * hop)
+    a = _audio(B, T, seed=hop, hop=hop)
+    jr, ji = jax_chunked(jnp.asarray(a), jnp.asarray(w_re), jnp.asarray(w_im))
+    for tr, ti in (_fft_model(a, plan), hopper_stft.stft_hop_blocks(torch.tensor(a), plan)):
+        _close(tr, jr)
+        _close(ti, ji)
+
+
+def test_cpu_dispatch_builds_the_dft_once():
+    plan = _plan()
+    window = plan.table[2 * NFFT:]
+    first = port_stft.window_dft(window)
+    assert port_stft.window_dft(window.clone()) is first
+    np.testing.assert_array_equal(first[0].numpy(), _dft()[0])
+    np.testing.assert_array_equal(first[1].numpy(), _dft()[1])
+
+
 def test_fft_model_catches_a_wrong_twiddle_sign():
     """The model fails the bound with the twiddles conjugated, so the
     bound can see the fault the card's mutant check plants."""
@@ -215,5 +246,18 @@ def test_kernel_matches_plain_on_cuda(cuda_device, B, T):
     torch.cuda.synchronize()
     assert hopper_stft.LAUNCHES == before + 1
     pr, pi = port_stft.stft(x, w_re, w_im, HOP)
+    _close(kr.cpu(), pr.cpu())
+    _close(ki.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", sorted(OTHER_PLANS))
+def test_kernel_other_plans_match_plain_on_cuda(cuda_device, hop):
+    """The radix-2 pass and runs of 4 and of 1 frames, on the card."""
+    _, _, (B, T) = OTHER_PLANS[hop]
+    w_re, w_im = (torch.tensor(w, device=cuda_device) for w in _dft(2 * hop))
+    x = torch.tensor(_audio(B, T + 4, seed=hop, hop=hop), device=cuda_device)
+    kr, ki = hopper_stft.stft_hop_blocks(x, _plan(cuda_device, 2 * hop))
+    pr, pi = port_stft.stft(x, w_re, w_im, hop)
     _close(kr.cpu(), pr.cpu())
     _close(ki.cpu(), pi.cpu())
