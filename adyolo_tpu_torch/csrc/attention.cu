@@ -1,6 +1,6 @@
-// Multi-head attention for Hopper (sm_90a): the online-softmax forward
-// (eval, and train with dropout) on fp32 FFMA, and the attention backward
-// on the tensor cores in 3xTF32.
+// Multi-head attention for Hopper (sm_90a) on the tensor cores in 3xTF32:
+// the online-softmax forward (eval, and train with dropout) and the
+// attention backward.
 //
 // Replaces three TPU kernels of adyolo_tpu/ops/flash_mhsa.py:
 //   * K2 `_fwd_kernel` (:89, launched by `_flash_fwd` at :180): the
@@ -28,7 +28,8 @@
 // with L = min(kv_len[b], T), ks = 256 / (256 - thresh), keep = 1 at
 // thresh 0.  The softmax normaliser sums the undropped probabilities.
 // Every query row is computed (padded rows see only the valid keys, as in
-// JAX).  A batch row with L == 0 gets zeros (K4's convention).
+// JAX).  A batch row with L == 0 gets zeros, and lse = -inf (K4's
+// convention).
 //
 // The dropout bits are the splitmix32 position hash of the JAX kernels'
 // interpret mode (flash_mhsa.py:64-71), indexed by the JAX blocking so that
@@ -48,46 +49,90 @@
 // query-tile-parallel pass that loops over the key tiles: deterministic,
 // no atomics.  Keys >= L get zero gradients; an L == 0 row gets zeros.
 //
-// Design of the forward (the backward's is at its kernels below).  One
-// 128-thread block per (32-row tile, b*h);
-// thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 8i (i < 4), takes
-// columns tx + 16j (j < 4) of a 32 x 64 score tile and output dims
-// 4tx..4tx+3 of the products with a 64-row operand.  It owns 32 queries
-// and walks 64-key tiles up to ceil(L / 64).  The score tile goes through
-// shared memory between the two products.  Row strides of the operands
-// read row-wise are padded (68 floats, P tiles 80) so that the float4 and
-// scalar accesses are free of bank conflicts.
-//
 // What bounds them on an H100: per (b, h) the forward does 4*T*L*64 FLOP
 // and the backward 14*T*L*64 (S and dO.V^T in both passes, dq, dk, dv),
 // reading K and V about once per pass (the tiles of one (b, h) share them
 // through L2): at T = L = 800 that is hundreds of FLOP per byte, far above
-// the ~20 FLOP/byte of the card's 67 TFLOP/s FFMA or ~50 of its 165
-// TFLOP/s of 3xTF32 (a third of the 495 TF32 peak) at 3.35 TB/s -- so
-// they are bound by operations.  The forward is f32 FFMA, inside the block
-// bound by shared-memory loads (plain TF32 would spend the eval's
-// 1e-3 * max-logit budget by itself); the backward runs 3xTF32 mma.sync,
-// which keeps f32 accuracy.  At B = 1, T = 1200 the forward's grid is
-// 38 x 4 = 152 blocks for 132 SMs; a 64-row tile would give 76, hence 32
-// rows.  wgmma, TMA and warp specialisation are later work.
+// the ~50 FLOP/byte of the card's 165 TFLOP/s of 3xTF32 (a third of the
+// 495 TF32 peak) at 3.35 TB/s, so they are bound by operations.  Plain
+// TF32 would spend the eval's 1e-3 * max-logit budget by itself; 3xTF32
+// keeps f32 accuracy at three tensor-core products per product, still 2.5x
+// the 67 TFLOP/s of f32 FFMA.  Inside the block, every mma.sync m16n8k8
+// reads its B fragment (hi and lo, 512 B for the three mma) from shared
+// memory, whose 128 B a clock per SM is then about as scarce as the tensor
+// cores themselves: the designs below keep that traffic to one fragment
+// load per mma group and keep the A operands in registers.
+//
+// Every product is a warp-level mma.sync m16n8k8 on TF32 in 3xTF32:
+// x = hi + lo (split_tf32) and c += a_lo b_hi + a_hi b_lo + a_hi b_hi with
+// fp32 accumulation (the dropped a_lo b_lo is ~2^-22 of the product).  The
+// three mma of a column tile go in separate sweeps over the tiles, so
+// consecutive mma are independent, and each key or query tile's
+// P.V / dq / dk / dv product is summed in fresh accumulators before it
+// joins the running sum in fp32: the tensor cores' accumulation truncates,
+// and a sum over every tile would collect that error.  A score
+// accumulator feeds the next product as its A operand without leaving
+// registers: the k index of an m16n8k8 step is permuted so that A slot t
+// is column 2t and slot t + 4 column 2t + 1 (the accumulator layout), and
+// the B operand is read from shared memory in the same order.  Tiles in
+// shared memory have rows padded to 68 words, which keeps every fragment
+// load free of bank conflicts.
+//
+// The forward (`mhsa_fwd_kernel`, routes k2, k2_dropout and k4): one
+// 128-thread block (4 warps x 16 query rows) per (64-query tile, b*h, key
+// split).
+//   * Q is split once: the block's Q tile arrives by cp.async and each warp
+//     keeps its 16 rows as TF32 hi and lo A fragments in registers (64 of
+//     them) for the whole key loop.
+//   * K and V stream in 64-key tiles.  The raw tiles of the next step are in
+//     flight by cp.async while the current step multiplies, and each tile
+//     that has arrived is split once for the block into hi/lo shared-memory
+//     tiles that all four warps read: the split, not the mma, bounds the
+//     issue when every warp splits for itself (the backward's lesson).
+//   * S = Q K^T lands in accumulators that are P.V's A operand as they
+//     stand, so the probabilities never leave registers.  The online
+//     softmax runs on those fragments: the row max and sum are reduced over
+//     the quad of lanes that share a row, p = exp2(s * scale * log2 e - m)
+//     is one FFMA and one exp2 (flushing below 2^-126), keys past L are
+//     masked on the edge tile only, and each element's keep bit is hashed
+//     at its own (query, key).  Each tile's P.V is summed in fresh
+//     accumulators and folded in as O = O * alpha + tile, in fp32.  Two
+//     barriers a tile.  What is left bounds it: the B fragments, which
+//     every warp reads from shared memory (256 KB a 64-key tile a block),
+//     and the per-tile split (96 KB more), at 128 B a clock per SM.
+//   * Fill.  104,448 B of shared memory (hi/lo K and V, the raw K and V in
+//     flight) and <= 255 registers a thread fit 2 blocks = 8 warps an SM.
+//     64-row tiles give 832 blocks at (B, T) = (16, 800) (3.15 waves of
+//     264), but only 76 at (1, 1200) and 300 at (1, 4800).  So where a
+//     model of key tiles per wave says it pays (`pick_splits`), the key tiles
+//     are dealt round-robin to up to 4 blocks per query tile; each writes
+//     its partial (m, l, O) to scratch, and a second launch
+//     (`mhsa_fwd_merge_kernel`) merges them and writes out (and lse).
+//     (16, 800) runs unsplit, 832 blocks; (1, 1200) in 3 splits, 228 blocks;
+//     (1, 2400) in 3, 456; (1, 4800) in 4, 1200.
+// wgmma, TMA and warp specialisation are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int DH = 64;        // head dim
-constexpr int BR = 32;        // queries a forward block owns
-constexpr int BC = 64;        // keys of a forward tile
-constexpr int THREADS = 128;  // 8 row groups x 16 lanes
-constexpr int RPT = BR / 8;   // rows per thread (4)
-constexpr int CPT = BC / 16;  // columns per thread (4)
-constexpr int KS = DH + 4;    // stride of operands read row-wise
-constexpr int PS = BC + 16;   // stride of score tiles
+constexpr int DH = 64;            // head dim
+constexpr int BT = 64;            // rows of a tile (queries or keys)
+constexpr int THREADS = 128;      // 4 warps x 16 rows
+constexpr int TS = DH + 4;        // row stride of a tile in shared memory
+constexpr int TILE = BT * TS;     // floats of one tile
+constexpr int FWD_NG = 4;         // column tiles a forward product sweeps at once
+constexpr int DQ_NG = 8;          // the same in the dq pass
+constexpr int DKDV_NG = 4;        // the same in the dk/dv pass (more live sums)
+constexpr int MAX_SPLITS = 4;     // key splits of a forward query tile
+constexpr int MERGE_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-constexpr size_t FWD_SMEM = (BR * DH + BC * KS + BC * DH + BR * PS) * sizeof(float);
+constexpr size_t FWD_SMEM = 6 * TILE * sizeof(float);
+constexpr size_t DQ_SMEM = 6 * TILE * sizeof(float);
+constexpr size_t DKDV_SMEM = 6 * TILE * sizeof(float) + 3 * BT * sizeof(float);
 
 // The dropout of one call: keep a probability when its bits are >= t24.
 struct Drop {
@@ -112,13 +157,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
     return fmaf(a.w, b.w, acc);
 }
 
-__device__ __forceinline__ void axpy4(float4& acc, float p, float4 v) {
-    acc.x = fmaf(p, v.x, acc.x);
-    acc.y = fmaf(p, v.y, acc.y);
-    acc.z = fmaf(p, v.z, acc.z);
-    acc.w = fmaf(p, v.w, acc.w);
-}
-
 // The hash's per-query part: everything of x but the key index.
 __device__ __forceinline__ unsigned row_base(const Drop& d, unsigned seed_term,
                                              int bh, int t) {
@@ -132,220 +170,6 @@ __device__ __forceinline__ bool keep_bit(const Drop& d, unsigned base, int key) 
     x = (x ^ (x >> 15)) * 0x846CA68Bu;
     return (x ^ (x >> 16)) >= d.t24;
 }
-
-// Load rows [r0, r0 + R) of one head into smem (row stride `stride`), rows
-// >= n as zeros.  R * 16 float4 over the block's threads.
-template <int R>
-__device__ __forceinline__ void load_rows(float* dst, int stride, const float* src,
-                                          long long base, long long frame, int r0,
-                                          int n, int tid) {
-#pragma unroll
-    for (int p = 0; p < R * DH / 4 / THREADS; ++p) {
-        const int idx = tid + p * THREADS;
-        const int r = idx >> 4, c = (idx & 15) * 4;
-        const int t = r0 + r;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (t < n) val = __ldg(reinterpret_cast<const float4*>(src + base + t * frame + c));
-        st4(dst + r * stride + c, val);
-    }
-}
-
-// Forward.  TRAIN: dropout (when d.t24 > 0) and the row logsumexp written
-// to lse (B, H, T) in natural log units.
-template <bool TRAIN>
-__global__ void __launch_bounds__(THREADS, 4)
-mhsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const int* __restrict__ kv_len,
-                const int* __restrict__ seed, float* __restrict__ out,
-                float* __restrict__ lse, int T, int H, float scale_log2, Drop d) {
-    extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;              // [BR][DH]
-    float* Ks = Qs + BR * DH;      // [BC][KS]
-    float* Vs = Ks + BC * KS;      // [BC][DH]
-    float* Ps = Vs + BC * DH;      // [BR][PS]
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh - b * H;
-    const int q0 = blockIdx.x * BR;
-    const long long frame = (long long)H * DH;               // floats per t
-    const long long base = (long long)b * T * frame + (long long)h * DH;
-    const int L = min(max(kv_len[b], 0), T);
-
-    if (L == 0) {  // no valid key: zeros (block-uniform, before any barrier)
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int t = q0 + ty + 8 * i;
-            if (t < T) {
-                st4(out + base + t * frame + 4 * tx, make_float4(0.f, 0.f, 0.f, 0.f));
-                if (TRAIN && tx == 0) lse[(long long)bh * T + t] = -INFINITY;
-            }
-        }
-        return;
-    }
-
-    const bool drop = TRAIN && d.t24 != 0u;
-    unsigned rbase[RPT];
-    if (drop) {
-        const unsigned seed_term = (unsigned)seed[0] * 0x9E3779B9u;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) rbase[i] = row_base(d, seed_term, bh, q0 + ty + 8 * i);
-    }
-
-    load_rows<BR>(Qs, DH, q, base, frame, q0, T, tid);
-
-    float m[RPT], l[RPT];
-    float4 acc[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        m[i] = -INFINITY;
-        l[i] = 0.f;
-        acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-
-    const int n_tiles = (L + BC - 1) / BC;
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        const int j0 = tile * BC;
-        // keys past L are zero so that 0 * v stays 0 below
-        load_rows<BC>(Ks, KS, k, base, frame, j0, L, tid);
-        load_rows<BC>(Vs, DH, v, base, frame, j0, L, tid);
-        __syncthreads();
-
-        // S = Q . K^T for rows ty + 8i, keys tx + 16j
-        float s[RPT][CPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll
-        for (int dd = 0; dd < DH; dd += 4) {
-            float4 qa[RPT], kb[CPT];
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) qa[i] = ld4(Qs + (ty + 8 * i) * DH + dd);
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) kb[j] = ld4(Ks + (tx + 16 * j) * KS + dd);
-#pragma unroll
-            for (int i = 0; i < RPT; ++i)
-#pragma unroll
-                for (int j = 0; j < CPT; ++j) s[i][j] = dot4(qa[i], kb[j], s[i][j]);
-        }
-
-        // online softmax in the log2 domain; keys >= L are -inf -> p = 0.
-        // Tile 0 holds key 0 < L, so every row max is finite from then on.
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            float mx = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-                const int key = j0 + tx + 16 * j;
-                s[i][j] = key < L ? s[i][j] * scale_log2 : -INFINITY;
-                mx = fmaxf(mx, s[i][j]);
-            }
-#pragma unroll
-            for (int o = 8; o > 0; o >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-            const float m_new = fmaxf(m[i], mx);
-            const float alpha = exp2f(m[i] - m_new);  // 0 on tile 0
-            float rs = 0.f;
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-                const int key = j0 + tx + 16 * j;
-                const float p = exp2f(s[i][j] - m_new);
-                rs += p;  // the normaliser sums the undropped probabilities
-                Ps[(ty + 8 * i) * PS + tx + 16 * j] =
-                    (drop && !keep_bit(d, rbase[i], key)) ? 0.f : p;
-            }
-            l[i] = l[i] * alpha + rs;  // this lane's partial row sum
-            acc[i].x *= alpha;
-            acc[i].y *= alpha;
-            acc[i].z *= alpha;
-            acc[i].w *= alpha;
-            m[i] = m_new;
-        }
-        __syncthreads();
-
-        // O += P . V for rows ty + 8i, dims 4tx..4tx+3
-#pragma unroll 4
-        for (int j = 0; j < BC; j += 4) {
-            float4 vb[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) vb[u] = ld4(Vs + (j + u) * DH + 4 * tx);
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-                const float4 pa = ld4(Ps + (ty + 8 * i) * PS + j);
-                axpy4(acc[i], pa.x, vb[0]);
-                axpy4(acc[i], pa.y, vb[1]);
-                axpy4(acc[i], pa.z, vb[2]);
-                axpy4(acc[i], pa.w, vb[3]);
-            }
-        }
-        __syncthreads();  // before the next tile overwrites Ks, Vs, Ps
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        float li = l[i];
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) li += __shfl_xor_sync(0xffffffffu, li, o);
-        const int t = q0 + ty + 8 * i;
-        if (t < T) {
-            const float inv = (drop ? d.kscale : 1.f) / li;
-            st4(out + base + t * frame + 4 * tx,
-                make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv,
-                            acc[i].w * inv));
-            if (TRAIN && tx == 0) lse[(long long)bh * T + t] = (m[i] + log2f(li)) * LN2;
-        }
-    }
-}
-
-// ---- K3: the backward on the tensor cores, 3xTF32 ----------------------
-//
-// Two launches, both 128 threads = 4 warps, each warp owning 16 rows of a
-// 64-row tile; every product is a warp-level mma.sync m16n8k8 on TF32 in
-// 3xTF32: x = hi + lo (split_tf32) and c += a_lo b_hi + a_hi b_lo +
-// a_hi b_hi with fp32 accumulation (the dropped a_lo b_lo is ~2^-22 of the
-// product).  The three mma of a column tile go in separate sweeps over the
-// tiles, so consecutive mma are independent, and each key or query tile's
-// dq/dk/dv product is summed in fresh accumulators before it joins the
-// running sum in fp32: the tensor cores' accumulation truncates, and a sum
-// over every tile would collect that error.
-//   * dq pass, query-tile parallel: writes D = rowsum(dO o O) of its 64
-//     queries to `delta` in its prologue, then walks the 64-key tiles up to
-//     ceil(L / 64): S = Q K^T, dPd = dO V^T, dS in registers, dq += dS K.
-//   * dk/dv pass, key-tile parallel, after it: walks all 64-query tiles:
-//     S^T = K Q^T and dPd^T = V dO^T (keys as rows, so the transposed
-//     scores come straight out of the accumulators), then dv += Pd^T dO and
-//     dk += dS^T Q.
-// The block's own tiles (Q/dO, resp. K/V) arrive by cp.async and are split
-// into TF32 as fragments are read.  The streamed tiles (K/V, resp. Q/dO
-// with their lse, D and hash row bases) are read into registers, split
-// once for the block and stored as hi and lo tiles, so the four warps do
-// not each split every element again: the TF32 split, not the mma, bounds
-// these kernels' instruction issue, so this beats a cp.async double buffer
-// of the raw tiles that every warp splits for itself.  Rows past T
-// (queries) or L (keys) are zeros.  A score's exp2, keep bit and dS are
-// evaluated at the accumulator element's own (query, key) coordinates, so
-// the dropout mask is the same hash as the forward's.  The score
-// accumulators feed the next product as its A operand without leaving
-// registers: the k index of an m16n8k8 step is permuted so that A slot t
-// is column 2t and slot t + 4 column 2t + 1 (the accumulator layout), and
-// the B operand is read from shared memory in the same order.  Rows are
-// padded to 68 words, which keeps every fragment load free of bank
-// conflicts.  No atomics: each output element has one writer, and sums
-// run in a fixed order.
-
-constexpr int BT = 64;            // rows of a backward tile
-constexpr int BWD_THREADS = 128;  // 4 warps x 16 rows
-constexpr int TS = DH + 4;        // row stride of a tile in shared memory
-constexpr int TILE = BT * TS;     // floats of one tile
-constexpr int DQ_NG = 8;          // column tiles a product sweeps at once (dq pass)
-constexpr int DKDV_NG = 4;        // the same in the dk/dv pass (more live sums)
-
-constexpr size_t DQ_SMEM = 6 * TILE * sizeof(float);
-constexpr size_t DKDV_SMEM = 6 * TILE * sizeof(float) + 3 * BT * sizeof(float);
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -370,8 +194,8 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void tile_async(float* dst, const float* src, long long base,
                                            long long frame, int r0, int n, int tid) {
 #pragma unroll
-    for (int p = 0; p < BT * DH / 4 / BWD_THREADS; ++p) {
-        const int idx = tid + p * BWD_THREADS;
+    for (int p = 0; p < BT * DH / 4 / THREADS; ++p) {
+        const int idx = tid + p * THREADS;
         const int r = idx >> 4, c = (idx & 15) * 4;
         const bool ok = r0 + r < n;
         cp_async16(dst + r * TS + c, src + base + (ok ? (long long)(r0 + r) * frame : 0LL) + c,
@@ -439,8 +263,8 @@ __device__ __forceinline__ void store_rows(float* dst, const float acc[8][4], lo
 __device__ __forceinline__ void zero_rows(float* dst, long long base, long long frame, int r0,
                                           int T, int tid) {
 #pragma unroll
-    for (int p = 0; p < BT * DH / 4 / BWD_THREADS; ++p) {
-        const int idx = tid + p * BWD_THREADS;
+    for (int p = 0; p < BT * DH / 4 / THREADS; ++p) {
+        const int idx = tid + p * THREADS;
         const int r = r0 + (idx >> 4);
         if (r < T) st4(dst + base + (long long)r * frame + (idx & 15) * 4,
                        make_float4(0.f, 0.f, 0.f, 0.f));
@@ -454,11 +278,11 @@ __device__ __forceinline__ void tiles_split(unsigned* ah, unsigned* al, const fl
                                             unsigned* bh, unsigned* bl, const float* src_b,
                                             long long base, long long frame, int r0, int n,
                                             int tid) {
-    constexpr int P = BT * DH / 4 / BWD_THREADS;  // 8 float4 of each tile
+    constexpr int P = BT * DH / 4 / THREADS;  // 8 float4 of each tile
     float4 va[P], vb[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-        const int idx = tid + p * BWD_THREADS;
+        const int idx = tid + p * THREADS;
         const int r = idx >> 4, c = (idx & 15) * 4;
         va[p] = vb[p] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (r0 + r < n) {
@@ -469,7 +293,7 @@ __device__ __forceinline__ void tiles_split(unsigned* ah, unsigned* al, const fl
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-        const int idx = tid + p * BWD_THREADS;
+        const int idx = tid + p * THREADS;
         const int o = (idx >> 4) * TS + (idx & 15) * 4;
         uint4 h, l;
         split_tf32(va[p].x, h.x, l.x);
@@ -562,9 +386,296 @@ __device__ __forceinline__ void gemm_px(float acc[8][4], const float p[8][4],
         for (int i = 0; i < 4; ++i) acc[nt][i] += part[nt][i];
 }
 
+// A raw tile in shared memory (stride TS) into TF32 hi and lo tiles: every
+// load is issued before any store.
+__device__ __forceinline__ void split_tile(unsigned* hi, unsigned* lo, const float* raw,
+                                           int tid) {
+    constexpr int P = BT * DH / 4 / THREADS;  // 8 float4 a thread
+    float4 x[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        const int idx = tid + p * THREADS;
+        x[p] = ld4(raw + (idx >> 4) * TS + (idx & 15) * 4);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        const int idx = tid + p * THREADS;
+        const int o = (idx >> 4) * TS + (idx & 15) * 4;
+        uint4 h, l;
+        split_tf32(x[p].x, h.x, l.x);
+        split_tf32(x[p].y, h.y, l.y);
+        split_tf32(x[p].z, h.z, l.z);
+        split_tf32(x[p].w, h.w, l.w);
+        *reinterpret_cast<uint4*>(hi + o) = h;
+        *reinterpret_cast<uint4*>(lo + o) = l;
+    }
+}
+
+// acc (16 x 64) += A . B^T over the DH dims, A given as its TF32 hi and lo
+// fragments (ah, al: k step kk's a0..a3), B = 64 rows split into TF32 hi
+// and lo tiles (bh, bl; stride TS).  The layout of acc is gemm_abt's.
+template <int NG>
+__device__ __forceinline__ void gemm_frag_bt(float acc[8][4], const unsigned ah[8][4],
+                                             const unsigned al[8][4], const unsigned* bh,
+                                             const unsigned* bl, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int n0 = 0; n0 < 8; n0 += NG) {
+            unsigned bhi[NG][2], blo[NG][2];
+#pragma unroll
+            for (int u = 0; u < NG; ++u) {
+                const int o = ((n0 + u) * 8 + g) * TS + kk * 8 + t;
+                bhi[u][0] = bh[o];
+                bhi[u][1] = bh[o + 4];
+                blo[u][0] = bl[o];
+                blo[u][1] = bl[o + 4];
+            }
+            mma3_group<NG>(acc + n0, ah[kk], al[kk], bhi, blo);
+        }
+    }
+}
+
+// exp2 flushing subnormal inputs and results to 0 (no range fix-up around
+// MUFU.EX2): a probability or rescale factor below 2^-126 of the row max
+// is 0 to fp32 accuracy anyway.
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// The forward of one (64-query tile, b*h, key split).  Key tiles `split`,
+// `split + splits`, ... below ceil(L / 64).  splits == 1: writes out (and,
+// TRAIN, the row logsumexp to lse (B, H, T) in natural log units).
+// splits > 1: writes its partial output (unnormalised, layout (B, T, H, DH)
+// at part + split * B*T*H*DH) and row max (log2 units) and sum (pm, pl:
+// (splits, B, H, T)) for mhsa_fwd_merge_kernel; a split with no key tile
+// writes nothing (the merge skips it).  TRAIN: dropout when d.t24 > 0.
+template <bool TRAIN>
+__global__ void __launch_bounds__(THREADS, 2)
+mhsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ kv_len,
+                const int* __restrict__ seed, float* __restrict__ out,
+                float* __restrict__ lse, float* __restrict__ part,
+                float* __restrict__ pm, float* __restrict__ pl, int T, int H,
+                int splits, float scale_log2, Drop d) {
+    extern __shared__ __align__(16) float smem[];
+    unsigned* Kh = reinterpret_cast<unsigned*>(smem);  // [BT][TS] K, TF32 hi
+    unsigned* Kl = Kh + TILE;                           // K, TF32 lo
+    unsigned* Vh = Kl + TILE;
+    unsigned* Vl = Vh + TILE;
+    float* Kr = reinterpret_cast<float*>(Vl + TILE);    // the raw K tile in flight
+    float* Vr = Kr + TILE;
+    float* Qs = smem;                                   // the raw Q tile, at first
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh - b * H;
+    const int q0 = blockIdx.x * BT;
+    const int split = blockIdx.z;
+    const long long frame = (long long)H * DH;  // floats per t
+    const long long base = (long long)b * T * frame + (long long)h * DH;
+    const int L = min(max(kv_len[b], 0), T);
+    const int n_tiles = (L + BT - 1) / BT;
+
+    if (L == 0 && splits == 1) {  // no valid key: zeros (block-uniform, before any barrier)
+        zero_rows(out, base, frame, q0, T, tid);
+        if (TRAIN && tid < BT && q0 + tid < T) lse[(long long)bh * T + q0 + tid] = -INFINITY;
+        return;
+    }
+    if (split >= n_tiles) return;  // no key tile for this split (block-uniform)
+
+    tile_async(Qs, q, base, frame, q0, T, tid);
+    cp_async_commit();
+    tile_async(Kr, k, base, frame, split * BT, L, tid);  // keys >= L are zeros
+    tile_async(Vr, v, base, frame, split * BT, L, tid);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // this warp's 16 query rows as TF32 A fragments, for the whole key loop
+    unsigned qh[8][4], ql[8][4];
+    {
+        const float* a = Qs + warp * 16 * TS;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+            split_tf32(a[g * TS + kk * 8 + t], qh[kk][0], ql[kk][0]);
+            split_tf32(a[(g + 8) * TS + kk * 8 + t], qh[kk][1], ql[kk][1]);
+            split_tf32(a[g * TS + kk * 8 + t + 4], qh[kk][2], ql[kk][2]);
+            split_tf32(a[(g + 8) * TS + kk * 8 + t + 4], qh[kk][3], ql[kk][3]);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // Q read by every warp before Kh is overwritten; K/V arrived
+
+    // this thread's rows: warp * 16 + g (accumulator elements 0, 1) and + 8 (2, 3)
+    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    const bool drop = TRAIN && d.t24 != 0u;
+    unsigned rbase[2] = {0u, 0u};
+    if (drop) {
+        const unsigned seed_term = (unsigned)seed[0] * 0x9E3779B9u;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) rbase[u] = row_base(d, seed_term, bh, row[u]);
+    }
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+    float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+    float o[8][4];
+    zero_acc(o);
+
+    for (int it = split; it < n_tiles; it += splits) {
+        split_tile(Kh, Kl, Kr, tid);
+        split_tile(Vh, Vl, Vr, tid);
+        __syncthreads();  // hi/lo tiles ready; the raw buffers are free
+        const int nxt = it + splits;
+        if (nxt < n_tiles) {  // the next step's raw tiles fly while this one multiplies
+            tile_async(Kr, k, base, frame, nxt * BT, L, tid);
+            tile_async(Vr, v, base, frame, nxt * BT, L, tid);
+            cp_async_commit();
+        }
+        float s[8][4];
+        zero_acc(s);
+        gemm_frag_bt<FWD_NG>(s, qh, ql, Kh, Kl, lane);  // S = Q . K^T
+
+        // online softmax in the log2 domain; keys >= L are -inf -> p = 0.
+        // The tile holds key it * 64 < L, so every row max is finite.
+        const int j0 = it * BT;
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (j0 + BT > L) {  // the edge tile (block-uniform)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    if (j0 + nt * 8 + 2 * t + (i & 1) >= L) s[nt][i] = -INFINITY;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+        float mnew[2], alpha[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {  // over the quad that shares the row
+            mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+            mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+            mnew[u] = fmaxf(m[u], mx[u] * scale_log2);
+            alpha[u] = exp2_ftz(m[u] - mnew[u]);  // 0 on the first tile
+            m[u] = mnew[u];
+            l[u] *= alpha[u];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int u = i >> 1;
+                float p = exp2_ftz(fmaf(s[nt][i], scale_log2, -mnew[u]));
+                l[u] += p;  // the normaliser sums the undropped probabilities
+                if (drop && !keep_bit(d, rbase[u], j0 + nt * 8 + 2 * t + (i & 1))) p = 0.f;
+                s[nt][i] = p;
+                o[nt][i] *= alpha[u];
+            }
+        }
+        gemm_px<FWD_NG>(o, s, Vh, Vl, lane);  // O = O * alpha + P . V
+        cp_async_wait<0>();
+        __syncthreads();  // every warp is done with the hi/lo tiles; the next raw tiles arrived
+    }
+
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    }
+    if (splits == 1) {
+        const float inv[2] = {(drop ? d.kscale : 1.f) / l[0], (drop ? d.kscale : 1.f) / l[1]};
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[nt][i] *= inv[i >> 1];
+        store_rows(out, o, base, frame, q0 + warp * 16, T, lane);
+        if (TRAIN && t == 0) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+                if (row[u] < T) lse[(long long)bh * T + row[u]] = (m[u] + log2f(l[u])) * LN2;
+        }
+        return;
+    }
+    const long long n_out = (long long)gridDim.y / H * T * frame;  // B*T*H*DH
+    store_rows(part + split * n_out, o, base, frame, q0 + warp * 16, T, lane);
+    if (t == 0) {
+        const long long st = ((long long)split * gridDim.y + bh) * T;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            if (row[u] < T) {
+                pm[st + row[u]] = m[u];
+                pl[st + row[u]] = l[u];
+            }
+        }
+    }
+}
+
+// Merge the partial (m, l, O) of the key splits: one thread per 4 dims of
+// one (b, t, h) row.  The splits below min(splits, ceil(L / 64)) hold key
+// tiles; L == 0 gives zeros and lse = -inf.  lse may be null (eval).
+__global__ void __launch_bounds__(MERGE_THREADS)
+mhsa_fwd_merge_kernel(const float* __restrict__ part, const float* __restrict__ pm,
+                      const float* __restrict__ pl, const int* __restrict__ kv_len,
+                      float* __restrict__ out, float* __restrict__ lse, int B, int T,
+                      int H, int splits, float kscale) {
+    const long long idx = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
+    const long long rows = (long long)B * T * H;
+    if (idx >= rows * (DH / 4)) return;
+    const long long r = idx / (DH / 4);  // (b * T + t) * H + h
+    const int c = (int)(idx % (DH / 4)) * 4;
+    const int h = (int)(r % H);
+    const int t = (int)((r / H) % T);
+    const int b = (int)(r / ((long long)H * T));
+    const int L = min(max(kv_len[b], 0), T);
+    const int n = min(splits, (L + BT - 1) / BT);
+    const long long bht = ((long long)b * H + h) * T + t;  // (b, h, t) of (B, H, T)
+    const long long stat = (long long)B * H * T;
+    float mmax = -INFINITY;
+    for (int s = 0; s < n; ++s) mmax = fmaxf(mmax, pm[s * stat + bht]);
+    float lsum = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < n; ++s) {
+        const float w = exp2f(pm[s * stat + bht] - mmax);
+        lsum = fmaf(w, pl[s * stat + bht], lsum);
+        const float4 x = ld4(part + s * rows * DH + r * DH + c);
+        acc.x = fmaf(w, x.x, acc.x);
+        acc.y = fmaf(w, x.y, acc.y);
+        acc.z = fmaf(w, x.z, acc.z);
+        acc.w = fmaf(w, x.w, acc.w);
+    }
+    const float inv = n > 0 ? kscale / lsum : 0.f;
+    st4(out + r * DH + c, make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
+    if (lse != nullptr && c == 0) lse[bht] = n > 0 ? (mmax + log2f(lsum)) * LN2 : -INFINITY;
+}
+
+// ---- K3: the backward ----------------------------------------------------
+//
+// Two launches, both 128 threads = 4 warps, each warp owning 16 rows of a
+// 64-row tile:
+//   * dq pass, query-tile parallel: writes D = rowsum(dO o O) of its 64
+//     queries to `delta` in its prologue, then walks the 64-key tiles up to
+//     ceil(L / 64): S = Q K^T, dPd = dO V^T, dS in registers, dq += dS K.
+//   * dk/dv pass, key-tile parallel, after it: walks all 64-query tiles:
+//     S^T = K Q^T and dPd^T = V dO^T (keys as rows, so the transposed
+//     scores come straight out of the accumulators), then dv += Pd^T dO and
+//     dk += dS^T Q.
+// The block's own tiles (Q/dO, resp. K/V) arrive by cp.async and are split
+// into TF32 as fragments are read.  The streamed tiles (K/V, resp. Q/dO
+// with their lse, D and hash row bases) are read into registers, split
+// once for the block and stored as hi and lo tiles, so the four warps do
+// not each split every element again.  Rows past T (queries) or L (keys)
+// are zeros.  A score's exp2, keep bit and dS are evaluated at the
+// accumulator element's own (query, key) coordinates, so the dropout mask
+// is the same hash as the forward's.  No atomics: each output element has
+// one writer, and sums run in a fixed order.
+
 // dq for 64 queries (and D of those rows into `delta`), walking the 64-key
 // tiles up to ceil(L / 64).
-__global__ void __launch_bounds__(BWD_THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 2)
 mhsa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const int* __restrict__ kv_len,
                    const int* __restrict__ seed, const float* __restrict__ out,
@@ -663,7 +774,7 @@ mhsa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // dk, dv for 64 keys, walking every 64-query tile; one writer per element.
-__global__ void __launch_bounds__(BWD_THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 2)
 mhsa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ kv_len,
                      const int* __restrict__ seed, const float* __restrict__ dout,
@@ -781,14 +892,69 @@ int set_smem(K kernel, size_t bytes) {
                                      (int)bytes);
 }
 
+// The key splits of a forward launch over B*H*ceil(T/64) query tiles:
+// the s <= MAX_SPLITS that least costs waves(s) * key tiles per split, with
+// `slots` blocks resident at once, if that is at most 3/4 of the unsplit
+// cost (the merge's extra traffic must pay).  Key tiles counted to T: L is
+// on the device, and round-robin splits share any L alike.
+int pick_splits(long long q_tiles, int k_tiles, long long slots) {
+    const long long cost1 = ((q_tiles + slots - 1) / slots) * k_tiles;
+    int best = 1;
+    long long best_cost = cost1;
+    for (int s = 2; s <= MAX_SPLITS && s <= k_tiles; ++s) {
+        const long long c = ((q_tiles * s + slots - 1) / slots) * ((k_tiles + s - 1) / s);
+        if (c < best_cost) {
+            best = s;
+            best_cost = c;
+        }
+    }
+    return 4 * best_cost <= 3 * cost1 ? best : 1;
+}
+
+template <bool TRAIN>
+int launch_fwd(const void* q, const void* k, const void* v, const void* kv_len,
+               const void* seed, void* out, void* lse, void* scratch, int B, int T, int H,
+               int splits, Drop d, void* stream) {
+    if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && scratch == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    // per launch, as the attribute is per device
+    if (int rc = set_smem(mhsa_fwd_kernel<TRAIN>, FWD_SMEM)) return rc;
+    const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
+    cudaStream_t st = (cudaStream_t)stream;
+    const long long n_out = (long long)B * T * H * DH;
+    const long long n_stat = (long long)B * H * T;
+    float* part = static_cast<float*>(scratch);
+    float* pm = splits > 1 ? part + splits * n_out : nullptr;
+    float* pl = splits > 1 ? pm + splits * n_stat : nullptr;
+    dim3 grid((T + BT - 1) / BT, B * H, splits);
+    mhsa_fwd_kernel<TRAIN><<<grid, THREADS, FWD_SMEM, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const int*>(kv_len),
+        static_cast<const int*>(seed), static_cast<float*>(out), static_cast<float*>(lse),
+        part, pm, pl, T, H, splits, scale_log2, d);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    if (splits > 1) {
+        const long long n = n_out / 4;
+        mhsa_fwd_merge_kernel<<<(unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
+                                MERGE_THREADS, 0, st>>>(
+            part, pm, pl, static_cast<const int*>(kv_len), static_cast<float*>(out),
+            static_cast<float*>(lse), B, T, H, splits,
+            TRAIN && d.t24 != 0u ? d.kscale : 1.0f);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes).  q, k, v, out, dout, dq, dk, dv:
 // (B, T, H, dh) float32, contiguous; kv_len: (B,) int32 and seed: (1,)
 // int32 on the device; lse, delta: (B, H, T) float32.  dh must be 64.
 // thresh = round(rate * 256) in [0, 255]; bq the JAX query block (T % bq
-// == 0) and tp = ceil(T / 128) * 128 index the dropout hash.  Each launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// == 0) and tp = ceil(T / 128) * 128 index the dropout hash.  A forward
+// takes `splits` from adyolo_mhsa_fwd_splits and, when it is above 1, a
+// float32 `scratch` of adyolo_mhsa_fwd_scratch_floats elements.  Each
+// launches on `stream` and returns cudaGetLastError() (0 on success).
 
 // Dynamic shared memory a kernel launches with: 0 the forward, 1 the dq
 // pass, 2 the dk/dv pass.
@@ -796,41 +962,50 @@ extern "C" long long adyolo_mhsa_smem_bytes(int which) {
     return (long long)(which == 0 ? FWD_SMEM : which == 1 ? DQ_SMEM : DKDV_SMEM);
 }
 
+// The key splits a forward of this shape runs in on the current device
+// (>= 1), or -cudaError.  Not cached: the caller keeps a plan per device.
+extern "C" int adyolo_mhsa_fwd_splits(int B, int T, int H) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!e) e = (cudaError_t)set_smem(mhsa_fwd_kernel<true>, FWD_SMEM);
+    if (!e) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mhsa_fwd_kernel<true>,
+                                                          THREADS, FWD_SMEM);
+    }
+    if (e) return -(int)e;
+    if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+    const int n = (T + BT - 1) / BT;  // forward blocks resident: sms * per_sm
+    return pick_splits((long long)B * H * n, n, (long long)sms * per_sm);
+}
+
+// Floats of the scratch a forward in `splits` > 1 key splits needs.
+extern "C" long long adyolo_mhsa_fwd_scratch_floats(int B, int T, int H, int splits) {
+    return (long long)splits * B * T * H * (DH + 2);
+}
+
 // Eval forward (K2 at rate 0, K4).
 extern "C" int adyolo_mhsa_fwd(const void* q, const void* k, const void* v,
-                               const void* kv_len, void* out, int B, int T,
-                               int H, int dh, void* stream) {
+                               const void* kv_len, void* out, void* scratch, int B, int T,
+                               int H, int dh, int splits, void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (int rc = set_smem(mhsa_fwd_kernel<false>, FWD_SMEM)) return rc;
-    const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
-    dim3 grid((T + BR - 1) / BR, B * H);
-    mhsa_fwd_kernel<false><<<grid, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const int*>(kv_len), nullptr,
-        static_cast<float*>(out), nullptr, T, H, scale_log2, make_drop(0, 1, 128));
-    return (int)cudaGetLastError();
+    return launch_fwd<false>(q, k, v, kv_len, nullptr, out, nullptr, scratch, B, T, H, splits,
+                             make_drop(0, 1, 128), stream);
 }
 
 // Train forward (K2 with its dropout branch): out and the row logsumexp.
 extern "C" int adyolo_mhsa_fwd_train(const void* q, const void* k, const void* v,
                                      const void* kv_len, const void* seed, void* out,
-                                     void* lse, int B, int T, int H, int dh,
-                                     int thresh, int bq, int tp, void* stream) {
+                                     void* lse, void* scratch, int B, int T, int H, int dh,
+                                     int thresh, int bq, int tp, int splits, void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
     if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
         return (int)cudaErrorInvalidValue;
     }
-    if (int rc = set_smem(mhsa_fwd_kernel<true>, FWD_SMEM)) return rc;
     Drop d = make_drop(thresh, bq, tp);
     d.nq = T / bq;
-    const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
-    dim3 grid((T + BR - 1) / BR, B * H);
-    mhsa_fwd_kernel<true><<<grid, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const int*>(kv_len),
-        static_cast<const int*>(seed), static_cast<float*>(out),
-        static_cast<float*>(lse), T, H, scale_log2, d);
-    return (int)cudaGetLastError();
+    return launch_fwd<true>(q, k, v, kv_len, seed, out, lse, scratch, B, T, H, splits, d,
+                            stream);
 }
 
 // Backward (K3): dq (and D into `delta`), then dk and dv.
@@ -850,14 +1025,14 @@ extern "C" int adyolo_mhsa_bwd(const void* q, const void* k, const void* v,
     const float scale = 1.0f / sqrtf((float)DH);
     cudaStream_t st = (cudaStream_t)stream;
     dim3 grid((T + BT - 1) / BT, B * H);
-    mhsa_bwd_dq_kernel<<<grid, BWD_THREADS, DQ_SMEM, st>>>(
+    mhsa_bwd_dq_kernel<<<grid, THREADS, DQ_SMEM, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(kv_len),
         static_cast<const int*>(seed), static_cast<const float*>(out),
         static_cast<const float*>(dout), static_cast<const float*>(lse),
         static_cast<float*>(delta), static_cast<float*>(dq), T, H, scale, d);
     if (cudaError_t e = cudaGetLastError()) return (int)e;
-    mhsa_bwd_dkdv_kernel<<<grid, BWD_THREADS, DKDV_SMEM, st>>>(
+    mhsa_bwd_dkdv_kernel<<<grid, THREADS, DKDV_SMEM, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(kv_len),
         static_cast<const int*>(seed), static_cast<const float*>(dout),

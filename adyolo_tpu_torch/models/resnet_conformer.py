@@ -25,7 +25,7 @@ module's pw2), its bits drawn from the ``generator`` passed to
 ``forward`` (each MHSA draws one int32 attention seed per call).
 Training chunks must be T <= 2400 frames, as in the JAX package, whose
 longer chunks would take the XLA attention; the attention raises on longer
-ones.
+ones.  An eval forward takes its route by length, not by the grad mode.
 
 Input ``(B, T, F, C)`` channel-last, as in the JAX package; the conv stack
 runs NCHW.  DCASE shapes: (B, 800, 64, 7) -> (B, 200, 256).
@@ -106,7 +106,8 @@ class MHSA(nn.Module):
     """Multi-head self-attention, heads split as ``reshape(B, T, H, dh)``;
     keys past ``kv_len[b]`` are masked (``kv_len`` None: all valid).  In
     training, dropout at rate ``self.dropout`` on the probabilities, its
-    int32 seed drawn from ``generator``."""
+    int32 seed drawn from ``generator``.  An eval forward longer than 2400
+    frames takes route k4 in any grad mode (and has no backward)."""
 
     def __init__(self, dim: int, heads: int = 4):
         super().__init__()

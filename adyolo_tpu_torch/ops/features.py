@@ -117,6 +117,11 @@ class FeatureFrontend:
                 f"audio_format={data_cfg.audio_format!r}: MIC/GCC-PHAT "
                 "features are not yet ported (ROADMAP.md, port queue: 'the "
                 "other formats, MIC/GCC-PHAT, DDP and export')")
+        if 2 * data_cfg.hop_length != data_cfg.n_fft:
+            raise NotImplementedError(
+                f"hop_length={data_cfg.hop_length} with n_fft={data_cfg.n_fft}: "
+                "the STFT frames at n_fft // 2, so it needs n_fft == "
+                "2 * hop_length (the DCASE geometry, 1200 / 600)")
         self.cfg = data_cfg
         self.device = torch.device(device)
         w = analysis_window(data_cfg.window, data_cfg.win_length, data_cfg.n_fft)

@@ -11,18 +11,32 @@ and are launched from four routes that are counted apart:
   also writes the row logsumexp for the backward;
 * ``"k3"``: the backward, K3, ``_bwd_kernel`` via ``_flash_bwd``.
 
-A call takes the train pair (``k2_dropout`` forward, ``k3`` backward, one
-``torch.autograd.Function``) when its rate is above 0 or autograd records
-it; training needs ``T <= BLOCK_THRESHOLD``, as in the JAX package, whose
-longer training chunks would take the XLA path.
+A call is routed by its dropout rate (the module's: 0.2 in training, 0
+in eval, as JAX routes by its ``train`` flag), then by T and by whether
+autograd records it:
+
+* rate > 0: the train pair, ``k2_dropout`` forward and ``k3`` backward in
+  one ``torch.autograd.Function``; ``T > BLOCK_THRESHOLD`` raises, as in
+  the JAX package, whose longer training chunks would take the XLA path;
+* rate 0, ``T <= BLOCK_THRESHOLD``: ``k2``, or, when autograd records
+  the call, the train pair at rate 0, which has a backward (as JAX's
+  ``flash_mhsa`` custom VJP does at rate 0);
+* rate 0, ``T > BLOCK_THRESHOLD``: ``k4`` whatever the grad mode; when
+  autograd records the call, inside a ``torch.autograd.Function`` whose
+  backward raises: no kernel has a backward for K4 (the JAX package has
+  none either).
 
 Dispatch is by the tensor's device: a CPU tensor goes to the plain
 :func:`adyolo_tpu_torch.ops.attention.mhsa_attention` (differentiable by
-autograd); a CUDA tensor goes to the kernels, or the call raises.  There is
-no fallback from one to the other.
+autograd, except on the long eval route, which raises in its backward on
+both devices); a CUDA tensor goes to the kernels, or the call raises.
+There is no fallback from one to the other.
 
 ``LAUNCHES`` counts launches per route; a count is bumped right after a
-launch is accepted, and nowhere else.
+launch is accepted, and nowhere else.  A forward on a grid under a wave
+runs its key tiles in splits and a merge (two launches, one count); the
+wrapper keeps the split plan per device and shape and allocates the
+merge's scratch.
 """
 from __future__ import annotations
 
@@ -41,19 +55,23 @@ LAUNCHES = {"k2": 0, "k4": 0, "k2_dropout": 0, "k3": 0}
 _DH = 64  # the kernels' head dim
 
 _bound = {}
+_plans = {}  # (device index, B, T, H) -> (key splits, scratch floats) of a forward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "adyolo_mhsa_fwd": [_P] * 5 + [_I] * 4 + [_P],
-    "adyolo_mhsa_fwd_train": [_P] * 7 + [_I] * 7 + [_P],
+    "adyolo_mhsa_fwd_splits": [_I] * 3,
+    "adyolo_mhsa_fwd_scratch_floats": [_I] * 4,
+    "adyolo_mhsa_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "adyolo_mhsa_fwd_train": [_P] * 8 + [_I] * 8 + [_P],
     "adyolo_mhsa_bwd": [_P] * 12 + [_I] * 7 + [_P],
 }
+_RESTYPES = {"adyolo_mhsa_fwd_scratch_floats": ctypes.c_longlong}
 
 
 def _entry(name):
     if name not in _bound:
         fn = getattr(load_library(), name)
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
         fn.argtypes = _SIGNATURES[name]
         _bound[name] = fn
     return _bound[name]
@@ -99,6 +117,39 @@ def _hash_args(T):
     return attention.pick_bq(T), -(-T // 128) * 128
 
 
+def _fwd_plan(q):
+    """``(splits, scratch pointer, scratch)`` of a forward on ``q``'s
+    shape and device (the current one): the kernel's key splits and, when
+    above 1, scratch for the merge, which the caller holds until the launch
+    is queued."""
+    B, T, H, _ = q.shape
+    key = (q.device.index, B, T, H)
+    plan = _plans.get(key)
+    if plan is None:
+        splits = _entry("adyolo_mhsa_fwd_splits")(B, T, H)
+        if splits < 1:
+            raise RuntimeError(f"attention kernel: no split plan, cudaError {-splits}")
+        n = _entry("adyolo_mhsa_fwd_scratch_floats")(B, T, H, splits) if splits > 1 else 0
+        plan = _plans[key] = (splits, n)
+    splits, n = plan
+    if splits == 1:
+        return 1, 0, None
+    scratch = torch.empty((n,), device=q.device, dtype=torch.float32)
+    return splits, scratch.data_ptr(), scratch
+
+
+def _eval_forward(q, k, v, kv_len, rt):
+    """The eval kernel (routes ``k2``, ``k4``) on CUDA tensors."""
+    B, T, H, dh = q.shape
+    out = torch.empty_like(q)
+    splits, ptr, _scratch = _fwd_plan(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    _launch("adyolo_mhsa_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), ptr, B, T, H, dh, splits, stream)
+    LAUNCHES[rt] += 1
+    return out
+
+
 class _TrainAttention(torch.autograd.Function):
     """The train pair: forward on route ``k2_dropout``, backward on ``k3``."""
 
@@ -107,10 +158,11 @@ class _TrainAttention(torch.autograd.Function):
         B, T, H, dh = q.shape
         out = torch.empty_like(q)
         lse = torch.empty((B, H, T), device=q.device, dtype=torch.float32)
+        splits, ptr, _scratch = _fwd_plan(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("adyolo_mhsa_fwd_train", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 kv_len.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                B, T, H, dh, thresh, *_hash_args(T), stream)
+                ptr, B, T, H, dh, thresh, *_hash_args(T), splits, stream)
         LAUNCHES["k2_dropout"] += 1
         ctx.save_for_backward(q, k, v, kv_len, seed, out, lse)
         ctx.thresh = thresh
@@ -133,44 +185,67 @@ class _TrainAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _LongAttention(torch.autograd.Function):
+    """The long eval route: ``k4`` on CUDA, the plain attention on the CPU;
+    no backward on either device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len):
+        if q.device.type == "cpu":
+            return attention.mhsa_attention(q, k, v, kv_len)
+        return _eval_forward(q, k, v, kv_len, "k4")
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(
+            f"eval attention at T > {attention.BLOCK_THRESHOLD} (route k4, K4 "
+            "flash_mhsa_long) has no backward; train at T <= "
+            f"{attention.BLOCK_THRESHOLD}, or run eval under torch.no_grad()")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None, *, rate: float = 0.0,
                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over ``(B, T, H, dh)`` float32 q/k/v with the first
     ``kv_len[b]`` keys valid (all when None) and dropout ``rate`` on the
     probabilities (``seed``: int32 tensor of one element); see
-    :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention`.  On CUDA the
-    kernels need ``dh == 64`` and int32 ``kv_len``/``seed`` on q's device."""
+    :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention`.  ``rate > 0``
+    picks the training route, which needs ``T <= BLOCK_THRESHOLD``; the
+    eval route above it has no backward.  On CUDA
+    the kernels need ``dh == 64`` and int32 ``kv_len``/``seed`` on q's
+    device."""
     _check(q, k, v, kv_len)
-    if q.device.type == "cpu":
-        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     B, T, H, dh = q.shape
+    thresh = attention.dropout_thresh(rate)
+    train = thresh > 0
+    long = T > attention.BLOCK_THRESHOLD
+    if train and long:
+        raise ValueError(f"training attention needs T <= "
+                         f"{attention.BLOCK_THRESHOLD}, got T={T}")
+    records = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if q.device.type == "cpu":
+        if long and records:
+            return _LongAttention.apply(q, k, v, kv_len)
+        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed)
     if dh != _DH:
         raise ValueError(f"the kernels take dh == {_DH}, got {dh}")
-    thresh = attention.dropout_thresh(rate)
     if thresh >= 256:  # everything dropped (U8Dropout's convention)
         return torch.zeros_like(q)
     if kv_len is None:
         kv_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
     kv_len = _int32_on(kv_len, q.device, "kv_len")
-    train = thresh > 0 or (torch.is_grad_enabled()
-                           and any(x.requires_grad for x in (q, k, v)))
     with torch.cuda.device(q.device):
-        if train:
-            if T > attention.BLOCK_THRESHOLD:
-                raise ValueError(f"training attention needs T <= "
-                                 f"{attention.BLOCK_THRESHOLD}, got T={T}")
+        if long:
+            if records:
+                return _LongAttention.apply(q, k, v, kv_len)
+            return _eval_forward(q, k, v, kv_len, "k4")
+        if train or records:
             if seed is None:
                 if thresh > 0:
                     raise ValueError("dropout needs a seed")
                 seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
             seed = _int32_on(seed, q.device, "seed").reshape(1)
             return _TrainAttention.apply(q, k, v, kv_len, seed, thresh)
-        out = torch.empty_like(q)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("adyolo_mhsa_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kv_len.data_ptr(), out.data_ptr(), B, T, H, dh, stream)
-    LAUNCHES[route(T)] += 1
-    return out
+        return _eval_forward(q, k, v, kv_len, "k2")

@@ -19,19 +19,23 @@ before the last line:
               (3, 803) case, the shortest (1, 2) and (2, 1201), whose last
               2-frame run holds one frame; and the plans with a radix-2
               pass, hop 300 (4-frame runs, (2, 403)) and hop 1200 (1-frame
-              runs, (2, 201)): max|kernel - plain| <= 2e-5 *
+              runs, (2, 201)); and flat audio (2, 203 * 600 + 17, 4),
+              against the plain flat framing of the same samples
+              (``framed_dft_flat``): max|kernel - plain| <= 2e-5 *
               max|plain|; median times over 30 runs each, CUDA events, in
               turns with the plain version and ``torch.stft`` (the library
               yardstick, checked to compute the same function within
               1e-4 * max).
-4. attn_kernel -- the Hopper attention kernel vs the plain attention at
-              (B, T, 4, 64): (16, 800) all keys valid and with random
-              kv_len (one row 0), (1, 1200) len 920, (1, 2400) len 1400
-              (route k2); (1, 4800) len 3000, (1, 9600) len 8000 (route
-              k4): max|kernel - plain| <= 2e-5 * max|plain| over all rows,
-              finite, zeros on the kv_len == 0 row; medians of 30 runs in
-              turns with the plain version and SDPA at (16, 800) and
-              (1, 4800).
+4. attn_kernel -- the Hopper attention kernel (3xTF32 tensor cores) vs
+              the plain attention at (B, T, 4, 64): (16, 800) all keys
+              valid and with random kv_len (one row 0), (1, 1200) len 920,
+              (1, 2400) len 1400 (route k2); (1, 4800) len 3000, (1, 9600)
+              len 8000 (route k4): max|kernel - plain| <= 2e-5 *
+              max|plain| over all rows, finite, zeros on the kv_len == 0
+              row; medians of 30 runs in turns with the plain version and
+              SDPA at (16, 800), (1, 1200) and (1, 4800).  Then route k4
+              at (1, 4800) with q/k/v that require grad, outside no_grad:
+              one k4 launch, the no-grad output, a backward that raises.
 5. attn_train_kernel -- routes k2_dropout (forward, rate 0.2) and k3
               (backward, 3xTF32 tensor cores) vs the plain attention and
               its written-out backward at (16, 800, 4, 64), all keys valid
@@ -40,7 +44,8 @@ before the last line:
               dq/dk/dv within 1e-4 * max|plain grad|, zeros on the empty
               row, keep share 205/256 +- 0.005, rate 0 equal to route k2;
               medians of 30 runs of forward, backward and both, in turns
-              with the plain version and SDPA (dropout_p 0.2).
+              with the plain version and SDPA (dropout_p 0.2); the forward
+              alone also at (1, 1200) len 920.
 6. forward -- FeatureFrontend + SE-ResNet34 + AD-YOLO at full width (13
               classes, seeded random init, eval, fp32) on 16 x 20-s clips:
               finite (16, 200, 2560) logits, the kernel launched, and
@@ -51,6 +56,10 @@ before the last line:
               8 blocks, 4 heads): the STFT kernel launched once and the
               attention kernel 8 times (route k2), within 1e-3 *
               max|logit| of the model on plain STFT and plain attention.
+              Then forward_conformer_long: one clip in the 4800-frame
+              bucket, 3000 frames valid (route k4 8 times), the same
+              check, CUDA-event median of 10, and a profiled breakdown of
+              two forwards.
 8. serve   -- three odd-length FOA wavs (23, 28, 35 s) through
               ``engine.evaluate.infer`` and then ``cli.main(["infer",
               ...])`` on an SE-ResNet34 experiment dir written in the JAX
@@ -240,8 +249,9 @@ def ptxas_kernels(log):
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             name = next(k for k in ("stft_hop_blocks_fft_kernel", "mhsa_fwd_kernelILb1",
-                                    "mhsa_fwd_kernelILb0", "mhsa_bwd_dq_kernel",
-                                    "mhsa_bwd_dkdv_kernel", mangled) if k in mangled)
+                                    "mhsa_fwd_kernelILb0", "mhsa_fwd_merge_kernel",
+                                    "mhsa_bwd_dq_kernel", "mhsa_bwd_dkdv_kernel", mangled)
+                        if k in mangled)
             name = name.replace("ILb1", "<true>").replace("ILb0", "<false>")
             out[name] = {}
         elif name and "spill stores" in ln:
@@ -262,6 +272,7 @@ def phase_build():
     dyn = {"stft_hop_blocks_fft_kernel": lib.adyolo_stft_smem_bytes(),
            "mhsa_fwd_kernel<true>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_kernel<false>": lib.adyolo_mhsa_smem_bytes(0),
+           "mhsa_fwd_merge_kernel": 0,
            "mhsa_bwd_dq_kernel": lib.adyolo_mhsa_smem_bytes(1),
            "mhsa_bwd_dkdv_kernel": lib.adyolo_mhsa_smem_bytes(2)}
     for name, n in dyn.items():
@@ -287,13 +298,18 @@ def phase_kernel(smi, fe, dft):
                  window_dft(name, 2 * h, 2 * h)) for h in (300, 1200)}
     for tag, (B, T), hop in (("serving", (16, 800), HOP), ("ragged", (3, 803), HOP),
                              ("pair", (1, 2), HOP), ("run_tail", (2, 1201), HOP),
-                             ("hop300", (2, 403), 300), ("hop1200", (2, 201), 1200)):
+                             ("hop300", (2, 403), 300), ("hop1200", (2, 201), 1200),
+                             ("flat", (2, 204), HOP)):
         plan, mats = other[hop] if hop != HOP else (fe.fft, dft)
         a = foa_audio(rng, (B, T, hop, 4))
         a[:, 0] = rng.uniform(-0.5, 0.5, (B, hop, 4))  # t=0 reflect block
+        if tag == "flat":  # (B, N, 4), N = 203 hops + 17: not a multiple of the hop
+            a = np.ascontiguousarray(a.reshape(B, -1, 4)[:, :203 * hop + 17])
         x = torch.tensor(a, device="cuda")
         kr, ki = hopper_stft.stft_hop_blocks(x, plan)
-        pr, pi = plain_stft.stft(x, *mats, hop)
+        # the flat case's reference is the plain flat framing of the same samples
+        pr, pi = (plain_stft.framed_dft_flat(x, *mats, hop) if tag == "flat"
+                  else plain_stft.stft(x, *mats, hop))
         torch.cuda.synchronize()
         errs = {}
         for nm, k, p in (("re", kr, pr), ("im", ki, pi)):
@@ -304,7 +320,7 @@ def phase_kernel(smi, fe, dft):
                     f"{KERNEL_TOL} * {scale}")
             errs[nm] = (err, scale)
         del kr, ki, pr, pi
-        row = {"phase": "kernel", "case": tag, "shape": [B, T, hop, 4],
+        row = {"phase": "kernel", "case": tag, "shape": list(a.shape),
                "radices": list(plan.radices),
                "max_abs_err": max(e for e, _ in errs.values()),
                "max_abs_plain": max(s for _, s in errs.values()),
@@ -386,9 +402,10 @@ def phase_attn_kernel(smi):
     rng = np.random.default_rng(3)
     lens16 = rng.integers(1, 801, 16)
     lens16[3] = 0  # a batch row with no valid key
-    cases = (("k2", 16, 800, [800] * 16, True), ("k2", 16, 800, lens16, False),
-             ("k2", 1, 1200, [920], False), ("k2", 1, 2400, [1400], False),
-             ("k4", 1, 4800, [3000], True), ("k4", 1, 9600, [8000], False))
+    # timed: "kernels" = the times of the kernels line, "extra" = timed beside it
+    cases = (("k2", 16, 800, [800] * 16, "kernels"), ("k2", 16, 800, lens16, None),
+             ("k2", 1, 1200, [920], "extra"), ("k2", 1, 2400, [1400], None),
+             ("k4", 1, 4800, [3000], "kernels"), ("k4", 1, 9600, [8000], None))
     res = {"k2": {"max_abs_err": 0.0}, "k4": {"max_abs_err": 0.0}}
     for rt, B, T, lens, timed in cases:
         require(hopper_attention.route(T) == rt, f"T={T} routes to "
@@ -433,10 +450,38 @@ def phase_attn_kernel(smi):
                         "tflops": flop / (np.median(k_ms) * 1e-3) / 1e12,
                         "plain_tflops": flop / (np.median(p_ms) * 1e-3) / 1e12,
                         "card": smi})
-            res[rt].update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                "bound_by", "bound_units", "bound_ffma_ms")})
+            if timed == "kernels":
+                res[rt].update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                    "bound_by", "bound_units",
+                                                    "bound_ffma_ms")})
         emit(row)
         del q, k, v, got, want
+
+    # eval on the long route with q/k/v that require grad, outside no_grad:
+    # route k4 all the same, the no-grad output, and a backward that raises
+    q, k, v = (torch.tensor(rng.standard_normal((1, 4800, 4, 64)), dtype=torch.float32,
+                            device="cuda") for _ in range(3))
+    kv = torch.tensor([3000], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        want = hopper_attention.flash_attention(q, k, v, kv)
+    args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(hopper_attention.LAUNCHES)
+    got = hopper_attention.flash_attention(*args, kv)
+    torch.cuda.synchronize()
+    grown = {n: c - before[n] for n, c in hopper_attention.LAUNCHES.items()}
+    require(grown == {"k2": 0, "k4": 1, "k2_dropout": 0, "k3": 0},
+            f"attention k4 with grad: launches {grown}, want k4 once")
+    require(got.requires_grad and bool(torch.equal(got.detach(), want)),
+            "attention k4 with grad differs from the no-grad call")
+    try:
+        got.sum().backward()
+        raised = False
+    except NotImplementedError:
+        raised = True
+    require(raised, "a backward through route k4 did not raise")
+    emit({"phase": "attn_kernel", "route": "k4", "case": "grad_enabled",
+          "shape": [1, 4800, 4, 64], "kv_len": [3000], "launches": grown,
+          "equal_to_no_grad": True, "backward_raises": True})
     return res
 
 
@@ -488,6 +533,22 @@ def phase_attn_train_kernel(smi):
                                                           for g in grads),
                         f"k2_dropout/k3 {tag}: the kv_len 0 row is not 0")
         row["grad_tol_rel"] = GRAD_KERNEL_TOL
+        if tag == "long":  # the forward at B = 1, timed beside SDPA with dropout
+            lib_fwd = sdpa(q, k, v, kv, dropout_p=RATE)
+            k_ms, p_ms, l_ms = [], [], []
+            for _ in range(3):  # in turns: kernel, plain, library, ...
+                k_ms += cuda_ms(lambda: hopper_attention.flash_attention(
+                    q, k, v, kv, rate=RATE, seed=seed), 10)
+                p_ms += cuda_ms(lambda: attention.mhsa_attention(q, k, v, kv, rate=RATE,
+                                                                 seed=seed), 10)
+                l_ms += cuda_ms(lib_fwd, 10)
+            row.update(ms={"kernel_fwd": float(np.median(k_ms)),
+                           "plain_fwd": float(np.median(p_ms)),
+                           "library_fwd": float(np.median(l_ms))},
+                       runs=len(k_ms),
+                       **attn_bound(attn_flop(H, T, lens, 4),
+                                    attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1)),
+                       card=smi)
         if tag == "full":
             share = float((attention.dropout_bits(B, H, T, seed) >= (thresh << 24))
                           .float().mean())
@@ -722,6 +783,40 @@ def phase_forward(smi, fe, dft, model, phase):
     return logits
 
 
+def phase_forward_conformer_long(smi, fe, dft, model):
+    """The conformer forward on one clip in the 4800-frame bucket with 3000
+    frames valid (route k4, in 4 key splits), against the all-plain
+    forward; then a ``torch.profiler`` breakdown of two more forwards."""
+    fwd = build_eval_forward(model, fe)
+    rng = np.random.default_rng(6)
+    x = torch.tensor(foa_audio(rng, (1, 4800, HOP, 4)), device="cuda")
+    x[:, 3000:] = 0.0  # the bucket's padding
+    valid = torch.tensor([3000], dtype=torch.int32, device="cuda")
+    zero_counts()
+    logits = fwd(x, valid)
+    torch.cuda.synchronize()
+    launched = counts()
+    require(launched["stft"] == 1 and launched["k4"] == 8 and launched["k2"] == 0,
+            f"forward_conformer_long: launches {launched}, want stft 1, k4 8")
+    require(tuple(logits.shape) == (1, 1200, 2560), f"logits {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits).all()), "non-finite logits")
+    with torch.inference_mode(), plain_attention():
+        re, im = plain_stft.stft(x, *dft, HOP)
+        ref = model(fe.features_from_stft(re, im, valid), valid)
+        del re, im
+    err = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    require(err <= FORWARD_TOL * scale,
+            f"forward_conformer_long vs the all-plain forward: {err} > {FORWARD_TOL} * {scale}")
+    ms = cuda_ms(lambda: fwd(x, valid), 10)
+    emit({"phase": "forward_conformer_long", "shape": list(logits.shape),
+          "valid_frames": 3000, "launches": launched, "max_abs_err": err,
+          "max_abs_logit": scale, "tol_rel": FORWARD_TOL, "ms": float(np.median(ms)),
+          "card": smi})
+    emit({"phase": "forward_conformer_long_profile",
+          **profile_steps(lambda b, _: fwd(b, valid), [x], None, 2), "card": smi})
+
+
 def pick_threshold(cfg, logits):
     """A confidence threshold that 0.1 % of the (frame, anchor, class)
     confidences of the forward phase clear: some anchors pass, most not."""
@@ -837,6 +932,7 @@ def main():
     conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
     conf_tau = pick_threshold(conf_cfg, phase_forward(smi, fe, dft, conformer,
                                                       "forward_conformer"))
+    phase_forward_conformer_long(smi, fe, dft, conformer)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         se = phase_serve(smi, cfg, fe, model, tau, tmp)

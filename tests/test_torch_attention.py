@@ -23,6 +23,8 @@ order), 1e-5 abs for gradients.  The kernels themselves run only on a CUDA
 device (``-m cuda``); flax is imported inside the tests that need it, so
 that the kernel tests run where it is missing.
 """
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -310,6 +312,121 @@ def test_3xtf32_backward_keeps_fp32_accuracy():
         assert float((g1 - w).abs().max()) > 1e-4 * scale
 
 
+def _fwd_emulated(mm, q, k, v, kv_len, rate, seed):
+    """The forward kernel's arithmetic in torch: 64-key tiles up to
+    ceil(L / 64); S and each tile's P.V by ``mm``; the online softmax in the
+    log2 domain with the scale in one multiply; the normaliser over the
+    undropped probabilities; O = O * alpha + the tile's P.V; an L == 0 row
+    gives zeros."""
+    B, T, H, dh = q.shape
+    c = dh ** -0.5 * 1.4426950408889634
+    keep, kscale = attention._keep(B, H, T, attention.dropout_thresh(rate), seed)
+    L = kv_len.clamp(0, T)
+    m = torch.full((B, H, T), -np.inf)
+    lsum = torch.zeros((B, H, T))
+    o = torch.zeros((B, H, T, dh))
+    for j0 in range(0, T, 64):
+        kt, vt = k[:, j0:j0 + 64], v[:, j0:j0 + 64]
+        s = mm("bqhd,bkhd->bhqk", q, kt)
+        valid = torch.arange(j0, j0 + kt.shape[1])[None, :] < L[:, None]
+        s = torch.where(valid[:, None, None, :], s, -np.inf)
+        mnew = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - mnew)
+        p = torch.exp2(s * c - mnew[..., None])
+        lnew = lsum * alpha + p.sum(-1)
+        if keep is not None:
+            p = torch.where(keep[..., j0:j0 + 64], p, 0.0)
+        onew = o * alpha[..., None] + mm("bhqk,bkhd->bhqd", p, vt)
+        active = (j0 < L)[:, None, None]  # the kernel stops at ceil(L / 64)
+        m = torch.where(active, mnew, m)
+        lsum = torch.where(active, lnew, lsum)
+        o = torch.where(active[..., None], onew, o)
+    out = torch.where((L > 0)[:, None, None, None], o * (kscale / lsum)[..., None], 0.0)
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("lens", [(800, 517), (613, 0)])
+def test_3xtf32_forward_matches_k2_interpret(rate, lens):
+    """The forward kernel's arithmetic emulated with 3xTF32 products lies
+    within the card's bound (2e-5 * max) of ``flash_mhsa(interpret=True)``
+    at (2, 800, 4, 64), ragged kv_len, a zero row (zeros, K4's convention),
+    at rate 0 and 0.2 with the same seed; with 1xTF32 products it does not,
+    so the bound can tell them apart."""
+    B, T, H, dh = 2, 800, 4, 64
+    q, k, v = _qkv(B, T, H, dh, seed=70)
+    key = jax.random.PRNGKey(7)
+    want = np.asarray(flash_mhsa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(_mask(T, lens)), rate=rate,
+                                 rng_key=key, interpret=True))
+    seed = _jax_seed(key)
+    kv = torch.tensor(lens, dtype=torch.int32)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    rows = [b for b, n in enumerate(lens) if n > 0]
+    scale = float(np.abs(want[rows]).max())
+    three = _fwd_emulated(_mm_3xtf32, tq, tk, tv, kv, rate, seed).numpy()
+    one = _fwd_emulated(_mm_1xtf32, tq, tk, tv, kv, rate, seed).numpy()
+    assert float(np.abs(three[rows] - want[rows]).max()) <= KERNEL_TOL * scale
+    assert float(np.abs(one[rows] - want[rows]).max()) > KERNEL_TOL * scale
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert np.all(three[b] == 0)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_long_eval_route_has_no_backward(grad):
+    """Eval at T > BLOCK_THRESHOLD (4800 frames) takes the long route in any
+    grad mode: the output is the plain attention's, and a backward through
+    it raises on the CPU as on the card.  Training there raises."""
+    B, T, H, dh = 1, 4800, 2, 8
+    q, k, v = (torch.tensor(a, requires_grad=grad) for a in _qkv(B, T, H, dh, seed=80))
+    kv = torch.tensor([3000], dtype=torch.int32)
+    with torch.no_grad():
+        want = attention.mhsa_attention(q, k, v, kv)
+    out = hopper_attention.flash_attention(q, k, v, kv)
+    torch.testing.assert_close(out.detach(), want, atol=0, rtol=0)
+    assert out.requires_grad == grad
+    if grad:
+        with pytest.raises(NotImplementedError, match="no backward"):
+            out.sum().backward()
+    with pytest.raises(ValueError, match="training attention needs T <= 2400"):
+        hopper_attention.flash_attention(q, k, v, kv, rate=RATE,
+                                         seed=torch.tensor([1], dtype=torch.int32))
+
+
+def test_eval_route_with_grad_below_threshold_has_a_backward():
+    """Eval at T <= BLOCK_THRESHOLD under autograd is differentiable (on the
+    card: the train pair at rate 0), and its gradients are the plain
+    written-out backward's."""
+    q, k, v = (torch.tensor(a) for a in _qkv(2, 48, 2, 8, seed=81))
+    do = torch.tensor(_qkv(2, 48, 2, 8, seed=82)[0])
+    kv = torch.tensor([48, 29], dtype=torch.int32)
+    args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    hopper_attention.flash_attention(*args, kv).backward(do)
+    for got, want in zip((a.grad for a in args),
+                         attention.mhsa_attention_bwd(q, k, v, kv, do)):
+        torch.testing.assert_close(got, want, atol=GRAD_TOL, rtol=0)
+
+
+def test_forward_split_plan_is_kept_per_device(monkeypatch):
+    """The forward's key-split plan depends on the card (its SMs and
+    occupancy), so the wrapper keeps one per device and shape: a shape seen
+    on cuda:0 is planned anew on cuda:1, and only once on each."""
+    calls = []
+
+    def entry(name):
+        assert name == "adyolo_mhsa_fwd_splits"
+        return lambda B, T, H: calls.append((B, T, H)) or 1
+
+    monkeypatch.setattr(hopper_attention, "_entry", entry)
+    monkeypatch.setattr(hopper_attention, "_plans", {})
+    for dev in (0, 0, 1, 1, 0):
+        q = types.SimpleNamespace(shape=(1, 1200, 4, 64), device=torch.device("cuda", dev))
+        assert hopper_attention._fwd_plan(q) == (1, 0, None)
+    assert calls == [(1, 1200, 4)] * 2
+    assert set(hopper_attention._plans) == {(0, 1, 1200, 4), (1, 1, 1200, 4)}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -372,3 +489,47 @@ def test_train_kernels_match_plain_on_cuda(cuda_device, B, T, lens, rate):
         for b, n in enumerate(lens):
             if n == 0:
                 assert bool((got[b] == 0).all())
+
+
+@pytest.mark.cuda
+def test_long_eval_route_with_grad_on_cuda(cuda_device):
+    """Route k4 at (1, 4800) len 3000 with q/k/v that require grad, outside
+    no_grad: the no-grad output, one k4 launch, and a backward that raises."""
+    q, k, v = (torch.tensor(a, device=cuda_device) for a in _qkv(1, 4800, 4, 64, seed=90))
+    kv = torch.tensor([3000], dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        want = hopper_attention.flash_attention(q, k, v, kv)
+    args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(hopper_attention.LAUNCHES)
+    out = hopper_attention.flash_attention(*args, kv)
+    torch.cuda.synchronize()
+    assert hopper_attention.LAUNCHES["k4"] == before["k4"] + 1
+    assert hopper_attention.LAUNCHES["k2_dropout"] == before["k2_dropout"]
+    assert bool(torch.equal(out.detach(), want))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_forward_runs_on_every_device(cuda_device, rate):
+    """The forward's shared-memory opt-in and split plan are per device: a
+    (1, 1200) len 920 forward, which runs in key splits and a merge, on
+    cuda:0, then cuda:1, then cuda:0 again, each on its own card's launch
+    and within 2e-5 * max of the plain attention there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rt = "k2_dropout" if rate else "k2"
+    for i in (0, 1, 0):
+        dev = torch.device("cuda", i)
+        q, k, v = (torch.tensor(a, device=dev) for a in _qkv(1, 1200, 4, 64, seed=91))
+        kv = torch.tensor([920], dtype=torch.int32, device=dev)
+        seed = torch.tensor([77], dtype=torch.int32, device=dev)
+        before = hopper_attention.LAUNCHES[rt]
+        got = hopper_attention.flash_attention(q, k, v, kv, rate=rate, seed=seed)
+        torch.cuda.synchronize(dev)
+        assert hopper_attention.LAUNCHES[rt] == before + 1
+        assert got.device == dev
+        want = attention.mhsa_attention(q, k, v, kv, rate=rate, seed=seed)
+        err = float((got - want).abs().max())
+        assert err <= KERNEL_TOL * float(want.abs().max()), (i, err)

@@ -195,6 +195,30 @@ def test_conformer_block(lens, train, no_dropout):
         _stats_close(tm, upd)
 
 
+def test_eval_block_on_a_long_clip_ignores_grad_mode():
+    """An eval ConformerBlock at T = 4800 frames (3000 valid): with grad on
+    (parameters that require grad) it gives the no-grad output and the JAX
+    block's; a backward through it raises, as no kernel has a backward for
+    the long route (K4); in training mode the forward raises."""
+    T, n = 4800, 3000
+    x = np.random.default_rng(11).standard_normal((1, T, 32)).astype(np.float32)
+    jm = jrc.ConformerBlock(32, dilation=2)
+    v, tm = _pair(jm, trc.ConformerBlock(32, dilation=2), x[:, :24])
+    mask = torch.tensor(_mask(T, (n,)))
+    kv = torch.tensor([n], dtype=torch.int32)
+    with torch.no_grad():
+        want = tm(torch.tensor(x), mask, kv)
+    got = tm(torch.tensor(x), mask, kv)
+    assert got.requires_grad
+    torch.testing.assert_close(got.detach(), want, atol=0, rtol=0)
+    _close(got[:, :n], np.asarray(jm.apply(v, jnp.asarray(x), False,
+                                           jnp.asarray(mask.numpy())))[:, :n])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        got.sum().backward()
+    with pytest.raises(ValueError, match="training attention needs T <= 2400"):
+        tm.train()(torch.tensor(x), mask, kv)
+
+
 @pytest.fixture(scope="module")
 def pair():
     cfg = Config()

@@ -13,6 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import yaml
 
 from adyolo_tpu.config import DataConfig
 from adyolo_tpu.ops.features import FeatureFrontend as JaxFrontend
@@ -96,3 +97,20 @@ def test_mic_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FeatureFrontend(dataclasses.replace(PortDataConfig(), audio_format="mic"),
                         device="cpu")
+
+
+def test_hop_other_than_half_n_fft_raises_on_any_device():
+    """The STFT frames at n_fft // 2 (its kernel's geometry), so another hop
+    is refused up front, on the CPU as on the card; the shipped DCASE
+    geometries construct."""
+    cfg = dataclasses.replace(PortDataConfig(), hop_length=480, n_fft=1200)
+    for device in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match="hop_length=480 with n_fft=1200"):
+            FeatureFrontend(cfg, device=device)
+    for year in (2020, 2021, 2022):
+        with open(f"configs/hyp_data_DCASE{year}.yaml") as f:
+            shipped = yaml.safe_load(f)
+        names = {fl.name for fl in dataclasses.fields(PortDataConfig)}
+        data = PortDataConfig(**{k: v for k, v in shipped.items() if k in names})
+        assert 2 * data.hop_length == data.n_fft
+        FeatureFrontend(data, device="cpu")

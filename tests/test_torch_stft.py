@@ -16,6 +16,7 @@ import torch
 
 from adyolo_tpu.ops import pallas_stft as ps
 from adyolo_tpu.ops.dsp import analysis_window, dft_matrices
+from adyolo_tpu.ops.stft import framed_dft as jax_framed_dft
 from adyolo_tpu.ops.stft import framed_dft_chunked as jax_chunked
 from adyolo_tpu.ops.stft import stft as jax_stft
 from adyolo_tpu_torch.ops import hopper_stft
@@ -228,6 +229,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert hopper_stft.LAUNCHES == before
 
 
+# flat audio whose length is not a multiple of the hop (203 frames + 17)
+FLAT = (2, 203 * HOP + 17)
+
+
+def _flat_audio(seed):
+    return np.ascontiguousarray(_audio(FLAT[0], 204, seed).reshape(FLAT[0], -1, 4)[:, :FLAT[1]])
+
+
+def test_flat_input_matches_jax_framed_dft():
+    """Flat (B, N, 4) audio through the wrapper's CPU dispatch against JAX
+    ``framed_dft`` of the reflect-padded first T * hop samples (T = N //
+    hop), within 2e-5 * max."""
+    a = _flat_audio(seed=12)
+    T = FLAT[1] // HOP
+    lpad = NFFT // 2
+    xp = np.pad(a[:, :T * HOP], ((0, 0), (lpad, 0), (0, 0)), mode="reflect")
+    w_re, w_im = _dft()
+    jr, ji = jax_framed_dft(jnp.asarray(xp), NFFT, HOP, T, jnp.asarray(w_re), jnp.asarray(w_im))
+    re, im = hopper_stft.stft_hop_blocks(torch.tensor(a), _plan())
+    assert re.shape == (FLAT[0], T, HOP + 1, 4)
+    _close(re, jr)
+    _close(im, ji)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -259,5 +284,20 @@ def test_kernel_other_plans_match_plain_on_cuda(cuda_device, hop):
     x = torch.tensor(_audio(B, T + 4, seed=hop, hop=hop), device=cuda_device)
     kr, ki = hopper_stft.stft_hop_blocks(x, _plan(cuda_device, 2 * hop))
     pr, pi = port_stft.stft(x, w_re, w_im, hop)
+    _close(kr.cpu(), pr.cpu())
+    _close(ki.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+def test_kernel_flat_input_matches_plain_on_cuda(cuda_device):
+    """Flat audio (2, 203 * 600 + 17, 4) through the kernel against the
+    plain flat framing ``framed_dft_flat`` of the same samples."""
+    w_re, w_im = (torch.tensor(w, device=cuda_device) for w in _dft())
+    x = torch.tensor(_flat_audio(seed=13), device=cuda_device)
+    before = hopper_stft.LAUNCHES
+    kr, ki = hopper_stft.stft_hop_blocks(x, _plan(cuda_device))
+    torch.cuda.synchronize()
+    assert hopper_stft.LAUNCHES == before + 1
+    pr, pi = port_stft.framed_dft_flat(x, w_re, w_im, HOP)
     _close(kr.cpu(), pr.cpu())
     _close(ki.cpu(), pi.cpu())
