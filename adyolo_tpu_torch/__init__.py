@@ -10,7 +10,8 @@ easy to find.  Public functions keep the JAX package's layouts: audio
 The package is self-contained: it imports neither ``jax``/``flax`` nor
 anything of :mod:`adyolo_tpu`.  The host helpers it shares with the JAX
 package (``config``, ``ops.dsp``, ``ops.grid``, ``ops.nms_native``,
-``data.{io,labels,dataset}``) are its own copies, so it still reads the
+``ops.rotation``, ``data.{io,labels,dataset}``, ``metrics``,
+``utils.logging``) are its own copies, so it still reads the
 experiment dirs the JAX trainer writes and the repository's
 ``configs/*.yaml``.  Its entry points run on the CUDA device unless the
 caller asks for the CPU.

@@ -1,74 +1,128 @@
 """Command-line entry point of the port (counterpart of
-:mod:`adyolo_tpu.cli`; the ``infer`` action only).
+:mod:`adyolo_tpu.cli`, reference ``src/main.py``).
 
 Usage:
-    python -m adyolo_tpu_torch.cli infer --eval_pth <exp_id> --infer_pth <wav_dir> \\
-        [--results_dir results] [--device cuda]
+    python -m adyolo_tpu_torch.cli train --encoder resnet-conformer [--augment] [--logger] ...
+    python -m adyolo_tpu_torch.cli train --resume_pth <exp_id>
+    python -m adyolo_tpu_torch.cli val   --eval_pth <exp_id>
+    python -m adyolo_tpu_torch.cli test  --eval_pth <exp_id>
+    python -m adyolo_tpu_torch.cli infer --eval_pth <exp_id> --infer_pth <wav_dir>
 
-Reads ``<results_dir>/<exp_id>/hyp_exp.yaml`` and ``model_best.ckpt`` as
-the JAX trainer wrote them, for either encoder the config names
-(``se-resnet34`` or ``resnet-conformer``, with the ``adyolo`` loss),
-restores the arbitrated confidence threshold from the checkpoint, and
-writes one CSV per wav to ``<results_dir>/<exp_id>/output_infer/``.  ``train``, ``val``, ``test``,
-``export`` and ``preprocess`` are not ported yet.
+Every action takes ``--results_dir`` (default ``results``) and ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions).  ``train``
+writes ``<results_dir>/<exp_id>/`` (``hyp_exp.yaml``, ``model_best.ckpt`` in
+the JAX package's format, the resumable ``model_ckpt.ckpt``, the per-clip
+CSVs and, with ``--logger``, ``logs.jsonl``); ``val`` / ``test`` / ``infer``
+read an experiment dir written by either package's trainer, for either
+encoder.  Only the ResNet-Conformer with the ``adyolo`` loss trains.
+
+The JAX package's arguments that the port does not implement are refused
+with a message, not ignored: ``--model_parallel``, ``--serve_dtype``,
+``--compute_dtype bfloat16``, ``--remat``, and the ``export`` and
+``preprocess`` actions.
 """
 from __future__ import annotations
 
 import argparse
-import os
 import sys
-import time
 
-import numpy as np
+_ACTIONS = ("train", "val", "test", "infer")
+_REFUSED_ACTIONS = {
+    "export": "ROADMAP.md §1 item 7, DDP and export",
+    "preprocess": "ROADMAP.md §1 item 6, cli preprocess",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="adyolo_tpu_torch")
     sub = p.add_subparsers(dest="action", required=True)
-    sp = sub.add_parser("infer", help="label-free inference on a wav folder")
-    sp.add_argument("--eval_pth", type=str, required=True,
-                    help="experiment id (directory under --results_dir)")
-    sp.add_argument("--infer_pth", type=str, required=True,
-                    help="folder of FOA wav files")
-    sp.add_argument("--results_dir", type=str, default="results")
-    sp.add_argument("--device", type=str, default="cuda")
+    for action in _ACTIONS:
+        sp = sub.add_parser(action)
+        sp.add_argument("--dataset", type=str, default="DCASE2022",
+                        choices=["DCASE2020", "DCASE2021", "DCASE2022"])
+        sp.add_argument("--encoder", type=str, default="se-resnet34",
+                        choices=["se-resnet34", "resnet-conformer"])
+        sp.add_argument("--loss", type=str, default="adyolo",
+                        choices=["seddoa", "masked-seddoa", "accdoa", "adpit", "adyolo"])
+        sp.add_argument("--seed", type=int, default=100)
+        sp.add_argument("--augment", action="store_true",
+                        help="rotation and SpecAugment")
+        sp.add_argument("--fix_thresh", action="store_true")
+        sp.add_argument("--logger", action="store_true")
+        sp.add_argument("--quick_test", action="store_true",
+                        help="3 epochs x 5 batches")
+        sp.add_argument("--eval_pth", type=str, default=None)
+        sp.add_argument("--resume_pth", type=str, default=None)
+        sp.add_argument("--infer_pth", type=str, default=None)
+        sp.add_argument("--results_dir", type=str, default="results")
+        sp.add_argument("--config_dir", type=str, default=None,
+                        help="directory of editable hyp_*.yaml presets "
+                             "(default: ./configs when present)")
+        sp.add_argument("--exp_id", type=str, default=None,
+                        help="experiment id (default: local-<timestamp>)")
+        sp.add_argument("--debug_nans", action="store_true",
+                        help="torch.autograd.set_detect_anomaly (the reference's "
+                             "anomaly detection)")
+        # train-config overrides (merged by config_reader semantics)
+        sp.add_argument("--batch_size", type=int, default=None)
+        sp.add_argument("--nb_epochs", type=int, default=None)
+        sp.add_argument("--nb_iters", type=int, default=None)
+        sp.add_argument("--lr", type=float, default=None)
+        sp.add_argument("--optim", type=str, default=None)
+        sp.add_argument("--nms", type=str, default=None)
+        sp.add_argument("--compute_dtype", type=str, default=None,
+                        choices=["float32", "bfloat16"],
+                        help="float32 only (bfloat16 is not yet ported)")
+        # the JAX package's arguments that the port refuses (see _refuse)
+        sp.add_argument("--remat", action="store_const", const=True, default=None)
+        sp.add_argument("--model_parallel", type=int, default=None)
+        sp.add_argument("--serve_dtype", type=str, default=None)
+        sp.add_argument("--device", type=str, default="cuda")
     return p
 
 
-def run_infer(eval_pth: str, infer_pth: str, results_dir: str = "results",
-              device: str = "cuda"):
-    """Returns the per-clip times of
-    :func:`adyolo_tpu_torch.engine.evaluate.infer`."""
-    from .config import load_config
-    from .convert import state_dict_from_flax
-    from .engine.checkpoint import load_jax_checkpoint
-    from .engine.evaluate import infer, make_frontend
-    from .models.wrapper import build_model
-    from .ops.decode import PostProcessor
-
-    exp_dir = os.path.join(results_dir, eval_pth)
-    cfg = load_config(os.path.join(exp_dir, "hyp_exp.yaml"))
-    variables, host = load_jax_checkpoint(os.path.join(exp_dir, "model_best.ckpt"))
-    model = build_model(cfg, device="cpu")
-    model.load_state_dict(state_dict_from_flax(variables, cfg.args.encoder),
-                          strict=True)
-    model = model.to(device)
-    frontend = make_frontend(cfg, device)
-    postprocessor = PostProcessor(cfg)
-    postprocessor.set_conf_thresh(host["confidence_thresh"])
-
-    print(f"\n===== INFERENCE ON WAVS UNDER: {infer_pth} =====")
-    t0 = time.time()
-    times = infer(cfg, model, frontend, postprocessor, infer_pth,
-                  os.path.join(exp_dir, "output_infer"))
-    print(f"total inference time: {(time.time() - t0) / 60:0.2f} min "
-          f"({len(times)} clips, p50 {np.median([s for _, s in times]) if times else 0:0.3f} s/clip)")
-    return times
+def _refuse(args) -> None:
+    """Exit with a message for an argument the port does not implement."""
+    refused = {
+        "--model_parallel": (args.model_parallel is not None,
+                             "tensor parallelism is not ported; the port runs "
+                             "on one device (ROADMAP.md §1 item 7)"),
+        "--serve_dtype": (args.serve_dtype is not None,
+                          "it sets the dtype of the export artifact, which is "
+                          "not yet ported (ROADMAP.md §1 item 7)"),
+        "--compute_dtype bfloat16": (args.compute_dtype == "bfloat16",
+                                     "bf16 training is not yet ported "
+                                     "(ROADMAP.md §1 item 3)"),
+        "--remat": (bool(args.remat), "activation checkpointing is not yet "
+                    "ported (ROADMAP.md §1 item 3)"),
+    }
+    for flag, (given, why) in refused.items():
+        if given:
+            raise SystemExit(f"error: {flag}: {why}")
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _REFUSED_ACTIONS:
+        raise SystemExit(f"error: '{argv[0]}' is not yet ported "
+                         f"({_REFUSED_ACTIONS[argv[0]]})")
     args = build_parser().parse_args(argv)
-    run_infer(args.eval_pth, args.infer_pth, args.results_dir, args.device)
+    _refuse(args)
+    if args.debug_nans:
+        import torch
+
+        torch.autograd.set_detect_anomaly(True)
+    arg_dict = {k: v for k, v in vars(args).items()
+                if k not in ("device", "remat", "model_parallel", "serve_dtype")}
+    if args.action == "train":
+        from .engine.train import train_model
+
+        train_model(arg_dict, is_resume=args.resume_pth is not None,
+                    device=args.device)
+    else:
+        from .engine.evaluate import test_model
+
+        test_model(arg_dict, results_dir=args.results_dir, device=args.device)
     return 0
 
 

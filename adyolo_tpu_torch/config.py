@@ -353,6 +353,23 @@ def load_config(path: str) -> Config:
         return config_from_yaml(f.read())
 
 
+def flatten_config(cfg: Config) -> Dict[str, Any]:
+    """Flatten for structured logging (reference: ``config_parser``,
+    utility.py:93-99)."""
+    out: Dict[str, Any] = {}
+
+    def rec(prefix: str, d: Dict[str, Any]):
+        for k, v in d.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                rec(key, v)
+            else:
+                out[key] = v
+
+    rec("", _asdict(cfg))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Building a config from the YAML presets and CLI arguments
 # ---------------------------------------------------------------------------

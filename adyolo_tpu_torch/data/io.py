@@ -95,6 +95,15 @@ def read_label_csv(path: str) -> LabelDict:
     return label
 
 
+def write_label_csv(path: str, label: LabelDict) -> None:
+    """Write metadata CSV (reference: utility.py:250-261)."""
+    with open(path, "w") as f:
+        for frame, events in label.items():
+            for ev in events:
+                cols = [int(frame), int(ev[0]), int(ev[1])] + list(ev[2:])
+                f.write(",".join(str(c) for c in cols) + "\n")
+
+
 def write_seld_output_csv(path: str, output: Dict[int, List[List[float]]]) -> None:
     """Write predictions as ``frame,class,0,x,y,z`` (src/test.py:26-30)."""
     with open(path, "w") as f:
@@ -102,6 +111,35 @@ def write_seld_output_csv(path: str, output: Dict[int, List[List[float]]]) -> No
             for row in rows:
                 cls, x, y, z = row[0], row[1], row[2], row[3]
                 f.write(f"{int(frame)},{int(cls)},0,{float(x)},{float(y)},{float(z)}\n")
+
+
+def polar_to_cartesian_dict(label: LabelDict) -> LabelDict:
+    """{frame: [[cls, src, azi, ele]]} -> {frame: [[cls, src, x, y, z]]}
+    (seld_metrics.py:51-66)."""
+    out: LabelDict = {}
+    for frame, events in label.items():
+        rows = []
+        for ev in events:
+            azi = np.radians(ev[2])
+            ele = np.radians(ev[3])
+            ce = np.cos(ele)
+            rows.append([ev[0], ev[1], float(np.cos(azi) * ce), float(np.sin(azi) * ce), float(np.sin(ele))])
+        out[frame] = rows
+    return out
+
+
+def cartesian_to_polar_dict(label: LabelDict) -> LabelDict:
+    """Inverse conversion (seld_metrics.py:68-81)."""
+    out: LabelDict = {}
+    for frame, events in label.items():
+        rows = []
+        for ev in events:
+            x, y, z = ev[2], ev[3], ev[4]
+            azi = np.degrees(np.arctan2(y, x))
+            ele = np.degrees(np.arctan2(z, np.sqrt(x * x + y * y)))
+            rows.append([ev[0], ev[1], float(azi), float(ele)])
+        out[frame] = rows
+    return out
 
 
 def list_clips(directory: str, ext: str = ".wav") -> List[str]:

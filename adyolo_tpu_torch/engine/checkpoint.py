@@ -1,11 +1,23 @@
-"""Read (and write) the JAX package's checkpoint files without JAX.
+"""Checkpoint files: the JAX package's format, read and written without
+JAX, and the port's own resumable training checkpoint.
 
 A ``model_best.ckpt`` (``adyolo_tpu/engine/checkpoint.py:55-68``) is a
 pickle of ``{"arrays": <flax msgpack bytes>, "host": {...}}``.  The bytes
 are flax's msgpack encoding of ``{"params", "batch_stats", "opt_state",
 "step"}``: ext type 1 is an ndarray packed as ``(shape, dtype name, C-order
 buffer)``, ext type 3 a numpy scalar packed the same way.  Plain
-``msgpack`` decodes it.
+``msgpack`` decodes it.  The port's trainer writes its best model in this
+format (:func:`save_jax_checkpoint`), so either package's ``val`` /
+``test`` / ``infer`` reads what either trainer wrote.
+
+A ``model_ckpt.ckpt`` (:func:`save_train_checkpoint`) is the port's own:
+a ``torch.save`` of the model's state dict (weights and BatchNorm running
+stats), the optimizer's state dict and the trainer's host state (the RNG
+streams, the sampler pool, ``best_log``, the next epoch, the confidence
+threshold), from which ``cli train --resume_pth`` continues.
+
+Every file is written to a process-unique temporary file and renamed into
+place, so a preemption mid-write leaves the previous file whole.
 """
 from __future__ import annotations
 
@@ -15,8 +27,10 @@ from typing import Any, Dict, Tuple
 
 import msgpack
 import numpy as np
+import torch
 
-__all__ = ["load_jax_checkpoint", "save_jax_checkpoint"]
+__all__ = ["load_jax_checkpoint", "save_jax_checkpoint",
+           "save_train_checkpoint", "load_train_checkpoint"]
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -86,3 +100,25 @@ def save_jax_checkpoint(path: str, variables: Dict, host: Dict[str, Any]) -> Non
     with open(tmp, "wb") as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
+
+
+def save_train_checkpoint(path: str, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer,
+                          host: Dict[str, Any]) -> None:
+    """Write the resumable state of a training run."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "host": host}, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_checkpoint(path: str, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """Load :func:`save_train_checkpoint`'s model and optimizer state into
+    ``model`` and ``optimizer`` (onto their device) and return the host
+    state.  The file must come from this project's trainer: it is
+    unpickled."""
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    model.load_state_dict(payload["model"], strict=True)
+    optimizer.load_state_dict(payload["optimizer"])
+    return payload["host"]

@@ -10,8 +10,12 @@ Counterpart of the AD-YOLO branch of :mod:`adyolo_tpu.ops.decode`:
   kernel (:mod:`adyolo_tpu_torch.ops.nms_native`, ``native/nms.cpp``).
 
 The top-k is exact whenever at most ``k`` anchors of every frame clear the
-confidence threshold; otherwise the full grid is decoded instead.  Other
-output formats (SED-DOA, ACCDOA, ADPIT) are not ported yet.
+confidence threshold; otherwise the full grid is decoded instead.  Every
+decode goes through one sparse candidate set (``candidates``, decoded by
+``postprocess_cached``); the trainer's threshold scan builds it once per
+clip at the scan's smallest τ, with the top-k guarded at that τ, so one
+forward serves every τ exactly.  Other output formats (SED-DOA, ACCDOA, ADPIT) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -96,23 +100,34 @@ class PostProcessor:
                                  cfg.train.nb_anchors)
         self.decode_topk = int(cfg.train.decode_topk)
 
+    # conf-threshold arbitration hooks (reference datasets.py:529-534)
+    def get_conf_thresh(self) -> float:
+        return self.conf_thresh
+
     def set_conf_thresh(self, thresh: float) -> None:
         self.conf_thresh = float(thresh)
         self.clss_thresh = float(thresh)
 
     @torch.no_grad()
-    def adyolo_candidates(self, output: torch.Tensor):
+    def adyolo_candidates(self, output: torch.Tensor,
+                          min_conf: Optional[float] = None):
         """Host candidate arrays ``(cls_conf (T,n,K), obj_conf (T,n),
-        uv (T,n,2))`` of the first clip of ``output`` (B, T, D)."""
+        uv (T,n,2))`` of the first clip of ``output`` (B, T, D).
+
+        ``min_conf`` bounds the top-k truncation guard when the candidates
+        are to be decoded again under several thresholds (the cached
+        decode of the τ-arbitration): pass the smallest τ of the scan so
+        the compaction is exact for all of them."""
         K = self.nb_classes
         n_anchors = self.geom.nb_predicts
         T = output.shape[1]
+        guard = self.conf_thresh if min_conf is None else float(min_conf)
         k = min(self.decode_topk, n_anchors) if self.decode_topk else n_anchors
         if k < n_anchors:
             p = _device_decode_topk(output, self.geom, K, k)[0].cpu().numpy()
             # truncation guard: exact unless the k-th candidate of some
             # frame still clears the threshold
-            if float(p[:, -1, 0].max()) <= self.conf_thresh:
+            if float(p[:, -1, 0].max()) <= guard:
                 return p[..., 1:K + 1], p[..., 0], p[..., K + 1:]
         cls, obj, uv = _device_decode(output, self.geom, K)
         return (cls[0].reshape(T, -1, K).cpu().numpy(),
@@ -131,17 +146,47 @@ class PostProcessor:
                                     self.clss_thresh)
         return dets.tolist() if len(dets) else None
 
-    def postprocess(self, output: torch.Tensor,
-                    valid_label_frames: Optional[int] = None) -> Dict:
-        cls_conf, obj_conf, uv = self.adyolo_candidates(output)
-        T = cls_conf.shape[0]
-        if valid_label_frames is not None:
-            T = min(T, valid_label_frames)
-        sel_all = obj_conf[:T] > self.conf_thresh
+    def candidates(self, output: torch.Tensor,
+                   min_conf: Optional[float] = None) -> Tuple:
+        """The sparse candidate set of one clip's output: the anchors whose
+        objectness clears ``min_conf`` (default: the current threshold),
+        frame-major, with the top-k guarded at ``min_conf``.  It holds
+        O(active detections), not O(T x grid), and :meth:`postprocess_cached`
+        decodes it exactly at any threshold not below ``min_conf``; the
+        τ-arbitration builds it once at the scan's smallest τ.  The layout
+        is the JAX package's ``("sparse", T, ...)`` cache with the tag
+        replaced by ``min_conf``."""
+        mc = self.conf_thresh if min_conf is None else float(min_conf)
+        cls_conf, obj_conf, uv = self.adyolo_candidates(output, min_conf=mc)
+        tt, nn = np.nonzero(obj_conf > mc)
+        return (mc, obj_conf.shape[0], tt.astype(np.int32),
+                obj_conf[tt, nn], cls_conf[tt, nn], uv[tt, nn])
+
+    def postprocess_cached(self, cached,
+                           valid_label_frames: Optional[int] = None) -> Dict:
+        """The detections of a :meth:`candidates` set at the current
+        thresholds, over the first ``valid_label_frames`` frames.  Raises
+        ``ValueError`` below the set's ``min_conf``, where it would miss
+        candidates."""
+        min_conf, T_full, tt, obj, cls, uv = cached
+        if self.conf_thresh < min_conf:
+            raise ValueError(f"threshold {self.conf_thresh} is below the "
+                             f"candidate set's min_conf {min_conf}")
+        T = T_full if valid_label_frames is None else min(T_full, int(valid_label_frames))
+        keep = (obj > self.conf_thresh) & (tt < T)
+        tt, cls, uv = tt[keep], cls[keep], uv[keep]
         res: Dict[int, List] = {}
-        for t in np.nonzero(sel_all.any(axis=1))[0]:
-            sel = sel_all[t]
-            dets = self._frame_dets(cls_conf[t][sel], uv[t][sel])
+        if len(tt) == 0:
+            return res
+        # rows are frame-major (np.nonzero order): group by frame
+        uniq, starts = np.unique(tt, return_index=True)
+        ends = np.append(starts[1:], len(tt))
+        for t, s, e in zip(uniq, starts, ends):
+            dets = self._frame_dets(cls[s:e], uv[s:e])
             if dets:
                 res[int(t)] = dets
         return res
+
+    def postprocess(self, output: torch.Tensor,
+                    valid_label_frames: Optional[int] = None) -> Dict:
+        return self.postprocess_cached(self.candidates(output), valid_label_frames)

@@ -1,19 +1,20 @@
-"""The train step (counterpart of :mod:`adyolo_tpu.parallel.train_step`,
-``make_optimizer`` and ``build_train_step``, ``:86-229``), single device,
-float32.
+"""The train step and the eval criterion (counterpart of
+:mod:`adyolo_tpu.parallel.train_step`: ``make_optimizer``,
+``build_train_step`` and ``build_eval_criterion``), single device, float32.
 
 One step: int16 audio -> ``x / 32768 + 1e-8`` -> features (the Hopper STFT
-kernel on CUDA) -> the model in training mode (BatchNorm on batch stats,
-dropout from one ``torch.Generator``; the conformer's attention on the
-Hopper train kernels) -> the AD-YOLO loss -> backward -> optimizer step.
-The model, its BatchNorm running stats and the optimizer's state are
-updated in place; JAX threads them through a ``TrainState`` instead.
+kernel on CUDA) -> SpecAugment when the config turns it on -> the model in
+training mode (BatchNorm on batch stats, dropout; the conformer's
+attention on the Hopper train kernels) -> the AD-YOLO loss -> backward ->
+optimizer step.  Every SpecAugment draw and dropout bit comes from the
+``torch.Generator`` passed to the step, on the model's device.  The model,
+its BatchNorm running stats and the optimizer's state are updated in
+place; JAX threads them through a ``TrainState`` instead.
 
 Matmuls and convolutions run in full float32 (TF32 off), as the JAX
-package's f32 step does.  Not ported yet (``ROADMAP.md``): SpecAugment,
+package's f32 step does.  Not ported yet (``ROADMAP.md``):
 ``compute_dtype="bfloat16"`` and ``remat``; each raises.  The JAX step's
-``rbg`` dropout keys are TPU-only: all dropout here comes from the
-generator passed to the step, on the model's device.
+``rbg`` dropout keys are TPU-only.
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ import torch
 from ..config import Config
 from ..models.wrapper import SELDModel, make_criterion
 from ..ops.features import FeatureFrontend
+from ..ops.specaug import spec_augment
 
-__all__ = ["make_optimizer", "build_train_step"]
+__all__ = ["make_optimizer", "check_ported", "build_step_features", "build_train_step",
+           "build_eval_criterion"]
 
 
 def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
@@ -45,10 +48,8 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
     raise NotImplementedError(name)
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.aug.spec_augment:
-        raise NotImplementedError("spec_augment: SpecAugment is not yet ported "
-                                  "(ROADMAP.md, port queue: SpecAug)")
+def check_ported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` for a train-step setting not ported."""
     if cfg.train.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.train.compute_dtype!r}: bf16 training is not "
@@ -56,6 +57,33 @@ def _check_ported(cfg: Config) -> None:
     if cfg.train.remat:
         raise NotImplementedError("remat is not yet ported (ROADMAP.md, port "
                                   "queue: --remat)")
+
+
+def build_step_features(cfg: Config, frontend: FeatureFrontend) -> Callable:
+    """``features(audio, generator=None) -> (B, T, F, C)``: the train step's
+    input, without autograd.  int16 audio -> ``x / 32768 + 1e-8`` -> the
+    scaled features -> SpecAugment when the config turns it on, one mask
+    pair per (clip, feature block) drawn from ``generator``; the blocks are
+    the 4 log-mel channels and the rest (``adyolo_tpu/parallel/
+    train_step.py:130-157``)."""
+    device = frontend.device
+    aug = cfg.aug
+    blocks = (4, d_aux) if (d_aux := cfg.data.nb_feature_channels - 4) else (4,)
+
+    @torch.no_grad()
+    def features(audio, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        audio = torch.as_tensor(audio, device=device)
+        if audio.dtype == torch.int16:  # reference src/datasets.py:147
+            audio = audio.to(torch.float32) / 32768.0 + 1e-8
+        feat = frontend(audio.contiguous())
+        if aug.spec_augment:
+            feat = spec_augment(feat, generator, blocks,
+                                aug.spec_augment_time_mask_param,
+                                aug.spec_augment_freq_mask_param,
+                                aug.spec_augment_thresh)
+        return feat
+
+    return features
 
 
 def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
@@ -66,22 +94,20 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     ``batch``: ``{"audio": (B, T, hop, 4) or (B, N, 4) int16 (or float32 in
     [-1, 1]), "targets": (M, 7), "target_mask": (M,)}``, numpy or tensors.
     ``generator``: a ``torch.Generator`` on the model's device, the source of
-    every dropout bit of the step (None: the device's default one).  The
+    every SpecAugment draw and dropout bit of the step, in that order
+    (None: the device's default one).  The
     optimizer is ``train_step.optimizer``."""
-    _check_ported(cfg)
+    check_ported(cfg)
     criterion = make_criterion(cfg)
     optimizer = make_optimizer(cfg, model.parameters())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = frontend.device
+    features = build_step_features(cfg, frontend)
 
     def train_step(batch: Dict, generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        audio = torch.as_tensor(batch["audio"], device=device)
-        if audio.dtype == torch.int16:  # reference src/datasets.py:147
-            audio = audio.to(torch.float32) / 32768.0 + 1e-8
-        with torch.no_grad():
-            feat = frontend(audio.contiguous())
+        feat = features(batch["audio"], generator)
         model.train()
         out = model(feat, generator=generator)
         loss = criterion(out, torch.as_tensor(batch["targets"], device=device),
@@ -93,3 +119,24 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
 
     train_step.optimizer = optimizer
     return train_step
+
+
+def build_eval_criterion(cfg: Config) -> Callable:
+    """``loss_fn(out, targets, target_mask, nb_label_frames) -> scalar``: the
+    AD-YOLO loss of an eval forward's output over its valid label frames
+    only (``adyolo_tpu/parallel/train_step.py:255-277``).  The frame mask
+    is built on the output's device, so a long clip's loss stays one device
+    computation with no slicing on the host; it equals the loss of the
+    output and targets cut to the valid frames.  Runs under
+    ``torch.inference_mode``."""
+    criterion = make_criterion(cfg)
+
+    @torch.inference_mode()
+    def loss_fn(out, targets, target_mask, nb_label_frames):
+        dev = out.device
+        valid = torch.as_tensor(nb_label_frames, device=dev).reshape(-1, 1)
+        frame_mask = torch.arange(out.shape[1], device=dev)[None, :] < valid
+        return criterion(out, torch.as_tensor(targets, device=dev),
+                         torch.as_tensor(target_mask, device=dev), frame_mask)
+
+    return loss_fn

@@ -1,5 +1,5 @@
 """Loader of the repository's C++ host helpers (``native/nms.cpp``,
-``native/wavload.cpp``), the port's counterpart of
+``native/wavload.cpp``, ``native/hungarian.cpp``), the port's counterpart of
 :mod:`adyolo_tpu.utils.native`.
 
 ``load_or_build("nms")`` compiles ``native/nms.cpp`` with ``g++`` into

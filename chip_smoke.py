@@ -80,10 +80,34 @@ before the last line:
               median step ms, audio-s/s, peak memory; then a
               ``torch.profiler`` breakdown of two more steps.
 
-Then one line ``{"kernels": [...]}`` (``launches`` counted over each
-path's main run only: the SE-ResNet34 ``cli.main`` run for the STFT, the
-conformer one for routes k2/k4, the train steps for k2_dropout/k3), the
-card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+11. train_cli -- the entry points through ``cli.main`` at full width
+              (ResNet-Conformer, fp32) on a synthetic DCASE2022-layout
+              set written by the script (16 training chunks of 20 s; val
+              and test clips of 23, 35 and 75 s; class tones FOA-encoded
+              at their labelled direction over noise): ``train --augment
+              --logger --nb_epochs 10 --nb_iters 1 --batch_size 16``
+              (epoch 10 scans the confidence threshold), ``val``, ``test``,
+              then ``train --resume_pth`` for epoch 11.  Checked: the
+              artifacts, one CSV per clip, finite losses and in-range
+              SELD metrics in ``logs.jsonl`` for epochs 1-11, the frozen
+              threshold equal to the scanned one, per train step the STFT
+              kernel once and k2_dropout / k3 8 times each, per eval clip
+              the STFT once and k2 (k4 above 2400 frames) 8 times, five
+              finite scores per unify threshold, and the resume starting
+              at epoch 11 from the stored file list, pool, best_log and
+              generator state.  Printed: train / val / test seconds per
+              epoch, the engine's audio-s/s beside the bare step's, the
+              loader wait per batch, the checkpoint writes, the scan's
+              forward and decode + score seconds, the scorer's seconds
+              per call, each CLI call's seconds, and a ``torch.profiler``
+              breakdown of the resume call (epoch 11 and the final test):
+              device time by group and the device's idle share.
+
+Then one line ``{"kernels": [...]}`` (``launches`` counted over this
+slice's main path, phase train_cli, with every path's count beside it in
+``launches_by_path``: the SE-ResNet34 ``cli.main`` run, the conformer's,
+and the bare train steps), the card's nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package ``adyolo_tpu`` is imported.
 """
 import contextlib
@@ -104,13 +128,17 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from adyolo_tpu_torch import cli  # noqa: E402
-from adyolo_tpu_torch.config import Config, save_config, with_conf_thresh  # noqa: E402
+from adyolo_tpu_torch.config import (Config, load_config, save_config,  # noqa: E402
+                                     with_conf_thresh)
 from adyolo_tpu_torch.convert import flax_from_state_dict  # noqa: E402
-from adyolo_tpu_torch.data.io import write_wav  # noqa: E402
+from adyolo_tpu_torch.data.io import write_label_csv, write_wav  # noqa: E402
 from adyolo_tpu_torch.data.labels import encode_adyolo, pad_yolo_targets  # noqa: E402
 from adyolo_tpu_torch.engine.checkpoint import save_jax_checkpoint  # noqa: E402
+from adyolo_tpu_torch.engine import evaluate as evaluate_mod  # noqa: E402
+from adyolo_tpu_torch.engine import train as train_mod  # noqa: E402
 from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa: E402
                                               make_frontend)
+from adyolo_tpu_torch.metrics.seld import SegmentScorer  # noqa: E402
 from adyolo_tpu_torch.models import resnet_conformer  # noqa: E402
 from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry  # noqa: E402
 from adyolo_tpu_torch.ops import attention, hopper_attention, hopper_stft  # noqa: E402
@@ -646,13 +674,18 @@ _PROFILE_GROUPS = (  # kernel-name substrings, first match wins
 def profile_steps(step, batches, gen, n):
     """Device time by kernel group over ``n`` steps under torch.profiler, and
     the device's busy and idle share of the host-clock window."""
+    return profile_calls(lambda i: step(batches[i % len(batches)], gen), n)
+
+
+def profile_calls(fn, n):
+    """``profile_steps`` of ``n`` calls ``fn(i)``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
-            step(batches[i % len(batches)], gen)
+            fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {g: 0.0 for g, _ in _PROFILE_GROUPS}
@@ -744,7 +777,7 @@ def phase_train_conformer(smi, cfg, fe):
     # where the time goes: two more steps on the kernels, profiled
     emit({"phase": "train_conformer_profile", **profile_steps(step, batches, gen, 2),
           "card": smi})
-    return launched
+    return launched, t
 
 
 def phase_forward(smi, fe, dft, model, phase):
@@ -908,6 +941,303 @@ def phase_serve_conformer(smi, cfg, fe, model, tau, tmp):
     return n
 
 
+# ---------------------------------------------------------------------------
+# train_cli: the training and evaluation entry points at full width
+# ---------------------------------------------------------------------------
+
+LABEL_HOP_S = 0.1
+EVAL_SECS = (23, 35, 75)  # buckets 1200, 2400 and 4800 feature frames
+TRAIN_CHUNKS = 16
+CLI_BATCH = 16
+CONFORMER_BLOCKS = 8  # attention launches per conformer forward
+CLI_EPOCHS = 10  # epoch 10 runs the threshold scan; the resume runs epoch 11
+
+
+def render_clip(rng, secs, sr, n_events):
+    """int16 FOA: class tones (320 Hz * 2^(c/3)) FOA-encoded at their labelled
+    direction, over noise; and the label dict {frame: [[class, 0, azi, ele]]}."""
+    n = sr * secs
+    hop = int(sr * LABEL_HOP_S)
+    audio = rng.standard_normal((n, 4)) * 0.02
+    label = {}
+    frames = n // hop
+    for _ in range(n_events):
+        c = int(rng.integers(13))
+        azi, ele = float(rng.integers(-180, 180)), float(rng.integers(-60, 61))
+        dur = int(rng.integers(5, 15))
+        start = int(rng.integers(0, frames - dur))
+        t0, t1 = start * hop, (start + dur) * hop
+        t = np.arange(t1 - t0) / sr
+        tone = 0.35 * np.sin(2 * np.pi * 320.0 * 2 ** (c / 3.0) * t + rng.uniform(0, 6.28))
+        a, e = np.radians(azi), np.radians(ele)
+        gains = np.array([2 ** -0.5, np.cos(a) * np.cos(e), np.sin(a) * np.cos(e), np.sin(e)])
+        audio[t0:t1] += tone[:, None] * gains[None, :]
+        for f in range(start, start + dur):
+            label.setdefault(f, []).append([c, 0, azi, ele])
+    return (np.clip(audio, -0.99, 0.99) * 32767).astype(np.int16), label
+
+
+def write_dcase_set(root, cfg, scaler_pkl):
+    """A DCASE2022-layout set under ``root``: TRAIN_CHUNKS 20-s training
+    chunks and three val and three test clips of EVAL_SECS, with their
+    metadata CSVs, ``classes.txt`` and the repository's scaler stats."""
+    rng = np.random.default_rng(11)
+    sr = cfg.data.sr
+    sub = f"dev-train-chunked_{cfg.data.chunk_window_s}s_{cfg.data.chunk_stride_s}s"
+    splits = [(sub, [(f"train{i:03d}", cfg.data.chunk_window_s) for i in range(TRAIN_CHUNKS)])]
+    splits += [(f"dev-{s}", [(f"{s}{i:03d}", secs) for i, secs in enumerate(EVAL_SECS)])
+               for s in ("val", "test")]
+    for d, clips in splits:
+        os.makedirs(os.path.join(root, "foa_dev", d))
+        os.makedirs(os.path.join(root, "metadata_dev", d))
+        for name, secs in clips:
+            audio, label = render_clip(rng, secs, sr, max(2, secs // 3))
+            write_wav(os.path.join(root, "foa_dev", d, name + ".wav"), audio, sr)
+            write_label_csv(os.path.join(root, "metadata_dev", d, name + ".csv"), label)
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("".join(f"class{c}\n" for c in range(cfg.data.nb_classes)))
+    shutil.copy(scaler_pkl, os.path.join(root, "scaler_wts.pkl"))
+
+
+@contextlib.contextmanager
+def engine_probes(rec):
+    """Wrap the engine's step, eval forwards, epoch loop, checkpoint reader,
+    scorer and score printer to record per-call launch counts, generator
+    states, times and scores into ``rec``; restored on exit."""
+    orig = {(m, n): getattr(m, n) for m, n in (
+        (train_mod, "build_train_step"), (train_mod, "build_eval_forward"),
+        (evaluate_mod, "build_eval_forward"), (train_mod, "train_one_epoch"),
+        (train_mod, "load_train_checkpoint"), (evaluate_mod, "_print_scores"),
+        (SegmentScorer, "get_SELD_Results"))}
+
+    def build_train_step(*a, **kw):
+        step = orig[train_mod, "build_train_step"](*a, **kw)
+
+        def counted(batch, gen):
+            rec["gen_state"].append(gen.get_state().clone())
+            before = counts()
+            loss = step(batch, gen)
+            rec["steps"].append({n: c - before[n] for n, c in counts().items()})
+            return loss
+
+        counted.optimizer = step.optimizer
+        return counted
+
+    def eval_builder(build):
+        def build_eval(*a, **kw):
+            fwd = build(*a, **kw)
+
+            def counted(audio, valid=None):
+                before = counts()
+                out = fwd(audio, valid)
+                rec["evals"].append({"frames": int(np.shape(audio)[1]),
+                                     **{n: c - before[n] for n, c in counts().items()}})
+                return out
+            return counted
+        return build_eval
+
+    def train_one_epoch(loader, *a, **kw):
+        rec["epochs"].append({"files": list(loader.dataset.get_filelist()),
+                              "pool": list(loader.dataset.sampler.get_remaining())})
+        return orig[train_mod, "train_one_epoch"](loader, *a, **kw)
+
+    def load_train_checkpoint(*a, **kw):
+        rec["loaded"].append(orig[train_mod, "load_train_checkpoint"](*a, **kw))
+        return rec["loaded"][-1]
+
+    def get_seld(self, *a, **kw):
+        t0 = time.perf_counter()
+        res = orig[SegmentScorer, "get_SELD_Results"](self, *a, **kw)
+        rec["scorer_s"].append(time.perf_counter() - t0)
+        return res
+
+    train_mod.build_train_step = build_train_step
+    for m in (train_mod, evaluate_mod):
+        m.build_eval_forward = eval_builder(orig[m, "build_eval_forward"])
+    train_mod.train_one_epoch = train_one_epoch
+    train_mod.load_train_checkpoint = load_train_checkpoint
+    def print_scores(tag, sc):
+        rec["printed"].append([float(v) for v in sc[:5]])
+        orig[evaluate_mod, "_print_scores"](tag, sc)
+
+    evaluate_mod._print_scores = print_scores
+    SegmentScorer.get_SELD_Results = get_seld
+    try:
+        yield rec
+    finally:
+        for (m, n), f in orig.items():
+            setattr(m, n, f)
+
+
+def read_logs(exp):
+    with open(os.path.join(exp, "logs.jsonl")) as f:
+        logs = [json.loads(ln) for ln in f]
+    by = {}
+    for r in logs:
+        if "step" in r:
+            by.setdefault(r["channel"], {})[r["step"]] = r["value"]
+    return by
+
+
+def phase_train_cli(smi, cfg, bare_step_ms):
+    """``cli.main`` train (10 epochs x 1 step of 16 x 20 s, --augment,
+    --logger; epoch 10 scans the threshold), val, test and a resume for
+    epoch 11, on a synthetic DCASE2022-layout set at full width
+    (ResNet-Conformer, emb 256, 8 blocks, 4 heads, fp32).  The launch
+    counts are set to 0 just before the train run and read just after the
+    resume."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        data = os.path.join(tmp, "data")
+        write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
+        set_s = time.perf_counter() - t_phase
+        configs = os.path.join(tmp, "configs")
+        shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"),
+                        configs)
+        import yaml
+
+        p = os.path.join(configs, f"hyp_data_{cfg.data.dataset}.yaml")
+        with open(p) as f:
+            d = yaml.safe_load(f)
+        d.update(data_pth=data, name_pth=os.path.join(data, "classes.txt"))
+        with open(p, "w") as f:
+            yaml.safe_dump(d, f)
+        results = os.path.join(tmp, "results")
+        exp_id = "chip-train"
+        exp = os.path.join(results, exp_id)
+        rec = {k: [] for k in ("gen_state", "steps", "evals", "epochs", "loaded",
+                               "printed", "scorer_s")}
+        secs, scores = {}, {}
+        with engine_probes(rec):
+            zero_counts()  # the main path's count starts here
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "--encoder", "resnet-conformer", "--augment", "--logger",
+                           "--nb_epochs", str(CLI_EPOCHS), "--nb_iters", "1",
+                           "--batch_size", str(CLI_BATCH), "--config_dir", configs,
+                           "--results_dir", results, "--exp_id", exp_id, "--device", "cuda"])
+            torch.cuda.synchronize()
+            secs["train"] = time.perf_counter() - t0
+            require(rc == 0, f"train returned {rc}")
+            scan_tau = read_logs(exp)["logs/train/conf_thresh"][CLI_EPOCHS]
+            frozen = load_config(os.path.join(exp, "hyp_exp.yaml"))
+            require(frozen.train.conf_thresh == scan_tau,
+                    f"frozen conf_thresh {frozen.train.conf_thresh} != scanned {scan_tau}")
+            for action in ("val", "test"):
+                n_printed = len(rec["printed"])
+                t0 = time.perf_counter()
+                rc = cli.main([action, "--eval_pth", exp_id, "--results_dir", results,
+                               "--device", "cuda"])
+                torch.cuda.synchronize()
+                secs[action] = time.perf_counter() - t0
+                require(rc == 0, f"{action} returned {rc}")
+                printed = rec["printed"][n_printed:]
+                require(len(printed) == 9 and np.isfinite(printed).all(),
+                        f"{action}: scores printed {printed}")
+                scores[action] = printed[::3]  # the overall five, per unify threshold
+                require(len(os.listdir(os.path.join(exp, "output_eval"))) == len(EVAL_SECS),
+                        f"{action}: not one CSV per clip")
+            stored = torch.load(os.path.join(exp, "model_ckpt.ckpt"), weights_only=False)["host"]
+            with open(os.path.join(exp, "hyp_exp.yaml")) as f:
+                y = yaml.safe_load(f)
+            y["train"]["nb_epochs"] = CLI_EPOCHS + 1
+            with open(os.path.join(exp, "hyp_exp.yaml"), "w") as f:
+                yaml.safe_dump(y, f, sort_keys=False)
+            n_epochs, n_gen = len(rec["epochs"]), len(rec["gen_state"])
+            # the resume (epoch 11 and the final test) under the profiler:
+            # where an engine epoch's device time goes, and its idle share
+            rcs = []
+            resume_profile = profile_calls(lambda _: rcs.append(cli.main(
+                ["train", "--resume_pth", exp_id, "--results_dir", results,
+                 "--device", "cuda"])), 1)
+            launched = counts()
+        require(rcs == [0], f"resume returned {rcs}")
+
+        # artifacts, losses, scores
+        for name in ("hyp_exp.yaml", "model_best.ckpt", "model_ckpt.ckpt", "logs.jsonl"):
+            require(os.path.isfile(os.path.join(exp, name)), f"train_cli: no {name}")
+        for split in ("val", "test"):
+            require(len(os.listdir(os.path.join(exp, f"output_{split}"))) == len(EVAL_SECS),
+                    f"train_cli: output_{split} is not one CSV per clip")
+        logs = read_logs(exp)
+        epochs = list(range(1, CLI_EPOCHS + 2))
+        for split in ("train", "val", "test"):
+            got = logs[f"logs/{split}/loss"]
+            require(sorted(got) == epochs, f"logs hold epochs {sorted(got)} of {split} loss")
+            require(np.isfinite(list(got.values())).all(), f"{split} loss not finite: {got}")
+        for split in ("val", "test"):
+            for m, hi in (("ER", np.inf), ("F1", 100.0), ("LE", 180.0), ("LR", 100.0),
+                          ("SELD", np.inf)):
+                v = np.array(list(logs[f"logs/{split}/{m}"].values()))
+                require(len(v) == len(epochs) and np.isfinite(v).all()
+                        and (v >= 0).all() and (v <= hi).all(), f"{split} {m}: {v}")
+
+        # launches: per step, per eval clip
+        require(len(rec["steps"]) == CLI_EPOCHS + 1, f"{len(rec['steps'])} train steps")
+        nb = CONFORMER_BLOCKS
+        for i, n in enumerate(rec["steps"]):
+            require(n["stft"] == 1 and n["k2_dropout"] == nb and n["k3"] == nb
+                    and n["k2"] == 0 and n["k4"] == 0, f"train step {i + 1}: launches {n}")
+        for e in rec["evals"]:
+            route = "k4" if e["frames"] > attention.BLOCK_THRESHOLD else "k2"
+            other = "k2" if route == "k4" else "k4"
+            require(e["stft"] == 1 and e[route] == nb and e[other] == 0
+                    and e["k2_dropout"] == 0 and e["k3"] == 0,
+                    f"eval clip of {e['frames']} frames: launches {e}")
+        require(any(e["frames"] > attention.BLOCK_THRESHOLD for e in rec["evals"]),
+                "no eval clip on route k4")
+        for name, n in launched.items():
+            require(n > 0, f"train_cli: kernel route {name} never launched")
+
+        # the resume: epoch 11 from the stored pool, file list, best_log, generator
+        require(stored["start_epoch_nb"] == CLI_EPOCHS + 1, f"stored {stored['start_epoch_nb']}")
+        loaded = rec["loaded"][-1]
+        require(loaded["best_log"] == stored["best_log"], "resume: best_log differs")
+        first = rec["epochs"][n_epochs]
+        require(len(rec["epochs"]) == n_epochs + 1, "resume ran more than epoch 11")
+        require(first["files"] == stored["train_file_list"]
+                and first["pool"] == stored["train_remaining_file"],
+                "resume: epoch 11 did not start from the stored pool and file list")
+        require(np.array_equal(rec["gen_state"][n_gen].numpy(),
+                               stored["rng_state"]["torch_generator"]),
+                "resume: the step generator did not continue from its stored state")
+
+        train_s = [logs["logs/train/time_s"][e] for e in epochs]
+        wait_s = [logs["logs/train/loader_wait_s"][e] for e in epochs]
+        step_s = [t - w for t, w in zip(train_s, wait_s)]
+        step_med = float(np.median(step_s[1:]))  # epoch 1 pays cuDNN's first calls
+        audio_s = CLI_BATCH * cfg.data.chunk_window_s
+        row = {"phase": "train_cli", "epochs": len(epochs),
+               "batch": [CLI_BATCH, cfg.data.chunk_window_s * cfg.data.sr // HOP, HOP, 4],
+               "train_s": train_s, "val_s": [logs["logs/val/time_s"][e] for e in epochs],
+               "test_s": [logs["logs/test/time_s"][e] for e in epochs],
+               "loader_wait_s_per_batch": wait_s,
+               "engine_step_s": step_s,
+               "engine_audio_s_per_s": audio_s / step_med,
+               "engine_audio_s_per_s_with_loader": audio_s / float(np.median(train_s[1:])),
+               "bare_step_audio_s_per_s": audio_s / (bare_step_ms * 1e-3),
+               "tau_scan": {"tau": scan_tau,
+                            "forward_s": logs["logs/train/conf_scan_forward_s"][CLI_EPOCHS],
+                            "decode_score_s": logs["logs/train/conf_scan_decode_score_s"][CLI_EPOCHS]},
+               "scorer_s_per_call": {"n": len(rec["scorer_s"]),
+                                     "median": float(np.median(rec["scorer_s"])),
+                                     "max": float(np.max(rec["scorer_s"]))},
+               "checkpoint_s": [logs["logs/train/checkpoint_s"][e] for e in epochs],
+               "cli_s": secs, "cli_scores": scores,
+               "resume_profile": {k: v for k, v in resume_profile.items()
+                                  if k not in ("steps",)},
+               "final_losses": {s: logs[f"logs/{s}/loss"][CLI_EPOCHS + 1]
+                                               for s in ("train", "val", "test")},
+               "eval_clips": len(rec["evals"]), "launches": launched,
+               "launches_per_step": rec["steps"][0],
+               "seconds": {"phase": time.perf_counter() - t_phase, "write_set": set_s},
+               "card": smi}
+        emit(row)
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -940,7 +1270,8 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del model, conformer
-    train = phase_train_conformer(smi, conf_cfg, fe)
+    train, bare_step_ms = phase_train_conformer(smi, conf_cfg, fe)
+    engine = phase_train_cli(smi, conf_cfg, bare_step_ms)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
@@ -950,23 +1281,32 @@ def main():
     k["max_abs_err"] = max(r["max_abs_err"] for r in stft_k.values())
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
     keys_a = keys + ("bound_units", "bound_ffma_ms")
+    paths = {"serve": se, "serve_conformer": conf, "train_conformer": train,
+             "train_cli": engine}
+
+    def launches(route):
+        """``launches``: this slice's main path (the ``cli`` train, val, test
+        and resume of phase train_cli); each path's count beside it."""
+        return {"launches": engine[route],
+                "launches_by_path": {p: n[route] for p, n in paths.items()}}
+
     emit({"kernels": [
         {"name": "stft_hop_blocks", "route": "cuda",
          "source": "adyolo_tpu_torch/csrc/stft.cu",
          "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
-         "launches": se["stft"], **{n: k[n] for n in keys}},
+         **launches("stft"), **{n: k[n] for n in keys}},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
-         "launches": conf["k2"], **{n: attn_k["k2"][n] for n in keys_a}},
+         **launches("k2"), **{n: attn_k["k2"][n] for n in keys_a}},
         {**attn, "name": "flash_attention/k4",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:358",
-         "launches": conf["k4"], **{n: attn_k["k4"][n] for n in keys_a}},
+         **launches("k4"), **{n: attn_k["k4"][n] for n in keys_a}},
         {**attn, "name": "flash_attention/k2_dropout",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
-         "launches": train["k2_dropout"], **{n: train_k["k2_dropout"][n] for n in keys_a}},
+         **launches("k2_dropout"), **{n: train_k["k2_dropout"][n] for n in keys_a}},
         {**attn, "name": "flash_attention_bwd/k3",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
-         "launches": train["k3"], **{n: train_k["k3"][n] for n in keys_a}}]})
+         **launches("k3"), **{n: train_k["k3"][n] for n in keys_a}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,16 @@
   on ``cuda`` unless the caller asks for the CPU.
 
 :func:`port_config` is how the other port tests build the port's
-``Config`` from the same YAML as the JAX one they hand to JAX functions.
+``Config`` from the same YAML as the JAX one they hand to JAX functions,
+and :func:`one_torch_thread` the fixture with which the heavier ones run
+PyTorch's CPU ops on one thread.
 """
 import dataclasses
 import inspect
 import os
 
 import pytest
+import torch
 
 from adyolo_tpu import config as jax_config
 from adyolo_tpu_torch import config as port_config_mod
@@ -28,6 +31,19 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def port_config(jcfg):
     """The port's ``Config`` read from the YAML of the JAX ``jcfg``."""
     return port_config_mod.config_from_yaml(jax_config.config_to_yaml(jcfg))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """PyTorch's CPU ops on one thread for a test module (restored after).
+    The suite runs in several worker processes on a few cores; a torch op
+    that starts a thread per core in each of them waits on descheduled
+    threads at every parallel region, and the models here are thousands of
+    small ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _as_dict(cfg):

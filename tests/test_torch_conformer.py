@@ -43,8 +43,10 @@ from adyolo_tpu_torch.models.layers import U8Dropout
 from adyolo_tpu_torch.models.wrapper import build_model
 from adyolo_tpu_torch.ops import attention
 
-from tests.test_torch_config import port_config
+from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
 from tests.test_torch_models import _perturb, _perturb_bn_affine
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-4
 MOD_TOL = 2e-5

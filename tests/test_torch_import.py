@@ -32,7 +32,9 @@ _SLICE = ("config", "ops.stft", "ops.hopper_stft", "ops.attention",
           "models.resnet_conformer", "models.heads", "models.losses",
           "models.wrapper", "parallel.train_step", "convert",
           "engine.checkpoint", "engine.evaluate", "utils.build",
-          "utils.native", "cli")
+          "utils.native", "cli", "metrics.seld", "metrics.hungarian",
+          "ops.rotation", "ops.specaug", "engine.train", "utils.rng",
+          "utils.logging", "utils.neptune_adapter")
 
 
 def test_port_imports_no_jax():

@@ -21,6 +21,9 @@ from adyolo_tpu_torch.convert import (expected_keys, flax_from_state_dict,
 from adyolo_tpu_torch.models.layers import reverse_sequence
 from adyolo_tpu_torch.models.wrapper import build_model
 from adyolo_tpu_torch.parallel.train_step import build_train_step
+from tests.test_torch_config import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-4
 
@@ -117,8 +120,9 @@ def test_converter_round_trip_and_strictness(pair):
 
 def test_unported_configurations_raise():
     """Other losses, SE-ResNet34 training (its BiGRU), and the parts of the
-    train step that are not ported (SpecAugment, bf16, remat) raise; the
-    conformer trains (``tests/test_torch_train_step.py``)."""
+    train step that are not ported (bf16, remat) raise; the conformer trains
+    (``tests/test_torch_train_step.py``), with SpecAugment, whose step
+    input is held against the JAX step's (``tests/test_torch_specaug.py``)."""
     import dataclasses
 
     from adyolo_tpu_torch.ops.features import FeatureFrontend
@@ -134,8 +138,7 @@ def test_unported_configurations_raise():
     model = build_model(c, device="cpu", train=True)
     assert model.encoder.conformer0.mhsa.training
     fe = FeatureFrontend(c.data, device="cpu")
-    for bad in (dataclasses.replace(c, aug=dataclasses.replace(c.aug, spec_augment=True)),
-                dataclasses.replace(c, train=dataclasses.replace(
+    for bad in (dataclasses.replace(c, train=dataclasses.replace(
                     c.train, compute_dtype="bfloat16")),
                 dataclasses.replace(c, train=dataclasses.replace(c.train, remat=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

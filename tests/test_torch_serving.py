@@ -38,7 +38,9 @@ from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry
 from adyolo_tpu_torch.ops.decode import _device_decode
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import port_config
+from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 XYZ_TOL = 1e-4
 EXP = "exp-serve"

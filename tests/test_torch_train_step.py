@@ -71,8 +71,10 @@ from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry
 from adyolo_tpu_torch.ops.features import FeatureFrontend, Scaler
 from adyolo_tpu_torch.parallel.train_step import build_train_step, make_optimizer
 
-from tests.test_torch_config import port_config
+from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
 from tests.test_torch_features import _scaler_dict
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOSS_REL = 1e-4
 GRAD_TOL = 1e-4  # the float32 step, relative to each tensor's max|grad|
