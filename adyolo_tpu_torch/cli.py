@@ -2,7 +2,8 @@
 :mod:`adyolo_tpu.cli`, reference ``src/main.py``).
 
 Usage:
-    python -m adyolo_tpu_torch.cli train --encoder resnet-conformer [--augment] [--logger] ...
+    python -m adyolo_tpu_torch.cli train [--encoder resnet-conformer] [--augment] [--logger]
+                                         [--compute_dtype bfloat16] [--remat] ...
     python -m adyolo_tpu_torch.cli train --resume_pth <exp_id>
     python -m adyolo_tpu_torch.cli val   --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli test  --eval_pth <exp_id>
@@ -14,12 +15,13 @@ writes ``<results_dir>/<exp_id>/`` (``hyp_exp.yaml``, ``model_best.ckpt`` in
 the JAX package's format, the resumable ``model_ckpt.ckpt``, the per-clip
 CSVs and, with ``--logger``, ``logs.jsonl``); ``val`` / ``test`` / ``infer``
 read an experiment dir written by either package's trainer, for either
-encoder.  Only the ResNet-Conformer with the ``adyolo`` loss trains.
+encoder.  Both encoders train with the ``adyolo`` loss, in float32 or
+(``--compute_dtype bfloat16``) bf16; ``--remat`` checkpoints the
+conformer's blocks.  Val, test and infer run in float32.
 
 The JAX package's arguments that the port does not implement are refused
-with a message, not ignored: ``--model_parallel``, ``--serve_dtype``,
-``--compute_dtype bfloat16``, ``--remat``, and the ``export`` and
-``preprocess`` actions.
+with a message, not ignored: ``--model_parallel``, ``--serve_dtype``, and
+the ``export`` and ``preprocess`` actions.
 """
 from __future__ import annotations
 
@@ -72,9 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--nms", type=str, default=None)
         sp.add_argument("--compute_dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
-                        help="float32 only (bfloat16 is not yet ported)")
+                        help="training compute dtype (eval runs float32)")
+        sp.add_argument("--remat", action="store_const", const=True, default=None,
+                        help="checkpoint the conformer blocks (recompute them "
+                             "in the backward)")
         # the JAX package's arguments that the port refuses (see _refuse)
-        sp.add_argument("--remat", action="store_const", const=True, default=None)
         sp.add_argument("--model_parallel", type=int, default=None)
         sp.add_argument("--serve_dtype", type=str, default=None)
         sp.add_argument("--device", type=str, default="cuda")
@@ -90,11 +94,6 @@ def _refuse(args) -> None:
         "--serve_dtype": (args.serve_dtype is not None,
                           "it sets the dtype of the export artifact, which is "
                           "not yet ported (ROADMAP.md §1 item 7)"),
-        "--compute_dtype bfloat16": (args.compute_dtype == "bfloat16",
-                                     "bf16 training is not yet ported "
-                                     "(ROADMAP.md §1 item 3)"),
-        "--remat": (bool(args.remat), "activation checkpointing is not yet "
-                    "ported (ROADMAP.md §1 item 3)"),
     }
     for flag, (given, why) in refused.items():
         if given:
@@ -113,7 +112,7 @@ def main(argv=None) -> int:
 
         torch.autograd.set_detect_anomaly(True)
     arg_dict = {k: v for k, v in vars(args).items()
-                if k not in ("device", "remat", "model_parallel", "serve_dtype")}
+                if k not in ("device", "model_parallel", "serve_dtype")}
     if args.action == "train":
         from .engine.train import train_model
 

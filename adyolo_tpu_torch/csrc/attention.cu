@@ -1,6 +1,9 @@
 // Multi-head attention for Hopper (sm_90a) on the tensor cores in 3xTF32:
 // the online-softmax forward (eval, and train with dropout) and the
-// attention backward.
+// attention backward; and, for bf16 training, the train forward and the
+// backward on bfloat16 operands (`mhsa_fwd_bf16_kernel`,
+// `mhsa_bwd_dq_bf16_kernel` + `mhsa_bwd_dkdv_bf16_kernel`, routes
+// k2_dropout_bf16 and k3_bf16; their own section below).
 //
 // Replaces three TPU kernels of adyolo_tpu/ops/flash_mhsa.py:
 //   * K2 `_fwd_kernel` (:89, launched by `_flash_fwd` at :180): the
@@ -112,6 +115,7 @@
 //     (1, 2400) in 3, 456; (1, 4800) in 4, 1200.
 // wgmma, TMA and warp specialisation are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -218,6 +222,13 @@ __device__ __forceinline__ void mma_tf32(float* c, const unsigned* a, const unsi
         "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats as a bfloat16 pair, rounded to nearest even: lo in the low
+// half (the lower k or column index of an mma fragment), hi in the high.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<unsigned*>(&v);
 }
 
 // acc[u] += a . b[u] for NG column tiles in 3xTF32: three sweeps of NG
@@ -616,12 +627,14 @@ mhsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // Merge the partial (m, l, O) of the key splits: one thread per 4 dims of
 // one (b, t, h) row.  The splits below min(splits, ceil(L / 64)) hold key
-// tiles; L == 0 gives zeros and lse = -inf.  lse may be null (eval).
+// tiles; L == 0 gives zeros and lse = -inf.  lse may be null (eval);
+// out16, when not null, gets the output rounded to bfloat16 beside out.
 __global__ void __launch_bounds__(MERGE_THREADS)
 mhsa_fwd_merge_kernel(const float* __restrict__ part, const float* __restrict__ pm,
                       const float* __restrict__ pl, const int* __restrict__ kv_len,
-                      float* __restrict__ out, float* __restrict__ lse, int B, int T,
-                      int H, int splits, float kscale) {
+                      float* __restrict__ out, __nv_bfloat16* __restrict__ out16,
+                      float* __restrict__ lse, int B, int T, int H, int splits,
+                      float kscale) {
     const long long idx = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
     const long long rows = (long long)B * T * H;
     if (idx >= rows * (DH / 4)) return;
@@ -648,7 +661,14 @@ mhsa_fwd_merge_kernel(const float* __restrict__ part, const float* __restrict__ 
         acc.w = fmaf(w, x.w, acc.w);
     }
     const float inv = n > 0 ? kscale / lsum : 0.f;
-    st4(out + r * DH + c, make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
+    const float4 o = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    st4(out + r * DH + c, o);
+    if (out16 != nullptr) {
+        uint2 packed;
+        packed.x = pack_bf16(o.x, o.y);
+        packed.y = pack_bf16(o.z, o.w);
+        *reinterpret_cast<uint2*>(out16 + r * DH + c) = packed;
+    }
     if (lse != nullptr && c == 0) lse[bht] = n > 0 ? (mmax + log2f(lsum)) * LN2 : -INFINITY;
 }
 
@@ -869,6 +889,553 @@ mhsa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     store_rows(dv, gv, base, frame, k0 + warp * 16, T, lane);
 }
 
+// ---- bf16 training: K2 with dropout and K3 on bfloat16 q/k/v -----------
+//
+// The JAX package's bf16 training hands flash_mhsa bfloat16 q/k/v and
+// rounds at fixed points (flash_mhsa.py:101-104, :129-146): the forward's
+// dropped and scaled probabilities are rounded to bfloat16 for P.V and
+// the output is bfloat16; the backward rounds ds * scale and pd to
+// bfloat16 before its three products and writes dq, dk, dv in bfloat16
+// from float32 sums.  These kernels keep those points with bfloat16
+// operands and float32 accumulators on mma.sync m16n8k16 (no hi/lo
+// splits: the operands are bfloat16 already), and the same structure as
+// the float32 kernels: 128 threads = 4 warps x 16 rows of a 64-row tile,
+// 64-key (or 64-query) tiles streamed by cp.async, double-buffered, the
+// same online softmax, dropout hash, key splits and merge.
+//
+// In m16n8k16 the accumulators of two adjacent n8 column tiles, packed to
+// bfloat16 pairs, are exactly the A fragment of one k16 step (a0/a1 from
+// tile 2kt, a2/a3 from tile 2kt + 1), so P (and dS, and in the dk/dv pass
+// Pd^T and dS^T) feed the next product from registers with no
+// permutation.  B operands whose k index runs along a tile's rows (V in
+// P.V, K in dS.K, dO and Q in the dk/dv pass) are read as two 16-bit
+// shared loads per register; the others as one 32-bit load.  Rows are
+// padded to 72 bfloat16 (36 words), which keeps both kinds of load free of
+// bank conflicts.
+//
+// Differences from JAX's arithmetic, each at bfloat16 rounding level:
+// the online form rounds the unnormalised exp(s - m) to bfloat16 (JAX the
+// normalised p * kscale), and the backward takes D = rowsum(dO o O) from
+// the float32 output that the forward writes beside the bfloat16 one (JAX
+// sums dp o p in float32): D from the bfloat16 output would carry that
+// rounding into every ds of the row where dp ~ D cancels.
+//
+// What bounds them: at (B, T) = (16, 800) the forward's two products are
+// 10.5 GFLOP, 0.0106 ms at the H100's 989 TFLOP/s of dense bfloat16, and
+// the backward's five 26.2 GFLOP, 0.0265 ms; their bytes (26 and 52 MB)
+// take 0.008 and 0.016 ms.  mma.sync reaches a fraction of that peak
+// (wgmma is the way to the rest); these kernels are the simple first
+// design.
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TSB = DH + 8;        // row stride of a bfloat16 tile in shared memory
+constexpr int TILEB = BT * TSB;    // bfloat16 elements of one tile
+constexpr size_t TILEB_BYTES = TILEB * sizeof(bf16);
+constexpr size_t FWDB_SMEM = 5 * TILEB_BYTES;   // Q, K and V twice
+constexpr size_t DQB_SMEM = 6 * TILEB_BYTES;    // Q, dO, K and V twice
+constexpr size_t DKDVB_SMEM = 6 * TILEB_BYTES + 2 * 3 * BT * sizeof(float);
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld32(const bf16* p) {
+    return *reinterpret_cast<const unsigned*>(p);
+}
+
+// p[0] in the low half, p[stride] in the high half
+__device__ __forceinline__ unsigned ld_col_pair(const bf16* p) {
+    const unsigned lo = *reinterpret_cast<const unsigned short*>(p);
+    const unsigned hi = *reinterpret_cast<const unsigned short*>(p + TSB);
+    return lo | (hi << 16);
+}
+
+// Rows [r0, r0 + BT) of one head into a bfloat16 tile (stride TSB), rows
+// >= n zeros.
+__device__ __forceinline__ void tile_async_bf16(bf16* dst, const bf16* src, long long base,
+                                                long long frame, int r0, int n, int tid) {
+#pragma unroll
+    for (int p = 0; p < BT * DH / 8 / THREADS; ++p) {
+        const int idx = tid + p * THREADS;
+        const int r = idx >> 3, c = (idx & 7) * 8;
+        const bool ok = r0 + r < n;
+        const bf16* s = src + base + (ok ? (long long)(r0 + r) * frame : 0LL) + c;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(dst + r * TSB + c)),
+                     "l"(s), "r"(ok ? 16 : 0) : "memory");
+    }
+}
+
+// The A fragments (k16 steps over DH) of this warp's 16 rows of a tile.
+__device__ __forceinline__ void load_a_frags(unsigned a[4][4], const bf16* tile, int warp,
+                                             int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const bf16* r0 = tile + (warp * 16 + g) * TSB + 2 * t;
+    const bf16* r1 = r0 + 8 * TSB;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        a[kk][0] = ld32(r0 + kk * 16);
+        a[kk][1] = ld32(r1 + kk * 16);
+        a[kk][2] = ld32(r0 + kk * 16 + 8);
+        a[kk][3] = ld32(r1 + kk * 16 + 8);
+    }
+}
+
+// acc (16 x 64) += A . B^T over DH: A in fragments, B = the 64 rows of a
+// bfloat16 tile.  Element i of acc[nt] is (row g + 8 (i >> 1), column
+// 8 nt + 2 t + (i & 1)).
+__device__ __forceinline__ void gemm_bf16_abt(float acc[8][4], const unsigned a[4][4],
+                                              const bf16* tile, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+        const bf16* row = tile + (nt * 8 + g) * TSB + 2 * t;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const unsigned b[2] = {ld32(row + kk * 16), ld32(row + kk * 16 + 8)};
+            mma_bf16(acc[nt], a[kk], b);
+        }
+    }
+}
+
+// acc (16 x DH) += P . X: P (16 x 64, accumulator layout) rounded to
+// bfloat16 pairs as A fragments, X = the 64 rows of a bfloat16 tile.
+__device__ __forceinline__ void gemm_bf16_px(float acc[8][4], const float p[8][4],
+                                             const bf16* tile, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+        const unsigned a[4] = {pack_bf16(p[2 * kt][0], p[2 * kt][1]),
+                               pack_bf16(p[2 * kt][2], p[2 * kt][3]),
+                               pack_bf16(p[2 * kt + 1][0], p[2 * kt + 1][1]),
+                               pack_bf16(p[2 * kt + 1][2], p[2 * kt + 1][3])};
+        const bf16* r0 = tile + (kt * 16 + 2 * t) * TSB + g;
+#pragma unroll
+        for (int nd = 0; nd < 8; ++nd) {
+            const unsigned b[2] = {ld_col_pair(r0 + nd * 8), ld_col_pair(r0 + 8 * TSB + nd * 8)};
+            mma_bf16(acc[nd], a, b);
+        }
+    }
+}
+
+// Store this warp's 16 x DH accumulator as bfloat16 rows r0 + g (+ 8) of
+// one head (and, out32 not null, as float32), rows >= T skipped.
+__device__ __forceinline__ void store_rows_bf16(bf16* dst, float* dst32, const float acc[8][4],
+                                                long long base, long long frame, int r0,
+                                                int T, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int r = r0 + g + 8 * half;
+        if (r >= T) continue;
+        const long long off = base + (long long)r * frame + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+            const float x0 = acc[nt][2 * half], x1 = acc[nt][2 * half + 1];
+            *reinterpret_cast<unsigned*>(dst + off + nt * 8) = pack_bf16(x0, x1);
+            if (dst32 != nullptr)
+                *reinterpret_cast<float2*>(dst32 + off + nt * 8) = make_float2(x0, x1);
+        }
+    }
+}
+
+// Zeros for rows [r0, r0 + BT) of one bfloat16 head (rows >= T skipped).
+__device__ __forceinline__ void zero_rows_bf16(bf16* dst, long long base, long long frame,
+                                               int r0, int T, int tid) {
+#pragma unroll
+    for (int p = 0; p < BT * DH / 8 / THREADS; ++p) {
+        const int idx = tid + p * THREADS;
+        const int r = r0 + (idx >> 3);
+        if (r < T)
+            *reinterpret_cast<uint4*>(dst + base + (long long)r * frame + (idx & 7) * 8) =
+                make_uint4(0u, 0u, 0u, 0u);
+    }
+}
+
+// The bf16 train forward of one (64-query tile, b*h, key split): out
+// (bfloat16) and out32 (float32) and the row logsumexp, or with splits > 1
+// the partial (O, m, l) for mhsa_fwd_merge_kernel, as mhsa_fwd_kernel<true>.
+__global__ void __launch_bounds__(THREADS, 2)
+mhsa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ kv_len,
+                     const int* __restrict__ seed, bf16* __restrict__ out,
+                     float* __restrict__ out32, float* __restrict__ lse,
+                     float* __restrict__ part, float* __restrict__ pm, float* __restrict__ pl,
+                     int T, int H, int splits, float scale_log2, Drop d) {
+    extern __shared__ __align__(16) float smem[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem);
+    bf16* Ks = Qs + TILEB;       // two buffers
+    bf16* Vs = Ks + 2 * TILEB;   // two buffers
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh - b * H;
+    const int q0 = blockIdx.x * BT;
+    const int split = blockIdx.z;
+    const long long frame = (long long)H * DH;
+    const long long base = (long long)b * T * frame + (long long)h * DH;
+    const int L = min(max(kv_len[b], 0), T);
+    const int n_tiles = (L + BT - 1) / BT;
+
+    if (L == 0 && splits == 1) {  // no valid key: zeros (block-uniform, before any barrier)
+        zero_rows_bf16(out, base, frame, q0, T, tid);
+        zero_rows(out32, base, frame, q0, T, tid);
+        if (tid < BT && q0 + tid < T) lse[(long long)bh * T + q0 + tid] = -INFINITY;
+        return;
+    }
+    if (split >= n_tiles) return;  // no key tile for this split (block-uniform)
+
+    tile_async_bf16(Qs, q, base, frame, q0, T, tid);
+    tile_async_bf16(Ks, k, base, frame, split * BT, L, tid);  // keys >= L are zeros
+    tile_async_bf16(Vs, v, base, frame, split * BT, L, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    unsigned qa[4][4];
+    load_a_frags(qa, Qs, warp, lane);
+
+    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    const bool drop = d.t24 != 0u;
+    unsigned rbase[2] = {0u, 0u};
+    if (drop) {
+        const unsigned seed_term = (unsigned)seed[0] * 0x9E3779B9u;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) rbase[u] = row_base(d, seed_term, bh, row[u]);
+    }
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+    float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+    float o[8][4];
+    zero_acc(o);
+
+    int buf = 0;
+    for (int it = split; it < n_tiles; it += splits) {
+        const int nxt = it + splits;
+        if (nxt < n_tiles) {  // the next step's tiles fly while this one multiplies
+            tile_async_bf16(Ks + (buf ^ 1) * TILEB, k, base, frame, nxt * BT, L, tid);
+            tile_async_bf16(Vs + (buf ^ 1) * TILEB, v, base, frame, nxt * BT, L, tid);
+            cp_async_commit();
+        }
+        const bf16* Kt = Ks + buf * TILEB;
+        const bf16* Vt = Vs + buf * TILEB;
+        float s[8][4];
+        zero_acc(s);
+        gemm_bf16_abt(s, qa, Kt, lane);  // S = Q . K^T
+
+        const int j0 = it * BT;
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (j0 + BT > L) {  // the edge tile (block-uniform)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    if (j0 + nt * 8 + 2 * t + (i & 1) >= L) s[nt][i] = -INFINITY;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+        float mnew[2], alpha[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+            mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+            mnew[u] = fmaxf(m[u], mx[u] * scale_log2);
+            alpha[u] = exp2_ftz(m[u] - mnew[u]);
+            m[u] = mnew[u];
+            l[u] *= alpha[u];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int u = i >> 1;
+                float p = exp2_ftz(fmaf(s[nt][i], scale_log2, -mnew[u]));
+                l[u] += p;  // the normaliser sums the undropped probabilities
+                if (drop && !keep_bit(d, rbase[u], j0 + nt * 8 + 2 * t + (i & 1))) p = 0.f;
+                s[nt][i] = p;
+                o[nt][i] *= alpha[u];
+            }
+        }
+        gemm_bf16_px(o, s, Vt, lane);  // O = O * alpha + bf16(P) . V
+        cp_async_wait<0>();
+        __syncthreads();  // every warp is done with this buffer; the next tiles arrived
+        buf ^= 1;
+    }
+
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    }
+    if (splits == 1) {
+        const float inv[2] = {(drop ? d.kscale : 1.f) / l[0], (drop ? d.kscale : 1.f) / l[1]};
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[nt][i] *= inv[i >> 1];
+        store_rows_bf16(out, out32, o, base, frame, q0 + warp * 16, T, lane);
+        if (t == 0) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+                if (row[u] < T) lse[(long long)bh * T + row[u]] = (m[u] + log2f(l[u])) * LN2;
+        }
+        return;
+    }
+    const long long n_out = (long long)gridDim.y / H * T * frame;  // B*T*H*DH
+    store_rows(part + split * n_out, o, base, frame, q0 + warp * 16, T, lane);
+    if (t == 0) {
+        const long long st = ((long long)split * gridDim.y + bh) * T;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            if (row[u] < T) {
+                pm[st + row[u]] = m[u];
+                pl[st + row[u]] = l[u];
+            }
+        }
+    }
+}
+
+// bf16 K3, dq pass: dq (bfloat16) for 64 queries, and D = rowsum(dO o O)
+// of those rows (O the forward's float32 output) into `delta`.
+__global__ void __launch_bounds__(THREADS, 2)
+mhsa_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ kv_len,
+                        const int* __restrict__ seed, const float* __restrict__ out32,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, bf16* __restrict__ dq, int T, int H,
+                        float scale, Drop d) {
+    extern __shared__ __align__(16) float smem[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem);
+    bf16* Os = Qs + TILEB;        // dO
+    bf16* Ks = Os + TILEB;        // two buffers
+    bf16* Vs = Ks + 2 * TILEB;    // two buffers
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh - b * H;
+    const int q0 = blockIdx.x * BT;
+    const long long frame = (long long)H * DH;
+    const long long base = (long long)b * T * frame + (long long)h * DH;
+    const int L = min(max(kv_len[b], 0), T);
+
+    if (L == 0) {  // no valid key: zeros (block-uniform, before any barrier)
+        zero_rows_bf16(dq, base, frame, q0, T, tid);
+        return;
+    }
+    tile_async_bf16(Qs, q, base, frame, q0, T, tid);
+    tile_async_bf16(Os, dout, base, frame, q0, T, tid);
+    tile_async_bf16(Ks, k, base, frame, 0, L, tid);
+    tile_async_bf16(Vs, v, base, frame, 0, L, tid);
+    cp_async_commit();
+
+    // D = rowsum(dO o O): threads 2r, 2r + 1 take the halves of row r
+    float dsum = 0.f;
+    {
+        const int r = q0 + (tid >> 1);
+        if (r < T) {
+            const long long off = base + (long long)r * frame + (tid & 1) * (DH / 2);
+#pragma unroll
+            for (int c = 0; c < DH / 2; c += 8) {
+                const uint4 raw = __ldg(reinterpret_cast<const uint4*>(dout + off + c));
+                const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&raw);
+                const float4 o0 = __ldg(reinterpret_cast<const float4*>(out32 + off + c));
+                const float4 o1 = __ldg(reinterpret_cast<const float4*>(out32 + off + c + 4));
+                const float2 d0 = __bfloat1622float2(pr[0]), d1 = __bfloat1622float2(pr[1]);
+                const float2 d2 = __bfloat1622float2(pr[2]), d3 = __bfloat1622float2(pr[3]);
+                dsum = dot4(make_float4(d0.x, d0.y, d1.x, d1.y), o0, dsum);
+                dsum = dot4(make_float4(d2.x, d2.y, d3.x, d3.y), o1, dsum);
+            }
+        }
+        dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+        if (r < T && (tid & 1) == 0) delta[(long long)bh * T + r] = dsum;
+    }
+    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    const float dlt[2] = {__shfl_sync(0xffffffffu, dsum, 2 * g),
+                          __shfl_sync(0xffffffffu, dsum, 2 * g + 16)};
+    const bool drop = d.t24 != 0u;
+    const float scale_log2 = scale * LOG2E;
+    const unsigned seed_term = drop ? (unsigned)seed[0] * 0x9E3779B9u : 0u;
+    float lse2[2];
+    unsigned rbase[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        lse2[u] = row[u] < T ? lse[(long long)bh * T + row[u]] * LOG2E : 0.f;
+        rbase[u] = drop ? row_base(d, seed_term, bh, row[u]) : 0u;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    unsigned qa[4][4], oa[4][4];
+    load_a_frags(qa, Qs, warp, lane);
+    load_a_frags(oa, Os, warp, lane);
+
+    float acc[8][4];
+    zero_acc(acc);
+    const int n_tiles = (L + BT - 1) / BT;
+    int buf = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            tile_async_bf16(Ks + (buf ^ 1) * TILEB, k, base, frame, (it + 1) * BT, L, tid);
+            tile_async_bf16(Vs + (buf ^ 1) * TILEB, v, base, frame, (it + 1) * BT, L, tid);
+            cp_async_commit();
+        }
+        const bf16* Kt = Ks + buf * TILEB;
+        const bf16* Vt = Vs + buf * TILEB;
+        float s[8][4], dp[8][4];
+        zero_acc(s);
+        zero_acc(dp);
+        gemm_bf16_abt(s, qa, Kt, lane);   // S = Q . K^T
+        gemm_bf16_abt(dp, oa, Vt, lane);  // dPd = dO . V^T
+        const int j0 = it * BT;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int u = i >> 1;
+                const int key = j0 + nt * 8 + 2 * t + (i & 1);
+                float ds = 0.f;
+                if (key < L && row[u] < T) {
+                    const float p = exp2f(s[nt][i] * scale_log2 - lse2[u]);
+                    float dpv = dp[nt][i];
+                    if (drop) dpv = keep_bit(d, rbase[u], key) ? dpv * d.kscale : 0.f;
+                    ds = p * (dpv - dlt[u]) * scale;
+                }
+                s[nt][i] = ds;
+            }
+        }
+        gemm_bf16_px(acc, s, Kt, lane);  // dq += bf16(dS * scale) . K
+        cp_async_wait<0>();
+        __syncthreads();
+        buf ^= 1;
+    }
+    store_rows_bf16(dq, nullptr, acc, base, frame, q0 + warp * 16, T, lane);
+}
+
+// bf16 K3, dk/dv pass: dk, dv (bfloat16) for 64 keys, walking every
+// 64-query tile; one writer per element, float32 sums.
+__global__ void __launch_bounds__(THREADS, 2)
+mhsa_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const int* __restrict__ kv_len,
+                          const int* __restrict__ seed, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
+                          float scale, Drop d) {
+    extern __shared__ __align__(16) float smem[];
+    bf16* Ks = reinterpret_cast<bf16*>(smem);  // this block's keys
+    bf16* Vs = Ks + TILEB;
+    bf16* Qs = Vs + TILEB;         // a query tile, two buffers
+    bf16* Os = Qs + 2 * TILEB;     // its dO, two buffers
+    float* Ls = reinterpret_cast<float*>(Os + 2 * TILEB);  // [2][BT] lse * log2 e
+    float* Dl = Ls + 2 * BT;                                // [2][BT] D
+    unsigned* Rb = reinterpret_cast<unsigned*>(Dl + 2 * BT);  // [2][BT] hash row bases
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh - b * H;
+    const int k0 = blockIdx.x * BT;
+    const long long frame = (long long)H * DH;
+    const long long base = (long long)b * T * frame + (long long)h * DH;
+    const int L = min(max(kv_len[b], 0), T);
+
+    if (k0 >= L) {  // keys no query sees: zero gradients (block-uniform)
+        zero_rows_bf16(dk, base, frame, k0, T, tid);
+        zero_rows_bf16(dv, base, frame, k0, T, tid);
+        return;
+    }
+    const bool drop = d.t24 != 0u;
+    const float scale_log2 = scale * LOG2E;
+    const unsigned seed_term = drop ? (unsigned)seed[0] * 0x9E3779B9u : 0u;
+    const long long stats = (long long)bh * T;
+
+    tile_async_bf16(Ks, k, base, frame, k0, L, tid);
+    tile_async_bf16(Vs, v, base, frame, k0, L, tid);
+    tile_async_bf16(Qs, q, base, frame, 0, T, tid);
+    tile_async_bf16(Os, dout, base, frame, 0, T, tid);
+    cp_async_commit();
+    if (tid < BT) {
+        const bool ok = tid < T;
+        Ls[tid] = ok ? lse[stats + tid] * LOG2E : 0.f;
+        Dl[tid] = ok ? delta[stats + tid] : 0.f;
+        Rb[tid] = drop && ok ? row_base(d, seed_term, bh, tid) : 0u;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    unsigned ka[4][4], va[4][4];
+    load_a_frags(ka, Ks, warp, lane);
+    load_a_frags(va, Vs, warp, lane);
+
+    const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+    float gk[8][4], gv[8][4];
+    zero_acc(gk);
+    zero_acc(gv);
+    const int n_tiles = (T + BT - 1) / BT;
+    int buf = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+        const int c0 = it * BT;
+        if (it + 1 < n_tiles) {  // the next query tile and its row stats
+            const int c1 = c0 + BT;
+            tile_async_bf16(Qs + (buf ^ 1) * TILEB, q, base, frame, c1, T, tid);
+            tile_async_bf16(Os + (buf ^ 1) * TILEB, dout, base, frame, c1, T, tid);
+            cp_async_commit();
+            if (tid < BT) {
+                const int tq = c1 + tid;
+                const bool ok = tq < T;
+                Ls[(buf ^ 1) * BT + tid] = ok ? lse[stats + tq] * LOG2E : 0.f;
+                Dl[(buf ^ 1) * BT + tid] = ok ? delta[stats + tq] : 0.f;
+                Rb[(buf ^ 1) * BT + tid] = drop && ok ? row_base(d, seed_term, bh, tq) : 0u;
+            }
+        }
+        const bf16* Qt = Qs + buf * TILEB;
+        const bf16* Ot = Os + buf * TILEB;
+        const float* Lt = Ls + buf * BT;
+        const float* Dt = Dl + buf * BT;
+        const unsigned* Rt = Rb + buf * BT;
+        float s[8][4], dp[8][4];
+        zero_acc(s);
+        zero_acc(dp);
+        gemm_bf16_abt(s, ka, Qt, lane);   // S^T = K . Q^T
+        gemm_bf16_abt(dp, va, Ot, lane);  // dPd^T = V . dO^T
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int u = i >> 1;
+                const int col = nt * 8 + 2 * t + (i & 1);
+                float pd = 0.f, ds = 0.f;
+                if (key[u] < L && c0 + col < T) {
+                    const float p = exp2f(s[nt][i] * scale_log2 - Lt[col]);
+                    float dpv = dp[nt][i];
+                    pd = p;
+                    if (drop) {
+                        const bool kp = keep_bit(d, Rt[col], key[u]);
+                        pd = kp ? p * d.kscale : 0.f;
+                        dpv = kp ? dpv * d.kscale : 0.f;
+                    }
+                    ds = p * (dpv - Dt[col]) * scale;
+                }
+                s[nt][i] = pd;
+                dp[nt][i] = ds;
+            }
+        }
+        gemm_bf16_px(gv, s, Ot, lane);   // dv += bf16(Pd)^T . dO
+        gemm_bf16_px(gk, dp, Qt, lane);  // dk += bf16(dS * scale)^T . Q
+        cp_async_wait<0>();
+        __syncthreads();
+        buf ^= 1;
+    }
+    store_rows_bf16(dk, nullptr, gk, base, frame, k0 + warp * 16, T, lane);
+    store_rows_bf16(dv, nullptr, gv, base, frame, k0 + warp * 16, T, lane);
+}
+
 int check_shape(int B, int T, int H, int dh) {
     if (B < 1 || T < 1 || H < 1 || dh != DH || (long long)B * H > 65535) {
         return (int)cudaErrorInvalidValue;
@@ -938,11 +1505,58 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kv_len,
         const long long n = n_out / 4;
         mhsa_fwd_merge_kernel<<<(unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
                                 MERGE_THREADS, 0, st>>>(
-            part, pm, pl, static_cast<const int*>(kv_len), static_cast<float*>(out),
+            part, pm, pl, static_cast<const int*>(kv_len), static_cast<float*>(out), nullptr,
             static_cast<float*>(lse), B, T, H, splits,
             TRAIN && d.t24 != 0u ? d.kscale : 1.0f);
     }
     return (int)cudaGetLastError();
+}
+
+int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_len,
+                    const void* seed, void* out, void* out32, void* lse, void* scratch, int B,
+                    int T, int H, int splits, Drop d, void* stream) {
+    if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && scratch == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (int rc = set_smem(mhsa_fwd_bf16_kernel, FWDB_SMEM)) return rc;
+    const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
+    cudaStream_t st = (cudaStream_t)stream;
+    const long long n_out = (long long)B * T * H * DH;
+    const long long n_stat = (long long)B * H * T;
+    float* part = static_cast<float*>(scratch);
+    float* pm = splits > 1 ? part + splits * n_out : nullptr;
+    float* pl = splits > 1 ? pm + splits * n_stat : nullptr;
+    dim3 grid((T + BT - 1) / BT, B * H, splits);
+    mhsa_fwd_bf16_kernel<<<grid, THREADS, FWDB_SMEM, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const int*>(kv_len), static_cast<const int*>(seed), static_cast<bf16*>(out),
+        static_cast<float*>(out32), static_cast<float*>(lse), part, pm, pl, T, H, splits,
+        scale_log2, d);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    if (splits > 1) {
+        const long long n = n_out / 4;
+        mhsa_fwd_merge_kernel<<<(unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
+                                MERGE_THREADS, 0, st>>>(
+            part, pm, pl, static_cast<const int*>(kv_len), static_cast<float*>(out32),
+            static_cast<bf16*>(out), static_cast<float*>(lse), B, T, H, splits,
+            d.t24 != 0u ? d.kscale : 1.0f);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The key splits of a forward of kernel `kernel` (see pick_splits), or
+// -cudaError.
+template <typename K>
+int fwd_splits(K kernel, size_t smem, int B, int T, int H) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!e) e = (cudaError_t)set_smem(kernel, smem);
+    if (!e) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (e) return -(int)e;
+    if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+    const int n = (T + BT - 1) / BT;  // forward blocks resident: sms * per_sm
+    return pick_splits((long long)B * H * n, n, (long long)sms * per_sm);
 }
 
 }  // namespace
@@ -957,26 +1571,21 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kv_len,
 // launches on `stream` and returns cudaGetLastError() (0 on success).
 
 // Dynamic shared memory a kernel launches with: 0 the forward, 1 the dq
-// pass, 2 the dk/dv pass.
+// pass, 2 the dk/dv pass; 3, 4, 5 the same of the bfloat16 kernels.
 extern "C" long long adyolo_mhsa_smem_bytes(int which) {
-    return (long long)(which == 0 ? FWD_SMEM : which == 1 ? DQ_SMEM : DKDV_SMEM);
+    const size_t bytes[6] = {FWD_SMEM, DQ_SMEM, DKDV_SMEM, FWDB_SMEM, DQB_SMEM, DKDVB_SMEM};
+    return which >= 0 && which < 6 ? (long long)bytes[which] : -1LL;
 }
 
 // The key splits a forward of this shape runs in on the current device
 // (>= 1), or -cudaError.  Not cached: the caller keeps a plan per device.
 extern "C" int adyolo_mhsa_fwd_splits(int B, int T, int H) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (!e) e = (cudaError_t)set_smem(mhsa_fwd_kernel<true>, FWD_SMEM);
-    if (!e) {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mhsa_fwd_kernel<true>,
-                                                          THREADS, FWD_SMEM);
-    }
-    if (e) return -(int)e;
-    if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-    const int n = (T + BT - 1) / BT;  // forward blocks resident: sms * per_sm
-    return pick_splits((long long)B * H * n, n, (long long)sms * per_sm);
+    return fwd_splits(mhsa_fwd_kernel<true>, FWD_SMEM, B, T, H);
+}
+
+// The same for the bfloat16 train forward.
+extern "C" int adyolo_mhsa_fwd_bf16_splits(int B, int T, int H) {
+    return fwd_splits(mhsa_fwd_bf16_kernel, FWDB_SMEM, B, T, H);
 }
 
 // Floats of the scratch a forward in `splits` > 1 key splits needs.
@@ -1038,5 +1647,57 @@ extern "C" int adyolo_mhsa_bwd(const void* q, const void* k, const void* v,
         static_cast<const int*>(seed), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale, d);
+    return (int)cudaGetLastError();
+}
+
+// bf16 train forward (K2 with its dropout branch on bfloat16 q/k/v): out
+// (bfloat16), out32 (the same output in float32, for the backward's D) and
+// the row logsumexp.
+extern "C" int adyolo_mhsa_fwd_train_bf16(const void* q, const void* k, const void* v,
+                                          const void* kv_len, const void* seed, void* out,
+                                          void* out32, void* lse, void* scratch, int B, int T,
+                                          int H, int dh, int thresh, int bq, int tp,
+                                          int splits, void* stream) {
+    if (int rc = check_shape(B, T, H, dh)) return rc;
+    if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
+        return (int)cudaErrorInvalidValue;
+    }
+    Drop d = make_drop(thresh, bq, tp);
+    d.nq = T / bq;
+    return launch_fwd_bf16(q, k, v, kv_len, seed, out, out32, lse, scratch, B, T, H, splits,
+                           d, stream);
+}
+
+// bf16 backward (K3 on bfloat16 q/k/v/dO): dq (and D into `delta`, from
+// out32), then dk and dv, all bfloat16.
+extern "C" int adyolo_mhsa_bwd_bf16(const void* q, const void* k, const void* v,
+                                    const void* kv_len, const void* seed, const void* out32,
+                                    const void* dout, const void* lse, void* delta, void* dq,
+                                    void* dk, void* dv, int B, int T, int H, int dh,
+                                    int thresh, int bq, int tp, void* stream) {
+    if (int rc = check_shape(B, T, H, dh)) return rc;
+    if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (int rc = set_smem(mhsa_bwd_dq_bf16_kernel, DQB_SMEM)) return rc;
+    if (int rc = set_smem(mhsa_bwd_dkdv_bf16_kernel, DKDVB_SMEM)) return rc;
+    Drop d = make_drop(thresh, bq, tp);
+    d.nq = T / bq;
+    const float scale = 1.0f / sqrtf((float)DH);
+    cudaStream_t st = (cudaStream_t)stream;
+    dim3 grid((T + BT - 1) / BT, B * H);
+    mhsa_bwd_dq_bf16_kernel<<<grid, THREADS, DQB_SMEM, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const int*>(kv_len), static_cast<const int*>(seed),
+        static_cast<const float*>(out32), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), T,
+        H, scale, d);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    mhsa_bwd_dkdv_bf16_kernel<<<grid, THREADS, DKDVB_SMEM, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const int*>(kv_len), static_cast<const int*>(seed),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H,
+        scale, d);
     return (int)cudaGetLastError();
 }

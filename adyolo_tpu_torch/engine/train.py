@@ -24,8 +24,10 @@ The experiment protocol of the reference:
 finishes the batch in flight, checkpoints the epoch and returns, so
 ``--resume_pth`` loses at most that epoch.
 
-Only the ResNet-Conformer trains (SE-ResNet34's training waits for its
-BiGRU in training mode, ``ROADMAP.md`` §1 item 4).  The step's losses stay
+Both encoders train, in float32 or (``--compute_dtype bfloat16``) in the
+JAX package's bf16 (the master weights, the optimizer, the checkpoints and
+every eval in float32), the conformer optionally with ``--remat``.  The
+step's losses stay
 on the device and are read once per epoch, so the loader's prefetch
 thread and the device overlap.  Unlike the JAX engine, the checkpoint
 also stores the next epoch's file list, so a resumed run trains on the
@@ -49,10 +51,9 @@ from ..config import (Config, build_config, flatten_config, load_config,
 from ..convert import flax_from_state_dict
 from ..data.dataset import EvalLoader, SELDDataset, TrainLoader
 from ..metrics.seld import SegmentScorer
-from ..models.wrapper import build_model
+from ..models.wrapper import DTYPES, build_model
 from ..ops.decode import PostProcessor
-from ..parallel.train_step import (build_eval_criterion, build_train_step,
-                                   check_ported)
+from ..parallel.train_step import build_eval_criterion, build_train_step
 from ..utils.logging import (JsonlLogger, NullLogger, get_logging_meta_config,
                              make_logger)
 from ..utils.rng import get_rng_state, seed_init, set_rng_state
@@ -99,16 +100,14 @@ class _PreemptionGuard:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot train yet."""
-    if cfg.args.encoder != "resnet-conformer":
-        raise NotImplementedError(
-            f"training --encoder {cfg.args.encoder} is not yet ported: SE-ResNet34 "
-            "needs its BiGRU in training mode (ROADMAP.md §1 item 4, "
-            "SE-ResNet34 training); the port trains resnet-conformer")
+    """Raise ``NotImplementedError`` for what the port cannot train yet (a
+    loss other than AD-YOLO), ``ValueError`` for an unknown compute dtype."""
     if cfg.args.loss != "adyolo":
         raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r} "
                                   "(ROADMAP.md §1 item 5)")
-    check_ported(cfg)
+    if cfg.train.compute_dtype not in DTYPES:
+        raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
+                         f"{sorted(DTYPES)}")
 
 
 def train_one_epoch(loader: TrainLoader, train_step, generator: torch.Generator,

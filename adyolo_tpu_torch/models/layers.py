@@ -9,24 +9,33 @@ frames only.
 
 In training mode ``BatchNorm`` normalises with the batch statistics and
 updates its running stats the JAX package's way (biased variance, flax
-momentum 0.9), and :class:`U8Dropout` drops with the u8 threshold.  The
-GRU's training (and its inter-layer dropout) waits for SE-ResNet34
-training: ``BiGRU`` in training mode raises.
+momentum 0.9), :class:`U8Dropout` drops with the u8 threshold, and
+``BiGRU`` drops between its layers.
+
+Compute dtype, as flax's ``dtype=``: the parameters stay float32 and the
+convolutions, linears and LayerNorms here compute in their input's dtype,
+casting the weight to it at use (:class:`Conv2d`, :class:`Conv1d`,
+:class:`Linear`; :class:`LayerNorm` normalises in at least float32 and
+returns the input's dtype).  So an encoder that casts its input to
+bfloat16 runs its stack in bfloat16, and a float32 input runs as plain
+``nn`` modules do.  ``BatchNorm`` keeps its statistics in at least float32
+and applies ``x * mul + shift`` in the input's dtype.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["apply_frame_mask", "pool_mask", "BatchNorm", "U8Dropout",
-           "Conv3x3", "SELayer", "SEBasicBlock", "SelfAttentionPooling",
-           "reverse_sequence", "BiGRU"]
+__all__ = ["apply_frame_mask", "pool_mask", "stats_dtype", "Conv2d", "Conv1d",
+           "Linear", "LayerNorm", "BatchNorm", "frozen_running_stats",
+           "U8Dropout", "Conv3x3", "SELayer", "SEBasicBlock",
+           "SelfAttentionPooling", "reverse_sequence", "BiGRU"]
 
-_NOT_TRAINED = ("training mode is not yet ported (ROADMAP.md, port queue: "
-                "SE-ResNet34 training)")
+GRU_DROPOUT = 0.3  # between the BiGRU's layers (reference resnet.py:153)
 
 
 def apply_frame_mask(x: torch.Tensor, frame_mask: Optional[torch.Tensor],
@@ -49,6 +58,59 @@ def pool_mask(frame_mask: Optional[torch.Tensor], factor: int
     return frame_mask[:, ::factor]
 
 
+def stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    """At least float32: where statistics, softmaxes and the encoders'
+    tails run (float64 stays float64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _in_dtype_of(x: torch.Tensor, fn, weight, bias):
+    """``fn(x, weight, bias)`` in x's dtype, the parameters cast to it.  A
+    bfloat16 product on the CPU is computed in float32 on the bfloat16
+    values and rounded once, which is what the card's bfloat16 conv and
+    GEMM compute (float32 sums): oneDNN's CPU bfloat16 convolution gives
+    wrong sums at some shapes (torch 2.13: 256 -> 512 channels, 3x3,
+    stride (1, 2) on 2 frequency bins, errors above the output's max)."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        f = torch.float32
+        return fn(x.to(f), w.to(f), None if b is None else b.to(f)).to(x.dtype)
+    return fn(x, w, b)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (weight and bias cast
+    to it at use; the parameters stay as they are)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _in_dtype_of(x, self._conv_forward, self.weight, self.bias)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in its input's dtype, as :class:`Conv2d`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _in_dtype_of(x, self._conv_forward, self.weight, self.bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype, as :class:`Conv2d`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _in_dtype_of(x, F.linear, self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that normalises in at least float32 and returns its
+    input's dtype, as flax's ``LayerNorm(dtype=...)`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(stats_dtype(x.dtype)), self.normalized_shape,
+                         self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm as the JAX package computes it (``layers.py:133-155``):
     ``x * mul + shift`` with ``mul = rsqrt(var + eps) * weight`` and
@@ -61,9 +123,15 @@ class BatchNorm(nn.Module):
     running stats in place to ``0.9 * ra + 0.1 * batch`` (flax's momentum)
     with that biased variance (torch's ``nn.BatchNorm2d`` would use the
     unbiased one).  Building the module runs no forward, so building
-    updates nothing (flax's ``is_initializing`` guard)."""
+    updates nothing (flax's ``is_initializing`` guard); nor does a forward
+    inside :func:`frozen_running_stats` (a checkpointed block's recompute).
+
+    The statistics are taken in at least float32 and ``mul`` / ``shift``
+    are cast to the input's dtype, so a bfloat16 input is normalised by
+    one multiply-add in bfloat16 (``layers.py:133-155``)."""
 
     momentum = 0.9
+    update_stats = True
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  channel_last: bool = False):
@@ -79,29 +147,49 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.ndim - 1)) if self.channel_last else \
                 (0,) + tuple(range(2, x.ndim))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            xf = x.to(stats_dtype(x.dtype))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * mul
+        mul, shift = mul.to(x.dtype), shift.to(x.dtype)
         if self.channel_last:
             return x * mul + shift
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return x * mul.reshape(shape) + shift.reshape(shape)
 
 
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Training-mode forwards of ``module`` inside the context leave every
+    ``BatchNorm``'s running stats as they are (they still normalise with
+    the batch's): a checkpointed block's recompute must not update them a
+    second time."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
 class U8Dropout(nn.Module):
     """Dropout driven by uint8 random bits (``layers.py:158-188``): the rate
     is quantized to ``t = round(rate * 256)`` (0.2 -> 51), an element is
     kept when its bits are ``>= t`` and scaled by ``256 / (256 - t)``;
-    ``t >= 256`` gives zeros.  The bits come from ``generator`` (the
-    device's default one when None), not from JAX's threefry stream.
-    Identity in eval."""
+    ``t >= 256`` gives zeros.  The keep-scale is rounded to the input's
+    dtype first, as JAX's ``jnp.asarray(scale, x.dtype)`` (bfloat16: 1.25).
+    The bits come from ``generator`` (the device's default one when None),
+    not from JAX's threefry stream.  Identity in eval."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -116,22 +204,23 @@ class U8Dropout(nn.Module):
             return torch.zeros_like(x)
         bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
                              device=x.device, generator=generator)
-        return torch.where(bits >= thresh, x * (256.0 / (256.0 - thresh)), 0.0)
+        scale = float(torch.tensor(256.0 / (256.0 - thresh), dtype=x.dtype))
+        return torch.where(bits >= thresh, x * scale, 0.0)
 
 
-def Conv3x3(in_ch: int, out_ch: int, bias: bool = False) -> nn.Conv2d:
+def Conv3x3(in_ch: int, out_ch: int, bias: bool = False) -> Conv2d:
     """3x3 convolution, padding 1 ("SAME"), NCHW."""
-    return nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=bias)
+    return Conv2d(in_ch, out_ch, 3, padding=1, bias=bias)
 
 
 class SELayer(nn.Module):
     """Squeeze-and-excitation, reduction 8; the squeeze is a (masked)
-    global mean over (T, F)."""
+    global mean over (T, F).  All in the input's dtype."""
 
     def __init__(self, channels: int, reduction: int = 8):
         super().__init__()
-        self.fc1 = nn.Linear(channels, channels // reduction)
-        self.fc2 = nn.Linear(channels // reduction, channels)
+        self.fc1 = Linear(channels, channels // reduction)
+        self.fc2 = Linear(channels // reduction, channels)
 
     def forward(self, x: torch.Tensor, frame_mask=None) -> torch.Tensor:
         # x: (B, C, T, F)
@@ -157,7 +246,7 @@ class SEBasicBlock(nn.Module):
         self.bn2 = BatchNorm(planes)
         self.se = SELayer(planes, reduction)
         if in_ch != planes:
-            self.down_conv = nn.Conv2d(in_ch, planes, 1, bias=False)
+            self.down_conv = Conv2d(in_ch, planes, 1, bias=False)
             self.down_bn = BatchNorm(planes)
         else:
             self.down_conv = None
@@ -206,21 +295,27 @@ class BiGRU(nn.Module):
     length-aware :func:`reverse_sequence` of its input and its output is
     reversed back, so it starts from the last *valid* frame; the forward
     direction runs through padded frames, whose outputs the caller
-    ignores."""
+    ignores.  In training, :class:`U8Dropout` at ``dropout`` (0.3: t = 77,
+    keep-scale 256/179) on every layer's output but the last, as torch's
+    ``nn.GRU(dropout=...)`` and the JAX package (``layers.py:415-438``);
+    its bits come from the ``generator`` passed to ``forward``."""
 
-    def __init__(self, input_dim: int, hidden: int, num_layers: int = 2):
+    def __init__(self, input_dim: int, hidden: int, num_layers: int = 2,
+                 dropout: float = GRU_DROPOUT):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             d = input_dim if i == 0 else 2 * hidden
             self.add_module(f"l{i}_fwd", nn.GRU(d, hidden, batch_first=True))
             self.add_module(f"l{i}_bwd", nn.GRU(d, hidden, batch_first=True))
+        self.drop = U8Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(f"BiGRU: {_NOT_TRAINED}")
+    def forward(self, x: torch.Tensor, lengths=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.num_layers):
             fwd, _ = getattr(self, f"l{i}_fwd")(x)
             bwd, _ = getattr(self, f"l{i}_bwd")(reverse_sequence(x, lengths))
             x = torch.cat([fwd, reverse_sequence(bwd, lengths)], dim=-1)
+            if i < self.num_layers - 1:
+                x = self.drop(x, generator)
         return x

@@ -14,9 +14,10 @@
 Every MHSA goes through :func:`adyolo_tpu_torch.ops.hopper_attention.
 flash_attention`: the hand-written Hopper kernels on CUDA (eval routes
 ``k2`` for T <= 2400 frames and ``k4`` above; in training the forward with
-dropout ``k2_dropout`` and the backward ``k3``), the plain PyTorch
-attention on the CPU.  The JAX package's packed convolutions, ``remat``,
-``force_flash`` and its ``ADYOLO_*`` switches are TPU-only and not ported.
+dropout ``k2_dropout`` and the backward ``k3``, or ``k2_dropout_bf16`` and
+``k3_bf16`` on bfloat16 q/k/v), the plain PyTorch attention on the CPU.
+The JAX package's packed convolutions, ``force_flash`` and its
+``ADYOLO_*`` switches are TPU-only and not ported.
 
 Training: BatchNorm uses the batch statistics and updates its running
 stats; dropout at rate 0.2 sits where the JAX package has it (the FFN's two
@@ -27,19 +28,38 @@ Training chunks must be T <= 2400 frames, as in the JAX package, whose
 longer chunks would take the XLA attention; the attention raises on longer
 ones.  An eval forward takes its route by length, not by the grad mode.
 
+``dtype`` (the compute dtype, bfloat16 in bf16 training) casts the stem's
+input, so the stem, the ResNet stages, the bottleneck and every conformer
+block run in it (LayerNorms normalise in float32 and return it; the
+attention scores and softmax are float32 inside the attention); the
+encoder output is cast back to float32 before the time pooling and
+``pool_norm`` (``resnet_conformer.py:375-432``).
+
+``remat=True`` checkpoints each conformer block
+(``torch.utils.checkpoint``, non-reentrant): the backward recomputes the
+block from its input instead of keeping its activations.  The recompute
+draws the same dropout bits (a copy of the generator from the block's
+start state; the step's generator advances once, as without remat) and
+leaves the BatchNorm running stats alone, so a remat step equals the
+plain step bit for bit.
+
 Input ``(B, T, F, C)`` channel-last, as in the JAX package; the conv stack
 runs NCHW.  DCASE shapes: (B, 800, 64, 7) -> (B, 200, 256).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.hopper_attention import flash_attention
-from .layers import BatchNorm, Conv3x3, U8Dropout, apply_frame_mask, pool_mask
+from .layers import (BatchNorm, Conv1d, Conv2d, Conv3x3, LayerNorm, Linear,
+                     U8Dropout, apply_frame_mask, frozen_running_stats,
+                     pool_mask, stats_dtype)
 
 __all__ = ["TVBasicBlock", "FeedForwardModule", "MHSA",
            "ConformerConvModule", "ConformerBlock", "ResNetConformer"]
@@ -60,14 +80,14 @@ class TVBasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, planes: int, f_stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, planes, 3, stride=(1, f_stride),
-                               padding=1, bias=False)
+        self.conv1 = Conv2d(in_ch, planes, 3, stride=(1, f_stride),
+                            padding=1, bias=False)
         self.bn1 = BatchNorm(planes)
         self.conv2 = Conv3x3(planes, planes)
         self.bn2 = BatchNorm(planes)
         if f_stride != 1 or in_ch != planes:
-            self.down_conv = nn.Conv2d(in_ch, planes, 1, stride=(1, f_stride),
-                                       bias=False)
+            self.down_conv = Conv2d(in_ch, planes, 1, stride=(1, f_stride),
+                                    bias=False)
             self.down_bn = BatchNorm(planes)
         else:
             self.down_conv = None
@@ -90,10 +110,10 @@ class FeedForwardModule(nn.Module):
 
     def __init__(self, dim: int, expansion: int = 4):
         super().__init__()
-        self.ln = nn.LayerNorm(dim, eps=1e-5)
-        self.fc1 = nn.Linear(dim, dim * expansion)
+        self.ln = LayerNorm(dim, eps=1e-5)
+        self.fc1 = Linear(dim, dim * expansion)
         self.drop1 = U8Dropout(_DROPOUT)
-        self.fc2 = nn.Linear(dim * expansion, dim)
+        self.fc2 = Linear(dim * expansion, dim)
         self.drop2 = U8Dropout(_DROPOUT)
 
     def forward(self, x: torch.Tensor,
@@ -113,10 +133,10 @@ class MHSA(nn.Module):
         super().__init__()
         self.heads = heads
         self.dropout = _DROPOUT
-        self.query = nn.Linear(dim, dim)
-        self.key = nn.Linear(dim, dim)
-        self.value = nn.Linear(dim, dim)
-        self.linear = nn.Linear(dim, dim)
+        self.query = Linear(dim, dim)
+        self.key = Linear(dim, dim)
+        self.value = Linear(dim, dim)
+        self.linear = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -140,13 +160,13 @@ class ConformerConvModule(nn.Module):
 
     def __init__(self, dim: int, dilation: int = 1):
         super().__init__()
-        self.ln = nn.LayerNorm(dim, eps=1e-5)
-        self.pw1 = nn.Linear(dim, 2 * dim)
+        self.ln = LayerNorm(dim, eps=1e-5)
+        self.pw1 = Linear(dim, 2 * dim)
         self.bn1 = BatchNorm(2 * dim, channel_last=True)
-        self.dw_conv = nn.Conv1d(dim, dim, 3, groups=dim, dilation=dilation,
-                                 padding=dilation)
+        self.dw_conv = Conv1d(dim, dim, 3, groups=dim, dilation=dilation,
+                              padding=dilation)
         self.bn2 = BatchNorm(dim, channel_last=True)
-        self.pw2 = nn.Linear(dim, dim)
+        self.pw2 = Linear(dim, dim)
         self.drop = U8Dropout(_DROPOUT)
 
     def forward(self, x: torch.Tensor, frame_mask=None,
@@ -165,12 +185,12 @@ class ConformerBlock(nn.Module):
     def __init__(self, dim: int, dilation: int):
         super().__init__()
         self.ffn1 = FeedForwardModule(dim)
-        self.mhsa_ln = nn.LayerNorm(dim, eps=1e-5)
+        self.mhsa_ln = LayerNorm(dim, eps=1e-5)
         self.mhsa = MHSA(dim)
         self.mhsa_drop = U8Dropout(_DROPOUT)
         self.conv = ConformerConvModule(dim, dilation)
         self.ffn2 = FeedForwardModule(dim)
-        self.final_ln = nn.LayerNorm(dim, eps=1e-5)
+        self.final_ln = LayerNorm(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, frame_mask=None,
                 kv_len: Optional[torch.Tensor] = None,
@@ -183,14 +203,45 @@ class ConformerBlock(nn.Module):
         return self.final_ln(x)
 
 
+def _remat_block(block: ConformerBlock, x: torch.Tensor, frame_mask,
+                 kv_len, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, frame_mask, kv_len, generator)`` under a non-reentrant
+    checkpoint.  The forward and the backward's recompute each draw their
+    dropout bits from a fresh copy of ``generator`` at the block's start
+    state, and ``generator`` then takes the state the forward left, so it
+    advances once.  With no generator (the device's default one), the
+    checkpoint saves and restores the default generators itself.  The
+    recompute leaves the BatchNorm running stats alone."""
+    start = None if generator is None else generator.get_state()
+    end = []  # the generator state the forward leaves, from the first call
+
+    def run(x):
+        recompute = bool(end)
+        g = None
+        if start is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+        with frozen_running_stats(block) if recompute else contextlib.nullcontext():
+            y = block(x, frame_mask, kv_len, g)
+        if not recompute:
+            end.append(None if g is None else g.get_state())
+        return y
+
+    y = checkpoint(run, x, use_reentrant=False, preserve_rng_state=generator is None)
+    if generator is not None:
+        generator.set_state(end[0])
+    return y
+
+
 class ResNetConformer(nn.Module):
     def __init__(self, in_channels: int = 7, emb_dim: int = 256,
-                 num_layers: int = 8, time_pool: int = 4):
+                 num_layers: int = 8, time_pool: int = 4, remat: bool = False):
         super().__init__()
         self.time_pool = time_pool
         self.num_layers = num_layers
-        self.conv1 = nn.Conv2d(in_channels, _FILTERS[0], 7, stride=(1, 2),
-                               padding=3, bias=False)
+        self.remat = remat
+        self.conv1 = Conv2d(in_channels, _FILTERS[0], 7, stride=(1, 2),
+                            padding=3, bias=False)
         self.bn1 = BatchNorm(_FILTERS[0])
         self.blocks = []
         in_ch = _FILTERS[0]
@@ -201,17 +252,19 @@ class ResNetConformer(nn.Module):
                                                    f_stride=2 if b == 0 else 1))
                 self.blocks.append(name)
                 in_ch = planes
-        self.bottleneck = nn.Linear(in_ch, emb_dim, bias=False)
+        self.bottleneck = Linear(in_ch, emb_dim, bias=False)
         for i in range(num_layers):
             self.add_module(f"conformer{i}", ConformerBlock(emb_dim, 2 ** i))
         self.pool_norm = nn.LayerNorm(emb_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor,
                 feat_lengths: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """x: (B, T, F, C), ``T % time_pool == 0``; feat_lengths: optional
         (B,) valid frame counts; generator: the dropout bits' source in
-        training.  Returns (B, T // time_pool, emb_dim)."""
+        training; dtype: the compute dtype (None: x's).  Returns
+        (B, T // time_pool, emb_dim) in at least float32."""
         frame_mask = kv_len = None
         if feat_lengths is not None:
             t = torch.arange(x.shape[1], device=x.device)
@@ -219,6 +272,8 @@ class ResNetConformer(nn.Module):
             kv_len = frame_mask.sum(1, dtype=torch.int32)  # stays on device
             x = apply_frame_mask(x, frame_mask)
 
+        if dtype is not None:
+            x = x.to(dtype)
         x = x.permute(0, 3, 1, 2).contiguous()  # (B, C, T, F)
         x = self.bn1(F.relu(self.conv1(x)))
         if frame_mask is not None:
@@ -231,9 +286,15 @@ class ResNetConformer(nn.Module):
         B, C, T, Fq = x.shape
         x = self.bottleneck(x.permute(0, 2, 3, 1).reshape(B, T, Fq * C))
 
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"conformer{i}")(x, frame_mask, kv_len, generator)
+            block = getattr(self, f"conformer{i}")
+            if remat:
+                x = _remat_block(block, x, frame_mask, kv_len, generator)
+            else:
+                x = block(x, frame_mask, kv_len, generator)
 
+        x = x.to(stats_dtype(x.dtype))  # the encoder output: >= float32
         x = x.reshape(B, T // self.time_pool, self.time_pool, -1).mean(dim=2)
         x = self.pool_norm(x)
         return apply_frame_mask(x, pool_mask(frame_mask, self.time_pool))

@@ -1,9 +1,9 @@
 """Model and criterion factories (counterpart of
 :mod:`adyolo_tpu.models.wrapper`).
 
-Both encoders are ported for serving, SE-ResNet34 and ResNet-Conformer,
-each with the AD-YOLO head; ResNet-Conformer also trains (f32).  Any other
-loss raises ``NotImplementedError``.
+Both encoders are ported, SE-ResNet34 and ResNet-Conformer, each with the
+AD-YOLO head, for serving and for training in float32 or bfloat16.  Any
+other loss raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,31 +28,41 @@ __all__ = ["SELDModel", "build_model", "init_params", "make_grid_geometry",
 _TRUNC_STD = 0.87962566103423978
 
 ENCODERS = {"se-resnet34": SEResNet34, "resnet-conformer": ResNetConformer}
+DTYPES = {"float32": None, "bfloat16": torch.bfloat16}  # None: the input's
 
 
 class SELDModel(nn.Module):
     """Encoder + AD-YOLO head.  ``forward(feat, feat_lengths=None,
-    generator=None)``: feat (B, T, F, C) -> raw logits
-    (B, T // 4, G0*G1*A*(K+3)); ``generator`` drives dropout in training
-    and goes only to an encoder that trains with dropout (the conformer)."""
+    generator=None)``: feat (B, T, F, C) -> raw float32 logits
+    (B, T // 4, G0*G1*A*(K+3)); ``generator`` drives dropout in training.
+
+    ``compute_dtype`` (None or ``torch.bfloat16``) is the encoder's compute
+    dtype in training mode only: an eval-mode forward computes in its
+    input's dtype, so val, test and serving run float32 on the same
+    float32 weights, as the JAX package's eval model does.  ``remat``
+    checkpoints the conformer's blocks; SE-ResNet34 has none to checkpoint
+    and ignores it, as in JAX (``wrapper.py:48-55``)."""
 
     def __init__(self, encoder: str = "se-resnet34", nb_classes: int = 13,
                  grid_size: Tuple[float, float] = (45.0, 45.0),
                  nb_anchors: int = 5, in_channels: int = 7,
-                 enc_out_dim: int = 256):
+                 enc_out_dim: int = 256,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         if encoder not in ENCODERS:
             raise NotImplementedError(f"not yet ported: encoder {encoder!r}")
-        self.encoder = ENCODERS[encoder](in_channels, enc_out_dim)
+        kw = {"remat": remat} if encoder == "resnet-conformer" else {}
+        self.encoder = ENCODERS[encoder](in_channels, enc_out_dim, **kw)
         self.head = ADYOLOHead(nb_classes, grid_size, nb_anchors, enc_out_dim,
                                enc_out_dim)
+        self.compute_dtype = compute_dtype
 
     def forward(self, feat: torch.Tensor,
                 feat_lengths: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if generator is None:
-            return self.head(self.encoder(feat, feat_lengths))
-        return self.head(self.encoder(feat, feat_lengths, generator))
+        dtype = self.compute_dtype if self.training else None
+        return self.head(self.encoder(feat, feat_lengths, generator, dtype))
 
 
 @torch.no_grad()
@@ -111,16 +121,22 @@ def build_model(cfg: Config, device="cuda",
                 generator: Optional[torch.Generator] = None,
                 train: bool = False) -> SELDModel:
     """The model for ``cfg`` on ``device``, in eval mode or, with
-    ``train``, in training mode.  With ``generator`` the weights are a
-    seeded random init (drawn on the CPU); otherwise they are to be loaded
-    (:mod:`adyolo_tpu_torch.convert`)."""
+    ``train``, in training mode, with the config's training compute dtype
+    (``cfg.train.compute_dtype``) and ``cfg.train.remat``.  With
+    ``generator`` the weights are a seeded random init (drawn on the CPU);
+    otherwise they are to be loaded (:mod:`adyolo_tpu_torch.convert`)."""
     if cfg.args.loss != "adyolo":
         raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
+    if cfg.train.compute_dtype not in DTYPES:
+        raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
+                         f"{sorted(DTYPES)}")
     model = SELDModel(encoder=cfg.args.encoder,
                       nb_classes=cfg.data.nb_classes,
                       grid_size=tuple(cfg.train.grid_size),
                       nb_anchors=cfg.train.nb_anchors,
-                      in_channels=cfg.data.nb_feature_channels)
+                      in_channels=cfg.data.nb_feature_channels,
+                      compute_dtype=DTYPES[cfg.train.compute_dtype],
+                      remat=cfg.train.remat)
     if generator is not None:
         init_params(model, generator)
     return model.to(device).train(train)

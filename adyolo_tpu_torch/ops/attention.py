@@ -25,6 +25,14 @@ splitmix32 position hash of the JAX kernels' interpret mode
 so the masks agree bit for bit with ``flash_mhsa(..., interpret=True)`` and
 with the Hopper kernels.
 
+bfloat16 q/k/v (bf16 training) take the JAX kernels' rounding points
+(``flash_mhsa.py:101-104``, ``:129-146``): scores, softmax and every
+product's sums in float32; the dropped and scaled probabilities rounded to
+bfloat16 before P·V; the output rounded to bfloat16.  Backward: ``dpd``
+and ``rowsum(dp∘p)`` in float32, ``ds·scale`` and ``pd`` rounded to
+bfloat16, ``dq``, ``dk`` and ``dv`` summed in float32 and rounded to
+bfloat16.  float32 and float64 inputs round nowhere.
+
 On a CUDA device the model does not run this module: it goes through
 :func:`adyolo_tpu_torch.ops.hopper_attention.flash_attention`.
 """
@@ -98,8 +106,14 @@ def _keep(B, H, T, thresh, seed):
             256.0 / (256.0 - thresh))
 
 
+def _acc(dtype):
+    """The dtype products are summed in: at least float32."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _probs(q, k, key_mask, scale):
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    acc = _acc(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if key_mask is not None:
         s = torch.where(key_mask[:, None, None, :], s,
                         torch.finfo(torch.float32).min)
@@ -110,7 +124,9 @@ def _attend(q, k, v, key_mask, scale, keep=None, kscale=1.0):
     p = _probs(q, k, key_mask, scale)
     if keep is not None:
         p = torch.where(keep, p * kscale, 0.0)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    acc = p.dtype
+    p = p.to(v.dtype).to(acc)  # bfloat16 v: P rounded before P.V
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(acc)).to(v.dtype)
 
 
 def _key_mask(kv_len, T, device):
@@ -128,8 +144,10 @@ def _zero_empty_rows(x, kv_len):
 def mhsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_len: Optional[torch.Tensor] = None, *, rate: float = 0.0,
                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dropout(softmax(mask(q·kᵀ·dh^-0.5)))·v over ``(B, T, H, dh)`` float32
-    q/k/v; differentiable by autograd.
+    """dropout(softmax(mask(q·kᵀ·dh^-0.5)))·v over ``(B, T, H, dh)`` q/k/v
+    (float32, float64, or bfloat16 at the JAX kernels' rounding points);
+    differentiable by autograd, which for bfloat16 is not K3's rounding:
+    :func:`mhsa_attention_bwd` is.
 
     ``kv_len``: optional ``(B,)`` count of valid keys (a prefix); None means
     every key is valid.  ``rate``/``seed``: dropout on the probabilities
@@ -162,14 +180,17 @@ def mhsa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``flash_mhsa.py:107-146``): recompute p and the keep mask;
     ``dpd = do·vᵀ``; ``dp = keep·kscale·dpd``;
     ``ds = p∘(dp − rowsum(dp∘p))·scale``; ``dq = ds·k``, ``dk = dsᵀ·q``,
-    ``dv = pdᵀ·do`` with ``pd = keep·kscale·p``.  Fused route only."""
+    ``dv = pdᵀ·do`` with ``pd = keep·kscale·p``.  Fused route only.
+    bfloat16: ``ds`` and ``pd`` rounded to bfloat16 before the three
+    products, whose float32 sums are rounded to bfloat16."""
     B, T, H, dh = q.shape
     thresh = dropout_thresh(rate)
     if thresh >= 256:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     scale = dh ** -0.5
+    acc = _acc(q.dtype)
     p = _probs(q, k, _key_mask(kv_len, T, q.device), scale)
-    dpd = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    dpd = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
     keep, kscale = _keep(B, H, T, thresh, seed)
     if keep is None:
         pd, dp = p, dpd
@@ -177,7 +198,8 @@ def mhsa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pd = torch.where(keep, p * kscale, 0.0)
         dp = torch.where(keep, dpd * kscale, 0.0)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    dv = torch.einsum("bhqk,bqhd->bkhd", pd, do)
+    ds, pd = ds.to(q.dtype).to(acc), pd.to(v.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc)).to(q.dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)).to(k.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, do.to(acc)).to(v.dtype)
     return tuple(_zero_empty_rows(g, kv_len) for g in (dq, dk, dv))

@@ -1,7 +1,7 @@
 """Wrapper of the hand-written Hopper attention kernels (``csrc/attention.cu``).
 
 The kernels replace three TPU kernels of ``adyolo_tpu/ops/flash_mhsa.py``
-and are launched from four routes that are counted apart:
+and are launched from six routes that are counted apart:
 
 * ``"k2"``: the eval forward for ``T <= attention.BLOCK_THRESHOLD`` (2400
   frames): K2, ``_fwd_kernel`` via ``_flash_fwd``, at dropout rate 0;
@@ -9,7 +9,11 @@ and are launched from four routes that are counted apart:
   ``flash_mhsa_long``;
 * ``"k2_dropout"``: the train forward (K2 with its dropout branch), which
   also writes the row logsumexp for the backward;
-* ``"k3"``: the backward, K3, ``_bwd_kernel`` via ``_flash_bwd``.
+* ``"k3"``: the backward, K3, ``_bwd_kernel`` via ``_flash_bwd``;
+* ``"k2_dropout_bf16"`` and ``"k3_bf16"``: the same pair on bfloat16
+  q/k/v (bf16 training), bfloat16 tensor-core products with float32 sums
+  at the JAX kernels' rounding points; the forward also writes its output
+  in float32, from which the backward takes ``D = rowsum(dO∘O)``.
 
 A call is routed by its dropout rate (the module's: 0.2 in training, 0
 in eval, as JAX routes by its ``train`` flag), then by T and by whether
@@ -26,11 +30,18 @@ autograd records it:
   backward raises: no kernel has a backward for K4 (the JAX package has
   none either).
 
+q/k/v are float32, or bfloat16 on the training pair only (a rate above 0,
+or autograd recording a call of at most 2400 frames): eval is float32, and
+a bfloat16 eval call raises on both devices.  The dtype picks the pair;
+nothing is cast.
+
 Dispatch is by the tensor's device: a CPU tensor goes to the plain
 :func:`adyolo_tpu_torch.ops.attention.mhsa_attention` (differentiable by
 autograd, except on the long eval route, which raises in its backward on
-both devices); a CUDA tensor goes to the kernels, or the call raises.
-There is no fallback from one to the other.
+both devices; bfloat16 through the written-out
+:func:`~adyolo_tpu_torch.ops.attention.mhsa_attention_bwd`, K3's rounding);
+a CUDA tensor goes to the kernels, or the call raises.  There is no
+fallback from one to the other.
 
 ``LAUNCHES`` counts launches per route; a count is bumped right after a
 launch is accepted, and nowhere else.  A forward on a grid under a wave
@@ -41,7 +52,7 @@ merge's scratch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,20 +61,40 @@ from . import attention
 
 __all__ = ["flash_attention", "route", "LAUNCHES"]
 
-LAUNCHES = {"k2": 0, "k4": 0, "k2_dropout": 0, "k3": 0}
+LAUNCHES = {"k2": 0, "k4": 0, "k2_dropout": 0, "k3": 0, "k2_dropout_bf16": 0,
+            "k3_bf16": 0}
 
 _DH = 64  # the kernels' head dim
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class _Pair(NamedTuple):
+    """The train pair of one dtype: its routes and C entry points."""
+    fwd_route: str
+    bwd_route: str
+    fwd_entry: str
+    bwd_entry: str
+    splits_entry: str
+
+
+_TRAIN = {torch.float32: _Pair("k2_dropout", "k3", "adyolo_mhsa_fwd_train",
+                               "adyolo_mhsa_bwd", "adyolo_mhsa_fwd_splits"),
+          torch.bfloat16: _Pair("k2_dropout_bf16", "k3_bf16", "adyolo_mhsa_fwd_train_bf16",
+                                "adyolo_mhsa_bwd_bf16", "adyolo_mhsa_fwd_bf16_splits")}
 
 _bound = {}
-_plans = {}  # (device index, B, T, H) -> (key splits, scratch floats) of a forward
+_plans = {}  # (device index, dtype, B, T, H) -> (key splits, scratch floats) of a forward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "adyolo_mhsa_fwd_splits": [_I] * 3,
+    "adyolo_mhsa_fwd_bf16_splits": [_I] * 3,
     "adyolo_mhsa_fwd_scratch_floats": [_I] * 4,
     "adyolo_mhsa_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "adyolo_mhsa_fwd_train": [_P] * 8 + [_I] * 8 + [_P],
+    "adyolo_mhsa_fwd_train_bf16": [_P] * 9 + [_I] * 8 + [_P],
     "adyolo_mhsa_bwd": [_P] * 12 + [_I] * 7 + [_P],
+    "adyolo_mhsa_bwd_bf16": [_P] * 12 + [_I] * 7 + [_P],
 }
 _RESTYPES = {"adyolo_mhsa_fwd_scratch_floats": ctypes.c_longlong}
 
@@ -86,8 +117,9 @@ def _check(q, k, v, kv_len):
     if q.ndim != 4:
         raise ValueError(f"q must be (B, T, H, dh), got {tuple(q.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dtype not in _DTYPES or x.dtype != q.dtype:
+            raise TypeError(f"{name} must be float32 or bfloat16, as q, got "
+                            f"{x.dtype} (q {q.dtype})")
         if x.shape != q.shape or x.device != q.device:
             raise ValueError(f"{name} must match q's shape and device, got "
                              f"{tuple(x.shape)} on {x.device}")
@@ -119,14 +151,14 @@ def _hash_args(T):
 
 def _fwd_plan(q):
     """``(splits, scratch pointer, scratch)`` of a forward on ``q``'s
-    shape and device (the current one): the kernel's key splits and, when
-    above 1, scratch for the merge, which the caller holds until the launch
-    is queued."""
+    shape, dtype and device (the current one): the kernel's key splits
+    and, when above 1, scratch for the merge, which the caller holds until
+    the launch is queued."""
     B, T, H, _ = q.shape
-    key = (q.device.index, B, T, H)
+    key = (q.device.index, q.dtype, B, T, H)
     plan = _plans.get(key)
     if plan is None:
-        splits = _entry("adyolo_mhsa_fwd_splits")(B, T, H)
+        splits = _entry(_TRAIN[q.dtype].splits_entry)(B, T, H)
         if splits < 1:
             raise RuntimeError(f"attention kernel: no split plan, cudaError {-splits}")
         n = _entry("adyolo_mhsa_fwd_scratch_floats")(B, T, H, splits) if splits > 1 else 0
@@ -151,38 +183,66 @@ def _eval_forward(q, k, v, kv_len, rt):
 
 
 class _TrainAttention(torch.autograd.Function):
-    """The train pair: forward on route ``k2_dropout``, backward on ``k3``."""
+    """The train pair of q's dtype: forward on route ``k2_dropout``,
+    backward on ``k3`` (float32), or ``k2_dropout_bf16`` and ``k3_bf16``
+    (bfloat16; the forward's float32 output is kept for the backward's D)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, seed, thresh):
         B, T, H, dh = q.shape
+        pair = _TRAIN[q.dtype]
         out = torch.empty_like(q)
         lse = torch.empty((B, H, T), device=q.device, dtype=torch.float32)
         splits, ptr, _scratch = _fwd_plan(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("adyolo_mhsa_fwd_train", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kv_len.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                ptr, B, T, H, dh, thresh, *_hash_args(T), splits, stream)
-        LAUNCHES["k2_dropout"] += 1
-        ctx.save_for_backward(q, k, v, kv_len, seed, out, lse)
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                seed.data_ptr(), out.data_ptr()]
+        out32 = out
+        if q.dtype == torch.bfloat16:
+            out32 = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+            ptrs.append(out32.data_ptr())
+        _launch(pair.fwd_entry, *ptrs, lse.data_ptr(), ptr, B, T, H, dh, thresh,
+                *_hash_args(T), splits, stream)
+        LAUNCHES[pair.fwd_route] += 1
+        ctx.save_for_backward(q, k, v, kv_len, seed, out32, lse)
         ctx.thresh = thresh
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_len, seed, out, lse = ctx.saved_tensors
+        q, k, v, kv_len, seed, out32, lse = ctx.saved_tensors
         B, T, H, dh = q.shape
-        dout = dout.contiguous()
+        pair = _TRAIN[q.dtype]
+        dout = dout.to(q.dtype).contiguous()
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         delta = torch.empty_like(lse)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("adyolo_mhsa_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kv_len.data_ptr(), seed.data_ptr(), out.data_ptr(),
+        _launch(pair.bwd_entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                kv_len.data_ptr(), seed.data_ptr(), out32.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, T, H, dh, ctx.thresh,
                 *_hash_args(T), stream)
-        LAUNCHES["k3"] += 1
+        LAUNCHES[pair.bwd_route] += 1
         return dq, dk, dv, None, None, None
+
+
+class _PlainBF16Attention(torch.autograd.Function):
+    """The plain bfloat16 train pair on the CPU: the forward of
+    :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention` and the
+    written-out backward, at K3's rounding points."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, seed, rate):
+        ctx.save_for_backward(q, k, v, kv_len, seed)
+        ctx.rate = rate
+        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_len, seed = ctx.saved_tensors
+        grads = attention.mhsa_attention_bwd(q, k, v, kv_len, dout.to(q.dtype),
+                                             rate=ctx.rate, seed=seed)
+        return (*grads, None, None, None)
 
 
 class _LongAttention(torch.autograd.Function):
@@ -206,14 +266,14 @@ class _LongAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None, *, rate: float = 0.0,
                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention over ``(B, T, H, dh)`` float32 q/k/v with the first
-    ``kv_len[b]`` keys valid (all when None) and dropout ``rate`` on the
-    probabilities (``seed``: int32 tensor of one element); see
+    """Attention over ``(B, T, H, dh)`` q/k/v with the first ``kv_len[b]``
+    keys valid (all when None) and dropout ``rate`` on the probabilities
+    (``seed``: int32 tensor of one element); see
     :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention`.  ``rate > 0``
     picks the training route, which needs ``T <= BLOCK_THRESHOLD``; the
-    eval route above it has no backward.  On CUDA
-    the kernels need ``dh == 64`` and int32 ``kv_len``/``seed`` on q's
-    device."""
+    eval route above it has no backward.  float32, or bfloat16 on the
+    training route only.  On CUDA the kernels need ``dh == 64`` and int32
+    ``kv_len``/``seed`` on q's device."""
     _check(q, k, v, kv_len)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
@@ -225,9 +285,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"training attention needs T <= "
                          f"{attention.BLOCK_THRESHOLD}, got T={T}")
     records = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if q.dtype == torch.bfloat16 and (long or not (train or records)):
+        raise TypeError("bfloat16 attention runs only on the training route "
+                        f"(rate > 0 or a recorded call, T <= {attention.BLOCK_THRESHOLD}); "
+                        "eval is float32")
     if q.device.type == "cpu":
         if long and records:
             return _LongAttention.apply(q, k, v, kv_len)
+        if q.dtype == torch.bfloat16:
+            return _PlainBF16Attention.apply(q, k, v, kv_len, seed, rate)
         return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed)
     if dh != _DH:
         raise ValueError(f"the kernels take dh == {_DH}, got {dh}")

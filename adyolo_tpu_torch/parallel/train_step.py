@@ -1,20 +1,25 @@
 """The train step and the eval criterion (counterpart of
 :mod:`adyolo_tpu.parallel.train_step`: ``make_optimizer``,
-``build_train_step`` and ``build_eval_criterion``), single device, float32.
+``build_train_step`` and ``build_eval_criterion``), single device.
 
 One step: int16 audio -> ``x / 32768 + 1e-8`` -> features (the Hopper STFT
-kernel on CUDA) -> SpecAugment when the config turns it on -> the model in
-training mode (BatchNorm on batch stats, dropout; the conformer's
-attention on the Hopper train kernels) -> the AD-YOLO loss -> backward ->
-optimizer step.  Every SpecAugment draw and dropout bit comes from the
-``torch.Generator`` passed to the step, on the model's device.  The model,
+kernel on CUDA, float32, without autograd) -> SpecAugment when the config
+turns it on -> the model in training mode (BatchNorm on batch stats,
+dropout; the conformer's attention on the Hopper train kernels) in the
+config's compute dtype -> the AD-YOLO loss (float32) -> backward ->
+optimizer step on the float32 parameters.  Every SpecAugment draw and
+dropout bit comes from the ``torch.Generator`` passed to the step, on the
+model's device.  The model,
 its BatchNorm running stats and the optimizer's state are updated in
 place; JAX threads them through a ``TrainState`` instead.
 
-Matmuls and convolutions run in full float32 (TF32 off), as the JAX
-package's f32 step does.  Not ported yet (``ROADMAP.md``):
-``compute_dtype="bfloat16"`` and ``remat``; each raises.  The JAX step's
-``rbg`` dropout keys are TPU-only.
+``compute_dtype="bfloat16"`` runs the encoder's conv stack (and the
+conformer's blocks) in bfloat16 as the JAX package's bf16 step does
+(:mod:`adyolo_tpu_torch.models.wrapper`); the parameters, the optimizer
+state, the head and the loss stay float32.  ``remat`` checkpoints the
+conformer's blocks.  Float32 matmuls and convolutions run in full float32
+(TF32 off), as the JAX package's f32 step does.  The JAX step's ``rbg``
+dropout keys are TPU-only.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from ..models.wrapper import SELDModel, make_criterion
 from ..ops.features import FeatureFrontend
 from ..ops.specaug import spec_augment
 
-__all__ = ["make_optimizer", "check_ported", "build_step_features", "build_train_step",
+__all__ = ["make_optimizer", "build_step_features", "build_train_step",
            "build_eval_criterion"]
 
 
@@ -46,17 +51,6 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
     if name == "SGD":
         return torch.optim.SGD(params, lr=lr, weight_decay=wd)
     raise NotImplementedError(name)
-
-
-def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a train-step setting not ported."""
-    if cfg.train.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.train.compute_dtype!r}: bf16 training is not "
-            "yet ported (ROADMAP.md, port queue: bf16)")
-    if cfg.train.remat:
-        raise NotImplementedError("remat is not yet ported (ROADMAP.md, port "
-                                  "queue: --remat)")
 
 
 def build_step_features(cfg: Config, frontend: FeatureFrontend) -> Callable:
@@ -97,7 +91,6 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     every SpecAugment draw and dropout bit of the step, in that order
     (None: the device's default one).  The
     optimizer is ``train_step.optimizer``."""
-    check_ported(cfg)
     criterion = make_criterion(cfg)
     optimizer = make_optimizer(cfg, model.parameters())
     torch.backends.cudnn.allow_tf32 = False

@@ -166,7 +166,13 @@ TRAIN_STEPS = 5
 # peak (165 TFLOP/s effective).
 FP32_FLOPS = 67e12
 TF32_TC_FLOPS = 494.7e12
+BF16_TC_FLOPS = 989e12  # dense bfloat16 tensor-core peak
 HBM_BYTES_S = 3.35e12
+BF16_RATIO = 2.0  # a bf16 kernel's error (vs float64) at most this x the plain version's
+BF16_HALF_STEP = 2.0 ** -9  # plus half a bfloat16 step at the truth's max
+BF16_LIBRARY_TOL = 2.0 ** -6  # SDPA on bf16 vs the plain bf16 attention, x max
+BF16_TRAIN_LOSS_TOL = 1e-2  # bf16 step 1 on the kernels vs on plain attention, relative
+SE_BF16_LOSS_TOL = 5e-2  # SE-ResNet34 bf16 step 1 vs f32 from the same weights, relative
 
 
 def emit(obj):
@@ -208,6 +214,15 @@ def bound(flop, nbytes):
     t_op, t_mem = flop / FP32_FLOPS, nbytes / HBM_BYTES_S
     return {"bound_ms": max(t_op, t_mem) * 1e3,
             "bound_by": "operations" if t_op >= t_mem else "bytes"}
+
+
+def bf16_bound(flop, nbytes):
+    """A bf16 kernel's bound: ``flop`` at the dense bfloat16 tensor-core
+    peak, or its bytes over the bandwidth, whichever is larger."""
+    t_op, t_mem = flop / BF16_TC_FLOPS, nbytes / HBM_BYTES_S
+    return {"bound_ms": max(t_op, t_mem) * 1e3,
+            "bound_by": "operations" if t_op >= t_mem else "bytes",
+            "bound_units": "bf16 tensor cores"}
 
 
 def attn_bound(flop, nbytes):
@@ -278,7 +293,9 @@ def ptxas_kernels(log):
             mangled = ln.split("'")[1]
             name = next(k for k in ("stft_hop_blocks_fft_kernel", "mhsa_fwd_kernelILb1",
                                     "mhsa_fwd_kernelILb0", "mhsa_fwd_merge_kernel",
-                                    "mhsa_bwd_dq_kernel", "mhsa_bwd_dkdv_kernel", mangled)
+                                    "mhsa_bwd_dq_kernel", "mhsa_bwd_dkdv_kernel",
+                                    "mhsa_fwd_bf16_kernel", "mhsa_bwd_dq_bf16_kernel",
+                                    "mhsa_bwd_dkdv_bf16_kernel", mangled)
                         if k in mangled)
             name = name.replace("ILb1", "<true>").replace("ILb0", "<false>")
             out[name] = {}
@@ -302,7 +319,10 @@ def phase_build():
            "mhsa_fwd_kernel<false>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_merge_kernel": 0,
            "mhsa_bwd_dq_kernel": lib.adyolo_mhsa_smem_bytes(1),
-           "mhsa_bwd_dkdv_kernel": lib.adyolo_mhsa_smem_bytes(2)}
+           "mhsa_bwd_dkdv_kernel": lib.adyolo_mhsa_smem_bytes(2),
+           "mhsa_fwd_bf16_kernel": lib.adyolo_mhsa_smem_bytes(3),
+           "mhsa_bwd_dq_bf16_kernel": lib.adyolo_mhsa_smem_bytes(4),
+           "mhsa_bwd_dkdv_bf16_kernel": lib.adyolo_mhsa_smem_bytes(5)}
     for name, n in dyn.items():
         require(name in kernels, f"ptxas reported no kernel {name}: {sorted(kernels)}")
         kernels[name]["dynamic_smem_bytes"] = int(n)
@@ -403,12 +423,13 @@ def attn_flop(H, T, lens, per=4):
     return float(per) * H * T * float(np.sum(lens)) * 64
 
 
-def attn_bytes(B, T, H, lens, q_rows, kv_reads, kv_writes=0, stats=0):
+def attn_bytes(B, T, H, lens, q_rows, kv_reads, kv_writes=0, stats=0, el=4):
     """Bytes attention must move: ``q_rows`` full (B, T, H, 64) tensors
     (q, out, dO, dq), ``kv_reads`` key-side tensors over the valid keys
-    only, ``kv_writes`` full key-side outputs (dk, dv), ``stats`` (B, H, T)
-    rows (the logsumexp), and kv_len."""
-    row = 4.0 * H * 64
+    only, ``kv_writes`` full key-side outputs (dk, dv), all of ``el`` bytes
+    an element; ``stats`` (B, H, T) float32 rows (the logsumexp), and
+    kv_len."""
+    row = float(el) * H * 64
     return (row * (q_rows * B * T + kv_reads * float(np.sum(lens)) + kv_writes * B * T)
             + 4.0 * (B * H * T * stats + B))
 
@@ -497,7 +518,7 @@ def phase_attn_kernel(smi):
     got = hopper_attention.flash_attention(*args, kv)
     torch.cuda.synchronize()
     grown = {n: c - before[n] for n, c in hopper_attention.LAUNCHES.items()}
-    require(grown == {"k2": 0, "k4": 1, "k2_dropout": 0, "k3": 0},
+    require(grown == {**{n: 0 for n in grown}, "k4": 1},
             f"attention k4 with grad: launches {grown}, want k4 once")
     require(got.requires_grad and bool(torch.equal(got.detach(), want)),
             "attention k4 with grad differs from the no-grad call")
@@ -633,6 +654,116 @@ def phase_attn_train_kernel(smi):
     return res
 
 
+def bf16_truth(q, k, v, kv, do, seed):
+    """Attention and its gradients in float64 on the same bf16 inputs."""
+    a = [x.double() for x in (q, k, v)]
+    return (attention.mhsa_attention(*a, kv, rate=RATE, seed=seed),
+            *attention.mhsa_attention_bwd(*a, kv, do.double(), rate=RATE, seed=seed))
+
+
+def phase_attn_train_bf16_kernel(smi):
+    """Routes k2_dropout_bf16 (forward) and k3_bf16 (backward, bf16 mma.sync)
+    against the plain bf16 attention and its written-out backward at rate
+    0.2: (16, 800, 4, 64) with all keys valid (timed) and with random
+    kv_len and one row at 0, and (1, 1200) len 920, which runs in key
+    splits and a merge.  Kernel and plain version are each measured against
+    float64 on the same bf16 inputs: the kernel's max|error| at most
+    BF16_RATIO x the plain version's plus BF16_HALF_STEP x max|truth|, over
+    the rows with keys; the kv_len = 0 row is zeros."""
+    rng = np.random.default_rng(8)
+    H = 4
+    seed = torch.tensor([int(rng.integers(-2 ** 31, 2 ** 31))], dtype=torch.int32,
+                        device="cuda")
+    lens_r = rng.integers(1, 800 + 1, 16)
+    lens_r[2] = 0
+    res = {"k2_dropout_bf16": {"max_abs_err": 0.0}, "k3_bf16": {"max_abs_err": 0.0}}
+    for tag, B, T, lens in (("full", 16, 800, [800] * 16), ("ragged", 16, 800, lens_r),
+                            ("split", 1, 1200, [920])):
+        q, k, v, do = (torch.tensor(rng.standard_normal((B, T, H, 64)), dtype=torch.float32,
+                                    device="cuda").bfloat16() for _ in range(4))
+        kv = torch.tensor(np.asarray(lens), dtype=torch.int32, device="cuda")
+        args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = counts()
+        out = hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed)
+        grads = torch.autograd.grad(out, args, do, retain_graph=True)
+        torch.cuda.synchronize()
+        grown = {n: c - before[n] for n, c in counts().items()}
+        require(grown == {**{n: 0 for n in grown}, "k2_dropout_bf16": 1, "k3_bf16": 1},
+                f"attn_train_bf16_kernel {tag}: launches {grown}")
+        plain = [attention.mhsa_attention(q, k, v, kv, rate=RATE, seed=seed),
+                 *attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)]
+        truth = bf16_truth(q, k, v, kv, do, seed)
+        rows = [b for b, n in enumerate(lens) if n > 0]
+        row = {"phase": "attn_train_bf16_kernel", "case": tag, "shape": [B, T, H, 64],
+               "rate": RATE, "kv_len": [int(n) for n in lens] if B == 1 else
+               {"min": int(min(lens)), "max": int(max(lens))},
+               "tol": {"ratio": BF16_RATIO, "half_step": BF16_HALF_STEP}}
+        for name, g, p, t in zip(("out", "dq", "dk", "dv"), (out.detach(), *grads), plain, truth):
+            require(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()),
+                    f"bf16 {name} {tag}: dtype {g.dtype} or not finite")
+            err = float((g.double()[rows] - t[rows]).abs().max())
+            err_p = float((p.double()[rows] - t[rows]).abs().max())
+            scale = float(t[rows].abs().max())
+            require(err <= BF16_RATIO * err_p + BF16_HALF_STEP * scale,
+                    f"bf16 {name} {tag}: kernel err {err} > {BF16_RATIO} * plain err "
+                    f"{err_p} + {BF16_HALF_STEP} * {scale}")
+            for b, n in enumerate(lens):
+                if n == 0:
+                    require(bool((g[b] == 0).all()), f"bf16 {name} {tag}: kv_len 0 row not 0")
+            row[name] = {"max_abs_err": err, "plain_max_abs_err": err_p, "max_abs_truth": scale}
+            rt = "k2_dropout_bf16" if name == "out" else "k3_bf16"
+            res[rt]["max_abs_err"] = max(res[rt]["max_abs_err"], err)
+        if tag == "full":
+            # SDPA on the same bf16 inputs computes the function (no dropout)
+            library0 = sdpa(q, k, v, kv)
+            lib_err = float((library0().transpose(1, 2).double()
+                             - attention.mhsa_attention(q, k, v, kv).double()).abs().max())
+            require(lib_err <= BF16_LIBRARY_TOL * float(truth[0].abs().max()),
+                    f"SDPA bf16 is not the attention's function: {lib_err}")
+            sdpa_args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            lib_fwd = sdpa(*sdpa_args, kv, dropout_p=RATE)
+            lib_out = lib_fwd()
+            do_t = do.transpose(1, 2)
+            fns = {
+                "kernel_fwd": lambda: hopper_attention.flash_attention(
+                    *args, kv, rate=RATE, seed=seed),
+                "kernel_bwd": lambda: torch.autograd.grad(out, args, do, retain_graph=True),
+                "kernel_fwd_bwd": lambda: torch.autograd.grad(
+                    hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed),
+                    args, do),
+                "plain_fwd": lambda: attention.mhsa_attention(q, k, v, kv, rate=RATE,
+                                                              seed=seed),
+                "plain_bwd": lambda: attention.mhsa_attention_bwd(q, k, v, kv, do,
+                                                                  rate=RATE, seed=seed),
+                "library_fwd": lib_fwd,
+                "library_bwd": lambda: torch.autograd.grad(lib_out, sdpa_args, do_t,
+                                                           retain_graph=True),
+                "library_fwd_bwd": lambda: torch.autograd.grad(lib_fwd(), sdpa_args, do_t),
+            }
+            ms = {n: [] for n in fns}
+            for _ in range(3):
+                for n, fn in fns.items():
+                    ms[n] += cuda_ms(fn, 10)
+            ms = {n: float(np.median(t)) for n, t in ms.items()}
+            fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
+            by_f = attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1, el=2)
+            by_b = attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2, kv_writes=2, stats=1, el=2)
+            res["k2_dropout_bf16"].update(ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"],
+                                          library_ms=ms["library_fwd"], **bf16_bound(fl_f, by_f))
+            res["k3_bf16"].update(ms=ms["kernel_bwd"], plain_ms=ms["plain_bwd"],
+                                  library_ms=ms["library_bwd"], **bf16_bound(fl_b, by_b))
+            row.update(ms=ms, runs=30, library="F.scaled_dot_product_attention (bf16, "
+                       "dropout_p 0.2)", library_max_abs_err_rate0=lib_err,
+                       tflops_fwd=fl_f / (ms["kernel_fwd"] * 1e-3) / 1e12,
+                       tflops_bwd=fl_b / (ms["kernel_bwd"] * 1e-3) / 1e12,
+                       bound_fwd_ms=res["k2_dropout_bf16"]["bound_ms"],
+                       bound_bwd_ms=res["k3_bf16"]["bound_ms"], card=smi)
+            del sdpa_args, lib_out
+        emit(row)
+        del q, k, v, do, args, out, grads, plain, truth
+    return res
+
+
 def synthetic_batch(cfg, rng, B):
     """B 20-s int16 FOA chunks in the hop-block layout (B, 800, 600, 4), on
     the card, with AD-YOLO targets of random events (one to three a label
@@ -665,6 +796,7 @@ _PROFILE_GROUPS = (  # kernel-name substrings, first match wins
     ("attention fwd", ("mhsa_fwd",)),
     ("attention bwd", ("mhsa_bwd",)),
     ("optimizer", ("multi_tensor", "adam")),
+    ("GRU (cuDNN RNN)", ("rnn", "gru", "persist")),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit",
                       "nchw", "nhwc", "cudnn")),
     ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk")),
@@ -690,6 +822,7 @@ def profile_calls(fn, n):
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {g: 0.0 for g, _ in _PROFILE_GROUPS}
     groups["other (elementwise, reductions, copies)"] = 0.0
+    other = {}
     n_kernels = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -700,11 +833,14 @@ def profile_calls(fn, n):
         grp = next((g for g, keys in _PROFILE_GROUPS if any(s in name for s in keys)),
                    "other (elementwise, reductions, copies)")
         groups[grp] += us / 1e3 / n
+        if grp.startswith("other"):
+            other[e.name[:90]] = other.get(e.name[:90], 0.0) + us / 1e3 / n
     busy = sum(groups.values())
     require(n_kernels > 0, "the profiler recorded no device time")
     return {"steps": n, "wall_ms_per_step": wall_ms / n, "busy_ms_per_step": busy,
             "idle_share": 1.0 - busy / (wall_ms / n), "kernels_per_step": n_kernels / n,
-            "ms_per_step": groups}
+            "ms_per_step": groups,
+            "top_other_ms_per_step": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
 
 
 def phase_train_conformer(smi, cfg, fe):
@@ -1186,8 +1322,9 @@ def phase_train_cli(smi, cfg, bare_step_ms):
                     f"eval clip of {e['frames']} frames: launches {e}")
         require(any(e["frames"] > attention.BLOCK_THRESHOLD for e in rec["evals"]),
                 "no eval clip on route k4")
-        for name, n in launched.items():
-            require(n > 0, f"train_cli: kernel route {name} never launched")
+        for name, n in launched.items():  # the float32 run: no bf16 route
+            require((n == 0) if name.endswith("_bf16") else (n > 0),
+                    f"train_cli: kernel route {name} launched {n} times")
 
         # the resume: epoch 11 from the stored pool, file list, best_log, generator
         require(stored["start_epoch_nb"] == CLI_EPOCHS + 1, f"stored {stored['start_epoch_nb']}")
@@ -1238,6 +1375,182 @@ def phase_train_cli(smi, cfg, bare_step_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def with_train(cfg, **kw):
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **kw))
+
+
+def run_steps(cfg, fe, batches, steps, seed=1234):
+    """``steps`` train steps from the seeded init on ``batches`` in turn:
+    the losses, each step's host ms (ending in a device -> host copy),
+    each step's launch counts, step 1's gradients, the peak device memory
+    and the step (to profile)."""
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0), train=True)
+    step = build_train_step(cfg, model, fe)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "step_ms": [], "per_step": []}
+    for i in range(steps):
+        before = counts()
+        t0 = time.perf_counter()
+        out["losses"].append(float(step(batches[i % len(batches)], gen)))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["per_step"].append({n: c - before[n] for n, c in counts().items()})
+        if i == 0:
+            out["grads1"] = grads_of(model)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["median_step_ms"] = float(np.median(out["step_ms"][1:]))  # step 1 pays first calls
+    require(all(np.isfinite(out["losses"])), f"train loss not finite: {out['losses']}")
+    out["step"], out["gen"], out["model"] = step, gen, model
+    return out
+
+
+def phase_train_seresnet34(smi, cfg, fe):
+    """SE-ResNet34 + AD-YOLO train steps at full width, B = 32 x 20-s chunks,
+    Adam, GRU dropout 0.3 from one CUDA generator, in float32 and in bf16
+    from the same weights: TRAIN_STEPS steps each with the counts set to 0
+    just before, read after (the STFT once a step, no attention); step 1's
+    bf16 loss within SE_BF16_LOSS_TOL of the float32 one; medians of steps
+    2-5, peak memory, and a profile of two more steps each."""
+    B = 32
+    rng = np.random.default_rng(12)
+    batches = [synthetic_batch(cfg, rng, B) for _ in range(2)]
+    rows, launched = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        zero_counts()
+        r = run_steps(with_train(cfg, compute_dtype=dtype), fe, batches, TRAIN_STEPS)
+        launched[dtype] = counts()
+        for i, n in enumerate(r["per_step"]):
+            require(n == {**{k: 0 for k in n}, "stft": 1},
+                    f"train_seresnet34 {dtype} step {i + 1}: launches {n}")
+        prof = profile_steps(r["step"], batches, r["gen"], 2)
+        rows[dtype] = {"losses": r["losses"], "step_ms": r["step_ms"],
+                       "median_step_ms": r["median_step_ms"],
+                       "audio_s_per_s": B * 20.0 / (r["median_step_ms"] * 1e-3),
+                       "peak_mem_gb": r["peak_mem_gb"], "launches_per_step": r["per_step"][0],
+                       "profile": prof}
+        del r
+    l32, l16 = rows["float32"]["losses"][0], rows["bfloat16"]["losses"][0]
+    require(abs(l16 - l32) <= SE_BF16_LOSS_TOL * abs(l32),
+            f"train_seresnet34: bf16 step 1 loss {l16} vs float32 {l32}")
+    emit({"phase": "train_seresnet34", "batch": [B, 800, HOP, 4], "steps": TRAIN_STEPS,
+          **rows, "step1_bf16_vs_f32_rel": abs(l16 - l32) / abs(l32),
+          "tol_rel": SE_BF16_LOSS_TOL, "card": smi})
+    return launched["bfloat16"]
+
+
+def phase_train_conformer_bf16(smi, cfg, fe):
+    """ResNet-Conformer + AD-YOLO train steps at full width in bf16, dropout
+    0.2 from one CUDA generator.  The main path of the bf16 kernels: B = 16
+    x 20-s chunks, TRAIN_STEPS steps with the counts set to 0 just before
+    and read after (per step the STFT once, k2_dropout_bf16 and k3_bf16 8
+    times each, no other attention route); step 1 within
+    BF16_TRAIN_LOSS_TOL of the same step from the same weights and
+    generator seed on the plain bf16 attention; a profile of two more
+    steps.  Then B = 32 without and with ``remat``: median step and peak
+    memory of each, step 1's losses within 1e-3 of each other."""
+    bf = with_train(cfg, compute_dtype="bfloat16")
+    rng = np.random.default_rng(13)
+    batches = [synthetic_batch(cfg, rng, 16) for _ in range(2)]
+    zero_counts()  # the main path's count starts here
+    r = run_steps(bf, fe, batches, TRAIN_STEPS)
+    launched = counts()
+    nb = CONFORMER_BLOCKS
+    for i, n in enumerate(r["per_step"]):
+        require(n == {**{k: 0 for k in n}, "stft": 1, "k2_dropout_bf16": nb, "k3_bf16": nb},
+                f"train_conformer_bf16 step {i + 1}: launches {n}")
+    with plain_attention():
+        ref = run_steps(bf, fe, batches, 1)
+    require(abs(r["losses"][0] - ref["losses"][0]) <= BF16_TRAIN_LOSS_TOL * abs(ref["losses"][0]),
+            f"train_conformer_bf16 step 1 loss {r['losses'][0]} vs plain {ref['losses'][0]}")
+    gmax = max(float(g.abs().max()) for g in ref["grads1"].values())
+    grad_err = max(float((r["grads1"][n] - g).abs().max()) for n, g in ref["grads1"].items())
+    ref_loss = ref["losses"][0]
+    del ref
+    prof = profile_steps(r["step"], batches, r["gen"], 2)
+    row = {"phase": "train_conformer_bf16", "batch": [16, 800, HOP, 4], "steps": TRAIN_STEPS,
+           "losses": r["losses"], "launches": launched, "launches_per_step": r["per_step"],
+           "step1_vs_plain": {"loss": [r["losses"][0], ref_loss], "tol_rel": BF16_TRAIN_LOSS_TOL,
+                              "grad_max_abs_err": grad_err, "grad_max_abs": gmax},
+           "step_ms": r["step_ms"], "median_step_ms": r["median_step_ms"],
+           "audio_s_per_s": 16 * 20.0 / (r["median_step_ms"] * 1e-3),
+           "peak_mem_gb": r["peak_mem_gb"], "profile": prof, "card": smi}
+    del r
+    big = [synthetic_batch(cfg, rng, 32) for _ in range(2)]
+    for remat in (False, True):
+        b32 = run_steps(with_train(bf, remat=remat), fe, big, 3)
+        row[f"b32_remat_{str(remat).lower()}"] = {
+            "losses": b32["losses"], "step_ms": b32["step_ms"],
+            "median_step_ms": b32["median_step_ms"],
+            "audio_s_per_s": 32 * 20.0 / (b32["median_step_ms"] * 1e-3),
+            "peak_mem_gb": b32["peak_mem_gb"]}
+        del b32
+    l0, l1 = row["b32_remat_false"]["losses"][0], row["b32_remat_true"]["losses"][0]
+    require(abs(l0 - l1) <= 1e-3 * abs(l0), f"B=32 step 1 loss {l0} without remat, {l1} with")
+    emit(row)
+    return launched
+
+
+def phase_train_cli_se_bf16(smi, cfg):
+    """``cli.main`` train of SE-ResNet34 (the default encoder) in bf16: 2
+    epochs x 1 step of 16 x 20 s with val and test each epoch and the final
+    test, on a synthetic DCASE2022-layout set; finite losses for both
+    epochs, one STFT launch per step and per eval clip, float32 checkpoint
+    arrays.  Counts set to 0 just before the call and read just after."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_se_bf16_")
+    try:
+        data = os.path.join(tmp, "data")
+        write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
+        configs = os.path.join(tmp, "configs")
+        shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"),
+                        configs)
+        import yaml
+
+        p = os.path.join(configs, f"hyp_data_{cfg.data.dataset}.yaml")
+        with open(p) as f:
+            d = yaml.safe_load(f)
+        d.update(data_pth=data, name_pth=os.path.join(data, "classes.txt"))
+        with open(p, "w") as f:
+            yaml.safe_dump(d, f)
+        results = os.path.join(tmp, "results")
+        exp = os.path.join(results, "chip-se-bf16")
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--encoder", "se-resnet34", "--compute_dtype", "bfloat16",
+                       "--logger", "--nb_epochs", "2", "--nb_iters", "1", "--batch_size", str(CLI_BATCH),
+                       "--config_dir", configs, "--results_dir", results,
+                       "--exp_id", "chip-se-bf16", "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launched = counts()
+        require(rc == 0, f"train_cli_se_bf16 returned {rc}")
+        require(load_config(os.path.join(exp, "hyp_exp.yaml")).train.compute_dtype == "bfloat16",
+                "train_cli_se_bf16: the frozen config lost the dtype")
+        logs = read_logs(exp)
+        for split in ("train", "val", "test"):
+            got = logs[f"logs/{split}/loss"]
+            require(sorted(got) == [1, 2] and np.isfinite(list(got.values())).all(),
+                    f"train_cli_se_bf16 {split} loss {got}")
+        # 2 steps; per epoch the val and test clips; the final test, once
+        # per unify threshold (15, 30, 45 deg)
+        n_clips = 2 + 2 * 2 * len(EVAL_SECS) + 3 * len(EVAL_SECS)
+        require(launched == {**{n: 0 for n in launched}, "stft": n_clips},
+                f"train_cli_se_bf16: launches {launched}, want stft {n_clips}")
+        stored = torch.load(os.path.join(exp, "model_ckpt.ckpt"), weights_only=False)
+        require({t.dtype for t in stored["model"].values()} == {torch.float32},
+                "train_cli_se_bf16: the checkpoint holds non-float32 arrays")
+        emit({"phase": "train_cli_se_bf16", "epochs": 2,
+              "losses": {s: logs[f"logs/{s}/loss"] for s in ("train", "val", "test")},
+              "train_s": [logs["logs/train/time_s"][e] for e in (1, 2)],
+              "val_s": [logs["logs/val/time_s"][e] for e in (1, 2)],
+              "cli_s": cli_s, "launches": launched,
+              "seconds": time.perf_counter() - t_phase, "card": smi})
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -1257,6 +1570,7 @@ def main():
     stft_k = phase_kernel(smi, fe, dft)
     attn_k = phase_attn_kernel(smi)
     train_k = phase_attn_train_kernel(smi)
+    bf16_k = phase_attn_train_bf16_kernel(smi)
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
     tau = pick_threshold(cfg, phase_forward(smi, fe, dft, model, "forward"))
     conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
@@ -1272,6 +1586,9 @@ def main():
     del model, conformer
     train, bare_step_ms = phase_train_conformer(smi, conf_cfg, fe)
     engine = phase_train_cli(smi, conf_cfg, bare_step_ms)
+    se_train = phase_train_seresnet34(smi, cfg, fe)
+    conf_bf16 = phase_train_conformer_bf16(smi, conf_cfg, fe)
+    se_cli = phase_train_cli_se_bf16(smi, cfg)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
@@ -1282,12 +1599,14 @@ def main():
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
     keys_a = keys + ("bound_units", "bound_ffma_ms")
     paths = {"serve": se, "serve_conformer": conf, "train_conformer": train,
-             "train_cli": engine}
+             "train_cli": engine, "train_seresnet34_bf16": se_train,
+             "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli}
 
-    def launches(route):
-        """``launches``: this slice's main path (the ``cli`` train, val, test
-        and resume of phase train_cli); each path's count beside it."""
-        return {"launches": engine[route],
+    def launches(route, main="train_cli"):
+        """``launches``: the route's main path (the ``cli`` train, val, test
+        and resume of phase train_cli; the bf16 conformer steps for the
+        bf16 routes); each path's count beside it."""
+        return {"launches": paths[main][route], "main_path": main,
                 "launches_by_path": {p: n[route] for p, n in paths.items()}}
 
     emit({"kernels": [
@@ -1306,7 +1625,15 @@ def main():
          **launches("k2_dropout"), **{n: train_k["k2_dropout"][n] for n in keys_a}},
         {**attn, "name": "flash_attention_bwd/k3",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
-         **launches("k3"), **{n: train_k["k3"][n] for n in keys_a}}]})
+         **launches("k3"), **{n: train_k["k3"][n] for n in keys_a}},
+        {**attn, "name": "flash_attention/k2_dropout_bf16",
+         "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
+         **launches("k2_dropout_bf16", "train_conformer_bf16"),
+         **{n: bf16_k["k2_dropout_bf16"][n] for n in keys + ("bound_units",)}},
+        {**attn, "name": "flash_attention_bwd/k3_bf16",
+         "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
+         **launches("k3_bf16", "train_conformer_bf16"),
+         **{n: bf16_k["k3_bf16"][n] for n in keys + ("bound_units",)}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,35 @@
+#!/usr/bin/env python3
+"""Run chosen phases of ``chip_smoke.py`` alone on one card.
+
+Run from the repository root::
+
+    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli]
+
+Phases env and build always run; then ``attn``: attn_train_bf16_kernel,
+``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
+train_cli_se_bf16 (all four when none is named).  Each prints its JSON
+line as in the full script.  Quicker than the full script while one
+phase is being worked on; the full script stays the check.
+"""
+import sys, os, time, dataclasses
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as cs
+from adyolo_tpu_torch.config import Config
+from adyolo_tpu_torch.engine.evaluate import make_frontend
+t0 = time.time()
+smi = cs.phase_env()
+cs.phase_build()
+data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "DCASE2022_SELD")
+cfg = Config()
+cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_pth=data, name_pth=os.path.join(data, "classes.txt")))
+conf_cfg = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, encoder="resnet-conformer"))
+fe = make_frontend(cfg)
+which = sys.argv[1:] or ["attn", "se", "conf", "cli"]
+if "attn" in which:
+    print("bf16_k", cs.phase_attn_train_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
+if "se" in which:
+    print(cs.phase_train_seresnet34(smi, cfg, fe)); print("t", time.time() - t0, flush=True)
+if "conf" in which:
+    print(cs.phase_train_conformer_bf16(smi, conf_cfg, fe)); print("t", time.time() - t0, flush=True)
+if "cli" in which:
+    print(cs.phase_train_cli_se_bf16(smi, cfg)); print("t", time.time() - t0, flush=True)

@@ -410,21 +410,32 @@ def test_eval_route_with_grad_below_threshold_has_a_backward():
 
 def test_forward_split_plan_is_kept_per_device(monkeypatch):
     """The forward's key-split plan depends on the card (its SMs and
-    occupancy), so the wrapper keeps one per device and shape: a shape seen
-    on cuda:0 is planned anew on cuda:1, and only once on each."""
+    occupancy) and on the kernel (float32 or bfloat16), so the wrapper
+    keeps one per device, dtype and shape: a shape seen on cuda:0 is
+    planned anew on cuda:1, and only once on each; the bfloat16 kernel's
+    plan comes from its own entry point."""
     calls = []
+    names = {torch.float32: "adyolo_mhsa_fwd_splits",
+             torch.bfloat16: "adyolo_mhsa_fwd_bf16_splits"}
 
     def entry(name):
-        assert name == "adyolo_mhsa_fwd_splits"
-        return lambda B, T, H: calls.append((B, T, H)) or 1
+        assert name in names.values()
+        return lambda B, T, H: calls.append((name, B, T, H)) or 1
 
     monkeypatch.setattr(hopper_attention, "_entry", entry)
     monkeypatch.setattr(hopper_attention, "_plans", {})
     for dev in (0, 0, 1, 1, 0):
-        q = types.SimpleNamespace(shape=(1, 1200, 4, 64), device=torch.device("cuda", dev))
+        q = types.SimpleNamespace(shape=(1, 1200, 4, 64), dtype=torch.float32,
+                                  device=torch.device("cuda", dev))
         assert hopper_attention._fwd_plan(q) == (1, 0, None)
-    assert calls == [(1, 1200, 4)] * 2
-    assert set(hopper_attention._plans) == {(0, 1, 1200, 4), (1, 1, 1200, 4)}
+    assert calls == [(names[torch.float32], 1, 1200, 4)] * 2
+    assert set(hopper_attention._plans) == {(0, torch.float32, 1, 1200, 4),
+                                            (1, torch.float32, 1, 1200, 4)}
+    q = types.SimpleNamespace(shape=(1, 1200, 4, 64), dtype=torch.bfloat16,
+                              device=torch.device("cuda", 0))
+    for _ in range(2):
+        assert hopper_attention._fwd_plan(q) == (1, 0, None)
+    assert calls[2:] == [(names[torch.bfloat16], 1, 1200, 4)]
 
 
 @pytest.fixture

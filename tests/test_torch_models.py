@@ -119,10 +119,11 @@ def test_converter_round_trip_and_strictness(pair):
 
 
 def test_unported_configurations_raise():
-    """Other losses, SE-ResNet34 training (its BiGRU), and the parts of the
-    train step that are not ported (bf16, remat) raise; the conformer trains
-    (``tests/test_torch_train_step.py``), with SpecAugment, whose step
-    input is held against the JAX step's (``tests/test_torch_specaug.py``)."""
+    """Other losses and compute dtypes raise; both encoders train, in
+    float32 and bfloat16, with or without remat (``tests/
+    test_torch_seresnet34_train.py``, ``tests/test_torch_train_step.py``,
+    ``tests/test_torch_bf16*.py``), with SpecAugment, whose step input is
+    held against the JAX step's (``tests/test_torch_specaug.py``)."""
     import dataclasses
 
     from adyolo_tpu_torch.ops.features import FeatureFrontend
@@ -131,15 +132,21 @@ def test_unported_configurations_raise():
     c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, loss="accdoa"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(c, device="cpu")
-    with pytest.raises(NotImplementedError, match="SE-ResNet34 training"):
-        build_model(cfg, device="cpu", train=True)(torch.zeros(1, 8, 64, 7))
+    c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        build_model(c, device="cpu")
+    se = build_model(cfg, device="cpu", train=True)
+    assert se.encoder.gru.training and se.compute_dtype is None
     c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args,
                                                           encoder="resnet-conformer"))
     model = build_model(c, device="cpu", train=True)
     assert model.encoder.conformer0.mhsa.training
     fe = FeatureFrontend(c.data, device="cpu")
-    for bad in (dataclasses.replace(c, train=dataclasses.replace(
-                    c.train, compute_dtype="bfloat16")),
-                dataclasses.replace(c, train=dataclasses.replace(c.train, remat=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_train_step(bad, model, fe)
+    for ok in (dataclasses.replace(c, train=dataclasses.replace(
+                   c.train, compute_dtype="bfloat16")),
+               dataclasses.replace(c, train=dataclasses.replace(c.train, remat=True))):
+        m = build_model(ok, device="cpu", train=True)
+        assert m.compute_dtype == (torch.bfloat16 if ok.train.compute_dtype == "bfloat16"
+                                   else None)
+        assert m.encoder.remat == ok.train.remat
+        build_train_step(ok, m, fe)

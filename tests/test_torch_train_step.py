@@ -151,11 +151,11 @@ def _runs(jcfg, cfg):
         stats.append(flax_from_state_dict(model.state_dict())["batch_stats"])
         if i == 0:
             grads = _params_tree({n: p.grad for n, p in named.items()})
-    port = {"losses": losses, "grads": grads, "stats": stats}
-
     # step 1's features, as the step computes them
     with torch.no_grad():
         feat = frontend(torch.as_tensor(batches[0]["audio"]).float() / 32768.0 + 1e-8)
+    port = {"losses": losses, "grads": grads, "stats": stats, "state0": before[0][0],
+            "feat": feat.numpy(), "batch0": batches[0]}
 
     # the port's model in float64 at step 1, on the plain attention
     with pytest.MonkeyPatch.context() as mp:
