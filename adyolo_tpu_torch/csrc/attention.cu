@@ -1,9 +1,10 @@
 // Multi-head attention for Hopper (sm_90a) on the tensor cores in 3xTF32:
 // the online-softmax forward (eval, and train with dropout) and the
 // attention backward; and, for bf16 training, the train forward and the
-// backward on bfloat16 operands (`mhsa_fwd_bf16_kernel`,
-// `mhsa_bwd_dq_bf16_kernel` + `mhsa_bwd_dkdv_bf16_kernel`, routes
-// k2_dropout_bf16 and k3_bf16; their own section below).
+// backward on bfloat16 operands with wgmma, TMA and a producer warp
+// (`mhsa_fwd_bf16_kernel`, `mhsa_bwd_dq_bf16_kernel` +
+// `mhsa_bwd_dkdv_bf16_kernel`, routes k2_dropout_bf16 and k3_bf16; their
+// own section below).
 //
 // Replaces three TPU kernels of adyolo_tpu/ops/flash_mhsa.py:
 //   * K2 `_fwd_kernel` (:89, launched by `_flash_fwd` at :180): the
@@ -113,8 +114,10 @@
 //     (`mhsa_fwd_merge_kernel`) merges them and writes out (and lse).
 //     (16, 800) runs unsplit, 832 blocks; (1, 1200) in 3 splits, 228 blocks;
 //     (1, 2400) in 3, 456; (1, 4800) in 4, 1200.
-// wgmma, TMA and warp specialisation are later work.
+// wgmma, TMA and warp specialisation for these float32 kernels are later
+// work (the bf16 section below has them).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -889,141 +892,301 @@ mhsa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     store_rows(dv, gv, base, frame, k0 + warp * 16, T, lane);
 }
 
-// ---- bf16 training: K2 with dropout and K3 on bfloat16 q/k/v -----------
+// ---- bf16 training: K2 with dropout and K3 on bfloat16, wgmma + TMA ----
 //
-// The JAX package's bf16 training hands flash_mhsa bfloat16 q/k/v and
-// rounds at fixed points (flash_mhsa.py:101-104, :129-146): the forward's
-// dropped and scaled probabilities are rounded to bfloat16 for P.V and
-// the output is bfloat16; the backward rounds ds * scale and pd to
-// bfloat16 before its three products and writes dq, dk, dv in bfloat16
-// from float32 sums.  These kernels keep those points with bfloat16
-// operands and float32 accumulators on mma.sync m16n8k16 (no hi/lo
-// splits: the operands are bfloat16 already), and the same structure as
-// the float32 kernels: 128 threads = 4 warps x 16 rows of a 64-row tile,
-// 64-key (or 64-query) tiles streamed by cp.async, double-buffered, the
-// same online softmax, dropout hash, key splits and merge.
+// Replace the same TPU kernels as the float32 pair, on bfloat16 q/k/v: K2
+// with its dropout branch (`_fwd_kernel`, adyolo_tpu/ops/flash_mhsa.py:89,
+// launched at :180) as `mhsa_fwd_bf16_kernel`, and K3 (`_bwd_kernel`, :107,
+// launched at :202) as `mhsa_bwd_dq_bf16_kernel` + `mhsa_bwd_dkdv_bf16_kernel`.
 //
-// In m16n8k16 the accumulators of two adjacent n8 column tiles, packed to
-// bfloat16 pairs, are exactly the A fragment of one k16 step (a0/a1 from
-// tile 2kt, a2/a3 from tile 2kt + 1), so P (and dS, and in the dk/dv pass
-// Pd^T and dS^T) feed the next product from registers with no
-// permutation.  B operands whose k index runs along a tile's rows (V in
-// P.V, K in dS.K, dO and Q in the dk/dv pass) are read as two 16-bit
-// shared loads per register; the others as one 32-bit load.  Rows are
-// padded to 72 bfloat16 (36 words), which keeps both kinds of load free of
-// bank conflicts.
-//
-// Differences from JAX's arithmetic, each at bfloat16 rounding level:
-// the online form rounds the unnormalised exp(s - m) to bfloat16 (JAX the
-// normalised p * kscale), and the backward takes D = rowsum(dO o O) from
-// the float32 output that the forward writes beside the bfloat16 one (JAX
-// sums dp o p in float32): D from the bfloat16 output would carry that
-// rounding into every ds of the row where dp ~ D cancels.
+// What they compute is JAX's bf16 arithmetic (flash_mhsa.py:101-104,
+// :129-146): the forward's dropped and scaled probabilities are rounded to
+// bfloat16 for P.V and the output is bfloat16; the backward rounds
+// ds * scale and pd to bfloat16 before its products and writes dq, dk, dv
+// in bfloat16 from float32 sums.  Every product is bfloat16 x bfloat16 with
+// float32 accumulation.  Differences from JAX, each at bfloat16 rounding
+// level: the online form rounds the unnormalised exp(s - m) to bfloat16
+// (JAX the normalised p * kscale), and the backward takes D = rowsum(dO o O)
+// from the float32 output that the forward writes beside the bfloat16 one
+// (D from the bfloat16 output would carry that rounding into every ds of
+// the row where dp ~ D cancels).  exp2 is ex2.approx.ftz.f32 (relative
+// error ~2^-22, flushing below 2^-126), far under the bfloat16 step of
+// 2^-8 that every product's operands carry.
 //
 // What bounds them: at (B, T) = (16, 800) the forward's two products are
 // 10.5 GFLOP, 0.0106 ms at the H100's 989 TFLOP/s of dense bfloat16, and
 // the backward's five 26.2 GFLOP, 0.0265 ms; their bytes (26 and 52 MB)
-// take 0.008 and 0.016 ms.  mma.sync reaches a fraction of that peak
-// (wgmma is the way to the rest); these kernels are the simple first
-// design.
+// take 0.008 and 0.016 ms.  Beside the tensor cores each of the 41 M
+// (query, key) elements costs an exp2 on the MUFU pipe (16 a clock an SM)
+// and the splitmix32 keep test (8 integer operations, 64 a clock an SM) in
+// every pass that touches it: one in the forward, two in the backward.  At
+// 132 SMs x 1.83 GHz those floors are 0.0106 ms (exp2) and 0.021 ms (keep
+// test) a pass (from those issue rates, not measured), above the
+// tensor-core bound, so the tensor-core bound cannot be reached; the
+// design's aim is to run them while the tensor cores work.
+//
+// The design, for Hopper:
+//   * wgmma m64n64k16 for every product, one consumer warpgroup owning a
+//     64-row tile.  Q.K^T and dO.V^T (and in the dk/dv pass K.Q^T and
+//     V.dO^T, keys as rows) read both operands from shared memory, K-major.
+//     P.V, dS.K, Pd^T.dO and dS^T.Q take A from registers, the bf16-packed
+//     accumulator of the previous product (an m64nN accumulator's two
+//     adjacent n8 column groups are one k16 A fragment), and B from shared
+//     memory with the transpose bit (MN-major).  In the dk/dv pass the
+//     accumulators of K.Q^T are P^T itself, and each element's keep bit is
+//     hashed at its own (query, key).
+//   * TMA: 64 x 64 bf16 tiles (128 B rows, 128-byte swizzle, the layout
+//     wgmma reads) land by cp.async.bulk.tensor on mbarriers.  Tensor maps
+//     describe q/k/v/dO in place as (64, H, T, B) with a (64, 1, 64, 1)
+//     box; rows past T arrive as zeros and keys in [L, T) are masked on the
+//     edge tile.  One producer warp keeps a ring of STAGES tile pairs in
+//     flight (the forward and the dq pass stream K and V; the dk/dv pass Q
+//     and dO, and its lanes write the tile's lse, D and hash row bases
+//     beside them), plus the work item's own tiles (Q; Q and dO; K and V).
+//   * No setmaxnreg.  With one producer warp (a warpgroup of one warp) the
+//     consumers' setmaxnreg.inc never returned on the H100, even with 8
+//     or 16 registers of slack in the pool.  A whole producer warpgroup
+//     would free no room for more consumers: at 24 registers a producer
+//     thread, a fourth 128-thread consumer warpgroup an SM would need
+//     <= 104 registers a thread, and the consumers need ~123.  They fit
+//     in what 3 (dk/dv pass: 2) blocks an SM leave them.
+//   * Overlap.  Three (dk/dv pass: two) independent blocks an SM, each
+//     one consumer warpgroup.  A ping-pong forward, two consumer
+//     warpgroups a block sharing K and V and issuing their S products in
+//     turn through two named barriers, 1 block an SM, ran 0.076 ms at
+//     (16, 800) on the H100 against this design's 0.056; the same block
+//     without the turns 0.075, with three warpgroups 0.078, built for 2
+//     blocks an SM (<= 112 registers) 0.076.  Within a warpgroup the backward
+//     passes issue the next tile's S and dP behind the current dq (dk, dv)
+//     product.  ptxas (12.9) then serialises every wgmma of those kernels
+//     (C7515), and still they ran faster than without the overlap
+//     (0.2075 against 0.212 ms at (16, 800) on the H100), where it
+//     serialises them for registers instead (C7512).  The forward runs
+//     S, softmax, P.V in turn: FA3's order (S_{i+1} issued before the
+//     softmax of S_i) made ptxas serialise it (C7514) and ran 0.064 ms
+//     against this order's 0.056.
+//   * Fill: a persistent grid of (SMs x resident blocks) walks a work list
+//     of (64-row tile, b*h[, key split]), tile fastest, so neighbouring
+//     blocks share a head's K and V in L2, and a block's producer loads the
+//     next item's tiles while its consumers finish the last one.  Key
+//     splits and the merge stay for grids under a wave (pick_splits).
+// The backward stays deterministic with no atomics: dq from a pass over
+// query tiles, dk/dv from a pass over key tiles.
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TSB = DH + 8;        // row stride of a bfloat16 tile in shared memory
-constexpr int TILEB = BT * TSB;    // bfloat16 elements of one tile
-constexpr size_t TILEB_BYTES = TILEB * sizeof(bf16);
-constexpr size_t FWDB_SMEM = 5 * TILEB_BYTES;   // Q, K and V twice
-constexpr size_t DQB_SMEM = 6 * TILEB_BYTES;    // Q, dO, K and V twice
-constexpr size_t DKDVB_SMEM = 6 * TILEB_BYTES + 2 * 3 * BT * sizeof(float);
+constexpr int WG_THREADS = 128;                 // the consumer warpgroup
+constexpr int WS_THREADS = WG_THREADS + 32;     // and one producer warp
+constexpr int STAGES = 3;                       // tile pairs in flight
+constexpr unsigned TILE_BYTES = BT * DH * 2;    // one 64 x 64 bf16 tile
+// Blocks an SM each kernel is built for: 3 x (4 + 1) warps at <= 136
+// registers a thread for the forward and the dq pass, 2 x 5 at <= 200 for
+// the dk/dv pass, which keeps dk, dv, S^T, dP^T and the packed Pd^T and
+// dS^T live at once.
+constexpr int FWDB_MINB = 3, DQB_MINB = 3, DKDVB_MINB = 2;
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// Shared memory of a kernel with `nfix` tiles of its own and, `rows`, the
+// dk/dv pass's per-stage lse, D and hash bases: tiles first (1024-aligned
+// for the swizzle), then the rows, then the barriers; 1024 B of slack to
+// align the base.
+constexpr size_t ws_smem(int nfix, bool rows) {
+    return 1024 + (size_t)(nfix + 2 * STAGES) * TILE_BYTES +
+           (rows ? (size_t)STAGES * 3 * BT * 4 : 0) + (2 * STAGES + 2) * 8;
 }
+constexpr size_t FWDB_SMEM = ws_smem(1, false);
+constexpr size_t DQB_SMEM = ws_smem(2, false);
+constexpr size_t DKDVB_SMEM = ws_smem(2, true);
 
-__device__ __forceinline__ unsigned ld32(const bf16* p) {
-    return *reinterpret_cast<const unsigned*>(p);
-}
-
-// p[0] in the low half, p[stride] in the high half
-__device__ __forceinline__ unsigned ld_col_pair(const bf16* p) {
-    const unsigned lo = *reinterpret_cast<const unsigned short*>(p);
-    const unsigned hi = *reinterpret_cast<const unsigned short*>(p + TSB);
-    return lo | (hi << 16);
-}
-
-// Rows [r0, r0 + BT) of one head into a bfloat16 tile (stride TSB), rows
-// >= n zeros.
-__device__ __forceinline__ void tile_async_bf16(bf16* dst, const bf16* src, long long base,
-                                                long long frame, int r0, int n, int tid) {
-#pragma unroll
-    for (int p = 0; p < BT * DH / 8 / THREADS; ++p) {
-        const int idx = tid + p * THREADS;
-        const int r = idx >> 3, c = (idx & 7) * 8;
-        const bool ok = r0 + r < n;
-        const bf16* s = src + base + (ok ? (long long)(r0 + r) * frame : 0LL) + c;
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                         smem_addr(dst + r * TSB + c)),
-                     "l"(s), "r"(ok ? 16 : 0) : "memory");
+template <int NFIX, bool ROWS>
+struct WsSmem {
+    unsigned char* fix;   // NFIX tiles
+    unsigned char* ring;  // STAGES x 2 tiles
+    float* rows;          // STAGES x [lse * log2 e | D | hash base] x BT
+    unsigned long long* full;   // STAGES
+    unsigned long long* empty;  // STAGES
+    unsigned long long* fix_full;
+    unsigned long long* fix_empty;
+    __device__ WsSmem(unsigned char* raw) {
+        const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(raw));
+        unsigned char* p = raw + ((1024u - (a & 1023u)) & 1023u);
+        fix = p;
+        ring = fix + NFIX * TILE_BYTES;
+        rows = reinterpret_cast<float*>(ring + 2 * STAGES * TILE_BYTES);
+        full = reinterpret_cast<unsigned long long*>(
+            reinterpret_cast<unsigned char*>(rows) + (ROWS ? STAGES * 3 * BT * 4 : 0));
+        empty = full + STAGES;
+        fix_full = empty + STAGES;
+        fix_empty = fix_full + 1;
     }
-}
-
-// The A fragments (k16 steps over DH) of this warp's 16 rows of a tile.
-__device__ __forceinline__ void load_a_frags(unsigned a[4][4], const bf16* tile, int warp,
-                                             int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const bf16* r0 = tile + (warp * 16 + g) * TSB + 2 * t;
-    const bf16* r1 = r0 + 8 * TSB;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-        a[kk][0] = ld32(r0 + kk * 16);
-        a[kk][1] = ld32(r1 + kk * 16);
-        a[kk][2] = ld32(r0 + kk * 16 + 8);
-        a[kk][3] = ld32(r1 + kk * 16 + 8);
+    __device__ unsigned char* tile(int stage, int which) const {
+        return ring + (2 * stage + which) * TILE_BYTES;
     }
+};
+
+// keep_bit without its last xorshift: x ^ (x >> 16) leaves the top 8 bits
+// of x as they are, and t24 = thresh << 24 compares only those, so the two
+// tests agree on every x.
+__device__ __forceinline__ bool keep24(const Drop& d, unsigned base, int key) {
+    unsigned x = base + (unsigned)key;
+    x = (x ^ (x >> 16)) * 0x7FEB352Du;
+    x = (x ^ (x >> 15)) * 0x846CA68Bu;
+    return x >= d.t24;
 }
 
-// acc (16 x 64) += A . B^T over DH: A in fragments, B = the 64 rows of a
-// bfloat16 tile.  Element i of acc[nt] is (row g + 8 (i >> 1), column
-// 8 nt + 2 t + (i & 1)).
-__device__ __forceinline__ void gemm_bf16_abt(float acc[8][4], const unsigned a[4][4],
-                                              const bf16* tile, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-        const bf16* row = tile + (nt * 8 + g) * TSB + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            const unsigned b[2] = {ld32(row + kk * 16), ld32(row + kk * 16 + 8)};
-            mma_bf16(acc[nt], a[kk], b);
+// A stage and the parity of its barrier's phase, walking a ring.
+struct Ring {
+    int stage;
+    unsigned phase;
+    __device__ void next() {
+        if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1u;
         }
     }
+};
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count)
+                 : "memory");
 }
 
-// acc (16 x DH) += P . X: P (16 x 64, accumulator layout) rounded to
-// bfloat16 pairs as A fragments, X = the 64 rows of a bfloat16 tile.
-__device__ __forceinline__ void gemm_bf16_px(float acc[8][4], const float p[8][4],
-                                             const bf16* tile, int lane) {
-    const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* b, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(b)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b)) : "memory");
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* b, unsigned parity) {
+    const unsigned a = smem_addr(b);
+    unsigned done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(a), "r"(parity)
+            : "memory");
+    }
+}
+
+// The 64 x 64 tile of rows [t0, t0 + 64) of head h of batch row b.
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int h, int t0, int b,
+                                         unsigned long long* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<unsigned long long>(map)), "r"(0), "r"(h), "r"(t0), "r"(b),
+        "r"(smem_addr(bar))
+        : "memory");
+}
+
+// The wgmma descriptor of a 1024-aligned 64 x 64 bf16 tile in the 128-byte
+// swizzle: 8-row groups 1024 B apart (SBO); LBO unused at 64 columns.
+// A k16 step adds 32 B along a K-major row (+2) or 16 rows (+128) of an
+// MN-major one.
+__device__ __forceinline__ unsigned long long sw128_desc(const void* p) {
+    const unsigned long long a = smem_addr(p);
+    return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// a wgmma issue or wait: it does not know the hardware writes it late.
+__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+
+__device__ __forceinline__ void fence_frag(unsigned (&a)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
+}
+
+#define WG_D32(d)                                                                             \
+    "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),            \
+        "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),            \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),            \
+        "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]),            \
+        "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define WG_REGS32                                                                           \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+    "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64) (+)= A . B over one k16 step, A and B in shared memory,
+// both K-major.  scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], unsigned long long da,
+                                         unsigned long long db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D32(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A . B over one k16 step, A a k16 fragment in registers,
+// B in shared memory MN-major (its k index runs along the tile's rows).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const unsigned (&a)[4],
+                                         unsigned long long db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d = A . B^T over DH: both tiles in shared memory with DH along the rows.
+__device__ __forceinline__ void gemm_ss(float (&d)[8][4], const void* a, const void* b) {
+    const unsigned long long da = sw128_desc(a), db = sw128_desc(b);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(d, da + 2 * kk, db + 2 * kk, kk > 0);
+}
+
+// d += P . X over 64 rows of X: P packed (k16 fragments), X in shared memory.
+__device__ __forceinline__ void gemm_rs(float (&d)[8][4], const unsigned (&p)[4][4],
+                                        const void* x) {
+    const unsigned long long dx = sw128_desc(x);
+#pragma unroll
+    for (int kt = 0; kt < BT / 16; ++kt) wgmma_rs(d, p[kt], dx + 128 * kt);
+}
+
+// An accumulator's 64 columns as bf16 A fragments of four k16 steps.
+__device__ __forceinline__ void pack_frags(unsigned (&a)[4][4], const float (&s)[8][4]) {
 #pragma unroll
     for (int kt = 0; kt < 4; ++kt) {
-        const unsigned a[4] = {pack_bf16(p[2 * kt][0], p[2 * kt][1]),
-                               pack_bf16(p[2 * kt][2], p[2 * kt][3]),
-                               pack_bf16(p[2 * kt + 1][0], p[2 * kt + 1][1]),
-                               pack_bf16(p[2 * kt + 1][2], p[2 * kt + 1][3])};
-        const bf16* r0 = tile + (kt * 16 + 2 * t) * TSB + g;
-#pragma unroll
-        for (int nd = 0; nd < 8; ++nd) {
-            const unsigned b[2] = {ld_col_pair(r0 + nd * 8), ld_col_pair(r0 + 8 * TSB + nd * 8)};
-            mma_bf16(acc[nd], a, b);
-        }
+        a[kt][0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
+        a[kt][1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
+        a[kt][2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+        a[kt][3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
     }
 }
 
-// Store this warp's 16 x DH accumulator as bfloat16 rows r0 + g (+ 8) of
-// one head (and, out32 not null, as float32), rows >= T skipped.
+// Store a warp's 16 x DH of an accumulator as bfloat16 rows r0 + g (+ 8) of
+// one head (and, dst32 not null, as float32), rows >= T skipped.
 __device__ __forceinline__ void store_rows_bf16(bf16* dst, float* dst32, const float acc[8][4],
                                                 long long base, long long frame, int r0,
                                                 int T, int lane) {
@@ -1047,8 +1210,8 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst, float* dst32, const f
 __device__ __forceinline__ void zero_rows_bf16(bf16* dst, long long base, long long frame,
                                                int r0, int T, int tid) {
 #pragma unroll
-    for (int p = 0; p < BT * DH / 8 / THREADS; ++p) {
-        const int idx = tid + p * THREADS;
+    for (int p = 0; p < BT * DH / 8 / WG_THREADS; ++p) {
+        const int idx = tid + p * WG_THREADS;
         const int r = r0 + (idx >> 3);
         if (r < T)
             *reinterpret_cast<uint4*>(dst + base + (long long)r * frame + (idx & 7) * 8) =
@@ -1056,384 +1219,555 @@ __device__ __forceinline__ void zero_rows_bf16(bf16* dst, long long base, long l
     }
 }
 
-// The bf16 train forward of one (64-query tile, b*h, key split): out
-// (bfloat16) and out32 (float32) and the row logsumexp, or with splits > 1
+// Barriers of a warp-specialised block: the ring's full (`full_count`
+// arrivals, one with the TMA bytes) and empty (one arrival a consumer
+// warp), and the work item's own tiles'.  Every thread of the block calls
+// it, before the roles split.
+template <int NFIX, bool ROWS>
+__device__ __forceinline__ void ws_init(const WsSmem<NFIX, ROWS>& sm, unsigned full_count) {
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(sm.full + s, full_count);
+            mbar_init(sm.empty + s, WG_THREADS / 32);
+        }
+        mbar_init(sm.fix_full, 1);
+        mbar_init(sm.fix_empty, WG_THREADS / 32);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+}
+
+// One consumer warp's arrival on an empty barrier.
+__device__ __forceinline__ void release(unsigned long long* b, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(b);
+}
+
+// A work item of a persistent block: (64-row tile, b*h, split), tile fastest.
+struct Work {
+    int tile, bh, split;
+};
+
+__device__ __forceinline__ Work work_item(int w, int n_tiles, int BH) {
+    Work x;
+    x.tile = w % n_tiles;
+    const int r = w / n_tiles;
+    x.bh = r % BH;
+    x.split = r / BH;
+    return x;
+}
+
+// The bf16 train forward, persistent over (64-query tile, b*h, key split):
+// out (bfloat16), out32 (float32) and the row logsumexp, or with splits > 1
 // the partial (O, m, l) for mhsa_fwd_merge_kernel, as mhsa_fwd_kernel<true>.
-__global__ void __launch_bounds__(THREADS, 2)
-mhsa_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ kv_len,
+__global__ void __launch_bounds__(WS_THREADS, FWDB_MINB)
+mhsa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const int* __restrict__ kv_len,
                      const int* __restrict__ seed, bf16* __restrict__ out,
                      float* __restrict__ out32, float* __restrict__ lse,
                      float* __restrict__ part, float* __restrict__ pm, float* __restrict__ pl,
-                     int T, int H, int splits, float scale_log2, Drop d) {
-    extern __shared__ __align__(16) float smem[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem);
-    bf16* Ks = Qs + TILEB;       // two buffers
-    bf16* Vs = Ks + 2 * TILEB;   // two buffers
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh - b * H;
-    const int q0 = blockIdx.x * BT;
-    const int split = blockIdx.z;
+                     int B, int T, int H, int splits, float scale_log2, Drop d) {
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    const WsSmem<1, false> sm(smem_raw);
+    ws_init(sm, 1);
+    const int nq = (T + BT - 1) / BT;
+    const int BH = B * H;
+    const int n_work = nq * BH * splits;
     const long long frame = (long long)H * DH;
-    const long long base = (long long)b * T * frame + (long long)h * DH;
-    const int L = min(max(kv_len[b], 0), T);
-    const int n_tiles = (L + BT - 1) / BT;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-    if (L == 0 && splits == 1) {  // no valid key: zeros (block-uniform, before any barrier)
-        zero_rows_bf16(out, base, frame, q0, T, tid);
-        zero_rows(out32, base, frame, q0, T, tid);
-        if (tid < BT && q0 + tid < T) lse[(long long)bh * T + q0 + tid] = -INFINITY;
+    if (warp == WG_THREADS / 32) {  // the producer warp
+        if (lane != 0) return;
+        Ring r{0, 0u};
+        unsigned fph = 0;
+        for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+            const Work x = work_item(w, nq, BH);
+            const int b = x.bh / H, h = x.bh - b * H;
+            const int L = min(max(kv_len[b], 0), T);
+            const int n_tiles = (L + BT - 1) / BT;
+            if (x.split >= n_tiles) continue;  // nothing to load (L == 0 included)
+            mbar_wait(sm.fix_empty, fph ^ 1u);
+            fph ^= 1u;
+            mbar_expect_tx(sm.fix_full, TILE_BYTES);
+            tma_tile(sm.fix, &tq, h, x.tile * BT, b, sm.fix_full);
+            for (int it = x.split; it < n_tiles; it += splits) {
+                mbar_wait(sm.empty + r.stage, r.phase ^ 1u);
+                mbar_expect_tx(sm.full + r.stage, 2 * TILE_BYTES);
+                tma_tile(sm.tile(r.stage, 0), &tk, h, it * BT, b, sm.full + r.stage);
+                tma_tile(sm.tile(r.stage, 1), &tv, h, it * BT, b, sm.full + r.stage);
+                r.next();
+            }
+        }
         return;
     }
-    if (split >= n_tiles) return;  // no key tile for this split (block-uniform)
 
-    tile_async_bf16(Qs, q, base, frame, q0, T, tid);
-    tile_async_bf16(Ks, k, base, frame, split * BT, L, tid);  // keys >= L are zeros
-    tile_async_bf16(Vs, v, base, frame, split * BT, L, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    unsigned qa[4][4];
-    load_a_frags(qa, Qs, warp, lane);
-
-    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    const int tid = threadIdx.x, g = lane >> 2, t = lane & 3;
     const bool drop = d.t24 != 0u;
-    unsigned rbase[2] = {0u, 0u};
-    if (drop) {
-        const unsigned seed_term = (unsigned)seed[0] * 0x9E3779B9u;
-#pragma unroll
-        for (int u = 0; u < 2; ++u) rbase[u] = row_base(d, seed_term, bh, row[u]);
-    }
-    float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
-    float l[2] = {0.f, 0.f};              // this lane's part of the row sum
-    float o[8][4];
-    zero_acc(o);
-
-    int buf = 0;
-    for (int it = split; it < n_tiles; it += splits) {
-        const int nxt = it + splits;
-        if (nxt < n_tiles) {  // the next step's tiles fly while this one multiplies
-            tile_async_bf16(Ks + (buf ^ 1) * TILEB, k, base, frame, nxt * BT, L, tid);
-            tile_async_bf16(Vs + (buf ^ 1) * TILEB, v, base, frame, nxt * BT, L, tid);
-            cp_async_commit();
+    const unsigned seed_term = drop ? (unsigned)seed[0] * 0x9E3779B9u : 0u;
+    Ring r{0, 0u};
+    unsigned fph = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const Work x = work_item(w, nq, BH);
+        const int b = x.bh / H, h = x.bh - b * H;
+        const int q0 = x.tile * BT;
+        const long long base = (long long)b * T * frame + (long long)h * DH;
+        const int L = min(max(kv_len[b], 0), T);
+        const int n_tiles = (L + BT - 1) / BT;
+        if (L == 0 && splits == 1) {  // no valid key: zeros, lse = -inf
+            zero_rows_bf16(out, base, frame, q0, T, tid);
+            zero_rows(out32, base, frame, q0, T, tid);
+            if (tid < BT && q0 + tid < T) lse[(long long)x.bh * T + q0 + tid] = -INFINITY;
+            continue;
         }
-        const bf16* Kt = Ks + buf * TILEB;
-        const bf16* Vt = Vs + buf * TILEB;
-        float s[8][4];
-        zero_acc(s);
-        gemm_bf16_abt(s, qa, Kt, lane);  // S = Q . K^T
+        if (x.split >= n_tiles) continue;  // no key tile for this split
+        const int n_my = (n_tiles - x.split + splits - 1) / splits;
 
-        const int j0 = it * BT;
-        float mx[2] = {-INFINITY, -INFINITY};
-        if (j0 + BT > L) {  // the edge tile (block-uniform)
+        const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+        unsigned rbase[2] = {0u, 0u};
+        if (drop) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) rbase[u] = row_base(d, seed_term, x.bh, row[u]);
+        }
+        float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+        float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+        float o[8][4], sc[8][4];
+        unsigned pa[4][4];
+        zero_acc(o);
+
+        // Per key tile: S_i, its softmax, O = O * alpha + bf16(P_i) . V_i,
+        // each waited for before the next (see "Overlap" above).
+        mbar_wait(sm.fix_full, fph);
+        fph ^= 1u;
+        for (int i = 0; i < n_my; ++i) {
+            const int cur = r.stage;
+            mbar_wait(sm.full + cur, r.phase);
+            fence_acc(sc);
+            wgmma_fence();
+            gemm_ss(sc, sm.fix, sm.tile(cur, 0));  // S_i = Q . K_i^T
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_acc(sc);
+            if (i + 1 == n_my) release(sm.fix_empty, lane);  // Q is read
+            // the online softmax of S_i: running max and sum, O's rescale
+            const int j0 = (x.split + i * splits) * BT;
+            if (j0 + BT > L) {  // the edge tile (block-uniform)
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (j0 + nt * 8 + 2 * t + (e & 1) >= L) sc[nt][e] = -INFINITY;
+            }
+            float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
             for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    if (j0 + nt * 8 + 2 * t + (i & 1) >= L) s[nt][i] = -INFINITY;
-        }
+                for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+            float mnew[2], alpha[2];
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-        float mnew[2], alpha[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-            mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
-            mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
-            mnew[u] = fmaxf(m[u], mx[u] * scale_log2);
-            alpha[u] = exp2_ftz(m[u] - mnew[u]);
-            m[u] = mnew[u];
-            l[u] *= alpha[u];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int u = i >> 1;
-                float p = exp2_ftz(fmaf(s[nt][i], scale_log2, -mnew[u]));
-                l[u] += p;  // the normaliser sums the undropped probabilities
-                if (drop && !keep_bit(d, rbase[u], j0 + nt * 8 + 2 * t + (i & 1))) p = 0.f;
-                s[nt][i] = p;
-                o[nt][i] *= alpha[u];
+            for (int u = 0; u < 2; ++u) {
+                mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+                mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+                mnew[u] = fmaxf(m[u], mx[u] * scale_log2);
+                alpha[u] = exp2_ftz(m[u] - mnew[u]);  // 0 on the first tile
+                m[u] = mnew[u];
+                l[u] *= alpha[u];
             }
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int u = e >> 1;
+                    float p = exp2_ftz(fmaf(sc[nt][e], scale_log2, -mnew[u]));
+                    l[u] += p;  // the normaliser sums the undropped probabilities
+                    if (drop && !keep24(d, rbase[u], j0 + nt * 8 + 2 * t + (e & 1))) p = 0.f;
+                    sc[nt][e] = p;
+                }
+            }
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e >> 1];
+            pack_frags(pa, sc);
+            fence_acc(o);
+            fence_frag(pa);
+            wgmma_fence();
+            gemm_rs(o, pa, sm.tile(cur, 1));  // O = O * alpha + bf16(P_i) . V_i
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_acc(o);
+            fence_frag(pa);
+            release(sm.empty + cur, lane);  // K_i and V_i are read
+            r.next();
         }
-        gemm_bf16_px(o, s, Vt, lane);  // O = O * alpha + bf16(P) . V
-        cp_async_wait<0>();
-        __syncthreads();  // every warp is done with this buffer; the next tiles arrived
-        buf ^= 1;
-    }
 
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
-        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
-    }
-    if (splits == 1) {
-        const float inv[2] = {(drop ? d.kscale : 1.f) / l[0], (drop ? d.kscale : 1.f) / l[1]};
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) o[nt][i] *= inv[i >> 1];
-        store_rows_bf16(out, out32, o, base, frame, q0 + warp * 16, T, lane);
-        if (t == 0) {
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-                if (row[u] < T) lse[(long long)bh * T + row[u]] = (m[u] + log2f(l[u])) * LN2;
-        }
-        return;
-    }
-    const long long n_out = (long long)gridDim.y / H * T * frame;  // B*T*H*DH
-    store_rows(part + split * n_out, o, base, frame, q0 + warp * 16, T, lane);
-    if (t == 0) {
-        const long long st = ((long long)split * gridDim.y + bh) * T;
-#pragma unroll
         for (int u = 0; u < 2; ++u) {
-            if (row[u] < T) {
-                pm[st + row[u]] = m[u];
-                pl[st + row[u]] = l[u];
+            l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+            l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+        }
+        if (splits == 1) {
+            const float ks = drop ? d.kscale : 1.f;
+            const float inv[2] = {ks / l[0], ks / l[1]};
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[nt][e] *= inv[e >> 1];
+            store_rows_bf16(out, out32, o, base, frame, q0 + warp * 16, T, lane);
+            if (t == 0) {
+#pragma unroll
+                for (int u = 0; u < 2; ++u)
+                    if (row[u] < T) lse[(long long)x.bh * T + row[u]] = (m[u] + log2f(l[u])) * LN2;
+            }
+            continue;
+        }
+        const long long n_out = (long long)B * T * frame;
+        store_rows(part + x.split * n_out, o, base, frame, q0 + warp * 16, T, lane);
+        if (t == 0) {
+            const long long st = ((long long)x.split * BH + x.bh) * T;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+                if (row[u] < T) {
+                    pm[st + row[u]] = m[u];
+                    pl[st + row[u]] = l[u];
+                }
             }
         }
     }
 }
 
-// bf16 K3, dq pass: dq (bfloat16) for 64 queries, and D = rowsum(dO o O)
-// of those rows (O the forward's float32 output) into `delta`.
-__global__ void __launch_bounds__(THREADS, 2)
-mhsa_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const int* __restrict__ kv_len,
+// bf16 K3, dq pass, persistent over (64-query tile, b*h): dq (bfloat16),
+// and D = rowsum(dO o O) of those rows (O the forward's float32 output)
+// into `delta`.
+__global__ void __launch_bounds__(WS_THREADS, DQB_MINB)
+mhsa_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const int* __restrict__ kv_len,
                         const int* __restrict__ seed, const float* __restrict__ out32,
                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                        float* __restrict__ delta, bf16* __restrict__ dq, int T, int H,
+                        float* __restrict__ delta, bf16* __restrict__ dq, int B, int T, int H,
                         float scale, Drop d) {
-    extern __shared__ __align__(16) float smem[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem);
-    bf16* Os = Qs + TILEB;        // dO
-    bf16* Ks = Os + TILEB;        // two buffers
-    bf16* Vs = Ks + 2 * TILEB;    // two buffers
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh - b * H;
-    const int q0 = blockIdx.x * BT;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    const WsSmem<2, false> sm(smem_raw);
+    ws_init(sm, 1);
+    const int nq = (T + BT - 1) / BT;
+    const int BH = B * H;
+    const int n_work = nq * BH;
     const long long frame = (long long)H * DH;
-    const long long base = (long long)b * T * frame + (long long)h * DH;
-    const int L = min(max(kv_len[b], 0), T);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-    if (L == 0) {  // no valid key: zeros (block-uniform, before any barrier)
-        zero_rows_bf16(dq, base, frame, q0, T, tid);
-        return;
-    }
-    tile_async_bf16(Qs, q, base, frame, q0, T, tid);
-    tile_async_bf16(Os, dout, base, frame, q0, T, tid);
-    tile_async_bf16(Ks, k, base, frame, 0, L, tid);
-    tile_async_bf16(Vs, v, base, frame, 0, L, tid);
-    cp_async_commit();
-
-    // D = rowsum(dO o O): threads 2r, 2r + 1 take the halves of row r
-    float dsum = 0.f;
-    {
-        const int r = q0 + (tid >> 1);
-        if (r < T) {
-            const long long off = base + (long long)r * frame + (tid & 1) * (DH / 2);
-#pragma unroll
-            for (int c = 0; c < DH / 2; c += 8) {
-                const uint4 raw = __ldg(reinterpret_cast<const uint4*>(dout + off + c));
-                const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&raw);
-                const float4 o0 = __ldg(reinterpret_cast<const float4*>(out32 + off + c));
-                const float4 o1 = __ldg(reinterpret_cast<const float4*>(out32 + off + c + 4));
-                const float2 d0 = __bfloat1622float2(pr[0]), d1 = __bfloat1622float2(pr[1]);
-                const float2 d2 = __bfloat1622float2(pr[2]), d3 = __bfloat1622float2(pr[3]);
-                dsum = dot4(make_float4(d0.x, d0.y, d1.x, d1.y), o0, dsum);
-                dsum = dot4(make_float4(d2.x, d2.y, d3.x, d3.y), o1, dsum);
+    if (warp == WG_THREADS / 32) {  // the producer warp
+        if (lane != 0) return;
+        Ring r{0, 0u};
+        unsigned fph = 0;
+        for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+            const Work x = work_item(w, nq, BH);
+            const int b = x.bh / H, h = x.bh - b * H;
+            const int L = min(max(kv_len[b], 0), T);
+            if (L == 0) continue;
+            mbar_wait(sm.fix_empty, fph ^ 1u);
+            fph ^= 1u;
+            mbar_expect_tx(sm.fix_full, 2 * TILE_BYTES);
+            tma_tile(sm.fix, &tq, h, x.tile * BT, b, sm.fix_full);
+            tma_tile(sm.fix + TILE_BYTES, &tdo, h, x.tile * BT, b, sm.fix_full);
+            for (int j0 = 0; j0 < L; j0 += BT) {
+                mbar_wait(sm.empty + r.stage, r.phase ^ 1u);
+                mbar_expect_tx(sm.full + r.stage, 2 * TILE_BYTES);
+                tma_tile(sm.tile(r.stage, 0), &tk, h, j0, b, sm.full + r.stage);
+                tma_tile(sm.tile(r.stage, 1), &tv, h, j0, b, sm.full + r.stage);
+                r.next();
             }
         }
-        dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-        if (r < T && (tid & 1) == 0) delta[(long long)bh * T + r] = dsum;
+        return;
     }
-    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-    const float dlt[2] = {__shfl_sync(0xffffffffu, dsum, 2 * g),
-                          __shfl_sync(0xffffffffu, dsum, 2 * g + 16)};
+
+    const int tid = threadIdx.x, g = lane >> 2, t = lane & 3;
     const bool drop = d.t24 != 0u;
     const float scale_log2 = scale * LOG2E;
     const unsigned seed_term = drop ? (unsigned)seed[0] * 0x9E3779B9u : 0u;
-    float lse2[2];
-    unsigned rbase[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-        lse2[u] = row[u] < T ? lse[(long long)bh * T + row[u]] * LOG2E : 0.f;
-        rbase[u] = drop ? row_base(d, seed_term, bh, row[u]) : 0u;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    unsigned qa[4][4], oa[4][4];
-    load_a_frags(qa, Qs, warp, lane);
-    load_a_frags(oa, Os, warp, lane);
-
-    float acc[8][4];
-    zero_acc(acc);
-    const int n_tiles = (L + BT - 1) / BT;
-    int buf = 0;
-    for (int it = 0; it < n_tiles; ++it) {
-        if (it + 1 < n_tiles) {
-            tile_async_bf16(Ks + (buf ^ 1) * TILEB, k, base, frame, (it + 1) * BT, L, tid);
-            tile_async_bf16(Vs + (buf ^ 1) * TILEB, v, base, frame, (it + 1) * BT, L, tid);
-            cp_async_commit();
+    Ring r{0, 0u};
+    unsigned fph = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const Work x = work_item(w, nq, BH);
+        const int b = x.bh / H, h = x.bh - b * H;
+        const int q0 = x.tile * BT;
+        const long long base = (long long)b * T * frame + (long long)h * DH;
+        const int L = min(max(kv_len[b], 0), T);
+        if (L == 0) {  // no valid key: zeros
+            zero_rows_bf16(dq, base, frame, q0, T, tid);
+            continue;
         }
-        const bf16* Kt = Ks + buf * TILEB;
-        const bf16* Vt = Vs + buf * TILEB;
-        float s[8][4], dp[8][4];
-        zero_acc(s);
-        zero_acc(dp);
-        gemm_bf16_abt(s, qa, Kt, lane);   // S = Q . K^T
-        gemm_bf16_abt(dp, oa, Vt, lane);  // dPd = dO . V^T
-        const int j0 = it * BT;
+        // D = rowsum(dO o O), while the tiles fly: threads 2r, 2r + 1 take
+        // the halves of row r (warp w holds rows 16 w .. 16 w + 15)
+        float dsum = 0.f;
+        {
+            const int rr = q0 + (tid >> 1);
+            if (rr < T) {
+                const long long off = base + (long long)rr * frame + (tid & 1) * (DH / 2);
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int u = i >> 1;
-                const int key = j0 + nt * 8 + 2 * t + (i & 1);
-                float ds = 0.f;
-                if (key < L && row[u] < T) {
-                    const float p = exp2f(s[nt][i] * scale_log2 - lse2[u]);
-                    float dpv = dp[nt][i];
-                    if (drop) dpv = keep_bit(d, rbase[u], key) ? dpv * d.kscale : 0.f;
-                    ds = p * (dpv - dlt[u]) * scale;
+                for (int c = 0; c < DH / 2; c += 8) {
+                    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(dout + off + c));
+                    const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&raw);
+                    const float4 o0 = __ldg(reinterpret_cast<const float4*>(out32 + off + c));
+                    const float4 o1 = __ldg(reinterpret_cast<const float4*>(out32 + off + c + 4));
+                    const float2 d0 = __bfloat1622float2(pr[0]), d1 = __bfloat1622float2(pr[1]);
+                    const float2 d2 = __bfloat1622float2(pr[2]), d3 = __bfloat1622float2(pr[3]);
+                    dsum = dot4(make_float4(d0.x, d0.y, d1.x, d1.y), o0, dsum);
+                    dsum = dot4(make_float4(d2.x, d2.y, d3.x, d3.y), o1, dsum);
                 }
-                s[nt][i] = ds;
             }
+            dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+            if (rr < T && (tid & 1) == 0) delta[(long long)x.bh * T + rr] = dsum;
         }
-        gemm_bf16_px(acc, s, Kt, lane);  // dq += bf16(dS * scale) . K
-        cp_async_wait<0>();
-        __syncthreads();
-        buf ^= 1;
+        const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+        const float dlt[2] = {__shfl_sync(0xffffffffu, dsum, 2 * g),
+                              __shfl_sync(0xffffffffu, dsum, 2 * g + 16)};
+        float lse2[2];
+        unsigned rbase[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            lse2[u] = row[u] < T ? lse[(long long)x.bh * T + row[u]] * LOG2E : 0.f;
+            rbase[u] = drop ? row_base(d, seed_term, x.bh, row[u]) : 0u;
+        }
+
+        float acc[8][4], s[8][4], dp[8][4];
+        zero_acc(acc);
+        const int n_tiles = (L + BT - 1) / BT;
+        mbar_wait(sm.fix_full, fph);
+        fph ^= 1u;
+        mbar_wait(sm.full + r.stage, r.phase);
+        wgmma_fence();
+        gemm_ss(s, sm.fix, sm.tile(r.stage, 0));                // S = Q . K^T
+        gemm_ss(dp, sm.fix + TILE_BYTES, sm.tile(r.stage, 1));  // dPd = dO . V^T
+        wgmma_commit();
+        for (int it = 0; it < n_tiles; ++it) {
+            const int cur = r.stage;
+            wgmma_wait<0>();  // S, dP of this tile and dq of the last are done
+            fence_acc(s);
+            fence_acc(dp);
+            fence_acc(acc);
+            if (it > 0) release(sm.empty + (cur == 0 ? STAGES - 1 : cur - 1), lane);
+            if (it + 1 == n_tiles) release(sm.fix_empty, lane);  // Q and dO are read
+            const int j0 = it * BT;
+            // ds of one element into s; keys >= L masked on the edge tile only
+            auto ds_at = [&](int nt, int e, bool edge) {
+                const int u = e >> 1;
+                const int key = j0 + nt * 8 + 2 * t + (e & 1);
+                const float p = exp2_ftz(fmaf(s[nt][e], scale_log2, -lse2[u]));
+                float dpv = dp[nt][e];
+                if (drop) dpv *= keep24(d, rbase[u], key) ? d.kscale : 0.f;
+                const float ds = p * (dpv - dlt[u]) * scale;
+                s[nt][e] = edge && key >= L ? 0.f : ds;
+            };
+            if (j0 + BT > L) {  // block-uniform
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) ds_at(nt, e, true);
+            } else {
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) ds_at(nt, e, false);
+            }
+            unsigned da[4][4];
+            pack_frags(da, s);
+            fence_acc(acc);
+            fence_frag(da);
+            wgmma_fence();
+            gemm_rs(acc, da, sm.tile(cur, 0));  // dq += bf16(dS * scale) . K
+            wgmma_commit();
+            r.next();
+            if (it + 1 < n_tiles) {  // the next tile's S and dP run beside it
+                mbar_wait(sm.full + r.stage, r.phase);
+                fence_acc(s);
+                fence_acc(dp);
+                wgmma_fence();
+                gemm_ss(s, sm.fix, sm.tile(r.stage, 0));
+                gemm_ss(dp, sm.fix + TILE_BYTES, sm.tile(r.stage, 1));
+                wgmma_commit();
+            }
+            fence_frag(da);
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        release(sm.empty + (r.stage == 0 ? STAGES - 1 : r.stage - 1), lane);
+        store_rows_bf16(dq, nullptr, acc, base, frame, q0 + warp * 16, T, lane);
     }
-    store_rows_bf16(dq, nullptr, acc, base, frame, q0 + warp * 16, T, lane);
 }
 
-// bf16 K3, dk/dv pass: dk, dv (bfloat16) for 64 keys, walking every
-// 64-query tile; one writer per element, float32 sums.
-__global__ void __launch_bounds__(THREADS, 2)
-mhsa_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const int* __restrict__ kv_len,
-                          const int* __restrict__ seed, const bf16* __restrict__ dout,
+// bf16 K3, dk/dv pass, persistent over (64-key tile, b*h): dk, dv
+// (bfloat16) walking every 64-query tile; one writer per element, float32
+// sums.  The producer warp's lanes write each query tile's lse * log2 e, D
+// and hash row bases beside its Q and dO.
+__global__ void __launch_bounds__(WS_THREADS, DKDVB_MINB)
+mhsa_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const int* __restrict__ kv_len, const int* __restrict__ seed,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int T, int H,
                           float scale, Drop d) {
-    extern __shared__ __align__(16) float smem[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem);  // this block's keys
-    bf16* Vs = Ks + TILEB;
-    bf16* Qs = Vs + TILEB;         // a query tile, two buffers
-    bf16* Os = Qs + 2 * TILEB;     // its dO, two buffers
-    float* Ls = reinterpret_cast<float*>(Os + 2 * TILEB);  // [2][BT] lse * log2 e
-    float* Dl = Ls + 2 * BT;                                // [2][BT] D
-    unsigned* Rb = reinterpret_cast<unsigned*>(Dl + 2 * BT);  // [2][BT] hash row bases
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh - b * H;
-    const int k0 = blockIdx.x * BT;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    const WsSmem<2, true> sm(smem_raw);
+    ws_init(sm, 32);
+    const int nk = (T + BT - 1) / BT;
+    const int BH = B * H;
+    const int n_work = nk * BH;
     const long long frame = (long long)H * DH;
-    const long long base = (long long)b * T * frame + (long long)h * DH;
-    const int L = min(max(kv_len[b], 0), T);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const bool drop = d.t24 != 0u;
+    const unsigned seed_term = drop ? (unsigned)seed[0] * 0x9E3779B9u : 0u;
 
-    if (k0 >= L) {  // keys no query sees: zero gradients (block-uniform)
-        zero_rows_bf16(dk, base, frame, k0, T, tid);
-        zero_rows_bf16(dv, base, frame, k0, T, tid);
+    if (warp == WG_THREADS / 32) {  // the producer warp, all 32 lanes
+        Ring r{0, 0u};
+        unsigned fph = 0;
+        for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+            const Work x = work_item(w, nk, BH);
+            const int b = x.bh / H, h = x.bh - b * H;
+            const int L = min(max(kv_len[b], 0), T);
+            if (x.tile * BT >= L) continue;  // keys no query sees
+            if (lane == 0) {
+                mbar_wait(sm.fix_empty, fph ^ 1u);
+                mbar_expect_tx(sm.fix_full, 2 * TILE_BYTES);
+                tma_tile(sm.fix, &tk, h, x.tile * BT, b, sm.fix_full);
+                tma_tile(sm.fix + TILE_BYTES, &tv, h, x.tile * BT, b, sm.fix_full);
+            }
+            fph ^= 1u;
+            const long long stats = (long long)x.bh * T;
+            for (int c0 = 0; c0 < T; c0 += BT) {
+                mbar_wait(sm.empty + r.stage, r.phase ^ 1u);
+                float* rows = sm.rows + r.stage * 3 * BT;
+#pragma unroll
+                for (int k = 0; k < 2; ++k) {
+                    const int qr = c0 + lane + 32 * k;
+                    const bool ok = qr < T;
+                    rows[lane + 32 * k] = ok ? lse[stats + qr] * LOG2E : 0.f;
+                    rows[BT + lane + 32 * k] = ok ? delta[stats + qr] : 0.f;
+                    rows[2 * BT + lane + 32 * k] =
+                        __uint_as_float(drop && ok ? row_base(d, seed_term, x.bh, qr) : 0u);
+                }
+                if (lane == 0) {
+                    mbar_expect_tx(sm.full + r.stage, 2 * TILE_BYTES);
+                    tma_tile(sm.tile(r.stage, 0), &tq, h, c0, b, sm.full + r.stage);
+                    tma_tile(sm.tile(r.stage, 1), &tdo, h, c0, b, sm.full + r.stage);
+                } else {
+                    mbar_arrive(sm.full + r.stage);
+                }
+                r.next();
+            }
+        }
         return;
     }
-    const bool drop = d.t24 != 0u;
+
+    const int tid = threadIdx.x, g = lane >> 2, t = lane & 3;
     const float scale_log2 = scale * LOG2E;
-    const unsigned seed_term = drop ? (unsigned)seed[0] * 0x9E3779B9u : 0u;
-    const long long stats = (long long)bh * T;
-
-    tile_async_bf16(Ks, k, base, frame, k0, L, tid);
-    tile_async_bf16(Vs, v, base, frame, k0, L, tid);
-    tile_async_bf16(Qs, q, base, frame, 0, T, tid);
-    tile_async_bf16(Os, dout, base, frame, 0, T, tid);
-    cp_async_commit();
-    if (tid < BT) {
-        const bool ok = tid < T;
-        Ls[tid] = ok ? lse[stats + tid] * LOG2E : 0.f;
-        Dl[tid] = ok ? delta[stats + tid] : 0.f;
-        Rb[tid] = drop && ok ? row_base(d, seed_term, bh, tid) : 0u;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    unsigned ka[4][4], va[4][4];
-    load_a_frags(ka, Ks, warp, lane);
-    load_a_frags(va, Vs, warp, lane);
-
-    const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-    float gk[8][4], gv[8][4];
-    zero_acc(gk);
-    zero_acc(gv);
-    const int n_tiles = (T + BT - 1) / BT;
-    int buf = 0;
-    for (int it = 0; it < n_tiles; ++it) {
-        const int c0 = it * BT;
-        if (it + 1 < n_tiles) {  // the next query tile and its row stats
-            const int c1 = c0 + BT;
-            tile_async_bf16(Qs + (buf ^ 1) * TILEB, q, base, frame, c1, T, tid);
-            tile_async_bf16(Os + (buf ^ 1) * TILEB, dout, base, frame, c1, T, tid);
-            cp_async_commit();
-            if (tid < BT) {
-                const int tq = c1 + tid;
-                const bool ok = tq < T;
-                Ls[(buf ^ 1) * BT + tid] = ok ? lse[stats + tq] * LOG2E : 0.f;
-                Dl[(buf ^ 1) * BT + tid] = ok ? delta[stats + tq] : 0.f;
-                Rb[(buf ^ 1) * BT + tid] = drop && ok ? row_base(d, seed_term, bh, tq) : 0u;
-            }
+    Ring r{0, 0u};
+    unsigned fph = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const Work x = work_item(w, nk, BH);
+        const int b = x.bh / H, h = x.bh - b * H;
+        const int k0 = x.tile * BT;
+        const long long base = (long long)b * T * frame + (long long)h * DH;
+        const int L = min(max(kv_len[b], 0), T);
+        if (k0 >= L) {  // keys no query sees: zero gradients
+            zero_rows_bf16(dk, base, frame, k0, T, tid);
+            zero_rows_bf16(dv, base, frame, k0, T, tid);
+            continue;
         }
-        const bf16* Qt = Qs + buf * TILEB;
-        const bf16* Ot = Os + buf * TILEB;
-        const float* Lt = Ls + buf * BT;
-        const float* Dt = Dl + buf * BT;
-        const unsigned* Rt = Rb + buf * BT;
-        float s[8][4], dp[8][4];
-        zero_acc(s);
-        zero_acc(dp);
-        gemm_bf16_abt(s, ka, Qt, lane);   // S^T = K . Q^T
-        gemm_bf16_abt(dp, va, Ot, lane);  // dPd^T = V . dO^T
+        const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+        const bool key_edge = k0 + BT > L;
+        float gk[8][4], gv[8][4], s[8][4], dp[8][4];
+        zero_acc(gk);
+        zero_acc(gv);
+        mbar_wait(sm.fix_full, fph);
+        fph ^= 1u;
+        mbar_wait(sm.full + r.stage, r.phase);
+        wgmma_fence();
+        gemm_ss(s, sm.fix, sm.tile(r.stage, 0));                // S^T = K . Q^T
+        gemm_ss(dp, sm.fix + TILE_BYTES, sm.tile(r.stage, 1));  // dPd^T = V . dO^T
+        wgmma_commit();
+        const int n_tiles = (T + BT - 1) / BT;
+        for (int it = 0; it < n_tiles; ++it) {
+            const int cur = r.stage;
+            wgmma_wait<0>();
+            fence_acc(s);
+            fence_acc(dp);
+            fence_acc(gk);
+            fence_acc(gv);
+            if (it > 0) release(sm.empty + (cur == 0 ? STAGES - 1 : cur - 1), lane);
+            if (it + 1 == n_tiles) release(sm.fix_empty, lane);  // K and V are read
+            const float* Lt = sm.rows + cur * 3 * BT;
+            const float* Dt = Lt + BT;
+            const float* Rt = Dt + BT;
+            const int c0 = it * BT;
+            // pd and ds of the 4 elements of column group nt into s and dp;
+            // keys >= L and queries >= T masked on edge tiles only
+            auto pd_ds_at = [&](int nt, bool edge) {
+                const int col = nt * 8 + 2 * t;
+                const float2 lt = *reinterpret_cast<const float2*>(Lt + col);
+                const float2 dt = *reinterpret_cast<const float2*>(Dt + col);
+                const float2 rt = *reinterpret_cast<const float2*>(Rt + col);
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int u = i >> 1;
-                const int col = nt * 8 + 2 * t + (i & 1);
-                float pd = 0.f, ds = 0.f;
-                if (key[u] < L && c0 + col < T) {
-                    const float p = exp2f(s[nt][i] * scale_log2 - Lt[col]);
-                    float dpv = dp[nt][i];
-                    pd = p;
+                for (int e = 0; e < 4; ++e) {
+                    const int u = e >> 1, c = e & 1;
+                    const float p = exp2_ftz(fmaf(s[nt][e], scale_log2, -(c ? lt.y : lt.x)));
+                    float dpv = dp[nt][e];
+                    float pd = p;
                     if (drop) {
-                        const bool kp = keep_bit(d, Rt[col], key[u]);
-                        pd = kp ? p * d.kscale : 0.f;
-                        dpv = kp ? dpv * d.kscale : 0.f;
+                        const float f =
+                            keep24(d, __float_as_uint(c ? rt.y : rt.x), key[u]) ? d.kscale : 0.f;
+                        pd = p * f;
+                        dpv *= f;
                     }
-                    ds = p * (dpv - Dt[col]) * scale;
+                    float ds = p * (dpv - (c ? dt.y : dt.x)) * scale;
+                    if (edge && ((key_edge && key[u] >= L) || c0 + col + c >= T)) {
+                        pd = 0.f;
+                        ds = 0.f;
+                    }
+                    s[nt][e] = pd;
+                    dp[nt][e] = ds;
                 }
-                s[nt][i] = pd;
-                dp[nt][i] = ds;
+            };
+            if (key_edge || c0 + BT > T) {  // block-uniform
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt) pd_ds_at(nt, true);
+            } else {
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt) pd_ds_at(nt, false);
             }
+            unsigned pa[4][4], sa[4][4];
+            pack_frags(pa, s);
+            pack_frags(sa, dp);
+            fence_acc(gk);
+            fence_acc(gv);
+            fence_frag(pa);
+            fence_frag(sa);
+            wgmma_fence();
+            gemm_rs(gv, pa, sm.tile(cur, 1));  // dv += bf16(Pd)^T . dO
+            gemm_rs(gk, sa, sm.tile(cur, 0));  // dk += bf16(dS * scale)^T . Q
+            wgmma_commit();
+            r.next();
+            if (it + 1 < n_tiles) {  // the next query tile's S^T and dP^T beside them
+                mbar_wait(sm.full + r.stage, r.phase);
+                fence_acc(s);
+                fence_acc(dp);
+                wgmma_fence();
+                gemm_ss(s, sm.fix, sm.tile(r.stage, 0));
+                gemm_ss(dp, sm.fix + TILE_BYTES, sm.tile(r.stage, 1));
+                wgmma_commit();
+            }
+            fence_frag(pa);
+            fence_frag(sa);
         }
-        gemm_bf16_px(gv, s, Ot, lane);   // dv += bf16(Pd)^T . dO
-        gemm_bf16_px(gk, dp, Qt, lane);  // dk += bf16(dS * scale)^T . Q
-        cp_async_wait<0>();
-        __syncthreads();
-        buf ^= 1;
+        wgmma_wait<0>();
+        fence_acc(gk);
+        fence_acc(gv);
+        release(sm.empty + (r.stage == 0 ? STAGES - 1 : r.stage - 1), lane);
+        store_rows_bf16(dk, nullptr, gk, base, frame, k0 + warp * 16, T, lane);
+        store_rows_bf16(dv, nullptr, gv, base, frame, k0 + warp * 16, T, lane);
     }
-    store_rows_bf16(dk, nullptr, gk, base, frame, k0 + warp * 16, T, lane);
-    store_rows_bf16(dv, nullptr, gv, base, frame, k0 + warp * 16, T, lane);
 }
 
 int check_shape(int B, int T, int H, int dh) {
@@ -1512,13 +1846,76 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kv_len,
     return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up in the driver at run time, so that the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The tensor map of a (B, T, H, 64) bfloat16 tensor in place, as
+// (64, H, T, B) with a (64, 1, 64, 1) box in the 128-byte swizzle; rows
+// past T read as zeros.
+int head_map(CUtensorMap* map, const void* x, int B, int T, int H) {
+    static EncodeTiledFn encode = nullptr;
+    if (encode == nullptr) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+        if (e != cudaSuccess) return (int)e;
+        if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+            return (int)cudaErrorNotSupported;
+        }
+        encode = reinterpret_cast<EncodeTiledFn>(fn);
+    }
+    if (reinterpret_cast<unsigned long long>(x) % 16 != 0) return (int)cudaErrorInvalidValue;
+    const cuuint64_t dims[4] = {DH, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {DH * 2, (cuuint64_t)H * DH * 2, (cuuint64_t)T * H * DH * 2};
+    const cuuint32_t box[4] = {DH, 1, BT, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Blocks of `kernel` resident on the current device at once (SMs x
+// blocks an SM, >= 1), or -cudaError.
+template <typename K>
+long long resident_blocks(K kernel, size_t smem, int threads) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!e) e = (cudaError_t)set_smem(kernel, smem);
+    if (!e) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e) return -(long long)e;
+    return per_sm < 1 ? -(long long)cudaErrorInvalidConfiguration : (long long)sms * per_sm;
+}
+
+// The persistent grid of a warp-specialised kernel over n_work items, or
+// -cudaError.
+template <typename K>
+int ws_grid(K kernel, size_t smem, long long n_work) {
+    const long long slots = resident_blocks(kernel, smem, WS_THREADS);
+    if (slots < 0) return (int)slots;
+    return (int)(n_work < slots ? n_work : slots);
+}
+
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_len,
                     const void* seed, void* out, void* out32, void* lse, void* scratch, int B,
                     int T, int H, int splits, Drop d, void* stream) {
     if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && scratch == nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
-    if (int rc = set_smem(mhsa_fwd_bf16_kernel, FWDB_SMEM)) return rc;
+    CUtensorMap mq, mk, mv;
+    if (int rc = head_map(&mq, q, B, T, H)) return rc;
+    if (int rc = head_map(&mk, k, B, T, H)) return rc;
+    if (int rc = head_map(&mv, v, B, T, H)) return rc;
+    const long long n_work = (long long)((T + BT - 1) / BT) * B * H * splits;
+    const int grid = ws_grid(mhsa_fwd_bf16_kernel, FWDB_SMEM, n_work);
+    if (grid < 0) return -grid;
     const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
     cudaStream_t st = (cudaStream_t)stream;
     const long long n_out = (long long)B * T * H * DH;
@@ -1526,12 +1923,10 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_
     float* part = static_cast<float*>(scratch);
     float* pm = splits > 1 ? part + splits * n_out : nullptr;
     float* pl = splits > 1 ? pm + splits * n_stat : nullptr;
-    dim3 grid((T + BT - 1) / BT, B * H, splits);
-    mhsa_fwd_bf16_kernel<<<grid, THREADS, FWDB_SMEM, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const int*>(kv_len), static_cast<const int*>(seed), static_cast<bf16*>(out),
-        static_cast<float*>(out32), static_cast<float*>(lse), part, pm, pl, T, H, splits,
-        scale_log2, d);
+    mhsa_fwd_bf16_kernel<<<grid, WS_THREADS, FWDB_SMEM, st>>>(
+        mq, mk, mv, static_cast<const int*>(kv_len), static_cast<const int*>(seed),
+        static_cast<bf16*>(out), static_cast<float*>(out32), static_cast<float*>(lse), part, pm,
+        pl, B, T, H, splits, scale_log2, d);
     if (cudaError_t e = cudaGetLastError()) return (int)e;
     if (splits > 1) {
         const long long n = n_out / 4;
@@ -1544,19 +1939,14 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_
     return (int)cudaGetLastError();
 }
 
-// The key splits of a forward of kernel `kernel` (see pick_splits), or
-// -cudaError.
+// The key splits of a forward of kernel `kernel` run in blocks of
+// `threads` (see pick_splits), or -cudaError.
 template <typename K>
-int fwd_splits(K kernel, size_t smem, int B, int T, int H) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (!e) e = (cudaError_t)set_smem(kernel, smem);
-    if (!e) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-    if (e) return -(int)e;
-    if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-    const int n = (T + BT - 1) / BT;  // forward blocks resident: sms * per_sm
-    return pick_splits((long long)B * H * n, n, (long long)sms * per_sm);
+int fwd_splits(K kernel, size_t smem, int threads, int B, int T, int H) {
+    const long long slots = resident_blocks(kernel, smem, threads);
+    if (slots < 0) return (int)slots;
+    const int n = (T + BT - 1) / BT;
+    return pick_splits((long long)B * H * n, n, slots);
 }
 
 }  // namespace
@@ -1580,12 +1970,12 @@ extern "C" long long adyolo_mhsa_smem_bytes(int which) {
 // The key splits a forward of this shape runs in on the current device
 // (>= 1), or -cudaError.  Not cached: the caller keeps a plan per device.
 extern "C" int adyolo_mhsa_fwd_splits(int B, int T, int H) {
-    return fwd_splits(mhsa_fwd_kernel<true>, FWD_SMEM, B, T, H);
+    return fwd_splits(mhsa_fwd_kernel<true>, FWD_SMEM, THREADS, B, T, H);
 }
 
 // The same for the bfloat16 train forward.
 extern "C" int adyolo_mhsa_fwd_bf16_splits(int B, int T, int H) {
-    return fwd_splits(mhsa_fwd_bf16_kernel, FWDB_SMEM, B, T, H);
+    return fwd_splits(mhsa_fwd_bf16_kernel, FWDB_SMEM, WS_THREADS, B, T, H);
 }
 
 // Floats of the scratch a forward in `splits` > 1 key splits needs.
@@ -1679,25 +2069,29 @@ extern "C" int adyolo_mhsa_bwd_bf16(const void* q, const void* k, const void* v,
     if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
         return (int)cudaErrorInvalidValue;
     }
-    if (int rc = set_smem(mhsa_bwd_dq_bf16_kernel, DQB_SMEM)) return rc;
-    if (int rc = set_smem(mhsa_bwd_dkdv_bf16_kernel, DKDVB_SMEM)) return rc;
+    CUtensorMap mq, mk, mv, mdo;
+    if (int rc = head_map(&mq, q, B, T, H)) return rc;
+    if (int rc = head_map(&mk, k, B, T, H)) return rc;
+    if (int rc = head_map(&mv, v, B, T, H)) return rc;
+    if (int rc = head_map(&mdo, dout, B, T, H)) return rc;
+    const long long n_work = (long long)((T + BT - 1) / BT) * B * H;  // both passes
+    const int grid_dq = ws_grid(mhsa_bwd_dq_bf16_kernel, DQB_SMEM, n_work);
+    if (grid_dq < 0) return -grid_dq;
+    const int grid_dkdv = ws_grid(mhsa_bwd_dkdv_bf16_kernel, DKDVB_SMEM, n_work);
+    if (grid_dkdv < 0) return -grid_dkdv;
     Drop d = make_drop(thresh, bq, tp);
     d.nq = T / bq;
     const float scale = 1.0f / sqrtf((float)DH);
     cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid((T + BT - 1) / BT, B * H);
-    mhsa_bwd_dq_bf16_kernel<<<grid, THREADS, DQB_SMEM, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const int*>(kv_len), static_cast<const int*>(seed),
+    mhsa_bwd_dq_bf16_kernel<<<grid_dq, WS_THREADS, DQB_SMEM, st>>>(
+        mq, mk, mv, mdo, static_cast<const int*>(kv_len), static_cast<const int*>(seed),
         static_cast<const float*>(out32), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), T,
+        static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), B, T,
         H, scale, d);
     if (cudaError_t e = cudaGetLastError()) return (int)e;
-    mhsa_bwd_dkdv_bf16_kernel<<<grid, THREADS, DKDVB_SMEM, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const int*>(kv_len), static_cast<const int*>(seed),
-        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H,
-        scale, d);
+    mhsa_bwd_dkdv_bf16_kernel<<<grid_dkdv, WS_THREADS, DKDVB_SMEM, st>>>(
+        mq, mk, mv, mdo, static_cast<const int*>(kv_len), static_cast<const int*>(seed),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), B, T, H, scale, d);
     return (int)cudaGetLastError();
 }

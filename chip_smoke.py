@@ -147,6 +147,7 @@ from adyolo_tpu_torch.ops.decode import PostProcessor, _device_decode  # noqa: E
 from adyolo_tpu_torch.ops.dsp import analysis_window, dft_matrices  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
+from adyolo_tpu_torch.utils.profiling import profile_calls  # noqa: E402
 
 HOP = 600
 KERNEL_TOL = 2e-5
@@ -661,15 +662,29 @@ def bf16_truth(q, k, v, kv, do, seed):
             *attention.mhsa_attention_bwd(*a, kv, do.double(), rate=RATE, seed=seed))
 
 
+# The H100's issue rates beside its tensor cores, assumed from the
+# architecture (not measured), at the 1.83 GHz clock its 989 TFLOP/s
+# assume: ex2 on the MUFU pipe, 16 a clock an SM; 32-bit integer
+# operations (IMAD, shifts, LOP3), 64 a clock an SM.
+MUFU_EX2_S = 132 * 16 * 1.83e9
+INT32_OPS_S = 132 * 64 * 1.83e9
+KEEP_HASH_OPS = 8  # the kernels' keep test a (query, key): add, 2 x (shift, xor, IMAD), compare
+
+
 def phase_attn_train_bf16_kernel(smi):
-    """Routes k2_dropout_bf16 (forward) and k3_bf16 (backward, bf16 mma.sync)
-    against the plain bf16 attention and its written-out backward at rate
-    0.2: (16, 800, 4, 64) with all keys valid (timed) and with random
-    kv_len and one row at 0, and (1, 1200) len 920, which runs in key
-    splits and a merge.  Kernel and plain version are each measured against
-    float64 on the same bf16 inputs: the kernel's max|error| at most
-    BF16_RATIO x the plain version's plus BF16_HALF_STEP x max|truth|, over
-    the rows with keys; the kv_len = 0 row is zeros."""
+    """Routes k2_dropout_bf16 (forward) and k3_bf16 (backward; bf16 wgmma
+    fed by TMA) against the plain bf16 attention and its written-out
+    backward at rate 0.2: (16, 800, 4, 64) with all keys valid (timed) and
+    with random kv_len and one row at 0, and (1, 1200) len 920, which runs
+    in key splits and a merge.  Kernel and plain version are each measured
+    against float64 on the same bf16 inputs: the kernel's max|error| at
+    most BF16_RATIO x the plain version's plus BF16_HALF_STEP x max|truth|,
+    over the rows with keys; the kv_len = 0 row is zeros; a second backward
+    on the same inputs gives the same dq, dk, dv bit for bit.  Timed at
+    (16, 800): single calls between two CUDA events (``ms``) and device
+    time a call from the profiler (``device_ms``), each beside SDPA's; and,
+    in the phase's row only, the floors of the exp2 (MUFU) and keep-hash
+    (integer) work, computed from the assumed issue rates below."""
     rng = np.random.default_rng(8)
     H = 4
     seed = torch.tensor([int(rng.integers(-2 ** 31, 2 ** 31))], dtype=torch.int32,
@@ -690,6 +705,9 @@ def phase_attn_train_bf16_kernel(smi):
         grown = {n: c - before[n] for n, c in counts().items()}
         require(grown == {**{n: 0 for n in grown}, "k2_dropout_bf16": 1, "k3_bf16": 1},
                 f"attn_train_bf16_kernel {tag}: launches {grown}")
+        again = torch.autograd.grad(out, args, do, retain_graph=True)
+        require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                f"attn_train_bf16_kernel {tag}: the backward is not deterministic")
         plain = [attention.mhsa_attention(q, k, v, kv, rate=RATE, seed=seed),
                  *attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)]
         truth = bf16_truth(q, k, v, kv, do, seed)
@@ -748,16 +766,35 @@ def phase_attn_train_bf16_kernel(smi):
             fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
             by_f = attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1, el=2)
             by_b = attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2, kv_writes=2, stats=1, el=2)
+            # device time a call: the kernels' own groups; for SDPA, all it launches
+            prof = {n: profile_calls(lambda _, f=fns[n]: f(), 10)
+                    for n in ("kernel_fwd", "kernel_bwd", "library_fwd", "library_bwd")}
+            dev = {n: p["busy_ms_per_step"] if n.startswith("library") else
+                   p["ms_per_step"]["attention fwd"] + p["ms_per_step"]["attention bwd"]
+                   for n, p in prof.items()}
+            elems = H * T * float(np.sum(lens))  # (query, key) pairs a pass
+            floors = {p: {"floor_exp2_ms": p * elems / MUFU_EX2_S * 1e3,
+                          "floor_hash_ms": p * elems * KEEP_HASH_OPS / INT32_OPS_S * 1e3}
+                      for p in (1, 2)}  # the forward's pass, the backward's two
             res["k2_dropout_bf16"].update(ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"],
-                                          library_ms=ms["library_fwd"], **bf16_bound(fl_f, by_f))
+                                          library_ms=ms["library_fwd"], **bf16_bound(fl_f, by_f),
+                                          device_ms=dev["kernel_fwd"],
+                                          library_device_ms=dev["library_fwd"])
             res["k3_bf16"].update(ms=ms["kernel_bwd"], plain_ms=ms["plain_bwd"],
-                                  library_ms=ms["library_bwd"], **bf16_bound(fl_b, by_b))
+                                  library_ms=ms["library_bwd"], **bf16_bound(fl_b, by_b),
+                                  device_ms=dev["kernel_bwd"],
+                                  library_device_ms=dev["library_bwd"])
             row.update(ms=ms, runs=30, library="F.scaled_dot_product_attention (bf16, "
                        "dropout_p 0.2)", library_max_abs_err_rate0=lib_err,
                        tflops_fwd=fl_f / (ms["kernel_fwd"] * 1e-3) / 1e12,
                        tflops_bwd=fl_b / (ms["kernel_bwd"] * 1e-3) / 1e12,
                        bound_fwd_ms=res["k2_dropout_bf16"]["bound_ms"],
-                       bound_bwd_ms=res["k3_bf16"]["bound_ms"], card=smi)
+                       bound_bwd_ms=res["k3_bf16"]["bound_ms"],
+                       device_ms=dev, device_ms_by_group={n: p["ms_per_step"]
+                                                          for n, p in prof.items()},
+                       floors_ms={"fwd": floors[1], "bwd": floors[2],
+                                  "assumed_per_sm_clock": {"ex2": 16, "int32": 64,
+                                                           "ghz": 1.83}}, card=smi)
             del sdpa_args, lib_out
         emit(row)
         del q, k, v, do, args, out, grads, plain, truth
@@ -791,56 +828,10 @@ def grads_of(model):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-_PROFILE_GROUPS = (  # kernel-name substrings, first match wins
-    ("K1 STFT", ("stft_hop_blocks",)),
-    ("attention fwd", ("mhsa_fwd",)),
-    ("attention bwd", ("mhsa_bwd",)),
-    ("optimizer", ("multi_tensor", "adam")),
-    ("GRU (cuDNN RNN)", ("rnn", "gru", "persist")),
-    ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit",
-                      "nchw", "nhwc", "cudnn")),
-    ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk")),
-)
-
-
 def profile_steps(step, batches, gen, n):
     """Device time by kernel group over ``n`` steps under torch.profiler, and
     the device's busy and idle share of the host-clock window."""
     return profile_calls(lambda i: step(batches[i % len(batches)], gen), n)
-
-
-def profile_calls(fn, n):
-    """``profile_steps`` of ``n`` calls ``fn(i)``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {g: 0.0 for g, _ in _PROFILE_GROUPS}
-    groups["other (elementwise, reductions, copies)"] = 0.0
-    other = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        n_kernels += 1
-        name = e.name.lower()
-        us = e.time_range.elapsed_us()
-        grp = next((g for g, keys in _PROFILE_GROUPS if any(s in name for s in keys)),
-                   "other (elementwise, reductions, copies)")
-        groups[grp] += us / 1e3 / n
-        if grp.startswith("other"):
-            other[e.name[:90]] = other.get(e.name[:90], 0.0) + us / 1e3 / n
-    busy = sum(groups.values())
-    require(n_kernels > 0, "the profiler recorded no device time")
-    return {"steps": n, "wall_ms_per_step": wall_ms / n, "busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy / (wall_ms / n), "kernels_per_step": n_kernels / n,
-            "ms_per_step": groups,
-            "top_other_ms_per_step": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
 
 
 def phase_train_conformer(smi, cfg, fe):
@@ -1597,7 +1588,8 @@ def main():
     k = stft_k["serving"]
     k["max_abs_err"] = max(r["max_abs_err"] for r in stft_k.values())
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
-    keys_a = keys + ("bound_units", "bound_ffma_ms")
+    keys_a = keys + ("bound_units",)
+    keys_b = keys + ("bound_units", "device_ms", "library_device_ms")
     paths = {"serve": se, "serve_conformer": conf, "train_conformer": train,
              "train_cli": engine, "train_seresnet34_bf16": se_train,
              "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli}
@@ -1629,11 +1621,11 @@ def main():
         {**attn, "name": "flash_attention/k2_dropout_bf16",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
          **launches("k2_dropout_bf16", "train_conformer_bf16"),
-         **{n: bf16_k["k2_dropout_bf16"][n] for n in keys + ("bound_units",)}},
+         **{n: bf16_k["k2_dropout_bf16"][n] for n in keys_b}},
         {**attn, "name": "flash_attention_bwd/k3_bf16",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
          **launches("k3_bf16", "train_conformer_bf16"),
-         **{n: bf16_k["k3_bf16"][n] for n in keys + ("bound_units",)}}]})
+         **{n: bf16_k["k3_bf16"][n] for n in keys_b}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
