@@ -8,6 +8,8 @@ Usage:
     python -m adyolo_tpu_torch.cli val   --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli test  --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli infer --eval_pth <exp_id> --infer_pth <wav_dir>
+    python -m adyolo_tpu_torch.cli preprocess {chunking,scaler} --dataset <DS | all>
+                                              [--config_dir <dir>] [--device cpu]
 
 Every action takes ``--results_dir`` (default ``results``) and ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).  ``train``
@@ -15,13 +17,21 @@ writes ``<results_dir>/<exp_id>/`` (``hyp_exp.yaml``, ``model_best.ckpt`` in
 the JAX package's format, the resumable ``model_ckpt.ckpt``, the per-clip
 CSVs and, with ``--logger``, ``logs.jsonl``); ``val`` / ``test`` / ``infer``
 read an experiment dir written by either package's trainer, for either
-encoder.  Both encoders train with the ``adyolo`` loss, in float32 or
-(``--compute_dtype bfloat16``) bf16; ``--remat`` checkpoints the
-conformer's blocks.  Val, test and infer run in float32.
+encoder.  Both encoders train with any ``--loss`` (``seddoa``,
+``masked-seddoa``, ``accdoa``, ``adpit``, ``adyolo``) on FOA or MIC input
+(``audio_format: mic`` in the dataset preset: GCC-PHAT features), in
+float32 or (``--compute_dtype bfloat16``) bf16; ``--remat`` checkpoints
+the conformer's blocks.  Val, test and infer run in float32.
+
+``preprocess chunking`` cuts the dataset's ``dev-train`` wavs and labels
+into the 20-s training chunks; ``preprocess scaler`` writes
+``<data_pth>/scaler_wts.pkl`` from the front-end's features of every
+``dev-train`` clip, on ``--device``.  Both read the same presets as
+``train`` (``--config_dir``).
 
 The JAX package's arguments that the port does not implement are refused
 with a message, not ignored: ``--model_parallel``, ``--serve_dtype``, and
-the ``export`` and ``preprocess`` actions.
+the ``export`` action.
 """
 from __future__ import annotations
 
@@ -31,7 +41,6 @@ import sys
 _ACTIONS = ("train", "val", "test", "infer")
 _REFUSED_ACTIONS = {
     "export": "ROADMAP.md §1 item 7, DDP and export",
-    "preprocess": "ROADMAP.md §1 item 6, cli preprocess",
 }
 
 
@@ -82,7 +91,36 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--model_parallel", type=int, default=None)
         sp.add_argument("--serve_dtype", type=str, default=None)
         sp.add_argument("--device", type=str, default="cuda")
+
+    pp = sub.add_parser("preprocess")
+    pp.add_argument("task", choices=["chunking", "scaler"])
+    pp.add_argument("--dataset", type=str, required=True,
+                    choices=["DCASE2020", "DCASE2021", "DCASE2022", "all"])
+    pp.add_argument("--config_dir", type=str, default=None,
+                    help="the preset directory train reads, so preprocessing "
+                         "and training share one data config")
+    pp.add_argument("--device", type=str, default="cuda",
+                    help="the scaler pass's device")
     return p
+
+
+def _preprocess(args) -> None:
+    """``preprocess {chunking, scaler}`` over one dataset or all three
+    (``adyolo_tpu/cli.py:97-117``)."""
+    from .config import build_config
+    from .data.chunking import preprocess_chunking
+    from .data.scaler import preprocess_scaler
+
+    datasets = (["DCASE2020", "DCASE2021", "DCASE2022"]
+                if args.dataset == "all" else [args.dataset])
+    for ds in datasets:
+        # the same three-tier merge train uses: an edited hyp_data_*.yaml
+        # (mel bins, audio format, paths) feeds both
+        dcfg = build_config({"dataset": ds, "config_dir": args.config_dir}).data
+        if args.task == "chunking":
+            print(f"{ds}: wrote {preprocess_chunking(dcfg)} chunks")
+        else:
+            print(f"{ds}: wrote {preprocess_scaler(dcfg, device=args.device)}")
 
 
 def _refuse(args) -> None:
@@ -106,6 +144,9 @@ def main(argv=None) -> int:
         raise SystemExit(f"error: '{argv[0]}' is not yet ported "
                          f"({_REFUSED_ACTIONS[argv[0]]})")
     args = build_parser().parse_args(argv)
+    if args.action == "preprocess":
+        _preprocess(args)
+        return 0
     _refuse(args)
     if args.debug_nans:
         import torch

@@ -13,14 +13,18 @@ returns it) onto :class:`adyolo_tpu_torch.models.wrapper.SELDModel`:
 * the conformer conv module's depthwise ``dw_kernel`` (3, D) and
   ``dw_bias`` (D,) -> ``dw_conv.weight`` (D, 1, 3), ``w[k, c] ->
   weight[c, 0, k]``, and ``dw_conv.bias``;
+* the heads' Dense layers keep their flax names (``head/sed_fc1``,
+  ``head/doa_fc2``, ``head/accdoa_fc1``, ``head/adpit_fc2``,
+  ``head/yolo_fc1`` ...): the port's heads name their Linears so;
 * auto-named flax modules: ``Dense_0/Dense_1`` -> ``fc1/fc2`` and
   ``LayerNorm_0`` -> ``ln``, everywhere.  The names hold in both encoders
   because the port names its modules to fit them: the SE block's
   squeeze-excite linears and the conformer FFN's linears are both
   ``fc1/fc2``, the FFN's and the conv module's LayerNorm are ``ln``.
 
-Conversion is strict and depends on the encoder: a flax leaf with no place
-in that encoder's model, or a model entry that no leaf fills, raises.
+Conversion is strict and depends on the encoder and the loss (which picks
+the head): a flax leaf with no place in that model, or a model entry that
+no leaf fills, raises.
 :func:`flax_from_state_dict` is the exact inverse.
 """
 from __future__ import annotations
@@ -50,13 +54,14 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def expected_keys(encoder: str = "se-resnet34") -> set:
-    """The state-dict keys of the ported model with ``encoder`` (independent
-    of the class count and grid, which only change shapes)."""
+def expected_keys(encoder: str = "se-resnet34", loss: str = "adyolo") -> set:
+    """The state-dict keys of the ported model with ``encoder`` and the head
+    of ``loss`` (independent of the class count and grid, which only change
+    shapes)."""
     from .models.wrapper import SELDModel
 
     with torch.device("meta"):
-        return set(SELDModel(encoder).state_dict().keys())
+        return set(SELDModel(encoder, loss).state_dict().keys())
 
 
 def _to_torch(collection: str, path: Tuple[str, ...], a: np.ndarray):
@@ -108,12 +113,12 @@ def _convert(variables: Dict, want: Optional[set]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def state_dict_from_flax(variables: Dict, encoder: str = "se-resnet34"
-                         ) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(variables: Dict, encoder: str = "se-resnet34",
+                         loss: str = "adyolo") -> Dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` (nested dicts of arrays) of a
-    ``SELDModel`` with ``encoder`` -> the port's state dict, float32 CPU
-    tensors."""
-    return _convert(variables, expected_keys(encoder))
+    ``SELDModel`` with ``encoder`` and the head of ``loss`` -> the port's
+    state dict, float32 CPU tensors."""
+    return _convert(variables, expected_keys(encoder, loss))
 
 
 def module_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Dataset, epoch sampling and batch assembly: the port's copy of
-:mod:`adyolo_tpu.data.dataset` (AD-YOLO labels only).
+:mod:`adyolo_tpu.data.dataset`, for every output format.
 
 Host side of the input pipeline (reference ``src/datasets.py:21-162``):
 the host reads wavs, rotates FOA audio and encodes labels; the features
@@ -39,7 +39,8 @@ from ..config import Config
 from ..ops.grid import GridGeometry
 from ..ops.rotation import RotationAug
 from . import io
-from .labels import encode_adyolo, pad_yolo_targets
+from .labels import (encode_accdoa, encode_adpit, encode_adyolo, encode_seddoa,
+                     pad_yolo_targets)
 
 __all__ = ["EpochPoolSampler", "SELDDataset", "TrainLoader", "EvalLoader",
            "bucket_samples"]
@@ -109,9 +110,8 @@ class SELDDataset:
     """Clip-level access: wav + label dict -> (audio, encoded label)."""
 
     def __init__(self, cfg: Config, set_type: str, is_valid: bool = False):
-        if cfg.args.loss != "adyolo":
-            raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
         self.cfg = cfg
+        self.loss_nm = cfg.args.loss
         self.set_type = set_type
         self.is_infer = set_type == "infer"
         d = cfg.data
@@ -141,8 +141,9 @@ class SELDDataset:
                   f"disabled for audio_format={d.audio_format!r}", file=sys.stderr)
             rotation_enabled = False
         self.rotation = RotationAug(rotation_enabled, is_valid or self.is_infer)
-        self.geom = GridGeometry(tuple(cfg.train.grid_size), cfg.train.g_overlap,
-                                 cfg.train.nb_anchors)
+        if self.loss_nm == "adyolo":
+            self.geom = GridGeometry(tuple(cfg.train.grid_size),
+                                     cfg.train.g_overlap, cfg.train.nb_anchors)
 
     def __len__(self) -> int:
         return len(self.filelist)
@@ -172,13 +173,25 @@ class SELDDataset:
         return audio, label, len(audio) // self.cfg.data.label_hop_len
 
     def encode_label(self, label: io.LabelDict, nb_label_frames: int):
-        return encode_adyolo(label, nb_label_frames, self.geom)
+        """The label in the loss's format (``adyolo_tpu/data/dataset.py:187-197``)."""
+        K = self.cfg.data.nb_classes
+        if self.loss_nm in ("seddoa", "masked-seddoa"):
+            return encode_seddoa(label, nb_label_frames, K)
+        if self.loss_nm == "accdoa":
+            return encode_accdoa(label, nb_label_frames, K)
+        if self.loss_nm == "adpit":
+            return encode_adpit(label, nb_label_frames, K)
+        if self.loss_nm == "adyolo":
+            return encode_adyolo(label, nb_label_frames, self.geom)
+        raise NotImplementedError(f"loss: {self.loss_nm!r}")
 
 
 def _assemble_batch(dataset: SELDDataset, names: Sequence[str], combs: Sequence,
                     max_targets: int, pool=None):
     """Stack a fixed-length training batch (audio stays int16 when the
-    source wavs are int16; the train step normalizes on device).
+    source wavs are int16; the train step normalizes on device): AD-YOLO
+    targets padded to ``max_targets`` with their ``target_mask``, dense
+    targets stacked as float32 with no mask.
 
     ``combs``: the clips' rotations, pre-drawn (:meth:`RotationAug.draw`).
     ``pool``: optional ThreadPoolExecutor to load/encode clips in parallel
@@ -204,6 +217,8 @@ def _assemble_batch(dataset: SELDDataset, names: Sequence[str], combs: Sequence,
         # a free view of the stacked batch
         audio = audio.reshape(audio.shape[0], -1, d.hop_length,
                               audio.shape[2])
+    if dataset.loss_nm != "adyolo":
+        return {"audio": audio, "targets": np.stack(labels, axis=0).astype(np.float32)}
     targets, mask = pad_yolo_targets(labels, max_targets)
     return {"audio": audio, "targets": targets, "target_mask": mask}
 
@@ -321,7 +336,9 @@ def bucket_samples(n_samples: int, hop: int, buckets: Sequence[int]) -> int:
 class EvalLoader:
     """Per-clip eval iterator with length bucketing (batch_size=1 in the
     reference, train.py:130-133).  Yields dicts with the padded audio, the
-    valid frame counts and the padded AD-YOLO targets."""
+    valid frame counts and the encoded label: AD-YOLO targets padded to a
+    capacity that grows with the clip, with their mask, or dense targets
+    zero-padded to the bucket's label frames."""
 
     # frame-count buckets: 30 s .. 16 min at 25 ms hop, x2 steps
     DEFAULT_BUCKETS = (800, 1200, 2400, 4800, 9600, 19200, 38400)
@@ -350,11 +367,17 @@ class EvalLoader:
                 # hop-block layout (1, T, hop, C): a free view (buckets are
                 # hop multiples)
                 padded = padded.reshape(1, -1, hop, audio.shape[1])
-            chunks = -(-nb_label_frames // self.cfg.data.chunk_label_frames)
-            targets, mask = pad_yolo_targets(
-                [self.dataset.encode_label(label, nb_label_frames)],
-                max(1, chunks) * self.max_targets_per_chunk)
-            yield {"name": name, "audio": padded,
-                   "valid_feat_frames": np.array([n_valid // hop], np.int32),
-                   "nb_label_frames": nb_label_frames,
-                   "targets": targets, "target_mask": mask}
+            item = {"name": name, "audio": padded,
+                    "valid_feat_frames": np.array([n_valid // hop], np.int32),
+                    "nb_label_frames": nb_label_frames}
+            enc = self.dataset.encode_label(label, nb_label_frames)
+            if self.dataset.loss_nm == "adyolo":
+                chunks = -(-nb_label_frames // self.cfg.data.chunk_label_frames)
+                item["targets"], item["target_mask"] = pad_yolo_targets(
+                    [enc], max(1, chunks) * self.max_targets_per_chunk)
+            else:  # the bucket's label frames (adyolo_tpu/data/dataset.py:401-407)
+                dense = np.zeros((n_bucket // self.cfg.data.label_hop_len,)
+                                 + enc.shape[1:], np.float32)
+                dense[:nb_label_frames] = enc
+                item["targets"] = dense[None]
+            yield item

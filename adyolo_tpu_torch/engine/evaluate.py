@@ -4,16 +4,17 @@
 * :func:`test_epoch`: per clip, the eval forward (length-bucketed
   hop-block audio -> :class:`FeatureFrontend`, the Hopper STFT kernel on
   CUDA -> SE-ResNet34 or ResNet-Conformer, the Hopper attention kernel on
-  CUDA -> AD-YOLO), the frame-masked AD-YOLO loss when the clip has
-  labels, the device decode + host NMS, and one DCASE-format CSV
-  (``test.py:33-60``).
+  CUDA -> the loss's head), the frame-masked loss when the clip has
+  labels, the decode (AD-YOLO: device decode + host NMS; the dense
+  formats on the host), and one DCASE-format CSV (``test.py:33-60``).
 * :func:`cached_eval_outputs` / :func:`decode_cached_to_csv`: one forward
   over a split, then decodes under as many confidence thresholds as the
   trainer's τ-arbitration scans.
 * :func:`test_model`: ``val`` / ``test`` of a saved experiment (the frozen
   config, the best checkpoint and its arbitrated threshold; the unify
-  threshold sweep {15, 30, 45}; overall and classwise scores and the two
-  polyphony-restricted re-scorings, ``test.py:63-140``), and ``infer``.
+  threshold sweep {15, 30, 45} for ADPIT and AD-YOLO; overall and
+  classwise scores and the two polyphony-restricted re-scorings,
+  ``test.py:63-140``), and ``infer``.
 * :func:`infer`: label-free inference on a wav folder.
 
 The experiment may come from either trainer: ``model_best.ckpt`` is in
@@ -59,7 +60,8 @@ def make_frontend(cfg: Config, device="cuda") -> FeatureFrontend:
     else:
         print(f"[adyolo_tpu_torch] WARNING: no scaler stats at {pkl}; "
               "using identity normalization.", file=sys.stderr)
-        scaler = identity_scaler(cfg.data.mel_bins)
+        scaler = identity_scaler(cfg.data.mel_bins,
+                                 n_aux_ch=cfg.data.nb_feature_channels - 4)
     return FeatureFrontend(cfg.data, scaler, device)
 
 
@@ -108,8 +110,8 @@ def test_epoch(loader: EvalLoader, eval_fwd: Callable,
         out = eval_fwd(item["audio"], item["valid_feat_frames"])
         t_valid = item["nb_label_frames"]
         if eval_crit is not None:
-            total_loss += float(eval_crit(out, item["targets"], item["target_mask"],
-                                          [t_valid]))
+            total_loss += float(eval_crit(out, item["targets"],
+                                          item.get("target_mask"), [t_valid]))
             n += 1
         dets = postprocessor.postprocess(out, valid_label_frames=t_valid)
         write_seld_output_csv(os.path.join(output_pth, item["name"] + ".csv"), dets)
@@ -168,7 +170,8 @@ def load_best_model(cfg: Config, exp_dir: str, device="cuda"
 
     variables, host = load_jax_checkpoint(os.path.join(exp_dir, "model_best.ckpt"))
     model = build_model(cfg, device="cpu")
-    model.load_state_dict(state_dict_from_flax(variables, cfg.args.encoder),
+    model.load_state_dict(state_dict_from_flax(variables, cfg.args.encoder,
+                                               cfg.args.loss),
                           strict=True)
     return model.to(device), host
 
@@ -223,10 +226,16 @@ def test_model(cfg_args: Dict, results_dir: str = "results",
             names = [ln.strip() for ln in f if ln.strip()]
 
     results: Dict = {}
-    for unify in (15.0, 30.0, 45.0):
-        postprocessor.unify_thresh = unify
-        print(f"\n===== EVALUATING '{exp_id}' ON {cfg.args.dataset} "
-              f"{action}, unify threshold {unify} deg =====")
+    # the unify threshold matters to the formats that merge tracks or
+    # anchors (adyolo_tpu/engine/evaluate.py:177-183)
+    sweep = (15.0, 30.0, 45.0) if cfg.args.loss in ("adpit", "adyolo") else (None,)
+    for unify in sweep:
+        if unify is not None:
+            postprocessor.unify_thresh = unify
+            print(f"\n===== EVALUATING '{exp_id}' ON {cfg.args.dataset} "
+                  f"{action}, unify threshold {unify} deg =====")
+        else:
+            print(f"\n===== EVALUATING '{exp_id}' ON {cfg.args.dataset} {action} =====")
         t0 = time.time()
         loss, _ = test_epoch(loader, eval_fwd, postprocessor, out_dir,
                              eval_crit=eval_crit)

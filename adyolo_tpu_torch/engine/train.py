@@ -24,11 +24,11 @@ The experiment protocol of the reference:
 finishes the batch in flight, checkpoints the epoch and returns, so
 ``--resume_pth`` loses at most that epoch.
 
-Both encoders train, in float32 or (``--compute_dtype bfloat16``) in the
-JAX package's bf16 (the master weights, the optimizer, the checkpoints and
-every eval in float32), the conformer optionally with ``--remat``.  The
-step's losses stay
-on the device and are read once per epoch, so the loader's prefetch
+Both encoders train, with any of the five losses, on FOA or MIC input, in
+float32 or (``--compute_dtype bfloat16``) in the JAX package's bf16 (the
+master weights, the optimizer, the checkpoints and every eval in
+float32), the conformer optionally with ``--remat``.  The step's losses
+stay on the device and are read once per epoch, so the loader's prefetch
 thread and the device overlap.  Unlike the JAX engine, the checkpoint
 also stores the next epoch's file list, so a resumed run trains on the
 same files as an uninterrupted one.
@@ -100,11 +100,8 @@ class _PreemptionGuard:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot train yet (a
-    loss other than AD-YOLO), ``ValueError`` for an unknown compute dtype."""
-    if cfg.args.loss != "adyolo":
-        raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r} "
-                                  "(ROADMAP.md §1 item 5)")
+    """Raise ``ValueError`` for an unknown compute dtype, before a fresh run
+    creates its directory."""
     if cfg.train.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")

@@ -1,7 +1,19 @@
-"""The AD-YOLO training loss (counterpart of
-:func:`adyolo_tpu.models.losses.adyolo_loss`, its scatter form
-``_adyolo_loss_scatter``, ``losses.py:347-440``).
+"""SELD training losses (counterpart of :mod:`adyolo_tpu.models.losses`,
+reference ``src/models/loss.py``).
 
+* :func:`seddoa_loss`: BCE(sed) + 1000·MSE(doa), optionally with the DOA
+  output gated by the activity target (masked-SEDDOA);
+* :func:`accdoa_loss`: MSE;
+* :func:`adpit_loss`: the 13-permutation track PIT with the pad-target
+  trick, the permutation of least MSE chosen per (frame, class);
+* :func:`adyolo_loss`: the AD-YOLO loss in the JAX package's scatter form
+  (``_adyolo_loss_scatter``, ``losses.py:347-440``), below.
+
+Every mean runs over the valid frames of an optional (B, T) frame mask.
+BCE on probabilities follows torch ``nn.BCELoss`` as the JAX package
+writes it (:func:`_log_clamped`), not ``F.binary_cross_entropy``.
+
+AD-YOLO:
 The reference's ragged target list and boolean-indexed BCE partitions
 (``src/models/loss.py:189-251``) are masked sums over a fixed-capacity
 padded target tensor with exact denominator bookkeeping.  For each unify
@@ -12,8 +24,7 @@ torch ``nn.BCELoss`` (per-element terms clamped at 100), computed from the
 logits through softplus.
 
 The JAX package's scatter-free sorted form exists for the TPU's lowering of
-scatters and is not ported; ``impl`` other than ``"scatter"`` raises.  The
-other formats' losses (SED-DOA, ACCDOA, ADPIT) wait for their heads.
+scatters and is not ported; ``impl`` other than ``"scatter"`` raises.
 """
 from __future__ import annotations
 
@@ -27,9 +38,95 @@ from ..config import LossGains
 from ..ops.angular import gc_distance_deg
 from ..ops.grid import GridGeometry
 
-__all__ = ["adyolo_loss"]
+__all__ = ["seddoa_loss", "accdoa_loss", "adpit_loss", "adyolo_loss", "bce_probs"]
 
 _BCE_CLAMP = 100.0  # torch BCELoss clamps log at -100
+_F32_TINY = 1.1754944e-38  # smallest normal float32
+
+
+def _log_clamped(p: torch.Tensor) -> torch.Tensor:
+    """``log(p).clamp(min=-100)`` as the JAX package computes it
+    (``losses.py:42-55``): below the smallest normal float32 the clamp
+    value -100 is returned directly (a saturated sigmoid, p == 0, costs
+    100), and the gradient there is 0.  In the subnormal band this differs
+    from torch's BCELoss, as the JAX package does."""
+    raw = torch.log(torch.clamp(p, min=_F32_TINY))
+    return torch.where(p < _F32_TINY, torch.full_like(p, -_BCE_CLAMP), raw)
+
+
+def bce_probs(p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE on probabilities, torch ``nn.BCELoss`` convention."""
+    return -(y * _log_clamped(p) + (1.0 - y) * _log_clamped(1.0 - p))
+
+
+def _frame_mean(x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean over (B, T, ...) restricted to the valid frames: ``x.mean()``
+    without a mask, else the mean of ``x[b, :t_valid]`` over every row."""
+    if frame_mask is None:
+        return x.mean()
+    fm = frame_mask.to(device=x.device, dtype=x.dtype)
+    per_frame = int(np.prod(x.shape[2:]))
+    denom = torch.clamp(fm.sum() * per_frame, min=1.0)
+    return (x * fm.reshape(fm.shape + (1,) * (x.ndim - 2))).sum() / denom
+
+
+def seddoa_loss(output: torch.Tensor, target: torch.Tensor, nb_classes: int,
+                masked_mse: bool, frame_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """output / target (B, T, 4K) = [sed K ‖ doa 3K] (``losses.py:89-101``).
+    ``masked_mse`` gates the DOA output by the activity target, tiled
+    [x K, y K, z K] as ``jnp.tile(sed_t, (1, 1, 3))``."""
+    sed_o, doa_o = output[..., :nb_classes], output[..., nb_classes:]
+    sed_t, doa_t = target[..., :nb_classes], target[..., nb_classes:]
+    sed_loss = _frame_mean(bce_probs(sed_o, sed_t), frame_mask)
+    if masked_mse:
+        doa_o = doa_o * sed_t.repeat(1, 1, 3)
+    doa_loss = _frame_mean((doa_o - doa_t) ** 2, frame_mask)
+    return sed_loss + 1000.0 * doa_loss
+
+
+def accdoa_loss(output: torch.Tensor, target: torch.Tensor,
+                frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _frame_mean((output - target) ** 2, frame_mask)
+
+
+# slot permutations of the ADPIT pad-target scheme (reference loss.py:91-121):
+# slot ids A0=0, B0=1, B1=2, C0=3, C1=4, C2=5; each row lists the 3 track
+# assignments; the pad is the sum of the two *other* groups' canonical perms.
+_ADPIT_PERMS = (
+    (0, 0, 0),  # A0A0A0 (+ pad B0B0B1 + C0C1C2)
+    (1, 1, 2), (1, 2, 1), (1, 2, 2), (2, 1, 1), (2, 1, 2), (2, 2, 1),  # B perms
+    (3, 4, 5), (3, 5, 4), (4, 3, 5), (4, 5, 3), (5, 3, 4), (5, 4, 3),  # C perms
+)
+# the pad of a permutation, by its first slot (losses.py:139)
+_ADPIT_PAD = {0: 0, 1: 1, 3: 3, 2: 1, 4: 3, 5: 3}
+
+
+def adpit_loss(output: torch.Tensor, target: torch.Tensor, nb_classes: int,
+               frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """output (B, T, 9K); target (B, T, 6, 4, K) (``losses.py:119-143``).
+    Per (frame, class) the permutation of least MSE is taken (``argmin``,
+    the first on ties, then a gather), so the gradient flows into that
+    permutation only."""
+    B, T = target.shape[:2]
+    K = nb_classes
+    # activity-gated slot DOAs: (B, T, 6, 3, K)
+    slot = target[:, :, :, 0:1, :] * target[:, :, :, 1:, :]
+    s = [slot[:, :, i] for i in range(6)]
+    a = torch.cat([s[0], s[0], s[0]], dim=2)
+    b = torch.cat([s[1], s[1], s[2]], dim=2)
+    c = torch.cat([s[3], s[4], s[5]], dim=2)
+    pads = {0: b + c, 1: a + c, 3: a + b}  # pad4A / pad4B / pad4C
+
+    out = output.reshape(B, T, 9, K)
+    per_perm = []
+    for perm in _ADPIT_PERMS:
+        tgt = torch.cat([s[perm[0]], s[perm[1]], s[perm[2]]], dim=2)
+        tgt = tgt + pads[perm[0] if perm[0] in (0, 1, 3) else {2: 1, 4: 3, 5: 3}[perm[0]]]
+        per_perm.append(((out - tgt) ** 2).mean(dim=2))  # (B, T, K)
+    stack = torch.stack(per_perm, dim=0)  # (13, B, T, K)
+    chosen = stack.gather(0, stack.argmin(dim=0, keepdim=True))[0]
+    return _frame_mean(chosen, frame_mask)
 
 
 def _bce_logits_pos(z):

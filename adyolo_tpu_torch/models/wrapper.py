@@ -2,8 +2,9 @@
 :mod:`adyolo_tpu.models.wrapper`).
 
 Both encoders are ported, SE-ResNet34 and ResNet-Conformer, each with the
-AD-YOLO head, for serving and for training in float32 or bfloat16.  Any
-other loss raises ``NotImplementedError``.
+head its loss names (SED-DOA for ``seddoa`` and ``masked-seddoa``, ACCDOA,
+ADPIT, AD-YOLO; ``adyolo_tpu/models/wrapper.py:59-70``), for serving and
+for training in float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch.nn as nn
 from ..config import Config
 from ..ops.grid import GridGeometry
 from . import losses
-from .heads import ADYOLOHead
+from .heads import ACCDOAHead, ADPITHead, ADYOLOHead, SEDDOAHead
 from .layers import BatchNorm
 from .resnet_conformer import ResNetConformer
 from .seresnet34 import SEResNet34
@@ -32,9 +33,11 @@ DTYPES = {"float32": None, "bfloat16": torch.bfloat16}  # None: the input's
 
 
 class SELDModel(nn.Module):
-    """Encoder + AD-YOLO head.  ``forward(feat, feat_lengths=None,
-    generator=None)``: feat (B, T, F, C) -> raw float32 logits
-    (B, T // 4, G0*G1*A*(K+3)); ``generator`` drives dropout in training.
+    """Encoder + the head of ``loss``.  ``forward(feat, feat_lengths=None,
+    generator=None)``: feat (B, T, F, C) -> the head's float32 output
+    (B, T // 4, D): D = 4K (SED-DOA), 3K (ACCDOA), 9K (ADPIT) or
+    G0*G1*A*(K+3) raw AD-YOLO logits; ``generator`` drives dropout in
+    training.
 
     ``compute_dtype`` (None or ``torch.bfloat16``) is the encoder's compute
     dtype in training mode only: an eval-mode forward computes in its
@@ -43,7 +46,8 @@ class SELDModel(nn.Module):
     checkpoints the conformer's blocks; SE-ResNet34 has none to checkpoint
     and ignores it, as in JAX (``wrapper.py:48-55``)."""
 
-    def __init__(self, encoder: str = "se-resnet34", nb_classes: int = 13,
+    def __init__(self, encoder: str = "se-resnet34", loss: str = "adyolo",
+                 nb_classes: int = 13,
                  grid_size: Tuple[float, float] = (45.0, 45.0),
                  nb_anchors: int = 5, in_channels: int = 7,
                  enc_out_dim: int = 256,
@@ -51,11 +55,20 @@ class SELDModel(nn.Module):
                  remat: bool = False):
         super().__init__()
         if encoder not in ENCODERS:
-            raise NotImplementedError(f"not yet ported: encoder {encoder!r}")
+            raise NotImplementedError(f"encoder: {encoder!r}")
         kw = {"remat": remat} if encoder == "resnet-conformer" else {}
         self.encoder = ENCODERS[encoder](in_channels, enc_out_dim, **kw)
-        self.head = ADYOLOHead(nb_classes, grid_size, nb_anchors, enc_out_dim,
-                               enc_out_dim)
+        if loss in ("seddoa", "masked-seddoa"):
+            self.head = SEDDOAHead(nb_classes, enc_out_dim, enc_out_dim)
+        elif loss == "accdoa":
+            self.head = ACCDOAHead(nb_classes, enc_out_dim, enc_out_dim)
+        elif loss == "adpit":
+            self.head = ADPITHead(nb_classes, enc_out_dim, enc_out_dim)
+        elif loss == "adyolo":
+            self.head = ADYOLOHead(nb_classes, grid_size, nb_anchors, enc_out_dim,
+                                   enc_out_dim)
+        else:
+            raise NotImplementedError(f"loss: {loss!r}")
         self.compute_dtype = compute_dtype
 
     def forward(self, feat: torch.Tensor,
@@ -100,21 +113,33 @@ def make_grid_geometry(cfg: Config) -> GridGeometry:
 
 
 def make_criterion(cfg: Config) -> Callable:
-    """``loss_fn(output, target, target_mask, frame_mask=None) -> scalar``:
-    the AD-YOLO loss with the config's grid, gains and unify thresholds
-    (``adyolo_tpu/models/wrapper.py:90-121``, adyolo branch)."""
-    if cfg.args.loss != "adyolo":
-        raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
-    geom = make_grid_geometry(cfg)
+    """``loss_fn(output, target, target_mask=None, frame_mask=None) ->
+    scalar`` for the config's loss (``adyolo_tpu/models/wrapper.py:90-121``).
+
+    For AD-YOLO ``target`` is the padded (M, 7) tensor and ``target_mask``
+    its validity; the dense formats ignore the mask.  ``frame_mask``
+    ((B, T) bool) restricts every mean to the valid frames: the loss of
+    the output and targets cut to them."""
     nb = cfg.data.nb_classes
-    gains = cfg.train.loss_gains
-    taus = tuple(cfg.train.train_unify)
+    name = cfg.args.loss
+    if name in ("seddoa", "masked-seddoa"):
+        masked = name == "masked-seddoa"
+        return lambda o, t, m=None, fm=None: losses.seddoa_loss(
+            o, t, nb, masked_mse=masked, frame_mask=fm)
+    if name == "accdoa":
+        return lambda o, t, m=None, fm=None: losses.accdoa_loss(o, t, frame_mask=fm)
+    if name == "adpit":
+        return lambda o, t, m=None, fm=None: losses.adpit_loss(o, t, nb, frame_mask=fm)
+    if name == "adyolo":
+        geom = make_grid_geometry(cfg)
+        gains = cfg.train.loss_gains
+        taus = tuple(cfg.train.train_unify)
 
-    def loss_fn(output, target, target_mask, frame_mask=None):
-        return losses.adyolo_loss(output, target, target_mask, geom, nb, taus,
-                                  gains, frame_mask=frame_mask)
+        def loss_fn(o, t, m, fm=None):
+            return losses.adyolo_loss(o, t, m, geom, nb, taus, gains, frame_mask=fm)
 
-    return loss_fn
+        return loss_fn
+    raise NotImplementedError(f"loss: {name!r}")
 
 
 def build_model(cfg: Config, device="cuda",
@@ -125,12 +150,10 @@ def build_model(cfg: Config, device="cuda",
     (``cfg.train.compute_dtype``) and ``cfg.train.remat``.  With
     ``generator`` the weights are a seeded random init (drawn on the CPU);
     otherwise they are to be loaded (:mod:`adyolo_tpu_torch.convert`)."""
-    if cfg.args.loss != "adyolo":
-        raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
     if cfg.train.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
-    model = SELDModel(encoder=cfg.args.encoder,
+    model = SELDModel(encoder=cfg.args.encoder, loss=cfg.args.loss,
                       nb_classes=cfg.data.nb_classes,
                       grid_size=tuple(cfg.train.grid_size),
                       nb_anchors=cfg.train.nb_anchors,

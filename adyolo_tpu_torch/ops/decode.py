@@ -1,6 +1,11 @@
-"""AD-YOLO decoding: model logits -> per-frame event lists (+ NMS).
+"""DOA decoding: model output -> per-frame event lists (+ NMS).
 
-Counterpart of the AD-YOLO branch of :mod:`adyolo_tpu.ops.decode`:
+Counterpart of :mod:`adyolo_tpu.ops.decode` (reference
+``LabelPostProcessor``, ``src/datasets.py:485-919``).  The dense formats
+decode on the host in numpy, as the JAX package does: SED-DOA by the
+activity threshold, ACCDOA by the norm of each class's vector, ADPIT by
+the norms of its three tracks and their unification (tracks closer than
+the unify threshold merge).  AD-YOLO:
 
 * on the device: grid reshape, sigmoid/tanh, degree un-normalisation
   (cell offset + overlap-scaled span), elevation clamp, azimuth wrap,
@@ -14,8 +19,8 @@ confidence threshold; otherwise the full grid is decoded instead.  Every
 decode goes through one sparse candidate set (``candidates``, decoded by
 ``postprocess_cached``); the trainer's threshold scan builds it once per
 clip at the scan's smallest τ, with the top-k guarded at that τ, so one
-forward serves every τ exactly.  Other output formats (SED-DOA, ACCDOA, ADPIT) are not
-ported yet.
+forward serves every τ exactly.  A dense format's candidate set is its
+raw output on the host.
 """
 from __future__ import annotations
 
@@ -80,25 +85,34 @@ def _device_decode_topk(logits, geom: GridGeometry, nb_classes: int, k: int):
     return torch.cat([val[..., None], cls_k, uv_k], dim=-1)
 
 
+def _host(output, valid: Optional[int] = None) -> np.ndarray:
+    """One clip's output (1, T, D), tensor or array -> (T, D) float32 numpy,
+    cut to its first ``valid`` frames."""
+    if isinstance(output, torch.Tensor):
+        output = output.detach().to("cpu", torch.float32).numpy()
+    out = np.asarray(output, np.float32)
+    return out.reshape(-1, out.shape[-1])[:valid]
+
+
 class PostProcessor:
-    """AD-YOLO post-processing.  ``postprocess(output, valid_label_frames)``
-    takes one clip's raw logits (1, T, D), on any device, and returns
-    ``{frame: [[class, x, y, z], ...]}``."""
+    """Post-processing of the config's loss.  ``postprocess(output,
+    valid_label_frames)`` takes one clip's raw output (1, T, D), on any
+    device, and returns ``{frame: [[class, x, y, z], ...]}``."""
 
     def __init__(self, cfg: Config):
-        if cfg.args.loss != "adyolo":
-            raise NotImplementedError(f"not yet ported: loss {cfg.args.loss!r}")
-        if not nms_native.available():
-            raise RuntimeError("the native NMS library (native/nms.cpp) could "
-                               "not be built or loaded; g++ is required")
+        self.loss = cfg.args.loss
         self.nb_classes = cfg.data.nb_classes
         self.conf_thresh = float(cfg.train.conf_thresh)
         self.clss_thresh = float(cfg.train.clss_thresh)
         self.unify_thresh = float(cfg.train.unify_thresh)
         self.nms = cfg.train.nms
-        self.geom = GridGeometry(tuple(cfg.train.grid_size), cfg.train.g_overlap,
-                                 cfg.train.nb_anchors)
-        self.decode_topk = int(cfg.train.decode_topk)
+        if self.loss == "adyolo":
+            if not nms_native.available():
+                raise RuntimeError("the native NMS library (native/nms.cpp) could "
+                                   "not be built or loaded; g++ is required")
+            self.geom = GridGeometry(tuple(cfg.train.grid_size),
+                                     cfg.train.g_overlap, cfg.train.nb_anchors)
+            self.decode_topk = int(cfg.train.decode_topk)
 
     # conf-threshold arbitration hooks (reference datasets.py:529-534)
     def get_conf_thresh(self) -> float:
@@ -107,6 +121,73 @@ class PostProcessor:
     def set_conf_thresh(self, thresh: float) -> None:
         self.conf_thresh = float(thresh)
         self.clss_thresh = float(thresh)
+
+    # -- dense formats (adyolo_tpu/ops/decode.py:220-304) --------------------
+
+    def _seddoa(self, output, valid) -> Dict:
+        """Activity above the threshold (reference datasets.py:536-564)."""
+        out = _host(output, valid)
+        K = self.nb_classes
+        res: Dict[int, List] = {}
+        for t, c in zip(*np.nonzero(out[:, :K] > self.conf_thresh)):
+            res.setdefault(int(t), []).append(
+                [int(c), float(out[t, K + c]), float(out[t, 2 * K + c]),
+                 float(out[t, 3 * K + c])])
+        return res
+
+    def _accdoa(self, output, valid) -> Dict:
+        """Activity = ||xyz|| above the threshold (datasets.py:566-597)."""
+        out = _host(output, valid)
+        xyz = out.reshape(-1, 3, self.nb_classes)
+        act = np.sqrt((xyz ** 2).sum(axis=1)) > self.conf_thresh
+        res: Dict[int, List] = {}
+        for t, c in zip(*np.nonzero(act)):
+            res.setdefault(int(t), []).append(
+                [int(c), float(xyz[t, 0, c]), float(xyz[t, 1, c]), float(xyz[t, 2, c])])
+        return res
+
+    def _adpit(self, output, valid) -> Dict:
+        """The 3-track unification (datasets.py:600-738): the pair cosines
+        and similarity flags are computed over the whole clip at once; the
+        python loop visits only the active (frame, class) pairs."""
+        out = _host(output, valid)
+        K = self.nb_classes
+        T = out.shape[0]
+        tracks = out.reshape(T, 3, 3, K)  # (T, track, xyz, class)
+        act = np.sqrt((tracks ** 2).sum(axis=2)) > self.conf_thresh  # (T, 3, K)
+        norm = tracks / np.sqrt((tracks ** 2).sum(axis=2, keepdims=True) + 1e-10)
+        sim = {}
+        for (i, j) in ((0, 1), (1, 2), (2, 0)):
+            cosv = np.clip((norm[:, i] * norm[:, j]).sum(axis=1), -1, 1)
+            sim[(i, j)] = (act[:, i] & act[:, j]
+                           & (np.degrees(np.arccos(cosv)) < self.unify_thresh))
+
+        res: Dict[int, List] = {}
+
+        def emit(t, c, xyz):
+            res.setdefault(int(t), []).append([int(c)] + [float(v) for v in xyz])
+
+        for t, c in zip(*np.nonzero(act.any(axis=1))):
+            a = act[t, :, c]
+            f01, f12, f20 = (bool(sim[p][t, c]) for p in ((0, 1), (1, 2), (2, 0)))
+            tr = tracks[t, :, :, c]  # (track, xyz)
+            n_sim = f01 + f12 + f20
+            if n_sim == 0:
+                for i in range(3):
+                    if a[i]:
+                        emit(t, c, tr[i])
+            elif n_sim == 1:
+                # the pair that agrees is averaged; the third track, if
+                # active, is emitted first
+                i, j, k = (0, 1, 2) if f01 else (1, 2, 0) if f12 else (2, 0, 1)
+                if a[k]:
+                    emit(t, c, tr[k])
+                emit(t, c, (tr[i] + tr[j]) / 2)
+            else:  # every track agrees: one unconditional average
+                emit(t, c, (tr[0] + tr[1] + tr[2]) / 3)
+        return res
+
+    # -- AD-YOLO --------------------------------------------------------------
 
     @torch.no_grad()
     def adyolo_candidates(self, output: torch.Tensor,
@@ -147,8 +228,9 @@ class PostProcessor:
         return dets.tolist() if len(dets) else None
 
     def candidates(self, output: torch.Tensor,
-                   min_conf: Optional[float] = None) -> Tuple:
-        """The sparse candidate set of one clip's output: the anchors whose
+                   min_conf: Optional[float] = None):
+        """A dense format's raw output on the host ((T, D) float32); for
+        AD-YOLO the sparse candidate set of one clip's output: the anchors whose
         objectness clears ``min_conf`` (default: the current threshold),
         frame-major, with the top-k guarded at ``min_conf``.  It holds
         O(active detections), not O(T x grid), and :meth:`postprocess_cached`
@@ -156,6 +238,8 @@ class PostProcessor:
         τ-arbitration builds it once at the scan's smallest τ.  The layout
         is the JAX package's ``("sparse", T, ...)`` cache with the tag
         replaced by ``min_conf``."""
+        if self.loss != "adyolo":
+            return _host(output)
         mc = self.conf_thresh if min_conf is None else float(min_conf)
         cls_conf, obj_conf, uv = self.adyolo_candidates(output, min_conf=mc)
         tt, nn = np.nonzero(obj_conf > mc)
@@ -166,8 +250,10 @@ class PostProcessor:
                            valid_label_frames: Optional[int] = None) -> Dict:
         """The detections of a :meth:`candidates` set at the current
         thresholds, over the first ``valid_label_frames`` frames.  Raises
-        ``ValueError`` below the set's ``min_conf``, where it would miss
-        candidates."""
+        ``ValueError`` below an AD-YOLO set's ``min_conf``, where it would
+        miss candidates."""
+        if self.loss != "adyolo":
+            return self.postprocess(cached, valid_label_frames)
         min_conf, T_full, tt, obj, cls, uv = cached
         if self.conf_thresh < min_conf:
             raise ValueError(f"threshold {self.conf_thresh} is below the "
@@ -189,4 +275,10 @@ class PostProcessor:
 
     def postprocess(self, output: torch.Tensor,
                     valid_label_frames: Optional[int] = None) -> Dict:
+        if self.loss in ("seddoa", "masked-seddoa"):
+            return self._seddoa(output, valid_label_frames)
+        if self.loss == "accdoa":
+            return self._accdoa(output, valid_label_frames)
+        if self.loss == "adpit":
+            return self._adpit(output, valid_label_frames)
         return self.postprocess_cached(self.candidates(output), valid_label_frames)

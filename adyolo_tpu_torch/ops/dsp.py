@@ -1,6 +1,6 @@
-"""Host-side (numpy) DSP constants: analysis window, mel filterbank
-and the windowed rDFT matrices (the port's copy of :mod:`adyolo_tpu.ops.dsp`;
-the GCC-PHAT lag matrices wait for the MIC front-end).
+"""Host-side (numpy) DSP constants: analysis window, mel filterbank,
+the windowed rDFT matrices and the GCC-PHAT lag matrices (the port's copy
+of :mod:`adyolo_tpu.ops.dsp`).
 
 These reproduce the numerical conventions of the reference's front-end
 (librosa 0.8.1, pinned in the reference's ``requirements.txt``):
@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["hann_window", "analysis_window", "mel_filterbank", "dft_matrices"]
+__all__ = ["hann_window", "analysis_window", "mel_filterbank", "dft_matrices",
+           "irfft_lag_matrices"]
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -118,3 +119,33 @@ def dft_matrices(n_fft: int, window: np.ndarray) -> tuple[np.ndarray, np.ndarray
     w_re = (np.cos(ang) * w).astype(np.float32)
     w_im = (np.sin(ang) * w).astype(np.float32)
     return w_re, w_im
+
+
+def irfft_lag_matrices(n_fft: int, n_lags: int) -> tuple[np.ndarray, np.ndarray]:
+    """Partial inverse-rDFT matrices onto GCC-PHAT's centred lags.
+
+    Returns ``(C, S)``, each ``(1 + n_fft//2, n_lags)``, such that for an
+    rfft half-spectrum ``re + 1j*im``, ``re @ C - im @ S`` equals the
+    centred-lag slice ``concat(cc[-n_lags//2:], cc[:n_lags - n_lags//2])``
+    of ``np.fft.irfft(re + 1j*im, n=n_fft)`` (the DCASE SELD baseline's
+    convention).  Hermitian reconstruction for even ``n_fft``:
+    ``x[n] = (1/N)[X_0 + 2 sum_{k=1}^{K-2} (re_k cos th_kn - im_k sin th_kn)
+    + (-1)^n X_{K-1}]``; the sine rows at DC and Nyquist are zero, as irfft
+    ignores the imaginary part there.
+    """
+    n_bins = 1 + n_fft // 2
+    half = n_lags // 2
+    lags = np.concatenate([np.arange(n_fft - half, n_fft),
+                           np.arange(0, n_lags - half)]).astype(np.float64)
+    k = np.arange(n_bins, dtype=np.float64)[:, None]
+    ang = 2.0 * np.pi * k * lags[None, :] / n_fft
+    alpha = np.full((n_bins, 1), 2.0)
+    alpha[0, 0] = 1.0
+    if n_fft % 2 == 0:
+        alpha[-1, 0] = 1.0
+    lag_c = (alpha * np.cos(ang) / n_fft).astype(np.float32)
+    lag_s = (alpha * np.sin(ang) / n_fft).astype(np.float32)
+    lag_s[0, :] = 0.0
+    if n_fft % 2 == 0:
+        lag_s[-1, :] = 0.0
+    return lag_c, lag_s

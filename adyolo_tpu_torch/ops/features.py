@@ -1,19 +1,22 @@
-"""Acoustic feature front-end: STFT -> log-mel + FOA intensity vectors.
+"""Acoustic feature front-end: STFT -> log-mel + FOA intensity vectors
+(or, for MIC input, GCC-PHAT lags).
 
-Counterpart of :mod:`adyolo_tpu.ops.features` for FOA audio:
+Counterpart of :mod:`adyolo_tpu.ops.features`:
 
 * log-mel: ``power_to_db`` (librosa defaults ``ref=1.0, amin=1e-10,
   top_db=80``) with the 80 dB floor taken below the per-(clip, channel)
   peak over *valid* frames only;
 * FOA intensity vectors ``Re(conj(W) * [X, Y, Z])`` normalised by
   ``eps + |W|^2 + mean(|XYZ|^2)``, then mel-projected;
+* MIC GCC-PHAT: for each of the 6 mic pairs the phase-transformed cross
+  spectrum onto ``mel_bins`` centred lags (:func:`_gcc_phat_mel`);
 * scaler standardisation ``(f - mean) / std``.
 
 On a CUDA device the STFT is the hand-written Hopper kernel
 (:func:`adyolo_tpu_torch.ops.hopper_stft.stft_hop_blocks`); on the CPU it
-is the plain PyTorch version.  The mel projections are fp32
-``torch.matmul``: JAX computes them outside any Pallas kernel too.
-MIC input (GCC-PHAT features) is not ported yet.
+is the plain PyTorch version.  The mel projections and GCC-PHAT's two lag
+products are fp32 ``torch.matmul``: JAX computes them with ``einsum``,
+outside any Pallas kernel, too.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from ..config import DataConfig
 from . import hopper_stft
-from .dsp import analysis_window, mel_filterbank
+from .dsp import analysis_window, irfft_lag_matrices, mel_filterbank
 
 __all__ = ["power_to_db", "FeatureFrontend", "Scaler", "identity_scaler"]
 
@@ -50,7 +53,8 @@ def power_to_db(power: torch.Tensor,
 class Scaler:
     """Per-(mel-bin, channel) standardisation stats, in the layout of the
     reference's ``scaler_wts.pkl``: ``{'MEL': {'mean', 'std', ...},
-    'IV': {...}}`` with arrays shaped ``(1, mel_bins, C)``."""
+    'IV': {...}}`` with arrays shaped ``(1, mel_bins, C)``; a MIC set's
+    auxiliary block is ``'GCC'``, C = 6 lag channels."""
 
     def __init__(self, mel_mean, mel_std, aux_mean, aux_std):
         def prep(a):
@@ -64,12 +68,8 @@ class Scaler:
 
     @classmethod
     def from_dict(cls, d: Dict) -> "Scaler":
-        if "IV" not in d:
-            raise NotImplementedError(
-                "only FOA scaler stats ('IV') are ported; MIC/GCC-PHAT waits "
-                "for its ROADMAP item")
-        return cls(d["MEL"]["mean"], d["MEL"]["std"], d["IV"]["mean"],
-                   d["IV"]["std"])
+        aux = d["IV"] if "IV" in d else d["GCC"]
+        return cls(d["MEL"]["mean"], d["MEL"]["std"], aux["mean"], aux["std"])
 
     @classmethod
     def from_pickle(cls, path: str) -> "Scaler":
@@ -101,8 +101,42 @@ def _foa_iv(re, im, mel_t):
     return torch.matmul(iv.transpose(2, 3), mel_t).transpose(2, 3)
 
 
+def _gcc_phat_mel(re, im, lag_c, lag_s):
+    """GCC-PHAT lag features of every unordered mic pair
+    (``adyolo_tpu/ops/features.py:162-187``): ``R = X_i conj(X_j)``, the
+    phase transform ``R / (|R| + eps)``, then the partial inverse rDFT
+    onto the centred lags, ``Re @ C - Im @ S``
+    (:func:`adyolo_tpu_torch.ops.dsp.irfft_lag_matrices`).  Exact silence
+    (R = 0) gives a zero row.  re, im: (B, T, K, C) -> (B, T, n_lags,
+    C(C-1)/2).
+
+    The pair spectra are formed in (B, T, pair, K) order so that both
+    products read them in place; each temporary is freed as soon as it
+    is used (at B = 16 x 800 frames one is 185 MB)."""
+    C = re.shape[-1]
+    pairs = [(i, j) for i in range(C) for j in range(i + 1, C)]
+    ii = torch.tensor([p[0] for p in pairs], device=re.device)
+    jj = torch.tensor([p[1] for p in pairs], device=re.device)
+    re_t, im_t = re.transpose(2, 3), im.transpose(2, 3)  # (B, T, C, K)
+    re_i, re_j = re_t[:, :, ii], re_t[:, :, jj]  # (B, T, P, K)
+    im_i, im_j = im_t[:, :, ii], im_t[:, :, jj]
+    r_re = re_i * re_j + im_i * im_j
+    r_im = im_i * re_j - re_i * im_j
+    del re_i, re_j, im_i, im_j
+    inv_mag = 1.0 / (torch.sqrt(r_re * r_re + r_im * r_im) + _EPS)
+    r_re = r_re * inv_mag
+    r_im = r_im * inv_mag
+    del inv_mag
+    out = torch.matmul(r_re, lag_c)  # (B, T, P, n_lags)
+    del r_re
+    out = out - torch.matmul(r_im, lag_s)
+    return out.transpose(2, 3)  # (B, T, n_lags, P)
+
+
 class FeatureFrontend:
-    """``__call__(audio, valid_frames=None) -> (B, T, mel_bins, 7)``.
+    """``__call__(audio, valid_frames=None) -> (B, T, mel_bins, C_feat)``:
+    C_feat = 7 for FOA (4 log-mel + 3 IV), 10 for MIC (4 log-mel + 6
+    GCC-PHAT pairs).
 
     ``audio``: float32 in [-1, 1], hop-block ``(B, T, hop, 4)`` (the
     loaders' layout) or flat ``(B, N, 4)``, on ``device``.
@@ -112,11 +146,8 @@ class FeatureFrontend:
 
     def __init__(self, data_cfg: DataConfig, scaler: Optional[Scaler] = None,
                  device="cuda"):
-        if data_cfg.audio_format != "foa":
-            raise NotImplementedError(
-                f"audio_format={data_cfg.audio_format!r}: MIC/GCC-PHAT "
-                "features are not yet ported (ROADMAP.md, port queue: 'the "
-                "other formats, MIC/GCC-PHAT, DDP and export')")
+        if data_cfg.audio_format not in ("foa", "mic"):
+            raise ValueError(f"audio_format={data_cfg.audio_format!r}: 'foa' or 'mic'")
         if 2 * data_cfg.hop_length != data_cfg.n_fft:
             raise NotImplementedError(
                 f"hop_length={data_cfg.hop_length} with n_fft={data_cfg.n_fft}: "
@@ -129,11 +160,18 @@ class FeatureFrontend:
         mel = mel_filterbank(data_cfg.sr, data_cfg.n_fft, data_cfg.mel_bins)
         self.mel_t = torch.as_tensor(np.ascontiguousarray(mel.T),
                                      device=self.device)  # (K, mel_bins)
+        self.n_aux_channels = data_cfg.nb_feature_channels - 4  # IV 3 / GCC 6
+        if data_cfg.audio_format == "mic":
+            self.lag_c, self.lag_s = (
+                torch.as_tensor(a, device=self.device)  # (K, n_lags)
+                for a in irfft_lag_matrices(data_cfg.n_fft, data_cfg.mel_bins))
         if scaler is None:
-            scaler = identity_scaler(data_cfg.mel_bins)
-        if scaler.aux_mean.shape[-1] != 3:
-            raise ValueError(f"FOA needs 3 IV scaler channels, got "
-                             f"{scaler.aux_mean.shape[-1]}")
+            scaler = identity_scaler(data_cfg.mel_bins, n_aux_ch=self.n_aux_channels)
+        if scaler.aux_mean.shape[-1] != self.n_aux_channels:
+            raise ValueError(
+                f"the scaler's auxiliary stats have {scaler.aux_mean.shape[-1]} "
+                f"channels but audio_format={data_cfg.audio_format!r} needs "
+                f"{self.n_aux_channels} (IV 3 / GCC 6): wrong scaler_wts.pkl?")
         self.mel_mean, self.mel_std, self.aux_mean, self.aux_std = (
             torch.as_tensor(a, device=self.device)
             for a in (scaler.mel_mean, scaler.mel_std, scaler.aux_mean,
@@ -142,15 +180,21 @@ class FeatureFrontend:
     def stft(self, audio: torch.Tensor):
         return hopper_stft.stft_hop_blocks(audio, self.fft)
 
+    def _aux(self, re, im) -> torch.Tensor:
+        if self.cfg.audio_format == "foa":
+            return _foa_iv(re, im, self.mel_t)  # (B, T, mel, 3)
+        return _gcc_phat_mel(re, im, self.lag_c, self.lag_s)  # (B, T, mel, 6)
+
     def features_from_stft(self, re, im, valid_frames=None) -> torch.Tensor:
-        """Log-mel + IV + scaler from an STFT ``(re, im)`` (B, T, K, 4)."""
+        """Log-mel + IV (or GCC-PHAT) + scaler from an STFT ``(re, im)``
+        (B, T, K, 4)."""
         frame_mask = None
         if valid_frames is not None:
             t = torch.arange(re.shape[1], device=re.device)
             frame_mask = t[None, :] < valid_frames.to(re.device)[:, None]
         mel_db = (_logmel(re, im, self.mel_t, frame_mask)
                   - self.mel_mean) / self.mel_std
-        aux = (_foa_iv(re, im, self.mel_t) - self.aux_mean) / self.aux_std
+        aux = (self._aux(re, im) - self.aux_mean) / self.aux_std
         feat = torch.cat([mel_db, aux], dim=-1)
         if frame_mask is not None:
             feat = feat * frame_mask[:, :, None, None]
@@ -159,3 +203,10 @@ class FeatureFrontend:
     def __call__(self, audio: torch.Tensor, valid_frames=None) -> torch.Tensor:
         re, im = self.stft(audio)
         return self.features_from_stft(re, im, valid_frames)
+
+    def raw_mel_aux(self, audio: torch.Tensor):
+        """The unnormalised ``(mel_db, aux)``, aux the FOA intensity vectors
+        or the MIC GCC-PHAT block: what the scaler pass accumulates
+        (``adyolo_tpu/ops/features.py:271-281``)."""
+        re, im = self.stft(audio)
+        return _logmel(re, im, self.mel_t, None), self._aux(re, im)

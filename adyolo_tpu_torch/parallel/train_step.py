@@ -6,7 +6,7 @@ One step: int16 audio -> ``x / 32768 + 1e-8`` -> features (the Hopper STFT
 kernel on CUDA, float32, without autograd) -> SpecAugment when the config
 turns it on -> the model in training mode (BatchNorm on batch stats,
 dropout; the conformer's attention on the Hopper train kernels) in the
-config's compute dtype -> the AD-YOLO loss (float32) -> backward ->
+config's compute dtype -> the config's loss (float32) -> backward ->
 optimizer step on the float32 parameters.  Every SpecAugment draw and
 dropout bit comes from the ``torch.Generator`` passed to the step, on the
 model's device.  The model,
@@ -86,7 +86,9 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     scalar on the model's device).
 
     ``batch``: ``{"audio": (B, T, hop, 4) or (B, N, 4) int16 (or float32 in
-    [-1, 1]), "targets": (M, 7), "target_mask": (M,)}``, numpy or tensors.
+    [-1, 1]), "targets", "target_mask"}``, numpy or tensors: AD-YOLO's
+    (M, 7) targets and (M,) mask, or a dense format's (B, T', ...) targets
+    and no mask.
     ``generator``: a ``torch.Generator`` on the model's device, the source of
     every SpecAugment draw and dropout bit of the step, in that order
     (None: the device's default one).  The
@@ -104,7 +106,7 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
         model.train()
         out = model(feat, generator=generator)
         loss = criterion(out, torch.as_tensor(batch["targets"], device=device),
-                         torch.as_tensor(batch["target_mask"], device=device))
+                         _mask(batch.get("target_mask"), device))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -114,10 +116,16 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     return train_step
 
 
+def _mask(target_mask, device):
+    """AD-YOLO's target mask on ``device``; None (dense formats) stays."""
+    return None if target_mask is None else torch.as_tensor(target_mask, device=device)
+
+
 def build_eval_criterion(cfg: Config) -> Callable:
     """``loss_fn(out, targets, target_mask, nb_label_frames) -> scalar``: the
-    AD-YOLO loss of an eval forward's output over its valid label frames
-    only (``adyolo_tpu/parallel/train_step.py:255-277``).  The frame mask
+    config's loss of an eval forward's output over its valid label frames
+    only (``adyolo_tpu/parallel/train_step.py:255-277``); ``target_mask``
+    is None for the dense formats.  The frame mask
     is built on the output's device, so a long clip's loss stays one device
     computation with no slicing on the host; it equals the loss of the
     output and targets cut to the valid frames.  Runs under
@@ -130,6 +138,6 @@ def build_eval_criterion(cfg: Config) -> Callable:
         valid = torch.as_tensor(nb_label_frames, device=dev).reshape(-1, 1)
         frame_mask = torch.arange(out.shape[1], device=dev)[None, :] < valid
         return criterion(out, torch.as_tensor(targets, device=dev),
-                         torch.as_tensor(target_mask, device=dev), frame_mask)
+                         _mask(target_mask, dev), frame_mask)
 
     return loss_fn

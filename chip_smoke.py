@@ -103,11 +103,45 @@ before the last line:
               breakdown of the resume call (epoch 11 and the final test):
               device time by group and the device's idle share.
 
-Then one line ``{"kernels": [...]}`` (``launches`` counted over this
-slice's main path, phase train_cli, with every path's count beside it in
-``launches_by_path``: the SE-ResNet34 ``cli.main`` run, the conformer's,
-and the bare train steps), the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+Then the bf16 phases (attn_train_bf16_kernel, train_seresnet34,
+train_conformer_bf16, train_cli_se_bf16; each function's docstring says
+what it holds), and:
+
+12. preprocess_mic -- a DCASE2022-layout MIC set written by the script
+              (two 30-s dev-train clips, val and test clips of 23 and 35 s;
+              class tones reaching the four capsules of the tetrahedral
+              array with their plane-wave delays, over noise) through
+              ``cli.main``: ``preprocess chunking`` (the chunk count against
+              the window formula, one chunk against its source slice);
+              GCC-PHAT on the card against numpy's ``irfft`` on 2 s of a
+              clip (1e-3 x max); ``preprocess scaler`` on the card, K1 once
+              per clip, 'MEL' (1, 64, 4) and 'GCC' (1, 64, 6) within
+              1e-4 x max of the same pass on the CPU; then ``train
+              --augment`` (SE-ResNet34 + AD-YOLO, 2 epochs x 1 step of 16 x
+              20 s) on those stats, ``val`` and ``test``: finite losses,
+              one CSV per clip, K1 once per step and per eval clip.  Timed:
+              the MIC and FOA front-ends at 16 x 20 s and 3 bare MIC steps
+              (the front-end's share of a step).
+13. train_cli_formats -- the dense formats at full width on the FOA set of
+              phase 11: each dense loss on the card against a numpy
+              float64 version of the reference's (1e-5 rel); for seddoa,
+              masked-seddoa, accdoa and adpit on SE-ResNet34, 3 bare steps
+              of 16 x 20 s (step 1 against the same step on plain-STFT
+              features, 1e-4 rel; median step and peak memory), then
+              ``cli.main`` train (2 epochs x 1 step, the last scanning the
+              threshold), val and test: finite losses, in-range metrics,
+              one CSV per clip, one score block per call (three for adpit),
+              K1 once per step and per eval clip; then accdoa on
+              ResNet-Conformer through ``cli.main`` train: per step K1 once
+              and k2_dropout / k3 8 times each, per eval clip k2 or k4 8
+              times.
+
+Phases 3-5 also read each kernel's and library call's device time a
+call from ``torch.profiler`` (``utils/profiling.py::profile_calls``).
+Then one line ``{"kernels": [...]}`` (``launches`` counted over each
+kernel's main path, phase train_cli, or train_conformer_bf16 for the bf16
+routes, with every path's count beside it in ``launches_by_path``), the
+card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package ``adyolo_tpu`` is imported.
 """
 import contextlib
@@ -115,6 +149,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -124,15 +159,21 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from adyolo_tpu_torch import cli  # noqa: E402
-from adyolo_tpu_torch.config import (Config, load_config, save_config,  # noqa: E402
-                                     with_conf_thresh)
+from adyolo_tpu_torch.config import (Config, build_config, load_config,  # noqa: E402
+                                     save_config, with_conf_thresh)
 from adyolo_tpu_torch.convert import flax_from_state_dict  # noqa: E402
-from adyolo_tpu_torch.data.io import write_label_csv, write_wav  # noqa: E402
-from adyolo_tpu_torch.data.labels import encode_adyolo, pad_yolo_targets  # noqa: E402
+from adyolo_tpu_torch.data.chunking import chunk_clip  # noqa: E402
+from adyolo_tpu_torch.data.io import (normalize_audio, read_wav,  # noqa: E402
+                                      write_label_csv, write_wav)
+from adyolo_tpu_torch.data.labels import (encode_accdoa, encode_adpit,  # noqa: E402
+                                          encode_adyolo, encode_seddoa,
+                                          pad_yolo_targets)
+from adyolo_tpu_torch.data.scaler import compute_scaler_stats  # noqa: E402
 from adyolo_tpu_torch.engine.checkpoint import save_jax_checkpoint  # noqa: E402
 from adyolo_tpu_torch.engine import evaluate as evaluate_mod  # noqa: E402
 from adyolo_tpu_torch.engine import train as train_mod  # noqa: E402
@@ -140,11 +181,13 @@ from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa
                                               make_frontend)
 from adyolo_tpu_torch.metrics.seld import SegmentScorer  # noqa: E402
 from adyolo_tpu_torch.models import resnet_conformer  # noqa: E402
-from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry  # noqa: E402
+from adyolo_tpu_torch.models.wrapper import (build_model, make_criterion,  # noqa: E402
+                                             make_grid_geometry)
 from adyolo_tpu_torch.ops import attention, hopper_attention, hopper_stft  # noqa: E402
 from adyolo_tpu_torch.ops import stft as plain_stft  # noqa: E402
 from adyolo_tpu_torch.ops.decode import PostProcessor, _device_decode  # noqa: E402
 from adyolo_tpu_torch.ops.dsp import analysis_window, dft_matrices  # noqa: E402
+from adyolo_tpu_torch.ops.features import FeatureFrontend  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
 from adyolo_tpu_torch.utils.profiling import profile_calls  # noqa: E402
@@ -405,7 +448,13 @@ def phase_kernel(smi, fe, dft):
             K, n_fft = HOP + 1, 2 * HOP
             fft_flop = B * T * 4 * (2.5 * n_fft * np.log2(n_fft) + n_fft)
             nbytes = 4.0 * (B * T * HOP * 4 + n_fft + 2 * B * T * K * 4)
+            # device time a call, from the profiler: the kernel's own group;
+            # for torch.stft, all it launches
+            dev_k = profile_calls(lambda _: hopper_stft.stft_hop_blocks(x, fe.fft), 10)
+            dev_l = profile_calls(lambda _: library(), 10)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
+                        "device_ms": dev_k["ms_per_step"]["K1 STFT"],
+                        "library_device_ms": dev_l["busy_ms_per_step"],
                         "library_ms": float(np.median(l_ms)), "library": "torch.stft",
                         "library_max_abs_err": lib_err, **bound(fft_flop, nbytes),
                         "runs": len(k_ms), "gb_s": nbytes / (np.median(k_ms) * 1e-3) / 1e9,
@@ -491,7 +540,12 @@ def phase_attn_kernel(smi):
                 p_ms += cuda_ms(lambda: attention.mhsa_attention(q, k, v, kv), 10)
                 l_ms += cuda_ms(library, 10)
             flop = attn_flop(4, T, lens)
+            dev_k = profile_calls(
+                lambda _: hopper_attention.flash_attention(q, k, v, kv), 10)
+            dev_l = profile_calls(lambda _: library(), 10)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
+                        "device_ms": dev_k["ms_per_step"]["attention fwd"],
+                        "library_device_ms": dev_l["busy_ms_per_step"],
                         "library_ms": float(np.median(l_ms)),
                         "library": "F.scaled_dot_product_attention",
                         "library_max_abs_err": lib_err,
@@ -503,7 +557,8 @@ def phase_attn_kernel(smi):
             if timed == "kernels":
                 res[rt].update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "bound_by", "bound_units",
-                                                    "bound_ffma_ms")})
+                                                    "bound_ffma_ms", "device_ms",
+                                                    "library_device_ms")})
         emit(row)
         del q, k, v, got, want
 
@@ -638,13 +693,21 @@ def phase_attn_train_kernel(smi):
                 for n, fn in fns.items():
                     ms[n] += cuda_ms(fn, 10)
             ms = {n: float(np.median(t)) for n, t in ms.items()}
-            row.update(ms=ms, runs=30, card=smi)
+            # device time a call: the kernels' own groups; for SDPA, all it launches
+            prof = {n: profile_calls(lambda _, f=fns[n]: f(), 10)
+                    for n in ("kernel_fwd", "kernel_bwd", "library_fwd", "library_bwd")}
+            dev = {n: p["busy_ms_per_step"] if n.startswith("library") else
+                   p["ms_per_step"]["attention fwd"] + p["ms_per_step"]["attention bwd"]
+                   for n, p in prof.items()}
+            row.update(ms=ms, runs=30, device_ms=dev, card=smi)
             fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
             res["k2_dropout"].update(
                 ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"], library_ms=ms["library_fwd"],
+                device_ms=dev["kernel_fwd"], library_device_ms=dev["library_fwd"],
                 **attn_bound(fl_f, attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1)))
             res["k3"].update(
                 ms=ms["kernel_bwd"], plain_ms=ms["plain_bwd"], library_ms=ms["library_bwd"],
+                device_ms=dev["kernel_bwd"], library_device_ms=dev["library_bwd"],
                 **attn_bound(fl_b, attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2,
                                               kv_writes=2, stats=1)))
             row.update(tflops_fwd=fl_f / (ms["kernel_fwd"] * 1e-3) / 1e12,
@@ -1126,6 +1189,12 @@ def write_dcase_set(root, cfg, scaler_pkl):
     shutil.copy(scaler_pkl, os.path.join(root, "scaler_wts.pkl"))
 
 
+def probe_record():
+    """The lists :func:`engine_probes` fills."""
+    return {k: [] for k in ("gen_state", "steps", "evals", "epochs", "loaded", "printed",
+                            "scorer_s")}
+
+
 @contextlib.contextmanager
 def engine_probes(rec):
     """Wrap the engine's step, eval forwards, epoch loop, checkpoint reader,
@@ -1219,22 +1288,11 @@ def phase_train_cli(smi, cfg, bare_step_ms):
         data = os.path.join(tmp, "data")
         write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
         set_s = time.perf_counter() - t_phase
-        configs = os.path.join(tmp, "configs")
-        shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"),
-                        configs)
-        import yaml
-
-        p = os.path.join(configs, f"hyp_data_{cfg.data.dataset}.yaml")
-        with open(p) as f:
-            d = yaml.safe_load(f)
-        d.update(data_pth=data, name_pth=os.path.join(data, "classes.txt"))
-        with open(p, "w") as f:
-            yaml.safe_dump(d, f)
+        configs = preset_dir(tmp, cfg, data_pth=data, name_pth=os.path.join(data, "classes.txt"))
         results = os.path.join(tmp, "results")
         exp_id = "chip-train"
         exp = os.path.join(results, exp_id)
-        rec = {k: [] for k in ("gen_state", "steps", "evals", "epochs", "loaded",
-                               "printed", "scorer_s")}
+        rec = probe_record()
         secs, scores = {}, {}
         with engine_probes(rec):
             zero_counts()  # the main path's count starts here
@@ -1493,17 +1551,7 @@ def phase_train_cli_se_bf16(smi, cfg):
     try:
         data = os.path.join(tmp, "data")
         write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
-        configs = os.path.join(tmp, "configs")
-        shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"),
-                        configs)
-        import yaml
-
-        p = os.path.join(configs, f"hyp_data_{cfg.data.dataset}.yaml")
-        with open(p) as f:
-            d = yaml.safe_load(f)
-        d.update(data_pth=data, name_pth=os.path.join(data, "classes.txt"))
-        with open(p, "w") as f:
-            yaml.safe_dump(d, f)
+        configs = preset_dir(tmp, cfg, data_pth=data, name_pth=os.path.join(data, "classes.txt"))
         results = os.path.join(tmp, "results")
         exp = os.path.join(results, "chip-se-bf16")
         zero_counts()
@@ -1539,6 +1587,450 @@ def phase_train_cli_se_bf16(smi, cfg):
               "seconds": time.perf_counter() - t_phase, "card": smi})
         return launched
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- the dense formats, MIC and preprocessing -------------------------------
+
+MIC_TRAIN_SECS = (30, 30)  # dev-train clips, chunked to 20-s windows every 1 s
+MIC_EVAL_SECS = (23, 35)
+# the DCASE tetrahedral array: radius 4.2 cm, capsules at (azimuth, elevation)
+MIC_DIRS = ((45.0, 35.0), (-45.0, -35.0), (135.0, -35.0), (-135.0, 35.0))
+MIC_RADIUS_M = 0.042
+SOUND_M_S = 343.0
+GCC_REF_TOL = 1e-3  # GCC-PHAT on the card vs numpy's irfft in float64, x max|gcc|
+SCALER_DEV_TOL = 1e-4  # the scaler pass on the card vs on the CPU, x max|stat|
+DENSE_LOSS_TOL = 1e-5  # a dense loss on the card vs numpy float64, relative
+DENSE_LOSSES = ("seddoa", "masked-seddoa", "accdoa", "adpit")
+FORMAT_STEPS = 3
+FORMAT_EPOCHS = 2  # the last one scans the confidence threshold
+
+
+def unit(azi, ele):
+    a, e = np.radians(azi), np.radians(ele)
+    return np.array([np.cos(a) * np.cos(e), np.sin(a) * np.cos(e), np.sin(e)])
+
+
+def render_mic_clip(rng, secs, sr, n_events):
+    """int16 4-mic audio: class tones reaching each capsule of the
+    tetrahedral array with its plane-wave delay from the labelled direction,
+    over noise; and the label dict {frame: [[class, 0, azi, ele]]}."""
+    n = sr * secs
+    hop = int(sr * LABEL_HOP_S)
+    mics = np.stack([unit(a, e) for a, e in MIC_DIRS]) * MIC_RADIUS_M
+    audio = rng.standard_normal((n, 4)) * 0.02
+    label = {}
+    for _ in range(n_events):
+        c = int(rng.integers(13))
+        azi, ele = float(rng.integers(-180, 180)), float(rng.integers(-60, 61))
+        dur = int(rng.integers(5, 15))
+        start = int(rng.integers(0, n // hop - dur))
+        t = np.arange(dur * hop) / sr
+        lead = mics @ unit(azi, ele) / SOUND_M_S  # seconds a capsule hears it early
+        f, ph = 320.0 * 2 ** (c / 3.0), rng.uniform(0, 6.28)
+        for m in range(4):
+            audio[start * hop:(start + dur) * hop, m] += 0.35 * np.sin(
+                2 * np.pi * f * (t + lead[m]) + ph)
+        for fr in range(start, start + dur):
+            label.setdefault(fr, []).append([c, 0, azi, ele])
+    return (np.clip(audio, -0.99, 0.99) * 32767).astype(np.int16), label
+
+
+def write_mic_set(root, cfg):
+    """A DCASE2022-layout MIC set under ``root``: unchunked dev-train clips of
+    MIC_TRAIN_SECS, val and test clips of MIC_EVAL_SECS, metadata, classes;
+    no scaler stats (``cli preprocess scaler`` writes them)."""
+    rng = np.random.default_rng(17)
+    sr = cfg.data.sr
+    for s, secs in (("train", MIC_TRAIN_SECS), ("val", MIC_EVAL_SECS), ("test", MIC_EVAL_SECS)):
+        os.makedirs(os.path.join(root, "mic_dev", f"dev-{s}"))
+        os.makedirs(os.path.join(root, "metadata_dev", f"dev-{s}"))
+        for i, n in enumerate(secs):
+            audio, label = render_mic_clip(rng, n, sr, max(2, n // 3))
+            write_wav(os.path.join(root, "mic_dev", f"dev-{s}", f"{s}{i:03d}.wav"), audio, sr)
+            write_label_csv(os.path.join(root, "metadata_dev", f"dev-{s}", f"{s}{i:03d}.csv"),
+                            label)
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("".join(f"class{c}\n" for c in range(cfg.data.nb_classes)))
+
+
+def preset_dir(tmp, cfg, **data):
+    """A copy of the repository's presets whose DCASE2022 data preset points
+    at a set of this run (``data``: its overrides)."""
+    configs = os.path.join(tmp, "configs")
+    shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"),
+                    configs)
+    p = os.path.join(configs, f"hyp_data_{cfg.data.dataset}.yaml")
+    with open(p) as f:
+        d = yaml.safe_load(f)
+    d.update(chunk_window_s=cfg.data.chunk_window_s, **data)
+    with open(p, "w") as f:
+        yaml.safe_dump(d, f)
+    return configs
+
+
+def gcc_reference(audio, n_fft, n_lags):
+    """GCC-PHAT lag features of (N, 4) audio in float64 numpy, the DCASE
+    SELD baseline's definition: librosa-centred periodic-Hann frames,
+    ``R = X_i conj(X_j)`` per mic pair, ``R / (|R| + 1e-8)``, a full
+    ``irfft`` and the ``n_lags`` centred lags.  (T, n_lags, 6)."""
+    hop = n_fft // 2
+    x = np.pad(audio.astype(np.float64), ((hop, hop), (0, 0)), mode="reflect")
+    T = len(audio) // hop
+    w = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+    frames = np.stack([x[t * hop:t * hop + n_fft] for t in range(T)])  # (T, n_fft, 4)
+    X = np.fft.rfft(frames * w[None, :, None], axis=1)
+    out = []
+    for i in range(4):
+        for j in range(i + 1, 4):
+            R = X[:, :, i] * np.conj(X[:, :, j])
+            cc = np.fft.irfft(R / (np.abs(R) + 1e-8), n=n_fft, axis=1)
+            out.append(np.concatenate([cc[:, -(n_lags // 2):],
+                                       cc[:, :n_lags - n_lags // 2]], axis=1))
+    return np.stack(out, axis=-1)
+
+
+def phase_preprocess_mic(smi, cfg):
+    """A MIC set through ``cli.main``: ``preprocess chunking`` (the chunk
+    count against the window formula, one chunk against its source slice),
+    GCC-PHAT on the card against ``gcc_reference`` on 2 s of a clip,
+    ``preprocess scaler`` on the card (K1 once per clip; 'MEL' (1, 64, 4)
+    and 'GCC' (1, 64, 6) within SCALER_DEV_TOL of the same pass on the
+    CPU), then ``train --augment`` (SE-ResNet34 + AD-YOLO, 2 epochs x 1 step
+    of 16 x 20 s) on those stats, ``val`` and ``test``: finite losses, one
+    CSV per clip, K1 once per step and per eval clip.  Counts set to 0
+    just before the scaler pass and read after the test.  Beside them, the
+    MIC and FOA front-ends on one 16 x 20-s batch (CUDA events, median of
+    10) and FORMAT_STEPS bare MIC steps: the front-end's share of a step."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mic_")
+    try:
+        data = os.path.join(tmp, "data")
+        write_mic_set(data, cfg)
+        configs = preset_dir(tmp, cfg, data_pth=data, audio_format="mic",
+                             name_pth=os.path.join(data, "classes.txt"))
+        dcfg = build_config({"dataset": cfg.data.dataset, "config_dir": configs}).data
+        secs = {"write_set": time.perf_counter() - t_phase}
+        pre = ["--dataset", cfg.data.dataset, "--config_dir", configs]
+
+        # chunking: (N' - W) // S + 1 windows a clip, N' padded to a stride
+        t0 = time.perf_counter()
+        require(cli.main(["preprocess", "chunking", *pre]) == 0, "preprocess chunking")
+        secs["chunking"] = time.perf_counter() - t0
+        sr, W, S = dcfg.sr, dcfg.sr * dcfg.chunk_window_s, dcfg.sr * dcfg.chunk_stride_s
+        want = sum(-(-(n * sr - W) // S) + 1 for n in MIC_TRAIN_SECS)
+        sub = f"dev-train-chunked_{dcfg.chunk_window_s}s_{dcfg.chunk_stride_s}s"
+        chunk_dir = os.path.join(data, "mic_dev", sub)
+        chunks = sorted(os.listdir(chunk_dir))
+        require(len(chunks) == want, f"preprocess chunking wrote {len(chunks)} chunks, want {want}")
+        src = read_wav(os.path.join(data, "mic_dev", "dev-train", "train000.wav"))
+        k = want // len(MIC_TRAIN_SECS) // 2  # a middle chunk
+        require(np.array_equal(read_wav(os.path.join(chunk_dir, f"train000_chunk{k + 1:03d}.wav")),
+                               src[k * S:k * S + W]), f"chunk {k + 1} is not its source slice")
+        require(len(chunk_clip(src, {}, dcfg)) == want // len(MIC_TRAIN_SECS),
+                "chunk_clip's count")
+
+        # GCC-PHAT on the card against numpy's irfft, 2 s of a clip
+        fe = FeatureFrontend(dcfg, device="cuda")
+        a = normalize_audio(src[:2 * sr])
+        with torch.inference_mode():
+            _, gcc = fe.raw_mel_aux(torch.tensor(a[None], device="cuda"))
+        gcc = gcc[0].cpu().numpy()
+        ref = gcc_reference(a, dcfg.n_fft, dcfg.mel_bins)
+        gcc_err = float(np.abs(gcc - ref).max())
+        require(gcc.shape == ref.shape and gcc_err <= GCC_REF_TOL * float(np.abs(ref).max()),
+                f"GCC-PHAT vs numpy irfft: {gcc_err} > {GCC_REF_TOL} * {np.abs(ref).max()}")
+
+        # the front-end's share of a bare MIC step (16 x 20 s, SE-ResNet34 +
+        # AD-YOLO, fp32), beside the FOA front-end on the same audio
+        mcfg = dataclasses.replace(cfg, data=dcfg)
+        batches = [synthetic_batch(mcfg, np.random.default_rng(23), CLI_BATCH)
+                   for _ in range(2)]
+        x = batches[0]["audio"].to(torch.float32) / 32768.0 + 1e-8
+        fe_foa = make_frontend(cfg)
+        with torch.inference_mode():
+            front_ms = {"mic": float(np.median(cuda_ms(lambda: fe(x), 10))),
+                        "foa": float(np.median(cuda_ms(lambda: fe_foa(x), 10)))}
+        r = run_steps(mcfg, fe, batches, FORMAT_STEPS)
+        for i, n in enumerate(r["per_step"]):
+            require(n == {**{k: 0 for k in n}, "stft": 1}, f"mic bare step {i + 1}: launches {n}")
+        mic_step = {"losses": r["losses"], "step_ms": r["step_ms"],
+                    "median_step_ms": r["median_step_ms"], "peak_mem_gb": r["peak_mem_gb"],
+                    "front_end_ms": front_ms,
+                    "front_end_share": front_ms["mic"] / r["median_step_ms"]}
+        del r, batches, x, fe_foa
+
+        # the scaler pass on the card, K1 once per clip; against the CPU pass
+        rec = probe_record()
+        with engine_probes(rec):
+            zero_counts()  # the path's count starts here
+            t0 = time.perf_counter()
+            require(cli.main(["preprocess", "scaler", *pre, "--device", "cuda"]) == 0,
+                    "preprocess scaler")
+            torch.cuda.synchronize()
+            secs["scaler"] = time.perf_counter() - t0
+            scaler_launches = counts()
+            require(scaler_launches == {**{n: 0 for n in scaler_launches},
+                                        "stft": len(MIC_TRAIN_SECS)},
+                    f"preprocess scaler: launches {scaler_launches}")
+            with open(os.path.join(data, "scaler_wts.pkl"), "rb") as f:
+                stats = pickle.load(f)
+            cpu = compute_scaler_stats(dcfg, device="cpu", verbose=False)
+            require(set(stats) == {"MEL", "GCC"}, f"scaler blocks {sorted(stats)}")
+            stat_err = {}
+            for block, C in (("MEL", 4), ("GCC", 6)):
+                for st in ("mean", "std"):
+                    g, w = np.asarray(stats[block][st]), np.asarray(cpu[block][st])
+                    require(g.shape == (1, dcfg.mel_bins, C), f"{block} {st}: {g.shape}")
+                    stat_err[f"{block}_{st}"] = float(np.abs(g - w).max())
+                    require(stat_err[f"{block}_{st}"] <= SCALER_DEV_TOL * float(np.abs(w).max()),
+                            f"scaler {block} {st}: card vs CPU {stat_err[f'{block}_{st}']}")
+
+            # train, val and test on the MIC stats
+            results = os.path.join(tmp, "results")
+            exp = os.path.join(results, "chip-mic")
+            t0 = time.perf_counter()
+            require(cli.main(["train", "--augment", "--logger", "--nb_epochs", "2",
+                              "--nb_iters", "1", "--batch_size", str(CLI_BATCH),
+                              "--config_dir", configs, "--results_dir", results,
+                              "--exp_id", "chip-mic", "--device", "cuda"]) == 0, "mic train")
+            secs["train_cli"] = time.perf_counter() - t0
+            for action in ("val", "test"):
+                t0 = time.perf_counter()
+                require(cli.main([action, "--eval_pth", "chip-mic", "--results_dir", results,
+                                  "--device", "cuda"]) == 0, f"mic {action}")
+                secs[action] = time.perf_counter() - t0
+                require(len(os.listdir(os.path.join(exp, "output_eval"))) == len(MIC_EVAL_SECS),
+                        f"mic {action}: not one CSV per clip")
+            torch.cuda.synchronize()
+            launched = counts()
+        logs = read_logs(exp)
+        for split in ("train", "val", "test"):
+            got = logs[f"logs/{split}/loss"]
+            require(sorted(got) == [1, 2] and np.isfinite(list(got.values())).all(),
+                    f"mic {split} loss {got}")
+        require(len(rec["steps"]) == 2, f"mic: {len(rec['steps'])} train steps")
+        for e in rec["steps"] + rec["evals"]:
+            n = {k: v for k, v in e.items() if k != "frames"}
+            require(n == {**{k: 0 for k in n}, "stft": 1}, f"mic: launches {e}, want K1 once")
+        require(len(rec["evals"]) > 0, "mic: no eval clip ran")
+        emit({"phase": "preprocess_mic", "chunks": len(chunks), "bare_step": mic_step,
+              "gcc_vs_numpy": gcc_err,
+              "gcc_tol_rel": GCC_REF_TOL, "scaler_card_vs_cpu": stat_err,
+              "scaler_tol_rel": SCALER_DEV_TOL, "scaler_launches": scaler_launches,
+              "losses": {s: logs[f"logs/{s}/loss"] for s in ("train", "val", "test")},
+              "train_s": [logs["logs/train/time_s"][e] for e in (1, 2)],
+              "eval_clips": len(rec["evals"]), "launches": launched, "seconds": secs,
+              "phase_s": time.perf_counter() - t_phase, "card": smi})
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dense_reference_loss(loss, out, target, K):
+    """A dense format's loss in float64 numpy, as the reference
+    (``src/models/loss.py``) writes it: BCE (log clamped at -100) +
+    1000 x MSE for SED-DOA (the DOA gated by the activity target when
+    masked), MSE for ACCDOA, and for ADPIT the least MSE over the 13 named
+    track permutations, each with the pad of the two other groups."""
+    o, t = out.astype(np.float64), target.astype(np.float64)
+    if loss in ("seddoa", "masked-seddoa"):
+        p, y = o[..., :K], t[..., :K]
+        with np.errstate(divide="ignore"):
+            bce = -(y * np.maximum(np.log(p), -100) + (1 - y) * np.maximum(np.log(1 - p), -100))
+        doa = o[..., K:] * (np.concatenate([y, y, y], -1) if loss == "masked-seddoa" else 1)
+        return bce.mean() + 1000.0 * ((doa - t[..., K:]) ** 2).mean()
+    if loss == "accdoa":
+        return ((o - t) ** 2).mean()
+    slots = t[:, :, :, 0:1] * t[:, :, :, 1:]  # (B, T, 6, 3, K): A0 B0 B1 C0 C1 C2
+    A0, B0, B1, C0, C1, C2 = (slots[:, :, i] for i in range(6))
+
+    def cat(*s):
+        return np.concatenate(s, axis=2)
+
+    a = [cat(A0, A0, A0)]
+    b = [cat(B0, B0, B1), cat(B0, B1, B0), cat(B0, B1, B1), cat(B1, B0, B0), cat(B1, B0, B1),
+         cat(B1, B1, B0)]
+    c = [cat(C0, C1, C2), cat(C0, C2, C1), cat(C1, C0, C2), cat(C1, C2, C0), cat(C2, C0, C1),
+         cat(C2, C1, C0)]
+    tracks = ([x + b[0] + c[0] for x in a] + [x + a[0] + c[0] for x in b]
+              + [x + a[0] + b[0] for x in c])
+    o9 = o.reshape(o.shape[0], o.shape[1], 9, K)
+    return np.stack([((o9 - tr) ** 2).mean(axis=2) for tr in tracks]).min(axis=0).mean()
+
+
+def dense_targets(loss, cfg, rng, B, frames):
+    """(B, frames, ...) float32 dense targets of random labels (one to three
+    events on 70 % of the label frames, often of one class) from the port's
+    encoders."""
+    enc = {"seddoa": encode_seddoa, "masked-seddoa": encode_seddoa,
+           "accdoa": encode_accdoa, "adpit": encode_adpit}[loss]
+    per_clip = []
+    for _ in range(B):
+        label = {}
+        for f in range(frames):
+            if rng.random() < 0.7:
+                c = int(rng.integers(cfg.data.nb_classes))
+                label[f] = [[c if rng.random() < 0.6 else int(rng.integers(13)), i,
+                             float(rng.uniform(-180, 180)), float(rng.uniform(-90, 90))]
+                            for i in range(int(rng.integers(1, 4)))]
+        per_clip.append(enc(label, frames, cfg.data.nb_classes))
+    return np.stack(per_clip)
+
+
+def dense_batch(loss, cfg, rng, B):
+    """B 20-s int16 chunks in hop-block layout and their dense targets, on
+    the card."""
+    targets = dense_targets(loss, cfg, rng, B, cfg.data.chunk_label_frames)
+    T = cfg.data.chunk_samples // HOP
+    audio = (rng.standard_normal((B, T, HOP, 4)) * 1500).astype(np.int16)
+    return {"audio": torch.tensor(audio, device="cuda"),
+            "targets": torch.tensor(targets, device="cuda")}
+
+
+def check_dense_losses(cfg):
+    """Each dense loss on the card (float32, a frame mask) against
+    ``dense_reference_loss`` on the frames it keeps."""
+    rng = np.random.default_rng(21)
+    K = cfg.data.nb_classes
+    errs = {}
+    for loss in DENSE_LOSSES:
+        c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, loss=loss))
+        t = dense_targets(loss, c, rng, 4, 40)
+        width = {"accdoa": 3 * K, "adpit": 9 * K}.get(loss, 4 * K)
+        out = np.tanh(rng.normal(0, 1, t.shape[:2] + (width,))).astype(np.float32)
+        if loss.endswith("seddoa"):
+            out[..., :K] = rng.uniform(0.01, 0.99, out[..., :K].shape)
+        valid = 31
+        fm = torch.arange(40, device="cuda")[None, :] < valid
+        got = float(make_criterion(c)(torch.tensor(out, device="cuda"),
+                                      torch.tensor(t, device="cuda"), None,
+                                      fm.expand(4, 40)))
+        want = float(dense_reference_loss(loss, out[:, :valid], t[:, :valid], K))
+        errs[loss] = abs(got - want) / abs(want)
+        require(errs[loss] <= DENSE_LOSS_TOL, f"{loss} loss on the card {got} vs reference {want}")
+    return errs
+
+
+def phase_train_cli_formats(smi, cfg):
+    """The dense formats at full width (13 classes, fp32) on the FOA set of
+    ``write_dcase_set``.  Each dense loss on the card against numpy on a
+    small input; then for each of seddoa, masked-seddoa, accdoa, adpit on
+    SE-ResNet34: FORMAT_STEPS bare steps of 16 x 20 s (K1 once a step;
+    median step, peak memory), step 1 against the same step on
+    plain-STFT features (loss within TRAIN_LOSS_TOL rel), then ``cli.main``
+    train (FORMAT_EPOCHS epochs x 1 step, the last scanning τ), val and
+    test: finite losses, in-range metrics, one CSV per clip, one score
+    block per call (three for adpit), K1 once per step and eval clip.
+    Then accdoa on ResNet-Conformer through ``cli.main`` train: per step
+    K1 once and k2_dropout / k3 8 times, per eval clip k2 or k4 8 times.
+    Counts set to 0 before the first CLI call, read after the last of each
+    encoder."""
+    t_phase = time.perf_counter()
+    loss_errs = check_dense_losses(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    scan_every = train_mod.SCAN_EVERY
+    try:
+        data = os.path.join(tmp, "data")
+        write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
+        configs = preset_dir(tmp, cfg, data_pth=data, name_pth=os.path.join(data, "classes.txt"))
+        results = os.path.join(tmp, "results")
+        train_mod.SCAN_EVERY = FORMAT_EPOCHS
+        fe, fe_plain = make_frontend(cfg), make_frontend(cfg)
+        dft = window_dft(cfg.data.window, cfg.data.win_length, cfg.data.n_fft)
+        fe_plain.stft = lambda x: plain_stft.stft(x, *dft, HOP)
+        rng = np.random.default_rng(19)
+        rows, launched = {}, {}
+        for loss in DENSE_LOSSES + ("accdoa-conformer",):
+            name, encoder = loss.split("-conformer")[0], "resnet-conformer" \
+                if loss.endswith("-conformer") else "se-resnet34"
+            lcfg = dataclasses.replace(cfg, args=dataclasses.replace(
+                cfg.args, loss=name, encoder=encoder))
+            row = {}
+            if encoder == "se-resnet34":
+                batches = [dense_batch(name, lcfg, rng, CLI_BATCH) for _ in range(2)]
+                r = run_steps(lcfg, fe, batches, FORMAT_STEPS)
+                for i, n in enumerate(r["per_step"]):
+                    require(n == {**{k: 0 for k in n}, "stft": 1},
+                            f"{loss} bare step {i + 1}: launches {n}")
+                ref = run_steps(lcfg, fe_plain, batches, 1)
+                require(abs(r["losses"][0] - ref["losses"][0])
+                        <= TRAIN_LOSS_TOL * abs(ref["losses"][0]),
+                        f"{loss} step 1 on K1 {r['losses'][0]} vs plain STFT {ref['losses'][0]}")
+                row.update(bare_losses=r["losses"], step1_plain_stft=ref["losses"][0],
+                           step_ms=r["step_ms"], median_step_ms=r["median_step_ms"],
+                           peak_mem_gb=r["peak_mem_gb"])
+                del r, ref, batches
+            rec = probe_record()
+            exp_id = f"chip-{loss}"
+            exp = os.path.join(results, exp_id)
+            secs = {}
+            with engine_probes(rec):
+                zero_counts()  # this run's count starts here
+                t0 = time.perf_counter()
+                require(cli.main(["train", "--encoder", encoder, "--loss", name, "--logger",
+                                  "--nb_epochs", str(FORMAT_EPOCHS), "--nb_iters", "1",
+                                  "--batch_size", str(CLI_BATCH), "--config_dir", configs,
+                                  "--results_dir", results, "--exp_id", exp_id,
+                                  "--device", "cuda"]) == 0, f"{loss} train")
+                secs["train_cli"] = time.perf_counter() - t0
+                blocks = 3 if name == "adpit" else 1
+                actions = ("val", "test") if encoder == "se-resnet34" else ()
+                for action in actions:
+                    n_printed = len(rec["printed"])
+                    t0 = time.perf_counter()
+                    require(cli.main([action, "--eval_pth", exp_id, "--results_dir", results,
+                                      "--device", "cuda"]) == 0, f"{loss} {action}")
+                    secs[action] = time.perf_counter() - t0
+                    printed = rec["printed"][n_printed:]
+                    require(len(printed) == 3 * blocks and np.isfinite(printed).all(),
+                            f"{loss} {action}: printed {printed}")
+                    require(len(os.listdir(os.path.join(exp, "output_eval"))) == len(EVAL_SECS),
+                            f"{loss} {action}: not one CSV per clip")
+                torch.cuda.synchronize()
+                grown = counts()
+            logs = read_logs(exp)
+            epochs = list(range(1, FORMAT_EPOCHS + 1))
+            for split in ("train", "val", "test"):
+                got = logs[f"logs/{split}/loss"]
+                require(sorted(got) == epochs and np.isfinite(list(got.values())).all(),
+                        f"{loss} {split} loss {got}")
+            for split in ("val", "test"):
+                require(len(os.listdir(os.path.join(exp, f"output_{split}"))) == len(EVAL_SECS),
+                        f"{loss}: output_{split} is not one CSV per clip")
+                for m, hi in (("ER", np.inf), ("F1", 100.0), ("LE", 180.0), ("LR", 100.0),
+                              ("SELD", np.inf)):
+                    v = np.array(list(logs[f"logs/{split}/{m}"].values()))
+                    require(np.isfinite(v).all() and (v >= 0).all() and (v <= hi).all(),
+                            f"{loss} {split} {m}: {v}")
+            require(FORMAT_EPOCHS in logs.get("logs/train/conf_thresh", {}),
+                    f"{loss}: epoch {FORMAT_EPOCHS} did not scan the threshold")
+            require(len(rec["steps"]) == FORMAT_EPOCHS, f"{loss}: {len(rec['steps'])} steps")
+            nb = CONFORMER_BLOCKS if encoder == "resnet-conformer" else 0
+            for i, n in enumerate(rec["steps"]):
+                require(n == {**{k: 0 for k in n}, "stft": 1, "k2_dropout": nb, "k3": nb},
+                        f"{loss} train step {i + 1}: launches {n}")
+            for e in rec["evals"]:
+                n = {k: v for k, v in e.items() if k != "frames"}
+                route = "k4" if e["frames"] > attention.BLOCK_THRESHOLD else "k2"
+                require(n == {**{k: 0 for k in n}, "stft": 1, route: nb},
+                        f"{loss} eval clip of {e['frames']} frames: launches {e}")
+            launched[loss] = grown
+            row.update(losses={s: logs[f"logs/{s}/loss"] for s in ("train", "val", "test")},
+                       epoch_s=[logs["logs/train/time_s"][e] + logs["logs/val/time_s"][e]
+                                + logs["logs/test/time_s"][e] for e in epochs],
+                       val_s=[logs["logs/val/time_s"][e] for e in epochs],
+                       test_s=[logs["logs/test/time_s"][e] for e in epochs],
+                       cli_s=secs, eval_clips=len(rec["evals"]), launches=grown)
+            rows[loss] = row
+            emit({"phase": "train_cli_formats", "loss": loss, "encoder": encoder, **row,
+                  "card": smi})
+        emit({"phase": "train_cli_formats", "dense_loss_vs_reference_rel": loss_errs,
+              "tol_rel": DENSE_LOSS_TOL, "seconds": time.perf_counter() - t_phase,
+              "card": smi})
+        return launched
+    finally:
+        train_mod.SCAN_EVERY = scan_every
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1580,6 +2072,8 @@ def main():
     se_train = phase_train_seresnet34(smi, cfg, fe)
     conf_bf16 = phase_train_conformer_bf16(smi, conf_cfg, fe)
     se_cli = phase_train_cli_se_bf16(smi, cfg)
+    mic = phase_preprocess_mic(smi, cfg)
+    formats = phase_train_cli_formats(smi, cfg)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
@@ -1588,11 +2082,20 @@ def main():
     k = stft_k["serving"]
     k["max_abs_err"] = max(r["max_abs_err"] for r in stft_k.values())
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
-    keys_a = keys + ("bound_units",)
-    keys_b = keys + ("bound_units", "device_ms", "library_device_ms")
+    keys_k1 = keys + ("device_ms", "library_device_ms")
+    keys_a = keys_k1 + ("bound_units",)
     paths = {"serve": se, "serve_conformer": conf, "train_conformer": train,
              "train_cli": engine, "train_seresnet34_bf16": se_train,
-             "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli}
+             "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli,
+             "preprocess_mic": mic,
+             "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
+                                   for n in formats["accdoa"]},
+             "train_cli_formats_conformer": formats["accdoa-conformer"]}
+    for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
+        require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
+    require(paths["train_cli_formats_conformer"]["k2_dropout"] > 0
+            and paths["train_cli_formats_conformer"]["k3"] > 0,
+            "the conformer's dense-format run launched no k2_dropout / k3")
 
     def launches(route, main="train_cli"):
         """``launches``: the route's main path (the ``cli`` train, val, test
@@ -1604,8 +2107,8 @@ def main():
     emit({"kernels": [
         {"name": "stft_hop_blocks", "route": "cuda",
          "source": "adyolo_tpu_torch/csrc/stft.cu",
-         "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
-         **launches("stft"), **{n: k[n] for n in keys}},
+         "replaces": "adyolo_tpu/ops/pallas_stft.py:55",
+         **launches("stft"), **{n: k[n] for n in keys_k1}},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
          **launches("k2"), **{n: attn_k["k2"][n] for n in keys_a}},
@@ -1621,11 +2124,11 @@ def main():
         {**attn, "name": "flash_attention/k2_dropout_bf16",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
          **launches("k2_dropout_bf16", "train_conformer_bf16"),
-         **{n: bf16_k["k2_dropout_bf16"][n] for n in keys_b}},
+         **{n: bf16_k["k2_dropout_bf16"][n] for n in keys_a}},
         {**attn, "name": "flash_attention_bwd/k3_bf16",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
          **launches("k3_bf16", "train_conformer_bf16"),
-         **{n: bf16_k["k3_bf16"][n] for n in keys_b}}]})
+         **{n: bf16_k["k3_bf16"][n] for n in keys_a}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -94,8 +94,17 @@ def test_power_to_db_peak_over_valid_frames():
 
 
 def test_mic_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FeatureFrontend(dataclasses.replace(PortDataConfig(), audio_format="mic"),
+    """MIC is ported now (``tests/test_torch_mic.py`` holds it against JAX):
+    its front-end builds with 6 GCC-PHAT channels, refuses FOA scaler stats
+    naming both counts, and an unknown audio format raises."""
+    mic = dataclasses.replace(PortDataConfig(), audio_format="mic")
+    fe = FeatureFrontend(mic, device="cpu")
+    assert fe.n_aux_channels == 6
+    assert fe(torch.zeros(1, 4, HOP, 4)).shape == (1, 4, 64, 10)
+    with pytest.raises(ValueError, match="3 channels .* needs 6"):
+        FeatureFrontend(mic, Scaler.from_dict(_scaler_dict()), device="cpu")
+    with pytest.raises(ValueError, match="audio_format"):
+        FeatureFrontend(dataclasses.replace(PortDataConfig(), audio_format="stereo"),
                         device="cpu")
 
 

@@ -119,7 +119,8 @@ def test_converter_round_trip_and_strictness(pair):
 
 
 def test_unported_configurations_raise():
-    """Other losses and compute dtypes raise; both encoders train, in
+    """An unknown loss and compute dtype raise (every format's head is
+    ported: ``tests/test_torch_formats.py``); both encoders train, in
     float32 and bfloat16, with or without remat (``tests/
     test_torch_seresnet34_train.py``, ``tests/test_torch_train_step.py``,
     ``tests/test_torch_bf16*.py``), with SpecAugment, whose step input is
@@ -129,8 +130,8 @@ def test_unported_configurations_raise():
     from adyolo_tpu_torch.ops.features import FeatureFrontend
 
     cfg = PortConfig()
-    c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, loss="accdoa"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    c = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, loss="yolov3"))
+    with pytest.raises(NotImplementedError, match="loss: 'yolov3'"):
         build_model(c, device="cpu")
     c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float16"))
     with pytest.raises(ValueError, match="compute_dtype"):
