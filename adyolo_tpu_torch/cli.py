@@ -8,6 +8,7 @@ Usage:
     python -m adyolo_tpu_torch.cli val   --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli test  --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli infer --eval_pth <exp_id> --infer_pth <wav_dir>
+    python -m adyolo_tpu_torch.cli export --eval_pth <exp_id> [--serve_dtype bfloat16]
     python -m adyolo_tpu_torch.cli preprocess {chunking,scaler} --dataset <DS | all>
                                               [--config_dir <dir>] [--device cpu]
 
@@ -17,7 +18,11 @@ writes ``<results_dir>/<exp_id>/`` (``hyp_exp.yaml``, ``model_best.ckpt`` in
 the JAX package's format, the resumable ``model_ckpt.ckpt``, the per-clip
 CSVs and, with ``--logger``, ``logs.jsonl``); ``val`` / ``test`` / ``infer``
 read an experiment dir written by either package's trainer, for either
-encoder.  Both encoders train with any ``--loss`` (``seddoa``,
+encoder; ``export`` writes ``<results_dir>/<exp_id>/export/`` (``model.pt2``,
+``meta.json``, ``hyp_exp.yaml``; :mod:`adyolo_tpu_torch.engine.export`), the
+program of one clip of the config's ``chunk_window_s`` (20 s), traced on
+``--device`` with the encoder in ``--serve_dtype`` (``float32``, the
+default, or ``bfloat16``).  Both encoders train with any ``--loss`` (``seddoa``,
 ``masked-seddoa``, ``accdoa``, ``adpit``, ``adyolo``) on FOA or MIC input
 (``audio_format: mic`` in the dataset preset: GCC-PHAT features), in
 float32 or (``--compute_dtype bfloat16``) bf16; ``--remat`` checkpoints
@@ -30,18 +35,16 @@ into the 20-s training chunks; ``preprocess scaler`` writes
 ``train`` (``--config_dir``).
 
 The JAX package's arguments that the port does not implement are refused
-with a message, not ignored: ``--model_parallel``, ``--serve_dtype``, and
-the ``export`` action.
+with a message, not ignored: ``--model_parallel`` (tensor parallelism; DDP
+is ROADMAP.md §1 item 7b), and ``--serve_dtype`` on any action but
+``export``.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-_ACTIONS = ("train", "val", "test", "infer")
-_REFUSED_ACTIONS = {
-    "export": "ROADMAP.md §1 item 7, DDP and export",
-}
+_ACTIONS = ("train", "val", "test", "infer", "export")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,9 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--remat", action="store_const", const=True, default=None,
                         help="checkpoint the conformer blocks (recompute them "
                              "in the backward)")
-        # the JAX package's arguments that the port refuses (see _refuse)
+        sp.add_argument("--serve_dtype", type=str, default=None,
+                        choices=["float32", "bfloat16"],
+                        help="export: the encoder's compute dtype in the "
+                             "artifact (default float32)")
+        # the JAX package's argument that the port refuses (see _refuse)
         sp.add_argument("--model_parallel", type=int, default=None)
-        sp.add_argument("--serve_dtype", type=str, default=None)
         sp.add_argument("--device", type=str, default="cuda")
 
     pp = sub.add_parser("preprocess")
@@ -128,10 +134,10 @@ def _refuse(args) -> None:
     refused = {
         "--model_parallel": (args.model_parallel is not None,
                              "tensor parallelism is not ported; the port runs "
-                             "on one device (ROADMAP.md §1 item 7)"),
-        "--serve_dtype": (args.serve_dtype is not None,
-                          "it sets the dtype of the export artifact, which is "
-                          "not yet ported (ROADMAP.md §1 item 7)"),
+                             "on one device (DDP: ROADMAP.md §1 item 7b)"),
+        "--serve_dtype": (args.serve_dtype is not None and args.action != "export",
+                          "it sets the dtype of the export artifact: only "
+                          "'export' takes it"),
     }
     for flag, (given, why) in refused.items():
         if given:
@@ -140,9 +146,6 @@ def _refuse(args) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _REFUSED_ACTIONS:
-        raise SystemExit(f"error: '{argv[0]}' is not yet ported "
-                         f"({_REFUSED_ACTIONS[argv[0]]})")
     args = build_parser().parse_args(argv)
     if args.action == "preprocess":
         _preprocess(args)
@@ -152,6 +155,11 @@ def main(argv=None) -> int:
         import torch
 
         torch.autograd.set_detect_anomaly(True)
+    if args.action == "export":
+        from .engine.export import export_cmd
+
+        export_cmd(vars(args), results_dir=args.results_dir, device=args.device)
+        return 0
     arg_dict = {k: v for k, v in vars(args).items()
                 if k not in ("device", "model_parallel", "serve_dtype")}
     if args.action == "train":

@@ -4,7 +4,8 @@
 // backward on bfloat16 operands with wgmma, TMA and a producer warp
 // (`mhsa_fwd_bf16_kernel`, `mhsa_bwd_dq_bf16_kernel` +
 // `mhsa_bwd_dkdv_bf16_kernel`, routes k2_dropout_bf16 and k3_bf16; their
-// own section below).
+// own section below), and the bf16 eval forward on the same kernel with no
+// dropout (`mhsa_fwd_bf16_kernel<false>`, route k2_bf16: bf16 serving).
 //
 // Replaces three TPU kernels of adyolo_tpu/ops/flash_mhsa.py:
 //   * K2 `_fwd_kernel` (:89, launched by `_flash_fwd` at :180): the
@@ -631,7 +632,8 @@ mhsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Merge the partial (m, l, O) of the key splits: one thread per 4 dims of
 // one (b, t, h) row.  The splits below min(splits, ceil(L / 64)) hold key
 // tiles; L == 0 gives zeros and lse = -inf.  lse may be null (eval);
-// out16, when not null, gets the output rounded to bfloat16 beside out.
+// out16, when not null, gets the output rounded to bfloat16 beside out,
+// which may then be null (the bf16 eval forward).
 __global__ void __launch_bounds__(MERGE_THREADS)
 mhsa_fwd_merge_kernel(const float* __restrict__ part, const float* __restrict__ pm,
                       const float* __restrict__ pl, const int* __restrict__ kv_len,
@@ -665,7 +667,7 @@ mhsa_fwd_merge_kernel(const float* __restrict__ part, const float* __restrict__ 
     }
     const float inv = n > 0 ? kscale / lsum : 0.f;
     const float4 o = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
-    st4(out + r * DH + c, o);
+    if (out != nullptr) st4(out + r * DH + c, o);
     if (out16 != nullptr) {
         uint2 packed;
         packed.x = pack_bf16(o.x, o.y);
@@ -1257,9 +1259,12 @@ __device__ __forceinline__ Work work_item(int w, int n_tiles, int BH) {
     return x;
 }
 
-// The bf16 train forward, persistent over (64-query tile, b*h, key split):
-// out (bfloat16), out32 (float32) and the row logsumexp, or with splits > 1
-// the partial (O, m, l) for mhsa_fwd_merge_kernel, as mhsa_fwd_kernel<true>.
+// The bf16 forward, persistent over (64-query tile, b*h, key split): out
+// (bfloat16) and, TRAIN, out32 (float32) and the row logsumexp, or with
+// splits > 1 the partial (O, m, l) for mhsa_fwd_merge_kernel, as
+// mhsa_fwd_kernel<TRAIN>.  !TRAIN is the eval forward (route k2_bf16): no
+// keep hash, and out32, lse and seed are not touched (may be null).
+template <bool TRAIN>
 __global__ void __launch_bounds__(WS_THREADS, FWDB_MINB)
 mhsa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const int* __restrict__ kv_len,
@@ -1302,7 +1307,7 @@ mhsa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     }
 
     const int tid = threadIdx.x, g = lane >> 2, t = lane & 3;
-    const bool drop = d.t24 != 0u;
+    const bool drop = TRAIN && d.t24 != 0u;
     const unsigned seed_term = drop ? (unsigned)seed[0] * 0x9E3779B9u : 0u;
     Ring r{0, 0u};
     unsigned fph = 0;
@@ -1315,8 +1320,10 @@ mhsa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         const int n_tiles = (L + BT - 1) / BT;
         if (L == 0 && splits == 1) {  // no valid key: zeros, lse = -inf
             zero_rows_bf16(out, base, frame, q0, T, tid);
-            zero_rows(out32, base, frame, q0, T, tid);
-            if (tid < BT && q0 + tid < T) lse[(long long)x.bh * T + q0 + tid] = -INFINITY;
+            if (TRAIN) {
+                zero_rows(out32, base, frame, q0, T, tid);
+                if (tid < BT && q0 + tid < T) lse[(long long)x.bh * T + q0 + tid] = -INFINITY;
+            }
             continue;
         }
         if (x.split >= n_tiles) continue;  // no key tile for this split
@@ -1412,8 +1419,9 @@ mhsa_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
             for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) o[nt][e] *= inv[e >> 1];
-            store_rows_bf16(out, out32, o, base, frame, q0 + warp * 16, T, lane);
-            if (t == 0) {
+            store_rows_bf16(out, TRAIN ? out32 : nullptr, o, base, frame, q0 + warp * 16, T,
+                            lane);
+            if (TRAIN && t == 0) {
 #pragma unroll
                 for (int u = 0; u < 2; ++u)
                     if (row[u] < T) lse[(long long)x.bh * T + row[u]] = (m[u] + log2f(l[u])) * LN2;
@@ -1903,6 +1911,7 @@ int ws_grid(K kernel, size_t smem, long long n_work) {
     return (int)(n_work < slots ? n_work : slots);
 }
 
+template <bool TRAIN>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_len,
                     const void* seed, void* out, void* out32, void* lse, void* scratch, int B,
                     int T, int H, int splits, Drop d, void* stream) {
@@ -1914,7 +1923,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_
     if (int rc = head_map(&mk, k, B, T, H)) return rc;
     if (int rc = head_map(&mv, v, B, T, H)) return rc;
     const long long n_work = (long long)((T + BT - 1) / BT) * B * H * splits;
-    const int grid = ws_grid(mhsa_fwd_bf16_kernel, FWDB_SMEM, n_work);
+    const int grid = ws_grid(mhsa_fwd_bf16_kernel<TRAIN>, FWDB_SMEM, n_work);
     if (grid < 0) return -grid;
     const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
     cudaStream_t st = (cudaStream_t)stream;
@@ -1923,7 +1932,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_
     float* part = static_cast<float*>(scratch);
     float* pm = splits > 1 ? part + splits * n_out : nullptr;
     float* pl = splits > 1 ? pm + splits * n_stat : nullptr;
-    mhsa_fwd_bf16_kernel<<<grid, WS_THREADS, FWDB_SMEM, st>>>(
+    mhsa_fwd_bf16_kernel<TRAIN><<<grid, WS_THREADS, FWDB_SMEM, st>>>(
         mq, mk, mv, static_cast<const int*>(kv_len), static_cast<const int*>(seed),
         static_cast<bf16*>(out), static_cast<float*>(out32), static_cast<float*>(lse), part, pm,
         pl, B, T, H, splits, scale_log2, d);
@@ -1934,7 +1943,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_
                                 MERGE_THREADS, 0, st>>>(
             part, pm, pl, static_cast<const int*>(kv_len), static_cast<float*>(out32),
             static_cast<bf16*>(out), static_cast<float*>(lse), B, T, H, splits,
-            d.t24 != 0u ? d.kscale : 1.0f);
+            TRAIN && d.t24 != 0u ? d.kscale : 1.0f);
     }
     return (int)cudaGetLastError();
 }
@@ -1973,9 +1982,10 @@ extern "C" int adyolo_mhsa_fwd_splits(int B, int T, int H) {
     return fwd_splits(mhsa_fwd_kernel<true>, FWD_SMEM, THREADS, B, T, H);
 }
 
-// The same for the bfloat16 train forward.
+// The same for the bfloat16 forwards (train and eval: one shared-memory
+// size and launch bound, so one occupancy).
 extern "C" int adyolo_mhsa_fwd_bf16_splits(int B, int T, int H) {
-    return fwd_splits(mhsa_fwd_bf16_kernel, FWDB_SMEM, WS_THREADS, B, T, H);
+    return fwd_splits(mhsa_fwd_bf16_kernel<true>, FWDB_SMEM, WS_THREADS, B, T, H);
 }
 
 // Floats of the scratch a forward in `splits` > 1 key splits needs.
@@ -2054,8 +2064,18 @@ extern "C" int adyolo_mhsa_fwd_train_bf16(const void* q, const void* k, const vo
     }
     Drop d = make_drop(thresh, bq, tp);
     d.nq = T / bq;
-    return launch_fwd_bf16(q, k, v, kv_len, seed, out, out32, lse, scratch, B, T, H, splits,
-                           d, stream);
+    return launch_fwd_bf16<true>(q, k, v, kv_len, seed, out, out32, lse, scratch, B, T, H,
+                                 splits, d, stream);
+}
+
+// bf16 eval forward (K2 at rate 0 on bfloat16 q/k/v, route k2_bf16): out
+// (bfloat16) only, any T; no hash arguments, no lse.
+extern "C" int adyolo_mhsa_fwd_bf16(const void* q, const void* k, const void* v,
+                                    const void* kv_len, void* out, void* scratch, int B, int T,
+                                    int H, int dh, int splits, void* stream) {
+    if (int rc = check_shape(B, T, H, dh)) return rc;
+    return launch_fwd_bf16<false>(q, k, v, kv_len, nullptr, out, nullptr, nullptr, scratch, B,
+                                  T, H, splits, make_drop(0, 1, 128), stream);
 }
 
 // bf16 backward (K3 on bfloat16 q/k/v/dO): dq (and D into `delta`, from

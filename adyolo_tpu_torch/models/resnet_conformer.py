@@ -13,9 +13,12 @@
 
 Every MHSA goes through :func:`adyolo_tpu_torch.ops.hopper_attention.
 flash_attention`: the hand-written Hopper kernels on CUDA (eval routes
-``k2`` for T <= 2400 frames and ``k4`` above; in training the forward with
-dropout ``k2_dropout`` and the backward ``k3``, or ``k2_dropout_bf16`` and
+``k2`` for T <= 2400 frames and ``k4`` above, ``k2_bf16`` on bfloat16
+q/k/v in bf16 serving; in training the forward with dropout
+``k2_dropout`` and the backward ``k3``, or ``k2_dropout_bf16`` and
 ``k3_bf16`` on bfloat16 q/k/v), the plain PyTorch attention on the CPU.
+The eval forward is the custom op ``adyolo::mhsa_eval``, so a traced
+serving program (:mod:`adyolo_tpu_torch.engine.export`) runs it too.
 The JAX package's packed convolutions, ``force_flash`` and its
 ``ADYOLO_*`` switches are TPU-only and not ported.
 
@@ -28,9 +31,9 @@ Training chunks must be T <= 2400 frames, as in the JAX package, whose
 longer chunks would take the XLA attention; the attention raises on longer
 ones.  An eval forward takes its route by length, not by the grad mode.
 
-``dtype`` (the compute dtype, bfloat16 in bf16 training) casts the stem's
-input, so the stem, the ResNet stages, the bottleneck and every conformer
-block run in it (LayerNorms normalise in float32 and return it; the
+``dtype`` (the compute dtype, bfloat16 in bf16 training and serving)
+casts the stem's input, so the stem, the ResNet stages, the bottleneck and
+every conformer block run in it (LayerNorms normalise in float32 and return it; the
 attention scores and softmax are float32 inside the attention); the
 encoder output is cast back to float32 before the time pooling and
 ``pool_norm`` (``resnet_conformer.py:375-432``).

@@ -9,9 +9,9 @@
 * 2-layer BiGRU (128 per direction, dropout 0.3 between the layers in
   training) on ``feat_lengths // 4`` valid frames, then LayerNorm + tanh
 
-``dtype`` (the compute dtype, bfloat16 in bf16 training) casts the input of
-the stem, so the conv stack, its BatchNorm applies and the SE layers run in
-it; the attention pooling, the BiGRU and the LayerNorm run in float32
+``dtype`` (the compute dtype, bfloat16 in bf16 training and serving)
+casts the input of the stem, so the conv stack, its BatchNorm applies and
+the SE layers run in it; the attention pooling, the BiGRU and the LayerNorm run in float32
 (``seresnet34.py:70-110``).  The JAX package's packed stages are TPU
 layouts of the same math and are not ported.
 

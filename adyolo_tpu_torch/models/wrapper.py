@@ -4,7 +4,8 @@
 Both encoders are ported, SE-ResNet34 and ResNet-Conformer, each with the
 head its loss names (SED-DOA for ``seddoa`` and ``masked-seddoa``, ACCDOA,
 ADPIT, AD-YOLO; ``adyolo_tpu/models/wrapper.py:59-70``), for serving and
-for training in float32 or bfloat16.
+for training in float32 or bfloat16 (bf16 serving: ``build_model(...,
+serve_dtype="bfloat16")``).
 """
 from __future__ import annotations
 
@@ -40,9 +41,13 @@ class SELDModel(nn.Module):
     training.
 
     ``compute_dtype`` (None or ``torch.bfloat16``) is the encoder's compute
-    dtype in training mode only: an eval-mode forward computes in its
-    input's dtype, so val, test and serving run float32 on the same
-    float32 weights, as the JAX package's eval model does.  ``remat``
+    dtype in training mode, ``serve_dtype`` its compute dtype in eval mode
+    (None: the input's, float32 for val, test and infer; bfloat16 for bf16
+    serving, JAX's ``build_model(cfg, compute_dtype=serve_dtype)``).  The
+    weights stay float32, and the encoders' tails (SE-ResNet34's attention
+    pooling, BiGRU and LayerNorm; the conformer's time pooling and
+    ``pool_norm``) and the head run in float32, so the logits are float32
+    either way.  ``remat``
     checkpoints the conformer's blocks; SE-ResNet34 has none to checkpoint
     and ignores it, as in JAX (``wrapper.py:48-55``)."""
 
@@ -52,7 +57,8 @@ class SELDModel(nn.Module):
                  nb_anchors: int = 5, in_channels: int = 7,
                  enc_out_dim: int = 256,
                  compute_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False):
+                 remat: bool = False,
+                 serve_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if encoder not in ENCODERS:
             raise NotImplementedError(f"encoder: {encoder!r}")
@@ -70,11 +76,12 @@ class SELDModel(nn.Module):
         else:
             raise NotImplementedError(f"loss: {loss!r}")
         self.compute_dtype = compute_dtype
+        self.serve_dtype = serve_dtype
 
     def forward(self, feat: torch.Tensor,
                 feat_lengths: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        dtype = self.compute_dtype if self.training else None
+        dtype = self.compute_dtype if self.training else self.serve_dtype
         return self.head(self.encoder(feat, feat_lengths, generator, dtype))
 
 
@@ -144,22 +151,24 @@ def make_criterion(cfg: Config) -> Callable:
 
 def build_model(cfg: Config, device="cuda",
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> SELDModel:
+                train: bool = False, serve_dtype: str = "float32") -> SELDModel:
     """The model for ``cfg`` on ``device``, in eval mode or, with
     ``train``, in training mode, with the config's training compute dtype
-    (``cfg.train.compute_dtype``) and ``cfg.train.remat``.  With
-    ``generator`` the weights are a seeded random init (drawn on the CPU);
-    otherwise they are to be loaded (:mod:`adyolo_tpu_torch.convert`)."""
-    if cfg.train.compute_dtype not in DTYPES:
-        raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
-                         f"{sorted(DTYPES)}")
+    (``cfg.train.compute_dtype``), ``cfg.train.remat`` and the eval compute
+    dtype ``serve_dtype`` ('float32' or 'bfloat16').  With ``generator``
+    the weights are a seeded random init (drawn on the CPU); otherwise they
+    are to be loaded (:mod:`adyolo_tpu_torch.convert`)."""
+    for what, name in (("compute_dtype", cfg.train.compute_dtype),
+                       ("serve_dtype", serve_dtype)):
+        if name not in DTYPES:
+            raise ValueError(f"{what} {name!r}: one of {sorted(DTYPES)}")
     model = SELDModel(encoder=cfg.args.encoder, loss=cfg.args.loss,
                       nb_classes=cfg.data.nb_classes,
                       grid_size=tuple(cfg.train.grid_size),
                       nb_anchors=cfg.train.nb_anchors,
                       in_channels=cfg.data.nb_feature_channels,
                       compute_dtype=DTYPES[cfg.train.compute_dtype],
-                      remat=cfg.train.remat)
+                      remat=cfg.train.remat, serve_dtype=DTYPES[serve_dtype])
     if generator is not None:
         init_params(model, generator)
     return model.to(device).train(train)

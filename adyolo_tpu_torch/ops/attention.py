@@ -28,13 +28,19 @@ with the Hopper kernels.
 bfloat16 q/k/v (bf16 training) take the JAX kernels' rounding points
 (``flash_mhsa.py:101-104``, ``:129-146``): scores, softmax and every
 product's sums in float32; the dropped and scaled probabilities rounded to
-bfloat16 before P·V; the output rounded to bfloat16.  Backward: ``dpd``
+bfloat16 before P·V; the output rounded to bfloat16.  At rate 0 these are
+also the rounding points of JAX's XLA attention on bfloat16 q/k/v
+(``adyolo_tpu/models/resnet_conformer.py:230-246``: f32 scores from bf16
+q and k, f32 softmax, probabilities rounded to bf16, P·V of bf16
+operands), the path of JAX's bf16 serving artifact: this is the port's
+plain bf16 eval attention (the CPU kernel of ``adyolo::mhsa_eval``).  Backward: ``dpd``
 and ``rowsum(dp∘p)`` in float32, ``ds·scale`` and ``pd`` rounded to
 bfloat16, ``dq``, ``dk`` and ``dv`` summed in float32 and rounded to
 bfloat16.  float32 and float64 inputs round nowhere.
 
 On a CUDA device the model does not run this module: it goes through
-:func:`adyolo_tpu_torch.ops.hopper_attention.flash_attention`.
+:func:`adyolo_tpu_torch.ops.hopper_attention.flash_attention` (the eval
+forward through the op ``adyolo::mhsa_eval``, :mod:`.library`).
 """
 from __future__ import annotations
 

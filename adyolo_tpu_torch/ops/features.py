@@ -25,6 +25,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..config import DataConfig
 from . import hopper_stft
@@ -133,8 +134,8 @@ def _gcc_phat_mel(re, im, lag_c, lag_s):
     return out.transpose(2, 3)  # (B, T, n_lags, P)
 
 
-class FeatureFrontend:
-    """``__call__(audio, valid_frames=None) -> (B, T, mel_bins, C_feat)``:
+class FeatureFrontend(nn.Module):
+    """``forward(audio, valid_frames=None) -> (B, T, mel_bins, C_feat)``:
     C_feat = 7 for FOA (4 log-mel + 3 IV), 10 for MIC (4 log-mel + 6
     GCC-PHAT pairs).
 
@@ -142,10 +143,17 @@ class FeatureFrontend:
     loaders' layout) or flat ``(B, N, 4)``, on ``device``.
     ``valid_frames``: optional (B,) count of valid STFT frames of bucketed
     clips; padded frames are zeroed and left out of the dB peak.
+
+    A module without parameters: its constants (K1's twiddle-and-window
+    table ``fft_table``, the mel matrix ``mel_t``, the scaler stats and,
+    for MIC, the lag matrices ``lag_c`` / ``lag_s``) are buffers, so a
+    traced serving program (:mod:`adyolo_tpu_torch.engine.export`) carries
+    them.  ``device`` is where they are built.
     """
 
     def __init__(self, data_cfg: DataConfig, scaler: Optional[Scaler] = None,
                  device="cuda"):
+        super().__init__()
         if data_cfg.audio_format not in ("foa", "mic"):
             raise ValueError(f"audio_format={data_cfg.audio_format!r}: 'foa' or 'mic'")
         if 2 * data_cfg.hop_length != data_cfg.n_fft:
@@ -156,15 +164,16 @@ class FeatureFrontend:
         self.cfg = data_cfg
         self.device = torch.device(device)
         w = analysis_window(data_cfg.window, data_cfg.win_length, data_cfg.n_fft)
-        self.fft = hopper_stft.fft_plan(w, self.device)  # twiddles + window
+        self.register_buffer("fft_table",  # twiddles + window
+                             hopper_stft.fft_plan(w, self.device).table)
         mel = mel_filterbank(data_cfg.sr, data_cfg.n_fft, data_cfg.mel_bins)
-        self.mel_t = torch.as_tensor(np.ascontiguousarray(mel.T),
-                                     device=self.device)  # (K, mel_bins)
+        self.register_buffer("mel_t", torch.as_tensor(
+            np.ascontiguousarray(mel.T), device=self.device))  # (K, mel_bins)
         self.n_aux_channels = data_cfg.nb_feature_channels - 4  # IV 3 / GCC 6
         if data_cfg.audio_format == "mic":
-            self.lag_c, self.lag_s = (
-                torch.as_tensor(a, device=self.device)  # (K, n_lags)
-                for a in irfft_lag_matrices(data_cfg.n_fft, data_cfg.mel_bins))
+            for name, a in zip(("lag_c", "lag_s"),
+                               irfft_lag_matrices(data_cfg.n_fft, data_cfg.mel_bins)):
+                self.register_buffer(name, torch.as_tensor(a, device=self.device))
         if scaler is None:
             scaler = identity_scaler(data_cfg.mel_bins, n_aux_ch=self.n_aux_channels)
         if scaler.aux_mean.shape[-1] != self.n_aux_channels:
@@ -172,10 +181,15 @@ class FeatureFrontend:
                 f"the scaler's auxiliary stats have {scaler.aux_mean.shape[-1]} "
                 f"channels but audio_format={data_cfg.audio_format!r} needs "
                 f"{self.n_aux_channels} (IV 3 / GCC 6): wrong scaler_wts.pkl?")
-        self.mel_mean, self.mel_std, self.aux_mean, self.aux_std = (
-            torch.as_tensor(a, device=self.device)
-            for a in (scaler.mel_mean, scaler.mel_std, scaler.aux_mean,
-                      scaler.aux_std))
+        for name in ("mel_mean", "mel_std", "aux_mean", "aux_std"):
+            self.register_buffer(name, torch.as_tensor(  # pickled stats may be strided
+                np.ascontiguousarray(getattr(scaler, name)), device=self.device))
+
+    @property
+    def fft(self) -> hopper_stft.FFTPlan:
+        """The :class:`~adyolo_tpu_torch.ops.hopper_stft.FFTPlan` over the
+        ``fft_table`` buffer."""
+        return hopper_stft.FFTPlan(self.fft_table)
 
     def stft(self, audio: torch.Tensor):
         return hopper_stft.stft_hop_blocks(audio, self.fft)
@@ -200,7 +214,7 @@ class FeatureFrontend:
             feat = feat * frame_mask[:, :, None, None]
         return feat
 
-    def __call__(self, audio: torch.Tensor, valid_frames=None) -> torch.Tensor:
+    def forward(self, audio: torch.Tensor, valid_frames=None) -> torch.Tensor:
         re, im = self.stft(audio)
         return self.features_from_stft(re, im, valid_frames)
 

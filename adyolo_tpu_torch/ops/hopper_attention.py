@@ -1,12 +1,18 @@
 """Wrapper of the hand-written Hopper attention kernels (``csrc/attention.cu``).
 
 The kernels replace three TPU kernels of ``adyolo_tpu/ops/flash_mhsa.py``
-and are launched from six routes that are counted apart:
+and are launched from seven routes that are counted apart:
 
 * ``"k2"``: the eval forward for ``T <= attention.BLOCK_THRESHOLD`` (2400
   frames): K2, ``_fwd_kernel`` via ``_flash_fwd``, at dropout rate 0;
+* ``"k2_bf16"``: the same on bfloat16 q/k/v (bf16 serving), on the bf16
+  train forward's kernel built without dropout: bfloat16 products with
+  float32 sums, P rounded to bfloat16 before P·V, the output rounded to
+  bfloat16;
 * ``"k4"``: the eval forward for longer clips: K4, ``_long_kernel`` via
-  ``flash_mhsa_long``;
+  ``flash_mhsa_long``.  A bfloat16 eval call above 2400 frames (long-clip
+  bf16 serving) runs ``k4`` on float32 copies of q/k/v, its output rounded
+  to bfloat16, and is counted under ``k4``;
 * ``"k2_dropout"``: the train forward (K2 with its dropout branch), which
   also writes the row logsumexp for the backward;
 * ``"k3"``: the backward, K3, ``_bwd_kernel`` via ``_flash_bwd``;
@@ -22,23 +28,24 @@ autograd records it:
 * rate > 0: the train pair, ``k2_dropout`` forward and ``k3`` backward in
   one ``torch.autograd.Function``; ``T > BLOCK_THRESHOLD`` raises, as in
   the JAX package, whose longer training chunks would take the XLA path;
-* rate 0, ``T <= BLOCK_THRESHOLD``: ``k2``, or, when autograd records
-  the call, the train pair at rate 0, which has a backward (as JAX's
-  ``flash_mhsa`` custom VJP does at rate 0);
+* rate 0, ``T <= BLOCK_THRESHOLD``: ``k2`` (``k2_bf16``), or, when
+  autograd records the call, the train pair at rate 0, which has a
+  backward (as JAX's ``flash_mhsa`` custom VJP does at rate 0);
 * rate 0, ``T > BLOCK_THRESHOLD``: ``k4`` whatever the grad mode; when
   autograd records the call, inside a ``torch.autograd.Function`` whose
   backward raises: no kernel has a backward for K4 (the JAX package has
   none either).
 
-q/k/v are float32, or bfloat16 on the training pair only (a rate above 0,
-or autograd recording a call of at most 2400 frames): eval is float32, and
-a bfloat16 eval call raises on both devices.  The dtype picks the pair;
-nothing is cast.
+q/k/v are float32 or bfloat16.  The dtype picks the kernel; nothing is
+cast, but for bfloat16 ``k4``.
 
-Dispatch is by the tensor's device: a CPU tensor goes to the plain
+The eval forward (rate 0, autograd not recording) is the custom op
+``adyolo::mhsa_eval`` (:mod:`adyolo_tpu_torch.ops.library`; its CUDA kernel
+is :func:`eval_forward`), one op in an exported serving graph.  Dispatch
+is by the tensor's device: a CPU tensor goes to the plain
 :func:`adyolo_tpu_torch.ops.attention.mhsa_attention` (differentiable by
 autograd, except on the long eval route, which raises in its backward on
-both devices; bfloat16 through the written-out
+both devices; bfloat16 training through the written-out
 :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention_bwd`, K3's rounding);
 a CUDA tensor goes to the kernels, or the call raises.  There is no
 fallback from one to the other.
@@ -59,10 +66,10 @@ import torch
 from ..utils.build import load_library
 from . import attention
 
-__all__ = ["flash_attention", "route", "LAUNCHES"]
+__all__ = ["flash_attention", "eval_forward", "route", "LAUNCHES"]
 
 LAUNCHES = {"k2": 0, "k4": 0, "k2_dropout": 0, "k3": 0, "k2_dropout_bf16": 0,
-            "k3_bf16": 0}
+            "k3_bf16": 0, "k2_bf16": 0}
 
 _DH = 64  # the kernels' head dim
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -91,6 +98,7 @@ _SIGNATURES = {
     "adyolo_mhsa_fwd_bf16_splits": [_I] * 3,
     "adyolo_mhsa_fwd_scratch_floats": [_I] * 4,
     "adyolo_mhsa_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "adyolo_mhsa_fwd_bf16": [_P] * 6 + [_I] * 5 + [_P],
     "adyolo_mhsa_fwd_train": [_P] * 8 + [_I] * 8 + [_P],
     "adyolo_mhsa_fwd_train_bf16": [_P] * 9 + [_I] * 8 + [_P],
     "adyolo_mhsa_bwd": [_P] * 12 + [_I] * 7 + [_P],
@@ -170,16 +178,41 @@ def _fwd_plan(q):
     return splits, scratch.data_ptr(), scratch
 
 
-def _eval_forward(q, k, v, kv_len, rt):
-    """The eval kernel (routes ``k2``, ``k4``) on CUDA tensors."""
+def _eval_launch(q, k, v, kv_len, rt):
+    """One eval kernel launch on route ``rt`` (``k2``, ``k4`` on float32,
+    ``k2_bf16`` on bfloat16 q/k/v) on the current CUDA device."""
     B, T, H, dh = q.shape
     out = torch.empty_like(q)
     splits, ptr, _scratch = _fwd_plan(q)
     stream = torch.cuda.current_stream().cuda_stream
-    _launch("adyolo_mhsa_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), ptr, B, T, H, dh, splits, stream)
+    entry = "adyolo_mhsa_fwd_bf16" if q.dtype == torch.bfloat16 else "adyolo_mhsa_fwd"
+    _launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), ptr, B, T, H, dh, splits, stream)
     LAUNCHES[rt] += 1
     return out
+
+
+def eval_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The eval forward on CUDA q/k/v (the CUDA kernel of
+    ``adyolo::mhsa_eval``): float32 on ``k2`` (``T <= BLOCK_THRESHOLD``)
+    or ``k4``; bfloat16 on ``k2_bf16``, or above ``BLOCK_THRESHOLD`` on
+    ``k4`` over float32 copies of q/k/v with the output rounded to
+    bfloat16.  ``kv_len`` None: every key valid."""
+    B, T, H, dh = q.shape
+    if dh != _DH:
+        raise ValueError(f"the kernels take dh == {_DH}, got {dh}")
+    with torch.cuda.device(q.device):
+        if kv_len is None:
+            kv_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
+        kv_len = _int32_on(kv_len, q.device, "kv_len")
+        rt = route(T)
+        if q.dtype == torch.bfloat16:
+            if rt == "k4":
+                return _eval_launch(q.float(), k.float(), v.float(), kv_len,
+                                    rt).to(torch.bfloat16)
+            rt = "k2_bf16"
+        return _eval_launch(q, k, v, kv_len, rt)
 
 
 class _TrainAttention(torch.autograd.Function):
@@ -246,14 +279,12 @@ class _PlainBF16Attention(torch.autograd.Function):
 
 
 class _LongAttention(torch.autograd.Function):
-    """The long eval route: ``k4`` on CUDA, the plain attention on the CPU;
-    no backward on either device."""
+    """The long eval route under autograd: ``adyolo::mhsa_eval`` (``k4`` on
+    CUDA, the plain attention on the CPU); no backward on either device."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len):
-        if q.device.type == "cpu":
-            return attention.mhsa_attention(q, k, v, kv_len)
-        return _eval_forward(q, k, v, kv_len, "k4")
+        return torch.ops.adyolo.mhsa_eval(q, k, v, kv_len)
 
     @staticmethod
     def backward(ctx, dout):
@@ -271,9 +302,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``seed``: int32 tensor of one element); see
     :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention`.  ``rate > 0``
     picks the training route, which needs ``T <= BLOCK_THRESHOLD``; the
-    eval route above it has no backward.  float32, or bfloat16 on the
-    training route only.  On CUDA the kernels need ``dh == 64`` and int32
-    ``kv_len``/``seed`` on q's device."""
+    eval route above it has no backward.  float32 or bfloat16.  On CUDA
+    the kernels need ``dh == 64`` and int32 ``kv_len``/``seed`` on q's
+    device."""
     _check(q, k, v, kv_len)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
@@ -285,13 +316,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"training attention needs T <= "
                          f"{attention.BLOCK_THRESHOLD}, got T={T}")
     records = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
-    if q.dtype == torch.bfloat16 and (long or not (train or records)):
-        raise TypeError("bfloat16 attention runs only on the training route "
-                        f"(rate > 0 or a recorded call, T <= {attention.BLOCK_THRESHOLD}); "
-                        "eval is float32")
+    if not (train or records):
+        return torch.ops.adyolo.mhsa_eval(q, k, v, kv_len)
+    if long:
+        return _LongAttention.apply(q, k, v, kv_len)
     if q.device.type == "cpu":
-        if long and records:
-            return _LongAttention.apply(q, k, v, kv_len)
         if q.dtype == torch.bfloat16:
             return _PlainBF16Attention.apply(q, k, v, kv_len, seed, rate)
         return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed)
@@ -303,15 +332,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
     kv_len = _int32_on(kv_len, q.device, "kv_len")
     with torch.cuda.device(q.device):
-        if long:
-            if records:
-                return _LongAttention.apply(q, k, v, kv_len)
-            return _eval_forward(q, k, v, kv_len, "k4")
-        if train or records:
-            if seed is None:
-                if thresh > 0:
-                    raise ValueError("dropout needs a seed")
-                seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
-            seed = _int32_on(seed, q.device, "seed").reshape(1)
-            return _TrainAttention.apply(q, k, v, kv_len, seed, thresh)
-        return _eval_forward(q, k, v, kv_len, "k2")
+        if seed is None:
+            if thresh > 0:
+                raise ValueError("dropout needs a seed")
+            seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
+        seed = _int32_on(seed, q.device, "seed").reshape(1)
+        return _TrainAttention.apply(q, k, v, kv_len, seed, thresh)

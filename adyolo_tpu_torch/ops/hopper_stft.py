@@ -4,12 +4,15 @@ The kernel replaces the Pallas fused framed STFT
 (``adyolo_tpu/ops/pallas_stft.py::_pallas_stft_impl``) and, on the serving
 path, XLA's ``framed_dft_chunked``.  It is a mixed-radix FFT that reads
 its twiddles and window from the table of an :class:`FFTPlan`, built once
-on the host in float64 by :func:`fft_plan`.  Dispatch is by the tensor's
-device: a CPU tensor goes to the plain :func:`adyolo_tpu_torch.ops.stft.stft`
-(a contraction against the window-folded DFT matrices of the table's
-window, :func:`adyolo_tpu_torch.ops.stft.window_dft`);
-a CUDA tensor goes to the kernel, or the call raises.  There is no
-fallback from one to the other.
+on the host in float64 by :func:`fft_plan`.  :func:`stft_hop_blocks`
+checks its inputs and calls the custom op ``adyolo::stft``
+(:mod:`adyolo_tpu_torch.ops.library`), one op in an exported graph, which
+dispatches by the tensor's device: a CPU tensor goes to the plain
+:func:`adyolo_tpu_torch.ops.stft.stft` (a contraction against the
+window-folded DFT matrices of the table's window,
+:func:`adyolo_tpu_torch.ops.stft.window_dft`); a CUDA tensor goes to the
+kernel (:func:`launch`), or the call raises.  There is no fallback from
+one to the other.
 
 ``LAUNCHES`` counts kernel launches; it is bumped right after a launch is
 accepted, and nowhere else.
@@ -17,14 +20,15 @@ accepted, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..utils.build import load_library
-from . import stft as plain_stft
 
-__all__ = ["FFTPlan", "fft_plan", "radix_plan", "stft_hop_blocks", "LAUNCHES"]
+__all__ = ["FFTPlan", "fft_plan", "radix_plan", "stft_hop_blocks", "launch",
+           "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -60,19 +64,24 @@ def radix_plan(n_fft: int) -> tuple:
     return tuple(radices)
 
 
+@functools.lru_cache(maxsize=None)
+def _radices_c(n_fft: int):
+    radices = radix_plan(n_fft)
+    return (ctypes.c_int * len(radices))(*radices), len(radices)
+
+
 class FFTPlan:
     """What the kernel reads besides the audio (built by :func:`fft_plan`).
 
     ``table``: ``(3 * n_fft,)`` float32 on the device, the twiddles
     ``e^{-2 pi i m / n_fft}`` (``m < n_fft``) as (re, im) pairs, then the
-    window.  ``radices``: the pass order.
+    window.  ``radices``: the pass order (:func:`radix_plan` of ``n_fft``).
     """
 
-    def __init__(self, radices, table):
+    def __init__(self, table):
         self.n_fft = table.shape[0] // 3
-        self.radices = radices
+        self.radices = radix_plan(self.n_fft)
         self.table = table
-        self._radices_c = (ctypes.c_int * len(radices))(*radices)
 
 
 def fft_plan(window, device="cuda") -> FFTPlan:
@@ -85,11 +94,11 @@ def fft_plan(window, device="cuda") -> FFTPlan:
                          f"{window.shape}")
     if n > _MAX_N:
         raise ValueError(f"the kernel takes n_fft <= {_MAX_N}, got {n}")
-    radices = radix_plan(n)
+    radix_plan(n)  # raises for an n_fft the kernel cannot take
     tw = np.exp(-2j * np.pi * np.arange(n, dtype=np.float64) / n)
     table = np.concatenate([np.stack([tw.real, tw.imag], -1).ravel(),
                             window.astype(np.float64)])
-    return FFTPlan(radices, torch.as_tensor(table.astype(np.float32), device=device))
+    return FFTPlan(torch.as_tensor(table.astype(np.float32), device=device))
 
 
 def _check(x: torch.Tensor, plan: FFTPlan):
@@ -121,23 +130,35 @@ def stft_hop_blocks(x: torch.Tensor, plan: FFTPlan):
     """``(re, im)``, each ``(B, T, K, 4)`` float32 (``K = 1 + n_fft // 2``),
     of hop-block audio ``(B, T, hop, 4)`` or flat audio ``(B, N, 4)``
     (``T = N // hop``; the kernel reads the hop-block view of the first
-    ``T*hop`` samples), with ``hop = plan.n_fft // 2``."""
-    hop, T = _check(x, plan)
-    if x.device.type == "cpu":
-        window = plan.table[2 * plan.n_fft:]
-        return plain_stft.stft(x, *plain_stft.window_dft(window), hop)
-    if x.device.type != "cuda":
+    ``T*hop`` samples), with ``hop = plan.n_fft // 2``: the op
+    ``adyolo::stft``."""
+    _check(x, plan)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    return torch.ops.adyolo.stft(x, plan.table)
+
+
+def launch(x: torch.Tensor, table: torch.Tensor):
+    """The kernel on CUDA audio ``x`` and a plan's ``table`` (the CUDA
+    kernel of ``adyolo::stft``); the radix plan follows from the table's
+    length."""
+    if table.device != x.device:
+        raise ValueError(f"the plan's table must be on the audio's device, got "
+                         f"{table.device} for {x.device}")
     global LAUNCHES
+    n_fft = table.shape[0] // 3
+    hop = n_fft // 2
     B = x.shape[0]
+    T = x.shape[1] if x.ndim == 4 else x.shape[1] // hop
     clip_stride = T * hop if x.ndim == 4 else x.shape[1]  # in float4 units
+    radices, n_passes = _radices_c(n_fft)
     fn = _entry()
     with torch.cuda.device(x.device):
         re = torch.empty((B, T, hop + 1, _C), device=x.device, dtype=torch.float32)
         im = torch.empty_like(re)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), clip_stride, B, T, hop, plan.table.data_ptr(),
-                plan._radices_c, len(plan.radices), re.data_ptr(), im.data_ptr(), stream)
+        rc = fn(x.data_ptr(), clip_stride, B, T, hop, table.data_ptr(),
+                radices, n_passes, re.data_ptr(), im.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"STFT kernel launch refused: cudaError {rc}")
     LAUNCHES += 1

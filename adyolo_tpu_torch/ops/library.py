@@ -1,0 +1,79 @@
+"""The eval paths of the Hopper kernels as custom operators
+(``torch.library.custom_op``), one op each in a traced graph.
+
+* ``adyolo::stft(x, table) -> (re, im)``: K1, the windowed DFT of
+  hop-block ``(B, T, hop, 4)`` or flat ``(B, N, 4)`` float32 audio with the
+  twiddle-and-window ``table`` of an :class:`~adyolo_tpu_torch.ops.
+  hopper_stft.FFTPlan` (``3 * n_fft`` floats, ``hop = n_fft // 2``); re
+  and im ``(B, T, hop + 1, 4)`` float32, ``T = N // hop`` for flat audio.
+* ``adyolo::mhsa_eval(q, k, v, kv_len) -> out``: the eval attention of
+  ``(B, T, H, 64)`` float32 or bfloat16 q/k/v with the first ``kv_len[b]``
+  keys valid (``kv_len`` None: all), on routes ``k2``, ``k4`` and
+  ``k2_bf16`` (:func:`~adyolo_tpu_torch.ops.hopper_attention.eval_forward`);
+  out has q's shape and dtype.
+
+Each op dispatches by its tensors' device: on CUDA it launches the
+hand-written kernel, through the ctypes launch of
+:mod:`~adyolo_tpu_torch.ops.hopper_stft` or
+:mod:`~adyolo_tpu_torch.ops.hopper_attention`, whose ``LAUNCHES`` count
+it; on the CPU it runs the plain version
+(:func:`adyolo_tpu_torch.ops.stft.stft`,
+:func:`adyolo_tpu_torch.ops.attention.mhsa_attention`); other devices
+have no kernel.  A fake kernel gives the output shapes and dtypes for
+tracing, so a traced program (``torch.export``) holds one call of each op
+whose body is opaque: the serving artifact of
+:mod:`adyolo_tpu_torch.engine.export` runs the Hopper kernels on the card
+and the plain versions on the CPU.  A process that loads such an artifact
+must import this module first (``import adyolo_tpu_torch.ops`` does).
+
+The ops have no autograd formula: the wrappers call them on eval paths
+only, where autograd does not record.  Their arguments are tensors: the
+kernels' host-side plans (the FFT's radix passes, the attention's key
+splits) are looked up inside the CUDA kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import attention, hopper_attention, hopper_stft
+from . import stft as plain_stft
+
+__all__ = ["stft", "mhsa_eval"]
+
+
+@torch.library.custom_op("adyolo::stft", mutates_args=(), device_types="cpu")
+def stft(x: torch.Tensor, table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    n_fft = table.shape[0] // 3
+    return plain_stft.stft(x, *plain_stft.window_dft(table[2 * n_fft:]), n_fft // 2)
+
+
+@stft.register_kernel("cuda")
+def _stft_cuda(x, table):
+    return hopper_stft.launch(x, table)
+
+
+@stft.register_fake
+def _stft_fake(x, table):
+    hop = table.shape[0] // 3 // 2
+    T = x.shape[1] if x.ndim == 4 else x.shape[1] // hop
+    shape = (x.shape[0], T, hop + 1, x.shape[-1])
+    return x.new_empty(shape), x.new_empty(shape)
+
+
+@torch.library.custom_op("adyolo::mhsa_eval", mutates_args=(), device_types="cpu")
+def mhsa_eval(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    # contiguous, as the kernels write it (the einsum's layout is (B, H, T, dh))
+    return attention.mhsa_attention(q, k, v, kv_len).contiguous()
+
+
+@mhsa_eval.register_kernel("cuda")
+def _mhsa_eval_cuda(q, k, v, kv_len):
+    return hopper_attention.eval_forward(q, k, v, kv_len)
+
+
+@mhsa_eval.register_fake
+def _mhsa_eval_fake(q, k, v, kv_len):
+    return torch.empty_like(q)

@@ -136,12 +136,39 @@ what it holds), and:
               and k2_dropout / k3 8 times each, per eval clip k2 or k4 8
               times.
 
-Phases 3-5 also read each kernel's and library call's device time a
-call from ``torch.profiler`` (``utils/profiling.py::profile_calls``).
+After the serve phases (8, 9), the export slice:
+
+14. attn_eval_bf16_kernel -- route k2_bf16 (bf16 serving's attention,
+              the bf16 forward kernel without dropout) against the plain
+              bf16 attention at (16, 800) all keys valid and ragged with a
+              kv_len = 0 row, (1, 800) (key splits and the merge), (1,
+              2400) len 1400, and a bf16 eval call at (1, 4800) len 3000
+              (k4 on float32 copies): each measured against float64, the
+              kernel's error at most 2x the plain version's + 2^-9 x max;
+              timed at (16, 800) and (1, 800) beside SDPA bf16 (single
+              calls and the profiler's device time a call).
+15. export -- ``cli.main(["export", ...])`` for SE-ResNet34 and
+              ResNet-Conformer in float32 and bf16 (B=1 x 20 s) on
+              experiment dirs written with ``save_jax_checkpoint``;
+              ``export_model`` of the conformer at B=16 x 20 s and B=1 x
+              120 s (route k4) in both dtypes; SE-ResNet34 traced on the
+              CPU and served on the card.  One served call of each through
+              ``load_exported`` with the plain STFT and attention patched
+              to raise (the path ``export``): per call K1 once and, for the
+              conformer, k2 / k2_bf16 / k4 8 times; f32 outputs within
+              1e-5 x max of the live eval forward, bf16 within JAX's gates
+              (max < 0.1, mean < 0.01) of the f32 live forward; served
+              against live: B=1 p50 latency, B=16 audio-s/s.
+
+Phases 3-5 and 14 also read each kernel's and library call's device time
+a call from ``torch.profiler`` (``utils/profiling.py::profile_calls``),
+or from CUDA events where the profiler records no device event in three
+attempts (the rows' ``device_ms_source``).
 Then one line ``{"kernels": [...]}`` (``launches`` counted over each
 kernel's main path, phase train_cli, or train_conformer_bf16 for the bf16
-routes, with every path's count beside it in ``launches_by_path``), the
-card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+training routes and export for k2_bf16, with every path's count beside it
+in ``launches_by_path``), the card's nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package ``adyolo_tpu`` is imported.
 """
 import contextlib
@@ -179,6 +206,7 @@ from adyolo_tpu_torch.engine import evaluate as evaluate_mod  # noqa: E402
 from adyolo_tpu_torch.engine import train as train_mod  # noqa: E402
 from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa: E402
                                               make_frontend)
+from adyolo_tpu_torch.engine.export import export_model, load_exported  # noqa: E402
 from adyolo_tpu_torch.metrics.seld import SegmentScorer  # noqa: E402
 from adyolo_tpu_torch.models import resnet_conformer  # noqa: E402
 from adyolo_tpu_torch.models.wrapper import (build_model, make_criterion,  # noqa: E402
@@ -190,7 +218,7 @@ from adyolo_tpu_torch.ops.dsp import analysis_window, dft_matrices  # noqa: E402
 from adyolo_tpu_torch.ops.features import FeatureFrontend  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
-from adyolo_tpu_torch.utils.profiling import profile_calls  # noqa: E402
+from adyolo_tpu_torch.utils.profiling import group_ms, profile_calls  # noqa: E402
 
 HOP = 600
 KERNEL_TOL = 2e-5
@@ -338,7 +366,8 @@ def ptxas_kernels(log):
             name = next(k for k in ("stft_hop_blocks_fft_kernel", "mhsa_fwd_kernelILb1",
                                     "mhsa_fwd_kernelILb0", "mhsa_fwd_merge_kernel",
                                     "mhsa_bwd_dq_kernel", "mhsa_bwd_dkdv_kernel",
-                                    "mhsa_fwd_bf16_kernel", "mhsa_bwd_dq_bf16_kernel",
+                                    "mhsa_fwd_bf16_kernelILb1", "mhsa_fwd_bf16_kernelILb0",
+                                    "mhsa_bwd_dq_bf16_kernel",
                                     "mhsa_bwd_dkdv_bf16_kernel", mangled)
                         if k in mangled)
             name = name.replace("ILb1", "<true>").replace("ILb0", "<false>")
@@ -364,7 +393,8 @@ def phase_build():
            "mhsa_fwd_merge_kernel": 0,
            "mhsa_bwd_dq_kernel": lib.adyolo_mhsa_smem_bytes(1),
            "mhsa_bwd_dkdv_kernel": lib.adyolo_mhsa_smem_bytes(2),
-           "mhsa_fwd_bf16_kernel": lib.adyolo_mhsa_smem_bytes(3),
+           "mhsa_fwd_bf16_kernel<true>": lib.adyolo_mhsa_smem_bytes(3),
+           "mhsa_fwd_bf16_kernel<false>": lib.adyolo_mhsa_smem_bytes(3),
            "mhsa_bwd_dq_bf16_kernel": lib.adyolo_mhsa_smem_bytes(4),
            "mhsa_bwd_dkdv_bf16_kernel": lib.adyolo_mhsa_smem_bytes(5)}
     for name, n in dyn.items():
@@ -453,8 +483,9 @@ def phase_kernel(smi, fe, dft):
             dev_k = profile_calls(lambda _: hopper_stft.stft_hop_blocks(x, fe.fft), 10)
             dev_l = profile_calls(lambda _: library(), 10)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
-                        "device_ms": dev_k["ms_per_step"]["K1 STFT"],
+                        "device_ms": group_ms(dev_k, "K1 STFT"),
                         "library_device_ms": dev_l["busy_ms_per_step"],
+                        "device_ms_source": [dev_k["source"], dev_l["source"]],
                         "library_ms": float(np.median(l_ms)), "library": "torch.stft",
                         "library_max_abs_err": lib_err, **bound(fft_flop, nbytes),
                         "runs": len(k_ms), "gb_s": nbytes / (np.median(k_ms) * 1e-3) / 1e9,
@@ -544,8 +575,9 @@ def phase_attn_kernel(smi):
                 lambda _: hopper_attention.flash_attention(q, k, v, kv), 10)
             dev_l = profile_calls(lambda _: library(), 10)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
-                        "device_ms": dev_k["ms_per_step"]["attention fwd"],
+                        "device_ms": group_ms(dev_k, "attention fwd"),
                         "library_device_ms": dev_l["busy_ms_per_step"],
+                        "device_ms_source": [dev_k["source"], dev_l["source"]],
                         "library_ms": float(np.median(l_ms)),
                         "library": "F.scaled_dot_product_attention",
                         "library_max_abs_err": lib_err,
@@ -697,9 +729,10 @@ def phase_attn_train_kernel(smi):
             prof = {n: profile_calls(lambda _, f=fns[n]: f(), 10)
                     for n in ("kernel_fwd", "kernel_bwd", "library_fwd", "library_bwd")}
             dev = {n: p["busy_ms_per_step"] if n.startswith("library") else
-                   p["ms_per_step"]["attention fwd"] + p["ms_per_step"]["attention bwd"]
+                   group_ms(p, "attention fwd", "attention bwd")
                    for n, p in prof.items()}
-            row.update(ms=ms, runs=30, device_ms=dev, card=smi)
+            row.update(ms=ms, runs=30, device_ms=dev, card=smi,
+                       device_ms_source={n: p["source"] for n, p in prof.items()})
             fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
             res["k2_dropout"].update(
                 ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"], library_ms=ms["library_fwd"],
@@ -833,7 +866,7 @@ def phase_attn_train_bf16_kernel(smi):
             prof = {n: profile_calls(lambda _, f=fns[n]: f(), 10)
                     for n in ("kernel_fwd", "kernel_bwd", "library_fwd", "library_bwd")}
             dev = {n: p["busy_ms_per_step"] if n.startswith("library") else
-                   p["ms_per_step"]["attention fwd"] + p["ms_per_step"]["attention bwd"]
+                   group_ms(p, "attention fwd", "attention bwd")
                    for n, p in prof.items()}
             elems = H * T * float(np.sum(lens))  # (query, key) pairs a pass
             floors = {p: {"floor_exp2_ms": p * elems / MUFU_EX2_S * 1e3,
@@ -855,6 +888,7 @@ def phase_attn_train_bf16_kernel(smi):
                        bound_bwd_ms=res["k3_bf16"]["bound_ms"],
                        device_ms=dev, device_ms_by_group={n: p["ms_per_step"]
                                                           for n, p in prof.items()},
+                       device_ms_source={n: p["source"] for n, p in prof.items()},
                        floors_ms={"fwd": floors[1], "bwd": floors[2],
                                   "assumed_per_sm_clock": {"ex2": 16, "int32": 64,
                                                            "ghz": 1.83}}, card=smi)
@@ -1129,6 +1163,308 @@ def phase_serve_conformer(smi, cfg, fe, model, tau, tmp):
             f"serve_conformer: attention routes launched {n}, want k2 >= 16, k4 >= 8")
     emit({"phase": "serve_conformer", **row, "card": smi})
     return n
+
+
+# ---------------------------------------------------------------------------
+# export: the serving artifact and its bf16 eval attention (route k2_bf16)
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = 1e-5  # a served f32 output vs the live eval forward, x max|live|
+BF16_SERVE_MAX = 0.1  # JAX's bf16 gates against the f32 live forward (tests/test_export.py)
+BF16_SERVE_MEAN = 0.01
+LONG_SECS = 120  # a 4800-frame clip: the artifact's attention on route k4
+
+
+def phase_attn_eval_bf16_kernel(smi):
+    """Route k2_bf16 (the bf16 eval forward: the bf16 train forward's
+    kernel built without dropout) against the plain bf16 attention at
+    (16, 800) with all keys valid (timed) and with random kv_len, one row
+    at 0; (1, 800) (timed; key splits and the merge), (1, 2400) len 1400;
+    and a bf16 eval call at (1, 4800) len 3000, which runs k4 on float32
+    copies.  Kernel and plain version are each measured against float64 on
+    the same bf16 inputs: the kernel's max|error| at most BF16_RATIO x the
+    plain version's plus BF16_HALF_STEP x max|truth|; a kv_len = 0 row is
+    zeros.  Timed: single calls (``ms``) and the profiler's device time a
+    call (``device_ms``), each beside SDPA's on the same bf16 inputs."""
+    rng = np.random.default_rng(9)
+    H = 4
+    lens_r = rng.integers(1, 800 + 1, 16)
+    lens_r[5] = 0
+    res = {"max_abs_err": 0.0}
+    cases = (("full", 16, 800, [800] * 16, "k2_bf16", True),
+             ("ragged", 16, 800, lens_r, "k2_bf16", False),
+             ("b1", 1, 800, [800], "k2_bf16", True),
+             ("b1_len", 1, 2400, [1400], "k2_bf16", False),
+             ("long", 1, 4800, [3000], "k4", False))
+    for tag, B, T, lens, rt, timed in cases:
+        q, k, v = (torch.tensor(rng.standard_normal((B, T, H, 64)), dtype=torch.float32,
+                                device="cuda").bfloat16() for _ in range(3))
+        kv = torch.tensor(np.asarray(lens), dtype=torch.int32, device="cuda")
+        before = counts()
+        with torch.no_grad():
+            out = hopper_attention.flash_attention(q, k, v, kv)
+        torch.cuda.synchronize()
+        grown = {n: c - before[n] for n, c in counts().items()}
+        require(grown == {**{n: 0 for n in grown}, rt: 1},
+                f"attn_eval_bf16_kernel {tag}: launches {grown}, want {rt} once")
+        require(out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all()),
+                f"attn_eval_bf16_kernel {tag}: dtype {out.dtype} or not finite")
+        plain = attention.mhsa_attention(q, k, v, kv)
+        truth = attention.mhsa_attention(q.double(), k.double(), v.double(), kv)
+        rows = [b for b, n in enumerate(lens) if n > 0]
+        err = float((out.double()[rows] - truth[rows]).abs().max())
+        err_p = float((plain.double()[rows] - truth[rows]).abs().max())
+        scale = float(truth[rows].abs().max())
+        require(err <= BF16_RATIO * err_p + BF16_HALF_STEP * scale,
+                f"attn_eval_bf16_kernel {tag}: kernel err {err} > {BF16_RATIO} * plain "
+                f"err {err_p} + {BF16_HALF_STEP} * {scale}")
+        for b, n in enumerate(lens):
+            if n == 0:
+                require(bool((out[b] == 0).all()), f"attn_eval_bf16_kernel {tag}: "
+                        "kv_len 0 row not 0")
+        if rt == "k2_bf16":
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+        row = {"phase": "attn_eval_bf16_kernel", "case": tag, "route": rt,
+               "shape": [B, T, H, 64], "kv_len": [int(n) for n in lens] if B == 1 else
+               {"min": int(min(lens)), "max": int(max(lens))}, "max_abs_err": err,
+               "plain_max_abs_err": err_p, "max_abs_truth": scale,
+               "tol": {"ratio": BF16_RATIO, "half_step": BF16_HALF_STEP}}
+        if timed:
+            library = sdpa(q, k, v, kv)
+            lib_err = float((library().transpose(1, 2).double() - plain.double()).abs().max())
+            require(lib_err <= BF16_LIBRARY_TOL * scale,
+                    f"SDPA bf16 is not the eval attention's function: {lib_err}")
+
+            def kernel():
+                with torch.no_grad():
+                    return hopper_attention.flash_attention(q, k, v, kv)
+
+            k_ms, p_ms, l_ms = [], [], []
+            for _ in range(3):
+                k_ms += cuda_ms(kernel, 10)
+                p_ms += cuda_ms(lambda: attention.mhsa_attention(q, k, v, kv), 10)
+                l_ms += cuda_ms(library, 10)
+            dev_k = profile_calls(lambda _: kernel(), 10)
+            dev_l = profile_calls(lambda _: library(), 10)
+            flop = attn_flop(H, T, lens)
+            row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
+                        "library_ms": float(np.median(l_ms)),
+                        "device_ms": group_ms(dev_k, "attention fwd"),
+                        "library_device_ms": dev_l["busy_ms_per_step"],
+                        "device_ms_source": [dev_k["source"], dev_l["source"]],
+                        "library": "F.scaled_dot_product_attention (bf16)",
+                        "library_max_abs_err": lib_err,
+                        **bf16_bound(flop, attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2,
+                                                      el=2)),
+                        "runs": len(k_ms), "card": smi})
+            if tag == "full":
+                res.update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by", "bound_units", "device_ms",
+                                                "library_device_ms")})
+        emit(row)
+        del q, k, v, out, plain, truth
+    return res
+
+
+@contextlib.contextmanager
+def plain_versions_raise():
+    """The plain STFT and the plain attention raise while the context is
+    open: a served call on the card must run the kernels only."""
+    saved = (plain_stft.stft, attention.mhsa_attention)
+
+    def refuse(*_, **__):
+        raise RuntimeError("a plain version ran on the export path")
+
+    plain_stft.stft = attention.mhsa_attention = refuse
+    try:
+        yield
+    finally:
+        plain_stft.stft, attention.mhsa_attention = saved
+
+
+def p50_ms(fn, n=20):
+    """Median host time (ms) of ``n`` calls of ``fn``, each to the end of
+    its device work, after two warm-ups: the latency of one request."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def live_forward(model, fe, dtype):
+    """The live eval forward with the encoder in ``dtype`` (the eval
+    compute dtype of ``build_model(..., serve_dtype=...)``)."""
+    fwd = build_eval_forward(model, fe)
+
+    def call(x):
+        prev = model.serve_dtype
+        model.serve_dtype = None if dtype == "float32" else torch.bfloat16
+        try:
+            return fwd(x)
+        finally:
+            model.serve_dtype = prev
+
+    return call
+
+
+def check_served(tag, served, live, dtype):
+    """A served output against the f32 live forward: f32 within SERVE_TOL
+    x max|live|; bf16 within JAX's gates (max and mean |error|)."""
+    require(served.dtype == torch.float32 and served.shape == live.shape,
+            f"export {tag}: served {served.dtype} {tuple(served.shape)} vs live "
+            f"{tuple(live.shape)}")
+    require(bool(torch.isfinite(served).all()), f"export {tag}: non-finite output")
+    d = (served - live).abs()
+    err, mean, scale = float(d.max()), float(d.mean()), float(live.abs().max())
+    if dtype == "float32":
+        require(err <= SERVE_TOL * scale,
+                f"export {tag}: served vs live {err} > {SERVE_TOL} * {scale}")
+    else:
+        require(err < BF16_SERVE_MAX and mean < BF16_SERVE_MEAN,
+                f"export {tag}: bf16 served vs f32 live max {err}, mean {mean}")
+    return {"max_abs_err": err, "mean_abs_err": mean, "max_abs_live": scale}
+
+
+def phase_export(smi, cfg, conf_cfg, fe, model, conformer, tau, conf_tau, tmp):
+    """The serving export: ``cli.main(["export", ...])`` on an SE-ResNet34
+    and a ResNet-Conformer experiment dir (JAX checkpoint format), each in
+    float32 and bfloat16 (B=1 x 20 s); ``export_model`` of the conformer
+    at B=16 x 20 s and B=1 x 120 s (4800 frames, route k4) in both
+    dtypes; and the SE-ResNet34 traced on the CPU, loaded onto the card.
+    The main path: one served call of every artifact through
+    ``load_exported``, with the launch counts set to 0 just before and read
+    just after, the plain STFT and attention patched to raise.  Checked
+    per served call: K1 once; for the conformer 8 launches of k2 (f32),
+    k2_bf16 (bf16) or k4 (120 s); the f32 outputs within SERVE_TOL x max of
+    the live eval forward, the bf16 ones within JAX's gates of the f32
+    live forward.  Timed: served against live at B=1 (p50 latency of a
+    request, host clock) and at B=16 (CUDA events, audio-s/s)."""
+    rng = np.random.default_rng(10)
+    results = os.path.join(tmp, "export_results")
+    exps = {"se": (cfg, model, tau), "conformer": (conf_cfg, conformer, conf_tau)}
+    for name, (c, m, t) in exps.items():
+        exp = os.path.join(results, name)
+        save_config(with_conf_thresh(c, t), os.path.join(exp, "hyp_exp.yaml"))
+        save_jax_checkpoint(os.path.join(exp, "model_best.ckpt"),
+                            flax_from_state_dict(m.state_dict()),
+                            {"epoch_nb": 0, "confidence_thresh": t})
+    arts, rows = {}, {}
+    for name in exps:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            rc = cli.main(["export", "--eval_pth", name, "--results_dir", results,
+                           "--serve_dtype", dtype, "--device", "cuda"])
+            require(rc == 0, f"cli export {name} {dtype} returned {rc}")
+            d = os.path.join(results, name, f"export_{dtype}")
+            os.replace(os.path.join(results, name, "export"), d)
+            require(sorted(os.listdir(d)) == ["hyp_exp.yaml", "meta.json", "model.pt2"],
+                    f"cli export {name} {dtype} wrote {sorted(os.listdir(d))}")
+            arts[(name, dtype, 1, 20)] = d
+            rows[(name, dtype, 1, 20)] = {"export_s": time.perf_counter() - t0,
+                                          "via": "cli"}
+    for B, secs in ((16, 20), (1, LONG_SECS)):
+        for dtype in ("float32", "bfloat16"):
+            d = os.path.join(tmp, f"export_conformer_{B}x{secs}_{dtype}")
+            t0 = time.perf_counter()
+            export_model(conf_cfg, conformer, fe, d, batch_size=B, seconds=secs,
+                         conf_thresh=conf_tau, serve_dtype=dtype)
+            arts[("conformer", dtype, B, secs)] = d
+            rows[("conformer", dtype, B, secs)] = {"export_s": time.perf_counter() - t0,
+                                                   "via": "export_model"}
+    # traced on the CPU, served on the card: the device move
+    t0 = time.perf_counter()
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    d = os.path.join(tmp, "export_se_cpu_traced")
+    export_model(cfg, cpu_model, make_frontend(cfg, "cpu"), d, conf_thresh=tau)
+    arts[("se-cpu-traced", "float32", 1, 20)] = d
+    rows[("se-cpu-traced", "float32", 1, 20)] = {"export_s": time.perf_counter() - t0,
+                                                 "via": "export_model on the CPU"}
+    del cpu_model
+
+    models = {"se": model, "conformer": conformer, "se-cpu-traced": model}
+    audio, calls = {}, {}
+    for key, d in arts.items():
+        name, dtype, B, secs = key
+        call, meta = load_exported(d)  # onto the card, the default device
+        require(meta["serve_dtype"] == dtype and meta["output_dtype"] == "float32"
+                and meta["platforms"] == ["cuda", "cpu"]
+                and meta["input_shape"] == [B, secs * cfg.data.sr, 4]
+                and meta["input_layout"] == "hop_blocks",
+                f"export {key}: meta {meta}")
+        if (B, secs) not in audio:
+            audio[(B, secs)] = torch.tensor(foa_audio(rng, (B, secs * cfg.data.sr, 4)),
+                                            device="cuda")
+        calls[key] = call
+        rows[key].update({"meta_output_shape": meta["output_shape"],
+                          "artifact_mb": os.path.getsize(os.path.join(d, "model.pt2")) / 1e6})
+
+    # the main path: one served call of every artifact, kernels only
+    per_call = {}
+    with plain_versions_raise():
+        zero_counts()
+        served = {}
+        for key, call in calls.items():
+            before = counts()
+            served[key] = call(audio[key[2:]])
+            torch.cuda.synchronize()
+            per_call[key] = {n: c - before[n] for n, c in counts().items()}
+        launched = counts()
+    for key, n in per_call.items():
+        name, dtype, B, secs = key
+        want = {"stft": 1}
+        if name == "conformer":
+            want[("k4" if secs == LONG_SECS else
+                  "k2" if dtype == "float32" else "k2_bf16")] = 8
+        require(n == {**{r: 0 for r in n}, **want},
+                f"export {key}: launches per served call {n}, want {want}")
+    for key in calls:
+        name, dtype, B, secs = key
+        live = live_forward(models[name], fe, "float32")(
+            audio[(B, secs)].reshape(B, -1, HOP, 4))
+        rows[key].update(check_served(str(key), served[key], live, dtype))
+        require(list(served[key].shape) == rows[key]["meta_output_shape"],
+                f"export {key}: output {tuple(served[key].shape)} vs meta")
+    del served
+
+    # served against live: B=1 p50 latency, B=16 audio-s/s
+    timing = {}
+    for key, call in calls.items():
+        name, dtype, B, secs = key
+        if secs == LONG_SECS or name == "se-cpu-traced":
+            continue
+        x = audio[(B, secs)]
+        xb = x.reshape(B, -1, HOP, 4)
+        live = live_forward(models[name], fe, dtype)
+        if B == 1:
+            s_ms, l_ms = [], []
+            for _ in range(2):  # in turns
+                s_ms.append(p50_ms(lambda: call(x)))
+                l_ms.append(p50_ms(lambda: live(xb)))
+            timing[f"{name}/{dtype}/B1"] = {"served_p50_ms": float(np.median(s_ms)),
+                                            "live_p50_ms": float(np.median(l_ms))}
+        else:
+            s_ms, l_ms = [], []
+            for _ in range(2):
+                s_ms += cuda_ms(lambda: call(x), 5)
+                l_ms += cuda_ms(lambda: live(xb), 5)
+            s, lv = float(np.median(s_ms)), float(np.median(l_ms))
+            timing[f"{name}/{dtype}/B{B}"] = {
+                "served_ms": s, "live_ms": lv,
+                "served_audio_s_per_s": B * secs / (s * 1e-3),
+                "live_audio_s_per_s": B * secs / (lv * 1e-3)}
+    emit({"phase": "export", "artifacts": {"/".join(map(str, k)): v for k, v in rows.items()},
+          "launches_per_served_call": {"/".join(map(str, k)): v for k, v in per_call.items()},
+          "launches": launched, "timing": timing,
+          "tol": {"f32_rel": SERVE_TOL, "bf16_max": BF16_SERVE_MAX,
+                  "bf16_mean": BF16_SERVE_MEAN}, "card": smi})
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -2064,6 +2400,8 @@ def main():
     try:
         se = phase_serve(smi, cfg, fe, model, tau, tmp)
         conf = phase_serve_conformer(smi, conf_cfg, fe, conformer, conf_tau, tmp)
+        eval_bf16_k = phase_attn_eval_bf16_kernel(smi)
+        export = phase_export(smi, cfg, conf_cfg, fe, model, conformer, tau, conf_tau, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del model, conformer
@@ -2084,7 +2422,8 @@ def main():
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
     keys_k1 = keys + ("device_ms", "library_device_ms")
     keys_a = keys_k1 + ("bound_units",)
-    paths = {"serve": se, "serve_conformer": conf, "train_conformer": train,
+    paths = {"serve": se, "serve_conformer": conf, "export": export,
+             "train_conformer": train,
              "train_cli": engine, "train_seresnet34_bf16": se_train,
              "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli,
              "preprocess_mic": mic,
@@ -2093,6 +2432,8 @@ def main():
              "train_cli_formats_conformer": formats["accdoa-conformer"]}
     for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
         require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
+    require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),
+            f"export: a kernel of the path never launched: {paths['export']}")
     require(paths["train_cli_formats_conformer"]["k2_dropout"] > 0
             and paths["train_cli_formats_conformer"]["k3"] > 0,
             "the conformer's dense-format run launched no k2_dropout / k3")
@@ -2100,7 +2441,8 @@ def main():
     def launches(route, main="train_cli"):
         """``launches``: the route's main path (the ``cli`` train, val, test
         and resume of phase train_cli; the bf16 conformer steps for the
-        bf16 routes); each path's count beside it."""
+        bf16 training routes; the served artifacts for k2_bf16); each
+        path's count beside it."""
         return {"launches": paths[main][route], "main_path": main,
                 "launches_by_path": {p: n[route] for p, n in paths.items()}}
 
@@ -2128,7 +2470,10 @@ def main():
         {**attn, "name": "flash_attention_bwd/k3_bf16",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:202",
          **launches("k3_bf16", "train_conformer_bf16"),
-         **{n: bf16_k["k3_bf16"][n] for n in keys_a}}]})
+         **{n: bf16_k["k3_bf16"][n] for n in keys_a}},
+        {**attn, "name": "flash_attention/k2_bf16",
+         "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
+         **launches("k2_bf16", "export"), **{n: eval_bf16_k[n] for n in keys_a}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,19 +3,24 @@
 
 Run from the repository root::
 
-    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli]
+    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export]
 
 Phases env and build always run; then ``attn``: attn_train_bf16_kernel,
 ``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
-train_cli_se_bf16 (all four when none is named).  Each prints its JSON
-line as in the full script.  Quicker than the full script while one
-phase is being worked on; the full script stays the check.
+train_cli_se_bf16 (these four when none is named), ``evalk``:
+attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
+ResNet-Conformer models, thresholds from one B=16 forward each).  Each
+prints its JSON line as in the full script.  Quicker than the full script
+while one phase is being worked on; the full script stays the check.
 """
-import sys, os, time, dataclasses
+import sys, os, time, dataclasses, shutil, tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs
 from adyolo_tpu_torch.config import Config
-from adyolo_tpu_torch.engine.evaluate import make_frontend
+from adyolo_tpu_torch.engine.evaluate import build_eval_forward, make_frontend
+from adyolo_tpu_torch.models.wrapper import build_model
+import numpy as np
+import torch
 t0 = time.time()
 smi = cs.phase_env()
 cs.phase_build()
@@ -33,3 +38,17 @@ if "conf" in which:
     print(cs.phase_train_conformer_bf16(smi, conf_cfg, fe)); print("t", time.time() - t0, flush=True)
 if "cli" in which:
     print(cs.phase_train_cli_se_bf16(smi, cfg)); print("t", time.time() - t0, flush=True)
+if "evalk" in which:
+    print(cs.phase_attn_eval_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
+if "export" in which:
+    x = torch.tensor(cs.foa_audio(np.random.default_rng(1), (16, 800, cs.HOP, 4)), device="cuda")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
+    tau = cs.pick_threshold(cfg, build_eval_forward(model, fe)(x))
+    conf_tau = cs.pick_threshold(conf_cfg, build_eval_forward(conformer, fe)(x))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        print(cs.phase_export(smi, cfg, conf_cfg, fe, model, conformer, tau, conf_tau, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("t", time.time() - t0, flush=True)

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from adyolo_tpu_torch.ops import attention, hopper_attention as ha  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
-from adyolo_tpu_torch.utils.profiling import profile_calls  # noqa: E402
+from adyolo_tpu_torch.utils.profiling import group_ms, profile_calls  # noqa: E402
 
 RATE = 0.2
 ENTRIES = ("adyolo_mhsa_fwd_train_bf16", "adyolo_mhsa_bwd_bf16", "adyolo_mhsa_fwd_bf16_splits",
@@ -145,8 +145,7 @@ def profiled_ms(fn, kernels):
     """Device time a call of ``fn`` from the profiler over 10 calls: the
     attention kernels' groups when ``kernels``, else all it launches."""
     p = profile_calls(lambda _: fn(), 10)
-    g = p["ms_per_step"]
-    return g["attention fwd"] + g["attention bwd"] if kernels else p["busy_ms_per_step"]
+    return group_ms(p, "attention fwd", "attention bwd") if kernels else p["busy_ms_per_step"]
 
 
 def time_case(B, T, lens, libs):

@@ -127,10 +127,15 @@ def test_plain_bf16_pair_matches_k2_k3_interpret():
 
 
 def test_bf16_attention_runs_only_on_the_training_route():
+    """A rate above 0 takes the training route in any grad mode; an eval
+    call (rate 0, autograd not recording) takes the eval op, on bfloat16
+    too (bf16 serving): the plain bf16 attention on the CPU."""
     rng = np.random.default_rng(13)
     q, k, v = (_bf16(rng, (2, 16, 2, 64)) for _ in range(3))
-    with torch.no_grad(), pytest.raises(TypeError, match="training route"):
-        hopper_attention.flash_attention(q, k, v)  # eval: float32 only
+    with torch.no_grad():
+        out = hopper_attention.flash_attention(q, k, v)  # eval
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, attention.mhsa_attention(q, k, v))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         hopper_attention.flash_attention(q, k.float(), v)
     seed = torch.tensor([3], dtype=torch.int32)
@@ -279,7 +284,7 @@ def test_bf16_kernels_match_plain_on_cuda(cuda_device, B, T, lens, rate):
     torch.cuda.synchronize()
     grown = {n: c - before[n] for n, c in hopper_attention.LAUNCHES.items()}
     assert grown == {"k2": 0, "k4": 0, "k2_dropout": 0, "k3": 0,
-                     "k2_dropout_bf16": 1, "k3_bf16": 1}, grown
+                     "k2_dropout_bf16": 1, "k3_bf16": 1, "k2_bf16": 0}, grown
     got = [out.detach(), *(a.grad for a in args)]
     again = torch.autograd.grad(hopper_attention.flash_attention(*args, kv, rate=rate, seed=seed),
                                 args, do)

@@ -81,7 +81,10 @@ def test_port_config_reads_repository_presets():
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (build_model, make_frontend, FeatureFrontend.__init__):
+    from adyolo_tpu_torch.engine.export import export_cmd, load_exported
+
+    for fn in (build_model, make_frontend, FeatureFrontend.__init__, load_exported,
+               export_cmd):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     cfg = port_config_mod.Config()
     assert build_model(cfg, device="cpu").head.yolo_fc1.weight.device.type == "cpu"

@@ -325,8 +325,10 @@ def test_unported_arguments_are_refused(setup, extra):
 
 @pytest.mark.parametrize("argv", [["export", "--eval_pth", "x"], ["export"]],
                          ids=["export", "export-bare"])
-def test_unported_actions_are_refused(argv):
-    """``export`` is refused, whatever its arguments (``preprocess`` is
-    ported: ``tests/test_torch_preprocess.py``)."""
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(argv)
+def test_unported_actions_are_refused(argv, tmp_path):
+    """Every action is ported (``export``: ``tests/test_torch_export.py``;
+    ``preprocess``: ``tests/test_torch_preprocess.py``); ``export`` without
+    an experiment exits with a message and writes nothing."""
+    with pytest.raises(SystemExit, match="error: (no experiment|--eval_pth)"):
+        cli.main(argv + ["--results_dir", str(tmp_path), "--device", "cpu"])
+    assert os.listdir(tmp_path) == []

@@ -34,7 +34,8 @@ _SLICE = ("config", "ops.stft", "ops.hopper_stft", "ops.attention",
           "engine.checkpoint", "engine.evaluate", "utils.build",
           "utils.native", "cli", "metrics.seld", "metrics.hungarian",
           "ops.rotation", "ops.specaug", "engine.train", "utils.rng",
-          "utils.logging", "utils.neptune_adapter")
+          "utils.logging", "utils.neptune_adapter", "ops.library",
+          "engine.export")
 
 
 def test_port_imports_no_jax():
