@@ -5,6 +5,7 @@ Usage:
     python -m adyolo_tpu_torch.cli train [--encoder resnet-conformer] [--augment] [--logger]
                                          [--compute_dtype bfloat16] [--remat] ...
     python -m adyolo_tpu_torch.cli train --resume_pth <exp_id>
+    torchrun --nproc_per_node <N> -m adyolo_tpu_torch.cli train ...
     python -m adyolo_tpu_torch.cli val   --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli test  --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli infer --eval_pth <exp_id> --infer_pth <wav_dir>
@@ -28,6 +29,14 @@ default, or ``bfloat16``).  Both encoders train with any ``--loss`` (``seddoa``,
 float32 or (``--compute_dtype bfloat16``) bf16; ``--remat`` checkpoints
 the conformer's blocks.  Val, test and infer run in float32.
 
+``train`` under ``torchrun`` is data-parallel, one process per card (rank
+r on ``cuda:LOCAL_RANK``): each rank trains on ``batch_size / N`` clips of
+every global batch, and a step computes the single-process step on the
+global batch (BatchNorm's moments and AD-YOLO's denominators are the
+global batch's); rank 0 alone logs, checkpoints and evaluates
+(:mod:`adyolo_tpu_torch.engine.train`).  Under plain ``python -m`` it
+runs in one process.
+
 ``preprocess chunking`` cuts the dataset's ``dev-train`` wavs and labels
 into the 20-s training chunks; ``preprocess scaler`` writes
 ``<data_pth>/scaler_wts.pkl`` from the front-end's features of every
@@ -35,8 +44,8 @@ into the 20-s training chunks; ``preprocess scaler`` writes
 ``train`` (``--config_dir``).
 
 The JAX package's arguments that the port does not implement are refused
-with a message, not ignored: ``--model_parallel`` (tensor parallelism; DDP
-is ROADMAP.md §1 item 7b), and ``--serve_dtype`` on any action but
+with a message, not ignored: ``--model_parallel`` (tensor parallelism:
+ROADMAP.md §1 item 7c), and ``--serve_dtype`` on any action but
 ``export``.
 """
 from __future__ import annotations
@@ -133,8 +142,8 @@ def _refuse(args) -> None:
     """Exit with a message for an argument the port does not implement."""
     refused = {
         "--model_parallel": (args.model_parallel is not None,
-                             "tensor parallelism is not ported; the port runs "
-                             "on one device (DDP: ROADMAP.md §1 item 7b)"),
+                             "tensor parallelism is not ported (ROADMAP.md §1 "
+                             "item 7c); data parallelism runs under torchrun"),
         "--serve_dtype": (args.serve_dtype is not None and args.action != "export",
                           "it sets the dtype of the export artifact: only "
                           "'export' takes it"),

@@ -20,8 +20,8 @@ and SpecAugment run on the device, inside the train step.
 
 Every random draw (sampler, shuffle, rotation) comes from python's
 ``random``, in the JAX package's order, so with the same seed both
-packages yield the same batches.  The JAX loader's multi-host input
-sharding is not ported (one process, one device).
+packages yield the same batches.  Under data parallelism each rank's
+:class:`TrainLoader` yields its shard of every global batch.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import numpy as np
 from ..config import Config
 from ..ops.grid import GridGeometry
 from ..ops.rotation import RotationAug
+from ..parallel.mesh import check_batch
 from . import io
 from .labels import (encode_accdoa, encode_adpit, encode_adyolo, encode_seddoa,
                      pad_yolo_targets)
@@ -231,30 +232,47 @@ class TrainLoader:
     rotates and encodes labels).  ``num_workers > 1`` additionally fans
     the per-clip load/encode work of each batch across a thread pool —
     batches are bit-identical to the sequential path (rotation RNG is
-    pre-drawn in order) so resume reproducibility is unaffected."""
+    pre-drawn in order) so resume reproducibility is unaffected.
 
-    def __init__(self, dataset: SELDDataset, cfg: Config):
+    Data parallelism (``rank``, ``num_shards``; ``adyolo_tpu/data/
+    dataset.py:252-278``): each of the ``num_shards`` ranks takes
+    ``batch_size / num_shards`` clips of every global batch, the
+    interleaved slice ``[rank::num_shards]`` of the identically shuffled
+    epoch, so the slices are disjoint and together the single-process
+    batches.  The rotations are drawn per global batch on every rank and
+    sliced the same way: every rank consumes python's ``random`` as a
+    single process does, and each clip gets its single-process rotation.
+    ``(0, 1)`` is the single-process loader."""
+
+    def __init__(self, dataset: SELDDataset, cfg: Config, rank: int = 0,
+                 num_shards: int = 1):
+        check_batch(cfg.train.batch_size, num_shards)
         self.dataset = dataset
-        self.batch_size = cfg.train.batch_size
+        self.rank, self.num_shards = rank, num_shards
+        self.global_batch = cfg.train.batch_size
+        self.batch_size = self.global_batch // num_shards
         self.max_targets = cfg.train.max_targets_per_clip * self.batch_size
         self.prefetch = cfg.train.num_workers > 0
         self.pool_workers = min(cfg.train.num_workers, self.batch_size)
         self.queue_depth = max(2, cfg.train.prefetch_factor)
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        """Steps per epoch (global batches)."""
+        return len(self.dataset) // self.global_batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         names = list(self.dataset.get_filelist())
         random.shuffle(names)  # DataLoader(shuffle=True) analog
-        batches = [
-            names[i : i + self.batch_size]
-            for i in range(0, len(names) - self.batch_size + 1, self.batch_size)
-        ]
+        G = self.global_batch
+        batches = [names[i : i + G] for i in range(0, len(names) - G + 1, G)]
         # every rotation of the epoch, drawn here in batch order: the host
         # RNG stream (kept in checkpoints) is the sequential one, and a
         # consumer that leaves early finds it as after a full epoch
         combs = [self.dataset.rotation.draw(len(b)) for b in batches]
+        if self.num_shards > 1:  # this rank's slice of every global batch
+            r, n = self.rank, self.num_shards
+            batches = [b[r::n] for b in batches]
+            combs = [c[r::n] for c in combs]
         if not self.prefetch:
             for b, c in zip(batches, combs):
                 yield _assemble_batch(self.dataset, b, c, self.max_targets)

@@ -1,5 +1,6 @@
 """Training engine (counterpart of :mod:`adyolo_tpu.engine.train`,
-reference ``src/train.py:65-290``), one process on one device.
+reference ``src/train.py:65-290``): one process on one device, or one
+process per card under ``torchrun`` (data parallelism).
 
 The experiment protocol of the reference:
 
@@ -23,6 +24,19 @@ The experiment protocol of the reference:
 ``--quick_test`` caps the run at 3 epochs x 5 batches.  A SIGTERM or SIGINT
 finishes the batch in flight, checkpoints the epoch and returns, so
 ``--resume_pth`` loses at most that epoch.
+
+Under ``torchrun --nproc_per_node N`` (:mod:`adyolo_tpu_torch.parallel.mesh`)
+every rank trains on its shard of each global batch
+(:class:`~adyolo_tpu_torch.data.dataset.TrainLoader`, the data-parallel
+:func:`~adyolo_tpu_torch.parallel.train_step.build_train_step`).  Rank 0
+alone opens the experiment (its id is the run's), logs, writes
+``hyp_exp.yaml`` and both checkpoints, runs the threshold scan, val and
+test, and the final test; the other ranks wait for it and receive the
+config and ``best_log``, so an error on rank 0 stops every rank.  A stop
+request on any rank stops all of them at the same batch.  A resume loads
+rank 0's checkpoint on every rank (the host RNG streams and the sampler
+advance alike on all ranks) and, at the same world size, continues the
+uninterrupted run.
 
 Both encoders train, with any of the five losses, on FOA or MIC input, in
 float32 or (``--compute_dtype bfloat16``) in the JAX package's bf16 (the
@@ -53,6 +67,7 @@ from ..data.dataset import EvalLoader, SELDDataset, TrainLoader
 from ..metrics.seld import SegmentScorer
 from ..models.wrapper import DTYPES, build_model
 from ..ops.decode import PostProcessor
+from ..parallel import mesh
 from ..parallel.train_step import build_eval_criterion, build_train_step
 from ..utils.logging import (JsonlLogger, NullLogger, get_logging_meta_config,
                              make_logger)
@@ -73,12 +88,21 @@ QUICK_TEST = (3, 5)  # epochs, batches per epoch
 
 class _PreemptionGuard:
     """SIGTERM / SIGINT set a flag that the epoch loop reads at batch
-    boundaries.  Handlers can only be installed from the main thread;
-    elsewhere (a test's worker thread) the guard installs none."""
+    boundaries (:meth:`should_stop`).  Handlers can only be installed from
+    the main thread; elsewhere (a test's worker thread) the guard installs
+    none."""
 
     def __init__(self):
         self.stop = False
         self._orig = {}
+
+    def should_stop(self) -> bool:
+        """The stop decision, agreed by every rank: a signal that reached
+        one rank stops all of them at this batch boundary (a rank that
+        went on alone would wait forever in the next step's
+        collectives)."""
+        self.stop = mesh.any_rank(self.stop)
+        return self.stop
 
     def __enter__(self):
         def handler(signum, frame):
@@ -100,11 +124,13 @@ class _PreemptionGuard:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise ``ValueError`` for an unknown compute dtype, before a fresh run
-    creates its directory."""
+    """Raise ``ValueError`` for an unknown compute dtype, or a batch size
+    that the ranks do not divide, before a fresh run creates its
+    directory."""
     if cfg.train.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
+    mesh.check_batch(cfg.train.batch_size)
 
 
 def train_one_epoch(loader: TrainLoader, train_step, generator: torch.Generator,
@@ -126,7 +152,7 @@ def train_one_epoch(loader: TrainLoader, train_step, generator: torch.Generator,
             if batch is None:
                 break
             losses.append(train_step(batch, generator))
-            if guard is not None and guard.stop:
+            if guard is not None and guard.should_stop():
                 break
     finally:
         it.close()
@@ -216,12 +242,31 @@ def _open_experiment(args: Dict, is_resume: bool):
 def train_model(args: Dict, is_resume: bool = False, device="cuda") -> Config:
     """``args``: the CLI's dict (:mod:`adyolo_tpu_torch.cli`); a fresh run
     takes its presets from ``args["config_dir"]`` (default ``./configs``).
-    Returns the final config."""
+    Returns the final config.  Under torchrun the process joins the
+    data-parallel group on its own card (``cuda:LOCAL_RANK``) and leaves
+    it at the end; a group that the caller initialised is used as it is,
+    on ``device``."""
+    device = mesh.init_distributed(device)
+    try:
+        return _train(args, is_resume, device)
+    finally:
+        mesh.shutdown()
+
+
+def _train(args: Dict, is_resume: bool, device) -> Config:
     results_dir = args.get("results_dir", "results")
-    cfg, output_pth, neptune_logger = _open_experiment(args, is_resume)
-    if neptune_logger is not None:
-        logger = neptune_logger
-    elif cfg.args.logger:
+    main = mesh.is_main()
+    opened = {}
+
+    def open_experiment():
+        cfg, output_pth, opened["neptune"] = _open_experiment(args, is_resume)
+        return cfg, output_pth
+
+    # rank 0 opens the experiment; every rank takes its config and id
+    cfg, output_pth = mesh.on_main(open_experiment)
+    if opened.get("neptune") is not None:
+        logger = opened["neptune"]
+    elif cfg.args.logger and main:
         logger = JsonlLogger(os.path.join(output_pth, "logs.jsonl"))
     else:
         logger = NullLogger()
@@ -234,24 +279,25 @@ def train_model(args: Dict, is_resume: bool = False, device="cuda") -> Config:
 
     # ---- data / model / step (the train set draws epoch 1 from the seed) --
     train_ds = SELDDataset(cfg, "train")
-    train_loader = TrainLoader(train_ds, cfg)
-    valid_loader = EvalLoader(SELDDataset(cfg, "val", is_valid=True), cfg)
-    test_loader = EvalLoader(SELDDataset(cfg, "test", is_valid=True), cfg)
+    train_loader = TrainLoader(train_ds, cfg, mesh.rank(), mesh.world_size())
     frontend = make_frontend(cfg, device)
     model = build_model(cfg, device=device,
                         generator=torch.Generator().manual_seed(cfg.args.seed),
                         train=True)
     train_step = build_train_step(cfg, model, frontend)
-    eval_fwd = build_eval_forward(model, frontend)
-    eval_crit = build_eval_criterion(cfg)
-    postprocessor = PostProcessor(cfg)
-    frames_1s = int(cfg.data.sr / cfg.data.label_hop_len)
-    scorers = {split: SegmentScorer(
-        os.path.join(cfg.data.data_pth, "metadata_dev", f"dev-{split}"),
-        nb_classes=cfg.data.nb_classes, nb_label_frames_1s=frames_1s)
-        for split in ("val", "test")}
+    if main:  # evaluation runs on rank 0 only
+        valid_loader = EvalLoader(SELDDataset(cfg, "val", is_valid=True), cfg)
+        test_loader = EvalLoader(SELDDataset(cfg, "test", is_valid=True), cfg)
+        eval_fwd = build_eval_forward(model, frontend)
+        eval_crit = build_eval_criterion(cfg)
+        postprocessor = PostProcessor(cfg)
+        frames_1s = int(cfg.data.sr / cfg.data.label_hop_len)
+        scorers = {split: SegmentScorer(
+            os.path.join(cfg.data.data_pth, "metadata_dev", f"dev-{split}"),
+            nb_classes=cfg.data.nb_classes, nb_label_frames_1s=frames_1s)
+            for split in ("val", "test")}
 
-    # ---- resume (train.py:145-159) ----------------------------------------
+    # ---- resume (train.py:145-159): every rank loads rank 0's checkpoint --
     if is_resume:
         host = load_train_checkpoint(os.path.join(output_pth, "model_ckpt.ckpt"),
                                      model, train_step.optimizer)
@@ -259,7 +305,8 @@ def train_model(args: Dict, is_resume: bool = False, device="cuda") -> Config:
         train_ds.filelist = list(host["train_file_list"])
         # the reference resumes at the BEST threshold (train.py:151)
         best_log = host["best_log"]
-        postprocessor.set_conf_thresh(best_log["best_conf_thresh"])
+        if main:
+            postprocessor.set_conf_thresh(best_log["best_conf_thresh"])
         cfg = with_conf_thresh(cfg, best_log["best_conf_thresh"])
         start_epoch = host["start_epoch_nb"]
         set_rng_state(host["rng_state"], generator)
@@ -278,97 +325,112 @@ def train_model(args: Dict, is_resume: bool = False, device="cuda") -> Config:
 
     ckpt = os.path.join(output_pth, "model_ckpt.ckpt")
     out = {split: os.path.join(output_pth, f"output_{split}") for split in ("val", "test")}
+
+    def preempted(epoch):
+        save_train_checkpoint(ckpt, model, train_step.optimizer, host_state(epoch))
+        print(f"[adyolo_tpu_torch] preempted during epoch {epoch}; checkpoint "
+              f"saved; resume with --resume_pth {cfg.args.exp_id}")
+
+    def end_of_epoch(epoch, train_loss, train_s, info):
+        """Rank 0's threshold scan, val, test, checkpoints, report and logs;
+        returns the config and ``best_log`` for every rank."""
+        nonlocal cfg, best_log
+        if not cfg.args.fix_thresh and epoch % SCAN_EVERY == 0:
+            print("resetting confidence threshold per each 10th epoch:")
+            tau, scan = scan_conf_thresh(valid_loader, eval_fwd, postprocessor,
+                                         scorers["val"], out["val"])
+            print(f"confidence threshold -> {tau} (forward {scan['forward_s']:0.2f} s, "
+                  f"{len(TAU_SCAN)} decode + score rounds "
+                  f"{sum(scan['decode_score_s']):0.2f} s)")
+            cfg = with_conf_thresh(cfg, tau)
+            save_config(cfg, os.path.join(output_pth, "hyp_exp.yaml"))
+            logger.log("logs/train/conf_thresh", tau, epoch)
+            logger.log("logs/train/conf_scan_forward_s", scan["forward_s"], epoch)
+            logger.log("logs/train/conf_scan_decode_score_s",
+                       sum(scan["decode_score_s"]), epoch)
+
+        # val / test (train.py:209-219)
+        split_loss, split_s, scores = {}, {}, {}
+        for split, loader in (("val", valid_loader), ("test", test_loader)):
+            t0 = time.perf_counter()
+            split_loss[split], _ = test_epoch(loader, eval_fwd, postprocessor,
+                                              out[split], eval_crit=eval_crit)
+            split_s[split] = time.perf_counter() - t0
+        for split in ("val", "test"):
+            scores[split] = scorers[split].get_SELD_Results(out[split])
+        val_s, test_s = scores["val"], scores["test"]
+
+        # the best model (train.py:222-238)
+        t0 = time.perf_counter()
+        if val_s[4] <= best_log["best_val_SELD"]:
+            best_log = {"best_epoch": epoch, "best_val_loss": split_loss["val"],
+                        **{f"best_val_{k}": v for k, v in zip(
+                            ("ER", "F", "LE", "LR", "SELD"), val_s[:5])},
+                        "best_test_loss": split_loss["test"],
+                        **{f"best_test_{k}": v for k, v in zip(
+                            ("ER", "F", "LE", "LR", "SELD"), test_s[:5])},
+                        "best_conf_thresh": float(postprocessor.get_conf_thresh())}
+            save_jax_checkpoint(os.path.join(output_pth, "model_best.ckpt"),
+                                flax_from_state_dict(model.state_dict()),
+                                {"epoch_nb": epoch,
+                                 "confidence_thresh": best_log["best_conf_thresh"]})
+        # the rolling checkpoint (train.py:241-248)
+        save_train_checkpoint(ckpt, model, train_step.optimizer, host_state(epoch + 1))
+        ckpt_s = time.perf_counter() - t0
+
+        # console report (train.py:251-261)
+        print(f"{epoch:03d} epoch result... (conf_thresh: "
+              f"{postprocessor.get_conf_thresh():0.2f})")
+        print(f"train/valid/test time: {train_s / 60:0.2f}/{split_s['val'] / 60:0.2f}/"
+              f"{split_s['test'] / 60:0.2f} min, loss: {train_loss:0.4f}/"
+              f"{split_loss['val']:0.4f}/{split_loss['test']:0.4f}, "
+              f"loader wait {info['loader_wait_s']:0.2f} s over {info['steps']} steps, "
+              f"checkpoints {ckpt_s:0.2f} s")
+        for tag, sc in (("valid", val_s), (" test", test_s)):
+            print(f"{tag} score: ER: {sc[0]:0.4f}, F: {sc[1] * 100:0.2f}, "
+                  f"LE: {sc[2]:0.2f}, LR: {sc[3] * 100:0.2f}, SELD: {sc[4]:0.4f}")
+        print(f"\tbest epoch: {best_log['best_epoch']:03d} "
+              f"(conf_thresh {best_log['best_conf_thresh']:0.2f}, "
+              f"val SELD {best_log['best_val_SELD']:0.4f})", flush=True)
+
+        for split, loss_v, sc in (("train", train_loss, None),
+                                  ("val", split_loss["val"], val_s),
+                                  ("test", split_loss["test"], test_s)):
+            logger.log(f"logs/{split}/loss", loss_v, epoch)
+            if sc is not None:
+                for nm, v in zip(("ER", "F1", "LE", "LR", "SELD"),
+                                 (sc[0], sc[1] * 100, sc[2], sc[3] * 100, sc[4])):
+                    logger.log(f"logs/{split}/{nm}", float(v), epoch)
+        for split, sec in (("train", train_s), ("val", split_s["val"]),
+                           ("test", split_s["test"])):
+            logger.log(f"logs/{split}/time_s", sec, epoch)
+        logger.log("logs/train/loader_wait_s", info["loader_wait_s"], epoch)
+        logger.log("logs/train/steps", info["steps"], epoch)
+        logger.log("logs/train/checkpoint_s", ckpt_s, epoch)
+        return cfg, best_log
+
+    def final_test():
+        print("\n===== TRAINING ENDED; FINAL TEST WITH BEST CHECKPOINT =====\n")
+        test_model({"action": "test", "eval_pth": cfg.args.exp_id},
+                   results_dir=results_dir, device=device)
+
     with _PreemptionGuard() as guard:
         for epoch in range(start_epoch, last_epoch + 1):
-            print(f"\nnow training {epoch:03d}/{last_epoch:03d} epoch...", flush=True)
+            if main:
+                print(f"\nnow training {epoch:03d}/{last_epoch:03d} epoch...", flush=True)
             t0 = time.perf_counter()
             train_loss, info = train_one_epoch(
                 train_loader, train_step, generator,
                 QUICK_TEST[1] if cfg.args.quick_test else None, guard)
             train_s = time.perf_counter() - t0
-            if guard.stop:  # preempted: keep this epoch resumable
-                save_train_checkpoint(ckpt, model, train_step.optimizer, host_state(epoch))
-                print(f"[adyolo_tpu_torch] preempted during epoch {epoch}; checkpoint "
-                      f"saved; resume with --resume_pth {cfg.args.exp_id}")
+            if guard.stop:  # preempted (on any rank): keep this epoch resumable
+                mesh.on_main(lambda: preempted(epoch))
                 logger.stop()
                 return cfg
             train_ds.resample_epoch()
+            cfg, best_log = mesh.on_main(
+                lambda: end_of_epoch(epoch, train_loss, train_s, info))
 
-            if not cfg.args.fix_thresh and epoch % SCAN_EVERY == 0:
-                print("resetting confidence threshold per each 10th epoch:")
-                tau, scan = scan_conf_thresh(valid_loader, eval_fwd, postprocessor,
-                                             scorers["val"], out["val"])
-                print(f"confidence threshold -> {tau} (forward {scan['forward_s']:0.2f} s, "
-                      f"{len(TAU_SCAN)} decode + score rounds "
-                      f"{sum(scan['decode_score_s']):0.2f} s)")
-                cfg = with_conf_thresh(cfg, tau)
-                save_config(cfg, os.path.join(output_pth, "hyp_exp.yaml"))
-                logger.log("logs/train/conf_thresh", tau, epoch)
-                logger.log("logs/train/conf_scan_forward_s", scan["forward_s"], epoch)
-                logger.log("logs/train/conf_scan_decode_score_s",
-                           sum(scan["decode_score_s"]), epoch)
-
-            # val / test (train.py:209-219)
-            split_loss, split_s, scores = {}, {}, {}
-            for split, loader in (("val", valid_loader), ("test", test_loader)):
-                t0 = time.perf_counter()
-                split_loss[split], _ = test_epoch(loader, eval_fwd, postprocessor,
-                                                  out[split], eval_crit=eval_crit)
-                split_s[split] = time.perf_counter() - t0
-            for split in ("val", "test"):
-                scores[split] = scorers[split].get_SELD_Results(out[split])
-            val_s, test_s = scores["val"], scores["test"]
-
-            # the best model (train.py:222-238)
-            t0 = time.perf_counter()
-            if val_s[4] <= best_log["best_val_SELD"]:
-                best_log = {"best_epoch": epoch, "best_val_loss": split_loss["val"],
-                            **{f"best_val_{k}": v for k, v in zip(
-                                ("ER", "F", "LE", "LR", "SELD"), val_s[:5])},
-                            "best_test_loss": split_loss["test"],
-                            **{f"best_test_{k}": v for k, v in zip(
-                                ("ER", "F", "LE", "LR", "SELD"), test_s[:5])},
-                            "best_conf_thresh": float(postprocessor.get_conf_thresh())}
-                save_jax_checkpoint(os.path.join(output_pth, "model_best.ckpt"),
-                                    flax_from_state_dict(model.state_dict()),
-                                    {"epoch_nb": epoch,
-                                     "confidence_thresh": best_log["best_conf_thresh"]})
-            # the rolling checkpoint (train.py:241-248)
-            save_train_checkpoint(ckpt, model, train_step.optimizer, host_state(epoch + 1))
-            ckpt_s = time.perf_counter() - t0
-
-            # console report (train.py:251-261)
-            print(f"{epoch:03d} epoch result... (conf_thresh: "
-                  f"{postprocessor.get_conf_thresh():0.2f})")
-            print(f"train/valid/test time: {train_s / 60:0.2f}/{split_s['val'] / 60:0.2f}/"
-                  f"{split_s['test'] / 60:0.2f} min, loss: {train_loss:0.4f}/"
-                  f"{split_loss['val']:0.4f}/{split_loss['test']:0.4f}, "
-                  f"loader wait {info['loader_wait_s']:0.2f} s over {info['steps']} steps, "
-                  f"checkpoints {ckpt_s:0.2f} s")
-            for tag, s in (("valid", val_s), (" test", test_s)):
-                print(f"{tag} score: ER: {s[0]:0.4f}, F: {s[1] * 100:0.2f}, "
-                      f"LE: {s[2]:0.2f}, LR: {s[3] * 100:0.2f}, SELD: {s[4]:0.4f}")
-            print(f"\tbest epoch: {best_log['best_epoch']:03d} "
-                  f"(conf_thresh {best_log['best_conf_thresh']:0.2f}, "
-                  f"val SELD {best_log['best_val_SELD']:0.4f})", flush=True)
-
-            for split, loss_v, s in (("train", train_loss, None),
-                                     ("val", split_loss["val"], val_s),
-                                     ("test", split_loss["test"], test_s)):
-                logger.log(f"logs/{split}/loss", loss_v, epoch)
-                if s is not None:
-                    for nm, v in zip(("ER", "F1", "LE", "LR", "SELD"),
-                                     (s[0], s[1] * 100, s[2], s[3] * 100, s[4])):
-                        logger.log(f"logs/{split}/{nm}", float(v), epoch)
-            for split, sec in (("train", train_s), ("val", split_s["val"]),
-                               ("test", split_s["test"])):
-                logger.log(f"logs/{split}/time_s", sec, epoch)
-            logger.log("logs/train/loader_wait_s", info["loader_wait_s"], epoch)
-            logger.log("logs/train/steps", info["steps"], epoch)
-            logger.log("logs/train/checkpoint_s", ckpt_s, epoch)
-
-    print("\n===== TRAINING ENDED; FINAL TEST WITH BEST CHECKPOINT =====\n")
-    test_model({"action": "test", "eval_pth": cfg.args.exp_id},
-               results_dir=results_dir, device=device)
+    mesh.on_main(final_test)
     logger.stop()
     return cfg

@@ -30,8 +30,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 __all__ = ["apply_frame_mask", "pool_mask", "stats_dtype", "Conv2d", "Conv1d",
-           "Linear", "LayerNorm", "BatchNorm", "frozen_running_stats",
+           "Linear", "LayerNorm", "BatchNorm", "frozen_running_stats", "global_batch_stats",
            "U8Dropout", "Conv3x3", "SELayer", "SEBasicBlock",
            "SelfAttentionPooling", "reverse_sequence", "BiGRU"]
 
@@ -128,10 +130,18 @@ class BatchNorm(nn.Module):
 
     The statistics are taken in at least float32 and ``mul`` / ``shift``
     are cast to the input's dtype, so a bfloat16 input is normalised by
-    one multiply-add in bfloat16 (``layers.py:133-155``)."""
+    one multiply-add in bfloat16 (``layers.py:133-155``).
+
+    Under data parallelism (inside :func:`global_batch_stats`) the batch
+    statistics are the global batch's, as XLA partitions the JAX step's
+    batch mean: the per-rank sums of x and x² and the element count are
+    summed over ``group`` by one differentiable all-reduce, in at least
+    float32, before the variance and the running-stat update, so every
+    rank normalises alike and keeps the same running stats."""
 
     momentum = 0.9
     update_stats = True
+    group = None  # the process group of the global batch; None: this batch
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  channel_last: bool = False):
@@ -148,8 +158,16 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.ndim - 1)) if self.channel_last else \
                 (0,) + tuple(range(2, x.ndim))
             xf = x.to(stats_dtype(x.dtype))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            if self.group is None:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            else:  # the global batch's: sums of x, x² and the count over the ranks
+                s1 = xf.sum(dim=axes)
+                n = torch.full_like(s1, xf.numel() // s1.numel())
+                s = mesh.all_reduce_sum(torch.stack([s1, (xf * xf).sum(dim=axes), n]),
+                                        self.group)
+                mean = s[0] / s[2]
+                var = torch.clamp(s[1] / s[2] - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -180,6 +198,21 @@ def frozen_running_stats(module: nn.Module):
     finally:
         for m in bns:
             m.update_stats = True
+
+
+@contextlib.contextmanager
+def global_batch_stats(module: nn.Module, group):
+    """Training-mode forwards of ``module`` inside the context (the remat
+    recompute in the backward included) normalise every ``BatchNorm`` by
+    the statistics of the global batch over ``group``'s ranks."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
 
 
 class U8Dropout(nn.Module):

@@ -28,7 +28,7 @@ scatters and is not ported; ``impl`` other than ``"scatter"`` raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,7 +161,9 @@ def adyolo_loss(logits: torch.Tensor, targets: torch.Tensor,
                 train_unify: Sequence[float] = (45.0, 25.0, 10.0),
                 gains: LossGains = LossGains(),
                 frame_mask: Optional[torch.Tensor] = None,
-                impl: str = "scatter") -> torch.Tensor:
+                impl: str = "scatter",
+                reduce_counts: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
     """AD-YOLO loss.
 
     logits:      (B, T, G0*G1*A*(K+3)) raw head output
@@ -169,6 +171,13 @@ def adyolo_loss(logits: torch.Tensor, targets: torch.Tensor,
     target_mask: (M,) bool validity
     frame_mask:  optional (B, T) frame validity: anchors of padded frames
     leave the negative-objectness set and every denominator
+    reduce_counts: optional; under data parallelism the sum over the ranks
+    of a vector of counts.  The denominators (the anchor count, each τ's
+    positives and the responsible pairs) are then the global batch's,
+    summed before their clamps at 1, and the result is this rank's share:
+    its own sums over the global counts, which the ranks' shares add up
+    to the loss of the global batch (``adyolo_tpu/models/losses.py:413-432``
+    over globalized targets).
     """
     if impl != "scatter":
         raise ValueError(f"adyolo_loss: impl must be 'scatter', got {impl!r} "
@@ -212,22 +221,29 @@ def adyolo_loss(logits: torch.Tensor, targets: torch.Tensor,
         anchor_valid = frame_mask.to(dev).reshape(-1).to(torch.float32) \
             .repeat_interleave(g0 * g1 * A)  # (NP,)
 
+    resps = [((D < tau) | amin) & valid[:, None] for tau in train_unify]
+    objfs = [_onehot_max(NP, anchor_flat.reshape(-1), r.reshape(-1)) for r in resps]
+    # the denominators' counts: anchors, each τ's positives, responsible pairs
+    n_anchor = NP if anchor_valid is None else anchor_valid.sum()
+    n_pos = [objf.sum() for objf in objfs]
+    n_resp = resps[0].to(torch.float32).sum()
+    if reduce_counts is not None:
+        c = reduce_counts(torch.stack([torch.as_tensor(n_anchor, dtype=torch.float32,
+                                                       device=dev), *n_pos, n_resp]))
+        n_anchor, n_pos, n_resp = c[0], list(c[1:-1]), c[-1]
+
     total = torch.zeros((), device=dev, dtype=torch.float32)
     n_taus = len(train_unify)
-    for i, tau in enumerate(train_unify):
-        resp = ((D < tau) | amin) & valid[:, None]
-        objf = _onehot_max(NP, anchor_flat.reshape(-1), resp.reshape(-1))
+    for i, (resp, objf) in enumerate(zip(resps, objfs)):
         cls_idx = (anchor_flat * K + ci[:, None]).reshape(-1)  # into (NP, K)
         y = _onehot_max(NP * K, cls_idx, resp.reshape(-1)).reshape(NP, K)
 
-        n_pos = objf.sum()
-        n_pos_f = torch.clamp(n_pos, min=1.0)
+        n_pos_f = torch.clamp(n_pos[i], min=1.0)
         pos_loss = (pos_all * objf).sum() / n_pos_f
+        n_neg_f = torch.clamp(n_anchor - n_pos[i], min=1.0)
         if anchor_valid is None:
-            n_neg_f = torch.clamp(NP - n_pos, min=1.0)
             neg_loss = (neg_all * (1.0 - objf)).sum() / n_neg_f
         else:
-            n_neg_f = torch.clamp(anchor_valid.sum() - n_pos, min=1.0)
             neg_loss = (neg_all * (1.0 - objf) * anchor_valid).sum() / n_neg_f
         cls_elem = _bce_logits_pos(z_cls) * y + _bce_logits_neg(z_cls) * (1.0 - y)
         class_loss = (cls_elem * objf[:, None]).sum() / (n_pos_f * K)
@@ -236,8 +252,8 @@ def adyolo_loss(logits: torch.Tensor, targets: torch.Tensor,
             # angular term: every responsible (target, anchor) pair counts,
             # duplicates included
             respf = resp.to(torch.float32)
-            n_resp = torch.clamp(respf.sum(), min=1.0)
-            total = total + ((D / 180.0 * respf).sum() / n_resp) * gains.angular_gain
+            total = total + ((D / 180.0 * respf).sum()
+                             / torch.clamp(n_resp, min=1.0)) * gains.angular_gain
 
         total = total + (pos_loss * gains.object_gain
                          + neg_loss * gains.nonobj_gain

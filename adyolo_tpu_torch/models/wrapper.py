@@ -119,14 +119,18 @@ def make_grid_geometry(cfg: Config) -> GridGeometry:
                         nb_anchors=cfg.train.nb_anchors)
 
 
-def make_criterion(cfg: Config) -> Callable:
+def make_criterion(cfg: Config,
+                   reduce_counts: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                   ) -> Callable:
     """``loss_fn(output, target, target_mask=None, frame_mask=None) ->
     scalar`` for the config's loss (``adyolo_tpu/models/wrapper.py:90-121``).
 
     For AD-YOLO ``target`` is the padded (M, 7) tensor and ``target_mask``
     its validity; the dense formats ignore the mask.  ``frame_mask``
     ((B, T) bool) restricts every mean to the valid frames: the loss of
-    the output and targets cut to them."""
+    the output and targets cut to them.  ``reduce_counts`` (data
+    parallelism) makes AD-YOLO's denominators the global batch's
+    (:func:`losses.adyolo_loss`); the dense formats' means need none."""
     nb = cfg.data.nb_classes
     name = cfg.args.loss
     if name in ("seddoa", "masked-seddoa"):
@@ -143,7 +147,8 @@ def make_criterion(cfg: Config) -> Callable:
         taus = tuple(cfg.train.train_unify)
 
         def loss_fn(o, t, m, fm=None):
-            return losses.adyolo_loss(o, t, m, geom, nb, taus, gains, frame_mask=fm)
+            return losses.adyolo_loss(o, t, m, geom, nb, taus, gains, frame_mask=fm,
+                                      reduce_counts=reduce_counts)
 
         return loss_fn
     raise NotImplementedError(f"loss: {name!r}")

@@ -1,6 +1,7 @@
 """The train step and the eval criterion (counterpart of
 :mod:`adyolo_tpu.parallel.train_step`: ``make_optimizer``,
-``build_train_step`` and ``build_eval_criterion``), single device.
+``build_train_step`` and ``build_eval_criterion``), on one device or,
+under a process group of several ranks, data-parallel.
 
 One step: int16 audio -> ``x / 32768 + 1e-8`` -> features (the Hopper STFT
 kernel on CUDA, float32, without autograd) -> SpecAugment when the config
@@ -20,17 +21,41 @@ state, the head and the loss stay float32.  ``remat`` checkpoints the
 conformer's blocks.  Float32 matmuls and convolutions run in full float32
 (TF32 off), as the JAX package's f32 step does.  The JAX step's ``rbg``
 dropout keys are TPU-only.
+
+Data parallelism (:mod:`adyolo_tpu_torch.parallel.mesh`): each rank takes
+its shard of the global batch, and one step on N ranks is the JAX
+package's DP step, which is its single-device step on the global batch:
+
+* the model is wrapped in ``DistributedDataParallel`` (its parameters and
+  optimizer are the wrapper's; ``broadcast_buffers=False``, since the
+  BatchNorm running stats come out equal on every rank);
+* every ``BatchNorm`` normalises by the global batch's moments
+  (:func:`~adyolo_tpu_torch.models.layers.global_batch_stats`, on the
+  mesh's batch group);
+* AD-YOLO's denominators are the global counts (``reduce_counts``), and
+  the rank's term is scaled for DDP's average of the gradients (below);
+* every rank holds the same generator; each step draws one seed from it
+  and makes the rank's generator of that step from the seed and the rank,
+  so ranks draw different SpecAugment masks and dropout bits while the
+  checkpoint keeps one generator state;
+* the step returns the global batch's loss.
+
+With one rank (no group) the step is the single-device one, bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config import Config
+from ..models.layers import global_batch_stats
 from ..models.wrapper import SELDModel, make_criterion
 from ..ops.features import FeatureFrontend
 from ..ops.specaug import spec_augment
+from . import mesh
 
 __all__ = ["make_optimizer", "build_step_features", "build_train_step",
            "build_eval_criterion"]
@@ -92,28 +117,70 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     ``generator``: a ``torch.Generator`` on the model's device, the source of
     every SpecAugment draw and dropout bit of the step, in that order
     (None: the device's default one).  The
-    optimizer is ``train_step.optimizer``."""
-    criterion = make_criterion(cfg)
-    optimizer = make_optimizer(cfg, model.parameters())
+    optimizer is ``train_step.optimizer``.
+
+    Under a process group of N > 1 ranks, ``batch`` is this rank's shard
+    (``batch_size / N`` clips, AD-YOLO targets indexed within it), every
+    rank passes the same generator, and the loss returned is the global
+    batch's, equal on every rank."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = frontend.device
     features = build_step_features(cfg, frontend)
+    world = mesh.world_size()
+    if world == 1:
+        net, criterion, scale = model, make_criterion(cfg), 1.0
+        synced = contextlib.nullcontext
+    else:
+        dev = torch.device(device)
+        ids = None if dev.type != "cuda" else [
+            torch.cuda.current_device() if dev.index is None else dev.index]
+        net = DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False)
+        dense = cfg.args.loss != "adyolo"
+        criterion = make_criterion(cfg, None if dense else mesh.all_reduce_counts)
+        # DDP averages the ranks' gradients, so the ranks' objectives must
+        # add up to N x the global loss.  A dense loss is a mean over this
+        # rank's frames, and the shards are equal: the N means add up to N
+        # x the global mean as they are.  AD-YOLO's term is this rank's
+        # sums over the global counts: the N terms add up to the global
+        # loss, so each is scaled by N.
+        scale = 1.0 if dense else float(world)
+        batch_group = mesh.batch_group()
+
+        def synced():
+            return global_batch_stats(model, batch_group)
+    optimizer = make_optimizer(cfg, net.parameters())
 
     def train_step(batch: Dict, generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        feat = features(batch["audio"], generator)
+        gen = generator if world == 1 else _rank_generator(generator, device)
+        feat = features(batch["audio"], gen)
         model.train()
-        out = model(feat, generator=generator)
-        loss = criterion(out, torch.as_tensor(batch["targets"], device=device),
-                         _mask(batch.get("target_mask"), device))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with synced():  # the remat recompute, in the backward, included
+            out = net(feat, generator=gen)
+            loss = criterion(out, torch.as_tensor(batch["targets"], device=device),
+                             _mask(batch.get("target_mask"), device))
+            optimizer.zero_grad(set_to_none=True)
+            (loss * scale if scale != 1.0 else loss).backward()
         optimizer.step()
-        return loss.detach()
+        if world == 1:
+            return loss.detach()
+        # the global batch's loss: the AD-YOLO terms add up to it, the
+        # dense means average to it
+        return mesh.all_reduce_counts(loss.detach()) * (scale / world)
 
     train_step.optimizer = optimizer
     return train_step
+
+
+def _rank_generator(generator: Optional[torch.Generator], device) -> torch.Generator:
+    """This rank's generator for one step: seeded with ``seed * N + rank``
+    from one seed drawn from ``generator`` (the device's default one when
+    None), which therefore advances alike on every rank."""
+    seed = int(torch.randint(0, 2 ** 31, (1,), generator=generator,
+                             device=device if generator is None else generator.device))
+    g = torch.Generator(device=device)
+    return g.manual_seed(seed * mesh.world_size() + mesh.rank())
 
 
 def _mask(target_mask, device):

@@ -70,7 +70,10 @@ def _profiled(fn, n):
     other = {}
     n_kernels = 0
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a user annotation (DDP's forward, a gloo collective) is a span on
+        # the device's timeline, not device work
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         n_kernels += 1
         name = e.name.lower()

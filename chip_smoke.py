@@ -160,6 +160,25 @@ After the serve phases (8, 9), the export slice:
               (max < 0.1, mean < 0.01) of the f32 live forward; served
               against live: B=1 p50 latency, B=16 audio-s/s.
 
+16. ddp -- data parallelism, after the training phases: two ranks
+              spawned on the one card in a gloo group (NCCL refuses two
+              ranks on one device), each on 8 clips of a B=16 x 20-s global
+              batch: (a) SE-ResNet34 + AD-YOLO and (b) ResNet-Conformer +
+              AD-YOLO with ``--remat``, fp32, dropout 0, one step each
+              against the single-process step on the global batch (loss
+              within 1e-4 rel, the gradients' L2 distance within 1e-3 or 2x
+              float32's floor measured in the same run, running stats
+              within 1e-3 of each one's max; gradients and stats equal on
+              both ranks);
+              (c) 5 steps of the conformer in bf16 with dropout 0.2, step
+              time per rank, the collectives timed alone and a profile of
+              2 steps; per rank per step K1 once and the train attention
+              pair 8 + 8 times (k2_dropout 16 under remat), with the plain
+              versions patched to raise; (d) ``python -m
+              adyolo_tpu_torch.cli train --quick_test`` under torchrun's
+              variables at world size 1 (NCCL): exit 0, one experiment
+              dir, one final test.
+
 Phases 3-5 and 14 also read each kernel's and library call's device time
 a call from ``torch.profiler`` (``utils/profiling.py::profile_calls``),
 or from CUDA events where the profiler records no device event in three
@@ -185,6 +204,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import yaml
 
@@ -209,6 +229,7 @@ from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa
 from adyolo_tpu_torch.engine.export import export_model, load_exported  # noqa: E402
 from adyolo_tpu_torch.metrics.seld import SegmentScorer  # noqa: E402
 from adyolo_tpu_torch.models import resnet_conformer  # noqa: E402
+from adyolo_tpu_torch.models.layers import BatchNorm, U8Dropout  # noqa: E402
 from adyolo_tpu_torch.models.wrapper import (build_model, make_criterion,  # noqa: E402
                                              make_grid_geometry)
 from adyolo_tpu_torch.ops import attention, hopper_attention, hopper_stft  # noqa: E402
@@ -216,6 +237,7 @@ from adyolo_tpu_torch.ops import stft as plain_stft  # noqa: E402
 from adyolo_tpu_torch.ops.decode import PostProcessor, _device_decode  # noqa: E402
 from adyolo_tpu_torch.ops.dsp import analysis_window, dft_matrices  # noqa: E402
 from adyolo_tpu_torch.ops.features import FeatureFrontend  # noqa: E402
+from adyolo_tpu_torch.parallel import mesh  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
 from adyolo_tpu_torch.utils.profiling import group_ms, profile_calls  # noqa: E402
@@ -898,10 +920,10 @@ def phase_attn_train_bf16_kernel(smi):
     return res
 
 
-def synthetic_batch(cfg, rng, B):
-    """B 20-s int16 FOA chunks in the hop-block layout (B, 800, 600, 4), on
-    the card, with AD-YOLO targets of random events (one to three a label
-    frame on 70 % of the frames) from the port's encoder."""
+def synthetic_clips(cfg, rng, B):
+    """B 20-s int16 FOA chunks in the hop-block layout (B, 800, 600, 4) and
+    each one's AD-YOLO targets, of random events (one to three a label
+    frame on 70 % of the frames), from the port's encoder."""
     geom = make_grid_geometry(cfg)
     frames = cfg.data.chunk_label_frames
     per_clip = []
@@ -913,12 +935,22 @@ def synthetic_batch(cfg, rng, B):
                              float(rng.uniform(-180, 180)), float(rng.uniform(-90, 90))]
                             for i in range(int(rng.integers(1, 4)))]
         per_clip.append(encode_adyolo(label, frames, geom))
-    targets, mask = pad_yolo_targets(per_clip, cfg.train.max_targets_per_clip * B)
     T = cfg.data.chunk_samples // HOP
-    audio = (rng.standard_normal((B, T, HOP, 4)) * 1500).astype(np.int16)
+    return (rng.standard_normal((B, T, HOP, 4)) * 1500).astype(np.int16), per_clip
+
+
+def clips_batch(cfg, audio, per_clip):
+    """The train step's batch of those clips, on the card (targets indexed
+    within it, padded to ``max_targets_per_clip`` x its size)."""
+    targets, mask = pad_yolo_targets(per_clip, cfg.train.max_targets_per_clip * len(per_clip))
     return {"audio": torch.tensor(audio, device="cuda"),
             "targets": torch.tensor(targets, device="cuda"),
             "target_mask": torch.tensor(mask, device="cuda")}
+
+
+def synthetic_batch(cfg, rng, B):
+    """:func:`synthetic_clips` as one batch on the card."""
+    return clips_batch(cfg, *synthetic_clips(cfg, rng, B))
 
 
 def grads_of(model):
@@ -1273,7 +1305,7 @@ def plain_versions_raise():
     saved = (plain_stft.stft, attention.mhsa_attention)
 
     def refuse(*_, **__):
-        raise RuntimeError("a plain version ran on the export path")
+        raise RuntimeError("a plain version ran on a kernel path")
 
     plain_stft.stft = attention.mhsa_attention = refuse
     try:
@@ -2370,6 +2402,309 @@ def phase_train_cli_formats(smi, cfg):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- data parallelism: two ranks on the one card ----------------------------
+
+DDP_WORLD = 2
+DDP_BATCH = 16  # the global batch; 8 clips a rank
+DDP_STEPS = 5  # phase (c)
+DDP_SEED = 21
+# The ranks' gradients against the single-process step's: the whole
+# gradient's L2 distance, relative to its norm, within TRAIN_GRAD_TOL or
+# this many times float32's own distance between two single-process steps
+# that sum the batch in another order, whichever is larger.  That floor is
+# not small here: on the card the largest element moves by 5.9e-4 (SE-
+# ResNet34) and 8.6e-3 (the conformer) of max|grad|, and in L2 by 3.1e-4
+# and 5.3e-3 (NVIDIA H100 80GB HBM3, 700.00 W).  The largest element is
+# reported, not held: over two orders its maximum wanders by 2x.  In
+# float64 the data-parallel and single-process steps agree within 1e-8
+# (tests/test_torch_ddp.py, on the CPU).
+DDP_FLOOR_RATIO = 2.0
+
+
+def ddp_cases(cfg, conf_cfg):
+    """Phase ddp's step cases: (a) SE-ResNet34 and (b) the conformer with
+    ``remat``, fp32, AD-YOLO, dropout 0; (c) the conformer in bf16 with its
+    dropout (0.2): name -> (config, dropout on)."""
+    return {"se": (cfg, False),
+            "conformer_remat": (with_train(conf_cfg, remat=True), False),
+            "conformer_bf16": (with_train(conf_cfg, compute_dtype="bfloat16"), True)}
+
+
+def ddp_model(cfg, dropout):
+    """The seeded model in training mode, its dropout off unless asked."""
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0), train=True)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, U8Dropout):
+                m.rate = 0.0
+            elif isinstance(m, resnet_conformer.MHSA):
+                m.dropout = 0.0
+    return model
+
+
+def ddp_record(model):
+    return {"grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "stats": {f"{n}.{b}": getattr(m, b).detach().cpu()
+                      for n, m in model.named_modules() if isinstance(m, BatchNorm)
+                      for b in ("running_mean", "running_var")}}
+
+
+def ddp_collective_ms(model):
+    """The collectives of one data-parallel step, timed alone on the batch
+    group (host clock from a synchronised device to the end of the
+    collective's device work, median of 5 after a warm-up): one gloo
+    all-reduce of all the float32 gradients at once (DDP splits them into
+    buckets) and one of a BatchNorm's moments (3 x 512 floats, the widest),
+    with the count of the latter a step (one a BatchNorm forward and one
+    backward)."""
+    n = sum(p.numel() for p in model.parameters())
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    out = {"grad_floats": n, "bn_allreduces_per_step": 2 * n_bn}
+    for key, numel in (("grad_allreduce_ms", n), ("bn_allreduce_ms", 3 * 512)):
+        x = torch.ones(numel, device="cuda")
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(x, group=mesh.batch_group())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[key] = float(np.median(ms[1:]))
+    return out
+
+
+def ddp_worker(rank, tmp, cfg, conf_cfg):
+    """One rank of phase ddp, on ``cuda:0`` beside the other, in a gloo
+    group: the data-parallel step of each case on this rank's 8 clips of
+    the global batch, the plain STFT and attention patched to raise, the
+    launch counts set to 0 just before each case's steps and read just
+    after; rank 0 writes its gradients for the parent's comparison; every
+    rank checks that it holds rank 0's gradients and running stats (gloo
+    broadcasts of CUDA tensors)."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=DDP_WORLD)
+    try:
+        mesh.init_distributed("cuda:0")  # the batch and control groups
+        fe = make_frontend(cfg)
+        out = {}
+        for name, (c, dropout) in ddp_cases(cfg, conf_cfg).items():
+            audio, per_clip = synthetic_clips(c, np.random.default_rng(DDP_SEED), DDP_BATCH)
+            shard = clips_batch(c, audio[rank::DDP_WORLD], per_clip[rank::DDP_WORLD])
+            model = ddp_model(c, dropout)
+            step = build_train_step(c, model, fe)
+            gen = torch.Generator(device="cuda").manual_seed(1234)
+            n_steps = DDP_STEPS if name == "conformer_bf16" else 1
+            torch.cuda.synchronize()
+            losses, step_ms, per_step = [], [], []
+            with plain_versions_raise():
+                zero_counts()
+                for _ in range(n_steps):
+                    before = counts()
+                    t0 = time.perf_counter()
+                    losses.append(float(step(shard, gen)))  # ends in a device -> host copy
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    per_step.append({n: v - before[n] for n, v in counts().items()})
+                launched = counts()
+            if name == "conformer_bf16":  # where a rank's step goes
+                prof = profile_calls(lambda i: step(shard, gen), 2)
+                collectives = ddp_collective_ms(model)
+            rec = ddp_record(model)
+            same = True
+            for t in list(rec["grads"].values()) + list(rec["stats"].values()):
+                mine = t.to("cuda")
+                theirs = mine.clone()
+                dist.broadcast(theirs, src=0)
+                same &= torch.equal(mine, theirs)
+            row = {"losses": losses, "step_ms": step_ms, "per_step": per_step,
+                   "launched": launched, "same_as_rank0": same}
+            if name == "conformer_bf16":
+                row.update(profile=prof, collectives=collectives)
+            if rank == 0 and name != "conformer_bf16":
+                torch.save(rec, os.path.join(tmp, f"{name}.pt"))
+            out[name] = row
+            del model, step, rec
+            torch.cuda.empty_cache()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def grad_distance(got, want):
+    """``got``'s step against ``want``'s: the losses and their relative
+    distance, the largest gradient error over the largest gradient (and
+    the tensor it is in), the whole gradient's L2 distance relative to its
+    norm, and the running stats' largest error relative to each one's max."""
+    gmax = max(float(g.abs().max()) for g in want["grads"].values())
+    err, worst = max((float((got["grads"][n] - g).abs().max()), n)
+                     for n, g in want["grads"].items())
+    l2 = sum(float(((got["grads"][n] - g) ** 2).sum()) for n, g in want["grads"].items())
+    norm = sum(float((g ** 2).sum()) for g in want["grads"].values())
+    return {"loss": [got["loss"], want["loss"]],
+            "loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_rel": err / gmax, "grad_worst_tensor": worst, "grad_max_abs": gmax,
+            "grad_l2_rel": (l2 / norm) ** 0.5,
+            "stats_rel": max(float((got["stats"][n] - t).abs().max()) / float(t.abs().max())
+                             for n, t in want["stats"].items())}
+
+
+def ddp_grad_tol(row):
+    """The bound of a data-parallel step's relative L2 gradient distance:
+    TRAIN_GRAD_TOL, or DDP_FLOOR_RATIO x float32's floor measured beside
+    it (``single_process_batch_order_floor``), whichever is larger."""
+    floor = row["single_process_batch_order_floor"]["grad_l2_rel"]
+    return max(TRAIN_GRAD_TOL, DDP_FLOOR_RATIO * floor)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_ddp(smi, cfg, conf_cfg):
+    """Data-parallel training on two ranks sharing the one card (gloo: NCCL
+    refuses two ranks on one device).  The single-process step of cases (a)
+    and (b) at B = DDP_BATCH x 20 s is taken first, in this process, on the
+    global batch in the ranks' order (and again in its own order: the
+    float32 floor of a comparison that sums in another order); then
+    two ranks are spawned (the kernels are built already) and take the
+    same steps on 8 clips each: the global loss within TRAIN_LOSS_TOL rel,
+    the gradients' L2 distance within :func:`ddp_grad_tol` and the running
+    stats within TRAIN_GRAD_TOL x each one's max of the single-process
+    step's, gradients and stats equal on both ranks; per rank per step K1
+    once and, for the conformer, k2_dropout 16 times (remat runs each
+    block's forward again in the backward) and k3 8 times, with the plain
+    versions patched to raise.  (c) DDP_STEPS bf16 steps with
+    dropout: finite losses, k2_dropout_bf16 / k3_bf16 8 each per rank per
+    step, step time per rank and the two ranks' audio-s/s.  (d) ``python -m
+    adyolo_tpu_torch.cli train --quick_test`` under torchrun's variables at
+    world size 1: NCCL's init, rank 0's experiment, evaluation and final
+    test; exit 0 and one experiment dir.  The launch counts of the ranks'
+    steps (both ranks) are the path ``ddp``."""
+    t_phase = time.perf_counter()
+    cases = ddp_cases(cfg, conf_cfg)
+    fe = make_frontend(cfg)
+    ref, floor = {}, {}
+    for name in ("se", "conformer_remat"):
+        c, dropout = cases[name]
+        audio, per_clip = synthetic_clips(c, np.random.default_rng(DDP_SEED), DDP_BATCH)
+        # the global batch in the ranks' order (rank 0's clips, then rank
+        # 1's), and in its own: float32's distance between the two is the
+        # floor of any comparison that sums in another order
+        order = [i for r in range(DDP_WORLD) for i in range(r, DDP_BATCH, DDP_WORLD)]
+        runs = []
+        for idx in (order, list(range(DDP_BATCH))):
+            model = ddp_model(c, dropout)
+            step = build_train_step(c, model, fe)
+            batch = clips_batch(c, audio[idx], [per_clip[i] for i in idx])
+            gen = torch.Generator(device="cuda").manual_seed(1234)
+            runs.append({"loss": float(step(batch, gen)), **ddp_record(model)})
+            del model, step, batch
+        ref[name] = runs[0]
+        floor[name] = grad_distance(runs[1], runs[0])
+    torch.cuda.empty_cache()
+    require(os.path.isfile(build.library_path()), "ddp: the kernels are not built")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(ddp_worker, args=(tmp, cfg, conf_cfg),
+                                    nprocs=DDP_WORLD, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        rows = {}
+        for name in ("se", "conformer_remat"):
+            got = torch.load(os.path.join(tmp, f"{name}.pt"))
+            got["loss"] = ranks[0][name]["losses"][0]
+            rows[name] = {**grad_distance(got, ref[name]),
+                          "single_process_batch_order_floor": floor[name]}
+        emit({"phase": "ddp_vs_single_process", **rows, "card": smi})
+        for name, row in rows.items():
+            require(row["loss_rel"] <= TRAIN_LOSS_TOL,
+                    f"ddp {name}: loss {row['loss']} vs single-process")
+            tol = ddp_grad_tol(row)
+            require(row["grad_l2_rel"] <= tol,
+                    f"ddp {name}: grads L2 distance {row['grad_l2_rel']} > {tol}")
+            require(row["stats_rel"] <= TRAIN_GRAD_TOL,
+                    f"ddp {name}: running stats err {row['stats_rel']}")
+        nb = CONFORMER_BLOCKS
+        want_step = {"se": {"stft": 1},
+                     # remat runs each block's forward again in the backward
+                     "conformer_remat": {"stft": 1, "k2_dropout": 2 * nb, "k3": nb},
+                     "conformer_bf16": {"stft": 1, "k2_dropout_bf16": nb, "k3_bf16": nb}}
+        path = None
+        for r, rec in enumerate(ranks):
+            for name, want in want_step.items():
+                row = rec[name]
+                require(row["same_as_rank0"], f"ddp {name}: rank {r} differs from rank 0")
+                require(all(np.isfinite(row["losses"])), f"ddp {name} rank {r}: {row['losses']}")
+                require(row["losses"] == ranks[0][name]["losses"],
+                        f"ddp {name}: the ranks' global losses differ")
+                for i, n in enumerate(row["per_step"]):
+                    require(n == {**{k: 0 for k in n}, **want},
+                            f"ddp {name} rank {r} step {i + 1}: launches {n}, want {want}")
+                path = {k: (0 if path is None else path[k]) + v
+                        for k, v in row["launched"].items()}
+        bf = [rec["conformer_bf16"] for rec in ranks]
+        per_rank_ms = [float(np.median(b["step_ms"][1:])) for b in bf]
+        rows["conformer_bf16"] = {
+            "losses": bf[0]["losses"], "step_ms": [b["step_ms"] for b in bf],
+            "profile_rank0": bf[0]["profile"], "collectives_rank0": bf[0]["collectives"],
+            "median_step_ms_per_rank": per_rank_ms,
+            "audio_s_per_s_two_ranks_sharing_one_card":
+                DDP_BATCH * 20.0 / (max(per_rank_ms) * 1e-3)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the CLI over NCCL at world size 1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_cli_")
+    try:
+        data = os.path.join(tmp, "data")
+        write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
+        configs = preset_dir(tmp, cfg, data_pth=data, name_pth=os.path.join(data, "classes.txt"))
+        results = os.path.join(tmp, "results")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                   PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "adyolo_tpu_torch.cli", "train", "--quick_test",
+             "--batch_size", str(CLI_BATCH), "--nb_iters", "1", "--config_dir", configs,
+             "--results_dir", results, "--exp_id", "chip-ddp-cli", "--device", "cuda"],
+            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"ddp cli: exit {proc.returncode} after {cli_s:.0f} s\n"
+                f"{out[-3000:]}\n{err[-3000:]}")
+        exps = os.listdir(results)
+        exp = os.path.join(results, "chip-ddp-cli")
+        require(exps == ["chip-ddp-cli"], f"ddp cli: experiment dirs {exps}")
+        for f in ("hyp_exp.yaml", "model_best.ckpt", "model_ckpt.ckpt"):
+            require(os.path.isfile(os.path.join(exp, f)), f"ddp cli: no {f}")
+        final = out.count("FINAL TEST WITH BEST CHECKPOINT")
+        require(final == 1, f"ddp cli: the final test ran {final} times")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "ddp", "world": DDP_WORLD, "backend": "gloo, two ranks sharing one card",
+          "global_batch": [DDP_BATCH, 800, HOP, 4], **rows, "launches": path,
+          "tol": {"loss_rel": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL},
+          "spawn_s": spawn_s, "cli_nccl_world1_s": cli_s,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    return path
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -2412,6 +2747,7 @@ def main():
     se_cli = phase_train_cli_se_bf16(smi, cfg)
     mic = phase_preprocess_mic(smi, cfg)
     formats = phase_train_cli_formats(smi, cfg)
+    ddp = phase_ddp(smi, cfg, conf_cfg)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
@@ -2429,7 +2765,7 @@ def main():
              "preprocess_mic": mic,
              "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
                                    for n in formats["accdoa"]},
-             "train_cli_formats_conformer": formats["accdoa-conformer"]}
+             "train_cli_formats_conformer": formats["accdoa-conformer"], "ddp": ddp}
     for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
         require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
     require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),

@@ -3,13 +3,14 @@
 
 Run from the repository root::
 
-    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export]
+    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp]
 
 Phases env and build always run; then ``attn``: attn_train_bf16_kernel,
 ``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
 train_cli_se_bf16 (these four when none is named), ``evalk``:
 attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
-ResNet-Conformer models, thresholds from one B=16 forward each).  Each
+ResNet-Conformer models, thresholds from one B=16 forward each), ``ddp``:
+ddp (two ranks spawned on the card).  Each
 prints its JSON line as in the full script.  Quicker than the full script
 while one phase is being worked on; the full script stays the check.
 """
@@ -21,34 +22,45 @@ from adyolo_tpu_torch.engine.evaluate import build_eval_forward, make_frontend
 from adyolo_tpu_torch.models.wrapper import build_model
 import numpy as np
 import torch
-t0 = time.time()
-smi = cs.phase_env()
-cs.phase_build()
-data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "DCASE2022_SELD")
-cfg = Config()
-cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_pth=data, name_pth=os.path.join(data, "classes.txt")))
-conf_cfg = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, encoder="resnet-conformer"))
-fe = make_frontend(cfg)
-which = sys.argv[1:] or ["attn", "se", "conf", "cli"]
-if "attn" in which:
-    print("bf16_k", cs.phase_attn_train_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
-if "se" in which:
-    print(cs.phase_train_seresnet34(smi, cfg, fe)); print("t", time.time() - t0, flush=True)
-if "conf" in which:
-    print(cs.phase_train_conformer_bf16(smi, conf_cfg, fe)); print("t", time.time() - t0, flush=True)
-if "cli" in which:
-    print(cs.phase_train_cli_se_bf16(smi, cfg)); print("t", time.time() - t0, flush=True)
-if "evalk" in which:
-    print(cs.phase_attn_eval_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
-if "export" in which:
-    x = torch.tensor(cs.foa_audio(np.random.default_rng(1), (16, 800, cs.HOP, 4)), device="cuda")
-    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
-    conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
-    tau = cs.pick_threshold(cfg, build_eval_forward(model, fe)(x))
-    conf_tau = cs.pick_threshold(conf_cfg, build_eval_forward(conformer, fe)(x))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        print(cs.phase_export(smi, cfg, conf_cfg, fe, model, conformer, tau, conf_tau, tmp))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("t", time.time() - t0, flush=True)
+
+
+def main():
+    """The spawned ranks of phase ddp import this script as their main
+    module: everything runs from here, not at import."""
+    t0 = time.time()
+    smi = cs.phase_env()
+    cs.phase_build()
+    data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "DCASE2022_SELD")
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_pth=data, name_pth=os.path.join(data, "classes.txt")))
+    conf_cfg = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, encoder="resnet-conformer"))
+    fe = make_frontend(cfg)
+    which = sys.argv[1:] or ["attn", "se", "conf", "cli"]
+    if "attn" in which:
+        print("bf16_k", cs.phase_attn_train_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
+    if "se" in which:
+        print(cs.phase_train_seresnet34(smi, cfg, fe)); print("t", time.time() - t0, flush=True)
+    if "conf" in which:
+        print(cs.phase_train_conformer_bf16(smi, conf_cfg, fe)); print("t", time.time() - t0, flush=True)
+    if "cli" in which:
+        print(cs.phase_train_cli_se_bf16(smi, cfg)); print("t", time.time() - t0, flush=True)
+    if "evalk" in which:
+        print(cs.phase_attn_eval_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
+    if "ddp" in which:
+        print(cs.phase_ddp(smi, cfg, conf_cfg)); print("t", time.time() - t0, flush=True)
+    if "export" in which:
+        x = torch.tensor(cs.foa_audio(np.random.default_rng(1), (16, 800, cs.HOP, 4)), device="cuda")
+        model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
+        tau = cs.pick_threshold(cfg, build_eval_forward(model, fe)(x))
+        conf_tau = cs.pick_threshold(conf_cfg, build_eval_forward(conformer, fe)(x))
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            print(cs.phase_export(smi, cfg, conf_cfg, fe, model, conformer, tau, conf_tau, tmp))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("t", time.time() - t0, flush=True)
+
+
+if __name__ == "__main__":
+    main()

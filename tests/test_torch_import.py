@@ -35,7 +35,7 @@ _SLICE = ("config", "ops.stft", "ops.hopper_stft", "ops.attention",
           "utils.native", "cli", "metrics.seld", "metrics.hungarian",
           "ops.rotation", "ops.specaug", "engine.train", "utils.rng",
           "utils.logging", "utils.neptune_adapter", "ops.library",
-          "engine.export")
+          "engine.export", "parallel.mesh")
 
 
 def test_port_imports_no_jax():
