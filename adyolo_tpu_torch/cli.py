@@ -6,6 +6,8 @@ Usage:
                                          [--compute_dtype bfloat16] [--remat] ...
     python -m adyolo_tpu_torch.cli train --resume_pth <exp_id>
     torchrun --nproc_per_node <N> -m adyolo_tpu_torch.cli train ...
+    torchrun --nproc_per_node <N> -m adyolo_tpu_torch.cli train --encoder resnet-conformer \
+        --model_parallel <M> ...
     python -m adyolo_tpu_torch.cli val   --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli test  --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli infer --eval_pth <exp_id> --infer_pth <wav_dir>
@@ -35,7 +37,16 @@ every global batch, and a step computes the single-process step on the
 global batch (BatchNorm's moments and AD-YOLO's denominators are the
 global batch's); rank 0 alone logs, checkpoints and evaluates
 (:mod:`adyolo_tpu_torch.engine.train`).  Under plain ``python -m`` it
-runs in one process.
+runs in one process.  ``--model_parallel M`` adds tensor parallelism:
+each group of M consecutive ranks shards the ResNet-Conformer's blocks
+(by heads and by FFN and conv channels) and trains one data replica's
+clips, so N / M replicas take ``batch_size / (N / M)`` clips each; the
+step is still the single-process step on the global batch.  Rank 0
+evaluates and checkpoints the gathered, unsharded model.  M must divide
+N and the 4 attention heads, and SE-ResNet34 (nothing to shard) is
+refused with ``M > 1``.  ``val``, ``test``, ``infer`` and ``export`` run
+one process on one device and take ``--model_parallel`` without using
+it, as the JAX package's eval does.
 
 ``preprocess chunking`` cuts the dataset's ``dev-train`` wavs and labels
 into the 20-s training chunks; ``preprocess scaler`` writes
@@ -43,10 +54,8 @@ into the 20-s training chunks; ``preprocess scaler`` writes
 ``dev-train`` clip, on ``--device``.  Both read the same presets as
 ``train`` (``--config_dir``).
 
-The JAX package's arguments that the port does not implement are refused
-with a message, not ignored: ``--model_parallel`` (tensor parallelism:
-ROADMAP.md §1 item 7c), and ``--serve_dtype`` on any action but
-``export``.
+``--serve_dtype`` on any action but ``export`` is refused with a message,
+not ignored.
 """
 from __future__ import annotations
 
@@ -103,8 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["float32", "bfloat16"],
                         help="export: the encoder's compute dtype in the "
                              "artifact (default float32)")
-        # the JAX package's argument that the port refuses (see _refuse)
-        sp.add_argument("--model_parallel", type=int, default=None)
+        sp.add_argument("--model_parallel", type=int, default=None,
+                        help="train: ranks in a model group, which shard the "
+                             "conformer (WORLD_SIZE = data replicas x this)")
         sp.add_argument("--device", type=str, default="cuda")
 
     pp = sub.add_parser("preprocess")
@@ -139,11 +149,8 @@ def _preprocess(args) -> None:
 
 
 def _refuse(args) -> None:
-    """Exit with a message for an argument the port does not implement."""
+    """Exit with a message for an argument the action does not take."""
     refused = {
-        "--model_parallel": (args.model_parallel is not None,
-                             "tensor parallelism is not ported (ROADMAP.md §1 "
-                             "item 7c); data parallelism runs under torchrun"),
         "--serve_dtype": (args.serve_dtype is not None and args.action != "export",
                           "it sets the dtype of the export artifact: only "
                           "'export' takes it"),
@@ -169,8 +176,7 @@ def main(argv=None) -> int:
 
         export_cmd(vars(args), results_dir=args.results_dir, device=args.device)
         return 0
-    arg_dict = {k: v for k, v in vars(args).items()
-                if k not in ("device", "model_parallel", "serve_dtype")}
+    arg_dict = {k: v for k, v in vars(args).items() if k not in ("device", "serve_dtype")}
     if args.action == "train":
         from .engine.train import train_model
 

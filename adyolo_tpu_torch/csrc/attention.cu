@@ -40,9 +40,12 @@
 // interpret mode (flash_mhsa.py:64-71), indexed by the JAX blocking so that
 // the masks agree bit for bit with it and with the plain version
 // (ops/attention.py::dropout_bits): for query t and key j,
-//   x = (t % bq) * Tp + j + seed * 0x9E3779B9 + ((b*H + h) * nq + t / bq)
+//   x = (t % bq) * Tp + j + seed * 0x9E3779B9 + ((b*Ht + h0 + h) * nq + t / bq)
 //       * 0x85EBCA6B  (uint32), keep = mix(x) >= thresh << 24,
-// bq the JAX query block, nq = T / bq, Tp = ceil(T / 128) * 128.
+// bq the JAX query block, nq = T / bq, Tp = ceil(T / 128) * 128.  A launch
+// over a head shard (tensor parallelism: heads [h0, h0 + H) of a model with
+// Ht heads) hashes the model's global head, so its mask is the full model's
+// mask of those heads; h0 = 0, Ht = H is the unsharded call.
 //
 // The backward, with p = exp(s - lse) recomputed and D = rowsum(dO o O)
 // (which equals rowsum(dp o p) with dropout on, as O = pd . V):
@@ -148,6 +151,7 @@ struct Drop {
     float kscale;    // 256 / (256 - thresh)
     int bq, nq;      // the JAX query block and count
     unsigned tp;     // keys padded to 128
+    int hl, h0, ht;  // heads of the launch, its first head's index in the model, the model's heads
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -168,7 +172,8 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 // The hash's per-query part: everything of x but the key index.
 __device__ __forceinline__ unsigned row_base(const Drop& d, unsigned seed_term,
                                              int bh, int t) {
-    const unsigned lane = (unsigned)(bh * d.nq + t / d.bq);
+    const int gbh = bh + (bh / d.hl) * (d.ht - d.hl) + d.h0;  // b*ht + h0 + h
+    const unsigned lane = (unsigned)(gbh * d.nq + t / d.bq);
     return (unsigned)(t % d.bq) * d.tp + seed_term + lane * 0x85EBCA6Bu;
 }
 
@@ -1785,14 +1790,24 @@ int check_shape(int B, int T, int H, int dh) {
     return 0;
 }
 
-Drop make_drop(int thresh, int bq, int tp) {
+// The dropout of a launch over heads [h0, h0 + H) of a model with ht heads.
+Drop make_drop(int thresh, int bq, int tp, int H, int h0, int ht) {
     Drop d;
     d.t24 = thresh > 0 ? (unsigned)thresh << 24 : 0u;
     d.kscale = thresh > 0 ? 256.0f / (256.0f - (float)thresh) : 1.0f;
     d.bq = bq;
     d.nq = 1;  // set by the caller from T
     d.tp = (unsigned)tp;
+    d.hl = H;
+    d.h0 = h0;
+    d.ht = ht;
     return d;
+}
+
+// The hash arguments of a training launch, checked.
+bool bad_hash_args(int T, int H, int thresh, int bq, int tp, int h0, int ht) {
+    return thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T || h0 < 0 ||
+           ht < h0 + H;
 }
 
 template <typename K>
@@ -1999,19 +2014,22 @@ extern "C" int adyolo_mhsa_fwd(const void* q, const void* k, const void* v,
                                int H, int dh, int splits, void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
     return launch_fwd<false>(q, k, v, kv_len, nullptr, out, nullptr, scratch, B, T, H, splits,
-                             make_drop(0, 1, 128), stream);
+                             make_drop(0, 1, 128, H, 0, H), stream);
 }
 
-// Train forward (K2 with its dropout branch): out and the row logsumexp.
+// Train forward (K2 with its dropout branch): out and the row logsumexp.  The
+// launch holds heads [head_offset, head_offset + H) of a model with heads_total
+// heads (the keep hash's head index); the train entry points below take the same.
 extern "C" int adyolo_mhsa_fwd_train(const void* q, const void* k, const void* v,
                                      const void* kv_len, const void* seed, void* out,
                                      void* lse, void* scratch, int B, int T, int H, int dh,
-                                     int thresh, int bq, int tp, int splits, void* stream) {
+                                     int thresh, int bq, int tp, int head_offset, int heads_total,
+                                     int splits, void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
+    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
         return (int)cudaErrorInvalidValue;
     }
-    Drop d = make_drop(thresh, bq, tp);
+    Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
     return launch_fwd<true>(q, k, v, kv_len, seed, out, lse, scratch, B, T, H, splits, d,
                             stream);
@@ -2022,14 +2040,15 @@ extern "C" int adyolo_mhsa_bwd(const void* q, const void* k, const void* v,
                                const void* kv_len, const void* seed, const void* out,
                                const void* dout, const void* lse, void* delta,
                                void* dq, void* dk, void* dv, int B, int T, int H,
-                               int dh, int thresh, int bq, int tp, void* stream) {
+                               int dh, int thresh, int bq, int tp, int head_offset,
+                               int heads_total, void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
+    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
         return (int)cudaErrorInvalidValue;
     }
     if (int rc = set_smem(mhsa_bwd_dq_kernel, DQ_SMEM)) return rc;
     if (int rc = set_smem(mhsa_bwd_dkdv_kernel, DKDV_SMEM)) return rc;
-    Drop d = make_drop(thresh, bq, tp);
+    Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
     const float scale = 1.0f / sqrtf((float)DH);
     cudaStream_t st = (cudaStream_t)stream;
@@ -2057,12 +2076,13 @@ extern "C" int adyolo_mhsa_fwd_train_bf16(const void* q, const void* k, const vo
                                           const void* kv_len, const void* seed, void* out,
                                           void* out32, void* lse, void* scratch, int B, int T,
                                           int H, int dh, int thresh, int bq, int tp,
-                                          int splits, void* stream) {
+                                          int head_offset, int heads_total, int splits,
+                                          void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
+    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
         return (int)cudaErrorInvalidValue;
     }
-    Drop d = make_drop(thresh, bq, tp);
+    Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
     return launch_fwd_bf16<true>(q, k, v, kv_len, seed, out, out32, lse, scratch, B, T, H,
                                  splits, d, stream);
@@ -2075,7 +2095,7 @@ extern "C" int adyolo_mhsa_fwd_bf16(const void* q, const void* k, const void* v,
                                     int H, int dh, int splits, void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
     return launch_fwd_bf16<false>(q, k, v, kv_len, nullptr, out, nullptr, nullptr, scratch, B,
-                                  T, H, splits, make_drop(0, 1, 128), stream);
+                                  T, H, splits, make_drop(0, 1, 128, H, 0, H), stream);
 }
 
 // bf16 backward (K3 on bfloat16 q/k/v/dO): dq (and D into `delta`, from
@@ -2084,9 +2104,10 @@ extern "C" int adyolo_mhsa_bwd_bf16(const void* q, const void* k, const void* v,
                                     const void* kv_len, const void* seed, const void* out32,
                                     const void* dout, const void* lse, void* delta, void* dq,
                                     void* dk, void* dv, int B, int T, int H, int dh,
-                                    int thresh, int bq, int tp, void* stream) {
+                                    int thresh, int bq, int tp, int head_offset,
+                                    int heads_total, void* stream) {
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T) {
+    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
         return (int)cudaErrorInvalidValue;
     }
     CUtensorMap mq, mk, mv, mdo;
@@ -2099,7 +2120,7 @@ extern "C" int adyolo_mhsa_bwd_bf16(const void* q, const void* k, const void* v,
     if (grid_dq < 0) return -grid_dq;
     const int grid_dkdv = ws_grid(mhsa_bwd_dkdv_bf16_kernel, DKDVB_SMEM, n_work);
     if (grid_dkdv < 0) return -grid_dkdv;
-    Drop d = make_drop(thresh, bq, tp);
+    Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
     const float scale = 1.0f / sqrtf((float)DH);
     cudaStream_t st = (cudaStream_t)stream;

@@ -14,7 +14,9 @@ A ``model_ckpt.ckpt`` (:func:`save_train_checkpoint`) is the port's own:
 a ``torch.save`` of the model's state dict (weights and BatchNorm running
 stats), the optimizer's state dict and the trainer's host state (the RNG
 streams, the sampler pool, ``best_log``, the next epoch, the confidence
-threshold), from which ``cli train --resume_pth`` continues.
+threshold), from which ``cli train --resume_pth`` continues.  Under tensor
+parallelism both files hold the full model, gathered from the ranks'
+shards, so either is read at any ``--model_parallel``.
 
 Every file is written to a process-unique temporary file and renamed into
 place, so a preemption mid-write leaves the previous file whole.
@@ -28,6 +30,8 @@ from typing import Any, Dict, Tuple
 import msgpack
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 __all__ = ["load_jax_checkpoint", "save_jax_checkpoint",
            "save_train_checkpoint", "load_train_checkpoint"]
@@ -102,23 +106,32 @@ def save_jax_checkpoint(path: str, variables: Dict, host: Dict[str, Any]) -> Non
     os.replace(tmp, path)
 
 
-def save_train_checkpoint(path: str, model: torch.nn.Module,
-                          optimizer: torch.optim.Optimizer,
-                          host: Dict[str, Any]) -> None:
-    """Write the resumable state of a training run."""
+def save_train_checkpoint(path: str, model_state: Dict[str, torch.Tensor],
+                          optimizer_state: Dict, host: Dict[str, Any]) -> None:
+    """Write the resumable state of a training run: the full model's state
+    dict and its optimizer's (under tensor parallelism, gathered from the
+    ranks' shards) and the host state."""
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "host": host}, tmp)
+    torch.save({"model": model_state, "optimizer": optimizer_state, "host": host}, tmp)
     os.replace(tmp, path)
 
 
 def load_train_checkpoint(path: str, model: torch.nn.Module,
-                          optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+                          optimizer: torch.optim.Optimizer,
+                          tp_rank: int = 0, tp_size: int = 1) -> Dict[str, Any]:
     """Load :func:`save_train_checkpoint`'s model and optimizer state into
     ``model`` and ``optimizer`` (onto their device) and return the host
-    state.  The file must come from this project's trainer: it is
-    unpickled."""
+    state.  A model sharded over ``tp_size`` > 1 ranks takes rank
+    ``tp_rank``'s shard of the full state, its optimizer's moments cut by
+    the same rules (:mod:`adyolo_tpu_torch.parallel.mesh`).  The file must
+    come from this project's trainer: it is unpickled."""
     payload = torch.load(path, map_location="cpu", weights_only=False)
-    model.load_state_dict(payload["model"], strict=True)
-    optimizer.load_state_dict(payload["optimizer"])
+    model_state, optimizer_state = payload["model"], payload["optimizer"]
+    if tp_size > 1:
+        names = [n for n, _ in model.named_parameters()]
+        model_state = mesh.shard_state_dict(model_state, tp_rank, tp_size)
+        optimizer_state = mesh.shard_optimizer_state(optimizer_state, names, tp_rank,
+                                                     tp_size)
+    model.load_state_dict(model_state, strict=True)
+    optimizer.load_state_dict(optimizer_state)
     return payload["host"]

@@ -38,6 +38,19 @@ rank 0's checkpoint on every rank (the host RNG streams and the sampler
 advance alike on all ranks) and, at the same world size, continues the
 uninterrupted run.
 
+With ``--model_parallel N`` (the conformer only) the ranks form a (dp,
+tp) grid: each model group of N ranks trains one data replica's shard of
+the batch on the conformer sharded over the group
+(:mod:`adyolo_tpu_torch.parallel.mesh`).  At each epoch's end every rank
+takes part in gathering the parameters, BatchNorm stats and Adam moments
+into the full state, which rank 0 loads into an unsharded copy of the
+model: it evaluates that copy (the same function as the sharded model)
+and checkpoints the full state, so both files are in JAX's format and
+order, readable by a single-process run and by JAX's
+``load_checkpoint``.  A resume loads the full checkpoint on every rank
+and shards it; ``--model_parallel`` on a resume overrides the frozen
+config's.
+
 Both encoders train, with any of the five losses, on FOA or MIC input, in
 float32 or (``--compute_dtype bfloat16``) in the JAX package's bf16 (the
 master weights, the optimizer, the checkpoints and every eval in
@@ -65,6 +78,7 @@ from ..config import (Config, build_config, flatten_config, load_config,
 from ..convert import flax_from_state_dict
 from ..data.dataset import EvalLoader, SELDDataset, TrainLoader
 from ..metrics.seld import SegmentScorer
+from ..models.resnet_conformer import HEADS
 from ..models.wrapper import DTYPES, build_model
 from ..ops.decode import PostProcessor
 from ..parallel import mesh
@@ -124,13 +138,20 @@ class _PreemptionGuard:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise ``ValueError`` for an unknown compute dtype, or a batch size
-    that the ranks do not divide, before a fresh run creates its
-    directory."""
+    """Raise ``ValueError`` for an unknown compute dtype, a model-parallel
+    size that the ranks or the conformer's heads do not divide or an encoder
+    it cannot shard, or a batch size that the data replicas do not divide,
+    before a fresh run creates its directory."""
     if cfg.train.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
-    mesh.check_batch(cfg.train.batch_size)
+    n = cfg.mesh.model_parallel
+    if n > 1 and cfg.args.encoder != "resnet-conformer":
+        raise ValueError(f"--model_parallel {n} shards the ResNet-Conformer only: "
+                         f"{cfg.args.encoder} has nothing to shard (JAX's rules shard "
+                         "none of it), so its N ranks would repeat one another's work")
+    mesh.check_model_parallel(n, heads=HEADS)
+    mesh.check_batch(cfg.train.batch_size, mesh.world_size() // n)
 
 
 def train_one_epoch(loader: TrainLoader, train_step, generator: torch.Generator,
@@ -207,6 +228,9 @@ def _open_experiment(args: Dict, is_resume: bool):
         cfg = load_config(os.path.join(output_pth, "hyp_exp.yaml"))
         if cfg.args.exp_id != args["resume_pth"]:
             raise ValueError(f"{output_pth} holds experiment {cfg.args.exp_id!r}")
+        if args.get("model_parallel") is not None:
+            cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+                cfg.mesh, model_parallel=int(args["model_parallel"])))
         check_trainable(cfg)
         # reattach the neptune run frozen at create time; the credential is
         # never frozen, so it is read again (reference train.py:86-91)
@@ -262,8 +286,11 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
         cfg, output_pth, opened["neptune"] = _open_experiment(args, is_resume)
         return cfg, output_pth
 
-    # rank 0 opens the experiment; every rank takes its config and id
+    # rank 0 opens the experiment; every rank takes its config and id, and
+    # joins its groups of the (dp, tp) grid
     cfg, output_pth = mesh.on_main(open_experiment)
+    mesh.set_model_parallel(cfg.mesh.model_parallel)
+    tp = mesh.tp_size()
     if opened.get("neptune") is not None:
         logger = opened["neptune"]
     elif cfg.args.logger and main:
@@ -279,16 +306,18 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
 
     # ---- data / model / step (the train set draws epoch 1 from the seed) --
     train_ds = SELDDataset(cfg, "train")
-    train_loader = TrainLoader(train_ds, cfg, mesh.rank(), mesh.world_size())
+    train_loader = TrainLoader(train_ds, cfg, mesh.dp_rank(), mesh.dp_size())
     frontend = make_frontend(cfg, device)
     model = build_model(cfg, device=device,
                         generator=torch.Generator().manual_seed(cfg.args.seed),
                         train=True)
-    train_step = build_train_step(cfg, model, frontend)
-    if main:  # evaluation runs on rank 0 only
+    train_step = build_train_step(cfg, model, frontend)  # shards the model under TP
+    optimizer = train_step.optimizer
+    if main:  # evaluation runs on rank 0 only, on an unsharded model
         valid_loader = EvalLoader(SELDDataset(cfg, "val", is_valid=True), cfg)
         test_loader = EvalLoader(SELDDataset(cfg, "test", is_valid=True), cfg)
-        eval_fwd = build_eval_forward(model, frontend)
+        eval_model = model if tp == 1 else build_model(cfg, device=device)
+        eval_fwd = build_eval_forward(eval_model, frontend)
         eval_crit = build_eval_criterion(cfg)
         postprocessor = PostProcessor(cfg)
         frames_1s = int(cfg.data.sr / cfg.data.label_hop_len)
@@ -300,7 +329,7 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
     # ---- resume (train.py:145-159): every rank loads rank 0's checkpoint --
     if is_resume:
         host = load_train_checkpoint(os.path.join(output_pth, "model_ckpt.ckpt"),
-                                     model, train_step.optimizer)
+                                     model, optimizer, mesh.tp_rank(), tp)
         train_ds.sampler.set_remaining(host["train_remaining_file"])
         train_ds.filelist = list(host["train_file_list"])
         # the reference resumes at the BEST threshold (train.py:151)
@@ -325,9 +354,27 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
 
     ckpt = os.path.join(output_pth, "model_ckpt.ckpt")
     out = {split: os.path.join(output_pth, f"output_{split}") for split in ("val", "test")}
+    names = [n for n, _ in model.named_parameters()]
+    full = {}
+
+    def gather_full_state():
+        """Rank 0's full optimizer state (and, under TP, its eval model's
+        weights) for checkpoints; under TP a collective of every rank,
+        which gathers the shards."""
+        if tp == 1:
+            full["optimizer"] = optimizer.state_dict() if main else None
+            return
+        state = mesh.gather_state_dict(model.state_dict())
+        full["optimizer"] = mesh.gather_optimizer_state(optimizer.state_dict(), names)
+        if main:
+            eval_model.load_state_dict(state)
+
+    def save_ckpt(next_epoch):
+        save_train_checkpoint(ckpt, eval_model.state_dict(), full["optimizer"],
+                              host_state(next_epoch))
 
     def preempted(epoch):
-        save_train_checkpoint(ckpt, model, train_step.optimizer, host_state(epoch))
+        save_ckpt(epoch)
         print(f"[adyolo_tpu_torch] preempted during epoch {epoch}; checkpoint "
               f"saved; resume with --resume_pth {cfg.args.exp_id}")
 
@@ -371,11 +418,11 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
                             ("ER", "F", "LE", "LR", "SELD"), test_s[:5])},
                         "best_conf_thresh": float(postprocessor.get_conf_thresh())}
             save_jax_checkpoint(os.path.join(output_pth, "model_best.ckpt"),
-                                flax_from_state_dict(model.state_dict()),
+                                flax_from_state_dict(eval_model.state_dict()),
                                 {"epoch_nb": epoch,
                                  "confidence_thresh": best_log["best_conf_thresh"]})
         # the rolling checkpoint (train.py:241-248)
-        save_train_checkpoint(ckpt, model, train_step.optimizer, host_state(epoch + 1))
+        save_ckpt(epoch + 1)
         ckpt_s = time.perf_counter() - t0
 
         # console report (train.py:251-261)
@@ -423,6 +470,7 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
                 train_loader, train_step, generator,
                 QUICK_TEST[1] if cfg.args.quick_test else None, guard)
             train_s = time.perf_counter() - t0
+            gather_full_state()
             if guard.stop:  # preempted (on any rank): keep this epoch resumable
                 mesh.on_main(lambda: preempted(epoch))
                 logger.stop()

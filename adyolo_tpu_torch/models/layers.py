@@ -24,7 +24,7 @@ and applies ``x * mul + shift`` in the input's dtype.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -222,7 +222,14 @@ class U8Dropout(nn.Module):
     ``t >= 256`` gives zeros.  The keep-scale is rounded to the input's
     dtype first, as JAX's ``jnp.asarray(scale, x.dtype)`` (bfloat16: 1.25).
     The bits come from ``generator`` (the device's default one when None),
-    not from JAX's threefry stream.  Identity in eval."""
+    not from JAX's threefry stream.  Identity in eval.
+
+    ``shard = (i, n)`` (tensor parallelism): ``x`` is piece ``i`` of ``n``
+    of a tensor split along its last axis; the bits of the whole tensor are
+    drawn and ``x``'s piece kept, so the mask is the unsharded model's and
+    the generator advances alike on every rank."""
+
+    shard: Optional[Tuple[int, int]] = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -235,8 +242,11 @@ class U8Dropout(nn.Module):
             return x
         if thresh >= 256:  # uint8(256) would wrap to "keep all"
             return torch.zeros_like(x)
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+        shape, (i, n) = x.shape, self.shard or (0, 1)
+        bits = torch.randint(0, 256, (*shape[:-1], shape[-1] * n), dtype=torch.uint8,
                              device=x.device, generator=generator)
+        if n > 1:
+            bits = bits.narrow(-1, i * shape[-1], shape[-1])
         scale = float(torch.tensor(256.0 / (256.0 - thresh), dtype=x.dtype))
         return torch.where(bits >= thresh, x * scale, 0.0)
 

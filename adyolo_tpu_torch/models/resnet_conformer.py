@@ -46,6 +46,16 @@ start state; the step's generator advances once, as without remat) and
 leaves the BatchNorm running stats alone, so a remat step equals the
 plain step bit for bit.
 
+Tensor parallelism (:func:`shard_conformer_`, ``--model_parallel N``):
+each conformer block's FFNs, MHSA and conv module are cut Megatron's way
+over a TP group by :mod:`adyolo_tpu_torch.parallel.mesh`'s rules: every
+product that widens (q/k/v, fc1, pw1) keeps its output columns, every
+product that narrows back to ``d`` (the MHSA output, fc2, pw2) its input
+rows, and one sum over the group closes each module.  A rank holds
+``4 / N`` heads and runs the attention kernels on them with the full
+model's keep bits; every dropout draws the full model's bits, so a
+sharded step is the unsharded step up to the order of the sums.
+
 Input ``(B, T, F, C)`` channel-last, as in the JAX package; the conv stack
 runs NCHW.  DCASE shapes: (B, 800, 64, 7) -> (B, 200, 256).
 """
@@ -60,20 +70,38 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.hopper_attention import flash_attention
+from ..parallel import mesh
 from .layers import (BatchNorm, Conv1d, Conv2d, Conv3x3, LayerNorm, Linear,
                      U8Dropout, apply_frame_mask, frozen_running_stats,
                      pool_mask, stats_dtype)
 
 __all__ = ["TVBasicBlock", "FeedForwardModule", "MHSA",
-           "ConformerConvModule", "ConformerBlock", "ResNetConformer"]
+           "ConformerConvModule", "ConformerBlock", "ResNetConformer",
+           "shard_conformer_"]
 
 _LAYERS = (3, 4, 5, 3)
 _FILTERS = (64, 128, 256, 512)
 _DROPOUT = 0.2
+HEADS = 4  # each MHSA's
 
 
 def _swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def _row_parallel(linear: Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear(x)``; under tensor parallelism (``group``), ``x`` and the
+    weight hold this rank's rows of the product: the partial product is
+    taken in at least float32 on x's dtype's values, summed over the group
+    in it, the (replicated) bias added once, and the sum rounded to x's
+    dtype once."""
+    if group is None:
+        return linear(x)
+    acc = stats_dtype(x.dtype)
+    y = mesh.reduce_from_tp(F.linear(x.to(acc), linear.weight.to(x.dtype).to(acc)), group)
+    if linear.bias is not None:
+        y = y + linear.bias.to(x.dtype).to(acc)
+    return y.to(x.dtype)
 
 
 class TVBasicBlock(nn.Module):
@@ -109,7 +137,10 @@ class FeedForwardModule(nn.Module):
     """LN -> Linear(d -> 4d) -> swish -> dropout -> Linear(4d -> d) ->
     dropout.  The linears are named ``fc1``/``fc2`` on purpose: the flax
     tree's auto-named ``Dense_0``/``Dense_1`` map onto them
-    (:mod:`adyolo_tpu_torch.convert`)."""
+    (:mod:`adyolo_tpu_torch.convert`).  ``tp``: the TP group of a sharded
+    module (:func:`shard_conformer_`)."""
+
+    tp = None
 
     def __init__(self, dim: int, expansion: int = 4):
         super().__init__()
@@ -121,8 +152,8 @@ class FeedForwardModule(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.drop1(_swish(self.fc1(self.ln(x))), generator)
-        return self.drop2(self.fc2(x), generator)
+        x = self.drop1(_swish(self.fc1(mesh.copy_to_tp(self.ln(x), self.tp))), generator)
+        return self.drop2(_row_parallel(self.fc2, x, self.tp), generator)
 
 
 class MHSA(nn.Module):
@@ -130,9 +161,14 @@ class MHSA(nn.Module):
     keys past ``kv_len[b]`` are masked (``kv_len`` None: all valid).  In
     training, dropout at rate ``self.dropout`` on the probabilities, its
     int32 seed drawn from ``generator``.  An eval forward longer than 2400
-    frames takes route k4 in any grad mode (and has no backward)."""
+    frames takes route k4 in any grad mode (and has no backward).  Sharded
+    (``tp``), it holds ``heads`` of the model's heads, from ``head_range =
+    (head_offset, heads_total)``."""
 
-    def __init__(self, dim: int, heads: int = 4):
+    tp = None
+    head_range = None  # (head_offset, heads_total) of a shard; None: all heads
+
+    def __init__(self, dim: int, heads: int = HEADS):
         super().__init__()
         self.heads = heads
         self.dropout = _DROPOUT
@@ -143,23 +179,28 @@ class MHSA(nn.Module):
 
     def forward(self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, T, D = x.shape
+        B, T, _ = x.shape
         rate, seed = 0.0, None
         if self.training:
             rate = self.dropout
             seed = torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                                  device=x.device, generator=generator)
-        shape = (B, T, self.heads, D // self.heads)
-        ctx = flash_attention(self.query(x).reshape(shape),
-                              self.key(x).reshape(shape),
+        x = mesh.copy_to_tp(x, self.tp)
+        q = self.query(x)
+        shape = (B, T, self.heads, q.shape[-1] // self.heads)
+        ctx = flash_attention(q.reshape(shape), self.key(x).reshape(shape),
                               self.value(x).reshape(shape), kv_len,
-                              rate=rate, seed=seed)
-        return self.linear(ctx.reshape(B, T, D))
+                              rate=rate, seed=seed, heads=self.head_range)
+        return _row_parallel(self.linear, ctx.reshape(B, T, -1), self.tp)
 
 
 class ConformerConvModule(nn.Module):
     """LN -> pw1 (d -> 2d) -> BN -> GLU -> mask -> depthwise dilated conv
-    (k=3) + bias -> BN -> swish -> pw2 -> dropout -> mask, on ``(B, T, d)``."""
+    (k=3) + bias -> BN -> swish -> pw2 -> dropout -> mask, on ``(B, T, d)``.
+    Sharded (``tp``), it holds its channels' share of pw1's GLU halves, the
+    depthwise conv and both BatchNorms, and pw2's matching rows."""
+
+    tp = None
 
     def __init__(self, dim: int, dilation: int = 1):
         super().__init__()
@@ -174,10 +215,10 @@ class ConformerConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor, frame_mask=None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        a, b = self.bn1(self.pw1(self.ln(x))).chunk(2, dim=-1)
+        a, b = self.bn1(self.pw1(mesh.copy_to_tp(self.ln(x), self.tp))).chunk(2, dim=-1)
         x = apply_frame_mask(a * torch.sigmoid(b), frame_mask)  # GLU
         x = self.dw_conv(x.transpose(1, 2)).transpose(1, 2)
-        x = self.drop(self.pw2(_swish(self.bn2(x))), generator)
+        x = self.drop(_row_parallel(self.pw2, _swish(self.bn2(x)), self.tp), generator)
         return apply_frame_mask(x, frame_mask)
 
 
@@ -301,3 +342,42 @@ class ResNetConformer(nn.Module):
         x = x.reshape(B, T // self.time_pool, self.time_pool, -1).mean(dim=2)
         x = self.pool_norm(x)
         return apply_frame_mask(x, pool_mask(frame_mask, self.time_pool))
+
+
+@torch.no_grad()
+def shard_conformer_(encoder: ResNetConformer, group, tp_rank: int, n: int
+                     ) -> ResNetConformer:
+    """Shard the conformer blocks of an initialised full ``encoder`` in
+    place for rank ``tp_rank`` of a TP group of ``n`` ranks
+    (:func:`adyolo_tpu_torch.parallel.mesh.tp_rule`): narrow the sharded
+    parameters and BatchNorm stats, give each MHSA its ``4 / n`` heads and
+    their offset, each depthwise conv its channels, each FFN's first
+    dropout its columns' share of the full bits, and route the products
+    through the group's collectives.  Everything else stays replicated.
+    Build the optimizer after this, so its state holds the shards."""
+    if not isinstance(encoder, ResNetConformer):
+        raise ValueError(f"tensor parallelism shards the ResNet-Conformer only, not "
+                         f"{type(encoder).__name__}")
+    if n == 1:
+        return encoder
+    for name, mod in encoder.named_modules():
+        for store in (mod._parameters, mod._buffers):
+            for leaf, t in store.items():
+                kind = mesh.tp_rule(f"{name}.{leaf}")
+                if kind is None or t is None:
+                    continue
+                piece = mesh.shard_tensor(t.detach(), kind, tp_rank, n).clone()
+                store[leaf] = nn.Parameter(piece) if store is mod._parameters else piece
+    for i in range(encoder.num_layers):
+        block = getattr(encoder, f"conformer{i}")
+        mhsa = block.mhsa
+        mesh.check_model_parallel(n, n, mhsa.heads)
+        heads = mhsa.heads // n
+        mhsa.head_range, mhsa.heads = (tp_rank * heads, mhsa.heads), heads
+        dw = block.conv.dw_conv
+        dw.groups = dw.in_channels = dw.out_channels = dw.weight.shape[0]
+        for ffn in (block.ffn1, block.ffn2):
+            ffn.drop1.shard = (tp_rank, n)
+        for mod in (mhsa, block.conv, block.ffn1, block.ffn2):
+            mod.tp = group
+    return encoder

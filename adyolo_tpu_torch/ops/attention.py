@@ -49,7 +49,7 @@ from typing import Optional
 import torch
 
 __all__ = ["BLOCK_THRESHOLD", "query_block", "pick_bq", "dropout_thresh",
-           "dropout_bits", "mhsa_attention", "mhsa_attention_bwd"]
+           "head_range", "dropout_bits", "mhsa_attention", "mhsa_attention_bwd"]
 
 BLOCK_THRESHOLD = 2400  # frames; read at call time (tests monkeypatch it)
 _BQ = (800, 600, 400, 240, 160, 80, 8)
@@ -79,21 +79,37 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
-def dropout_bits(B: int, H: int, T: int, seed: torch.Tensor) -> torch.Tensor:
+def head_range(H: int, heads=None) -> tuple:
+    """``(head_offset, heads_total)`` of a call over ``H`` heads: ``heads``
+    checked (the call holds heads ``[head_offset, head_offset + H)`` of
+    ``heads_total``), or ``(0, H)`` when None."""
+    h0, ht = (0, H) if heads is None else (int(heads[0]), int(heads[1]))
+    if h0 < 0 or h0 + H > ht:
+        raise ValueError(f"heads [{h0}, {h0 + H}) do not lie in the model's {ht}")
+    return h0, ht
+
+
+def dropout_bits(B: int, H: int, T: int, seed: torch.Tensor,
+                 heads: Optional[tuple] = None) -> torch.Tensor:
     """The uint32 keep bits of every (b, h, query, key), as int64
     ``(B, H, T, T)`` on ``seed``'s device.
 
     ``x = i*Tp + j + seed*0x9E3779B9 + lane*0x85EBCA6B`` (mod 2**32) with the
     JAX blocking ``bq = pick_bq(T)``, ``nq = T // bq``,
-    ``Tp = ceil(T / 128) * 128``, ``lane = (b*H + h)*nq + q // bq``,
+    ``Tp = ceil(T / 128) * 128``, ``lane = (b*Ht + h0 + h)*nq + q // bq``,
     ``i = q % bq`` and ``j`` the key; then two xor-shift-multiply rounds and
-    ``x ^ (x >> 16)``.  ``seed``: int32 tensor of one element."""
+    ``x ^ (x >> 16)``.  ``seed``: int32 tensor of one element; ``heads``:
+    ``(h0, Ht)`` when the H heads are ``[h0, h0 + H)`` of a model's ``Ht``
+    (a tensor-parallel shard: its bits are the full model's of those
+    heads), None for ``(0, H)``."""
+    h0, ht = head_range(H, heads)
     dev = seed.device
     bq = pick_bq(T)
     nq, Tp = T // bq, -(-T // 128) * 128
     q = torch.arange(T, device=dev, dtype=torch.int64)
-    bh = torch.arange(B * H, device=dev, dtype=torch.int64).reshape(B, H, 1, 1)
-    lane = bh * nq + (q // bq)[:, None]  # (B, H, T, 1)
+    b = torch.arange(B, device=dev, dtype=torch.int64).reshape(B, 1, 1, 1)
+    h = torch.arange(H, device=dev, dtype=torch.int64).reshape(1, H, 1, 1)
+    lane = (b * ht + h0 + h) * nq + (q // bq)[:, None]  # (B, H, T, 1)
     base = (_mul32(seed.reshape(()).to(torch.int64) & _M32, 0x9E3779B9)
             + _mul32(lane & _M32, 0x85EBCA6B))
     x = ((q % bq)[:, None] * Tp + q[None, :] + base) & _M32
@@ -102,13 +118,13 @@ def dropout_bits(B: int, H: int, T: int, seed: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _keep(B, H, T, thresh, seed):
+def _keep(B, H, T, thresh, seed, heads=None):
     """(keep mask (B, H, T, T), keep-scale), or (None, 1.0) at thresh 0."""
     if thresh <= 0:
         return None, 1.0
     if seed is None:
         raise ValueError("dropout needs a seed")
-    return (dropout_bits(B, H, T, seed) >= (thresh << 24),
+    return (dropout_bits(B, H, T, seed, heads) >= (thresh << 24),
             256.0 / (256.0 - thresh))
 
 
@@ -149,7 +165,8 @@ def _zero_empty_rows(x, kv_len):
 
 def mhsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_len: Optional[torch.Tensor] = None, *, rate: float = 0.0,
-                   seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   seed: Optional[torch.Tensor] = None,
+                   heads: Optional[tuple] = None) -> torch.Tensor:
     """dropout(softmax(mask(q·kᵀ·dh^-0.5)))·v over ``(B, T, H, dh)`` q/k/v
     (float32, float64, or bfloat16 at the JAX kernels' rounding points);
     differentiable by autograd, which for bfloat16 is not K3's rounding:
@@ -158,7 +175,9 @@ def mhsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_len``: optional ``(B,)`` count of valid keys (a prefix); None means
     every key is valid.  ``rate``/``seed``: dropout on the probabilities
     (``seed`` an int32 tensor of one element; needed when ``rate > 0``,
-    which takes the fused route only).  Returns ``(B, T, H, dh)``."""
+    which takes the fused route only); ``heads``: the ``(head_offset,
+    heads_total)`` of a head shard (:func:`dropout_bits`).  Returns
+    ``(B, T, H, dh)``."""
     B, T, H, dh = q.shape
     thresh = dropout_thresh(rate)
     if thresh >= 256:  # everything dropped (U8Dropout's convention)
@@ -167,7 +186,7 @@ def mhsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_mask = _key_mask(kv_len, T, q.device)
     bq = query_block(T)
     if T <= BLOCK_THRESHOLD or bq is None:
-        keep, kscale = _keep(B, H, T, thresh, seed)
+        keep, kscale = _keep(B, H, T, thresh, seed, heads)
         out = _attend(q, k, v, key_mask, scale, keep, kscale)
     elif thresh > 0:
         raise ValueError(f"attention dropout needs T <= {BLOCK_THRESHOLD}, "
@@ -180,7 +199,8 @@ def mhsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mhsa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_len: Optional[torch.Tensor], do: torch.Tensor, *,
-                       rate: float = 0.0, seed: Optional[torch.Tensor] = None):
+                       rate: float = 0.0, seed: Optional[torch.Tensor] = None,
+                       heads: Optional[tuple] = None):
     """``(dq, dk, dv)`` of :func:`mhsa_attention` for the output gradient
     ``do``, written out as the TPU kernel K3 computes them
     (``flash_mhsa.py:107-146``): recompute p and the keep mask;
@@ -197,7 +217,7 @@ def mhsa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = _acc(q.dtype)
     p = _probs(q, k, _key_mask(kv_len, T, q.device), scale)
     dpd = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
-    keep, kscale = _keep(B, H, T, thresh, seed)
+    keep, kscale = _keep(B, H, T, thresh, seed, heads)
     if keep is None:
         pd, dp = p, dpd
     else:

@@ -99,10 +99,10 @@ _SIGNATURES = {
     "adyolo_mhsa_fwd_scratch_floats": [_I] * 4,
     "adyolo_mhsa_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "adyolo_mhsa_fwd_bf16": [_P] * 6 + [_I] * 5 + [_P],
-    "adyolo_mhsa_fwd_train": [_P] * 8 + [_I] * 8 + [_P],
-    "adyolo_mhsa_fwd_train_bf16": [_P] * 9 + [_I] * 8 + [_P],
-    "adyolo_mhsa_bwd": [_P] * 12 + [_I] * 7 + [_P],
-    "adyolo_mhsa_bwd_bf16": [_P] * 12 + [_I] * 7 + [_P],
+    "adyolo_mhsa_fwd_train": [_P] * 8 + [_I] * 10 + [_P],
+    "adyolo_mhsa_fwd_train_bf16": [_P] * 9 + [_I] * 10 + [_P],
+    "adyolo_mhsa_bwd": [_P] * 12 + [_I] * 9 + [_P],
+    "adyolo_mhsa_bwd_bf16": [_P] * 12 + [_I] * 9 + [_P],
 }
 _RESTYPES = {"adyolo_mhsa_fwd_scratch_floats": ctypes.c_longlong}
 
@@ -152,9 +152,10 @@ def _launch(name, *args):
                            f"cudaError {rc}")
 
 
-def _hash_args(T):
-    """The JAX blocking that indexes the dropout hash: (bq, Tp)."""
-    return attention.pick_bq(T), -(-T // 128) * 128
+def _hash_args(T, head_offset, heads_total):
+    """The dropout hash's indexing: the JAX blocking (bq, Tp) and the
+    launch's heads within the model's (head_offset, heads_total)."""
+    return attention.pick_bq(T), -(-T // 128) * 128, head_offset, heads_total
 
 
 def _fwd_plan(q):
@@ -221,7 +222,7 @@ class _TrainAttention(torch.autograd.Function):
     (bfloat16; the forward's float32 output is kept for the backward's D)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, seed, thresh):
+    def forward(ctx, q, k, v, kv_len, seed, thresh, heads):
         B, T, H, dh = q.shape
         pair = _TRAIN[q.dtype]
         out = torch.empty_like(q)
@@ -235,10 +236,10 @@ class _TrainAttention(torch.autograd.Function):
             out32 = torch.empty(q.shape, device=q.device, dtype=torch.float32)
             ptrs.append(out32.data_ptr())
         _launch(pair.fwd_entry, *ptrs, lse.data_ptr(), ptr, B, T, H, dh, thresh,
-                *_hash_args(T), splits, stream)
+                *_hash_args(T, *heads), splits, stream)
         LAUNCHES[pair.fwd_route] += 1
         ctx.save_for_backward(q, k, v, kv_len, seed, out32, lse)
-        ctx.thresh = thresh
+        ctx.thresh, ctx.heads = thresh, heads
         return out
 
     @staticmethod
@@ -254,9 +255,9 @@ class _TrainAttention(torch.autograd.Function):
                 kv_len.data_ptr(), seed.data_ptr(), out32.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, T, H, dh, ctx.thresh,
-                *_hash_args(T), stream)
+                *_hash_args(T, *ctx.heads), stream)
         LAUNCHES[pair.bwd_route] += 1
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 class _PlainBF16Attention(torch.autograd.Function):
@@ -265,17 +266,17 @@ class _PlainBF16Attention(torch.autograd.Function):
     written-out backward, at K3's rounding points."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, seed, rate):
+    def forward(ctx, q, k, v, kv_len, seed, rate, heads):
         ctx.save_for_backward(q, k, v, kv_len, seed)
-        ctx.rate = rate
-        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed)
+        ctx.rate, ctx.heads = rate, heads
+        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed, heads=heads)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_len, seed = ctx.saved_tensors
         grads = attention.mhsa_attention_bwd(q, k, v, kv_len, dout.to(q.dtype),
-                                             rate=ctx.rate, seed=seed)
-        return (*grads, None, None, None)
+                                             rate=ctx.rate, seed=seed, heads=ctx.heads)
+        return (*grads, None, None, None, None)
 
 
 class _LongAttention(torch.autograd.Function):
@@ -296,10 +297,14 @@ class _LongAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None, *, rate: float = 0.0,
-                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seed: Optional[torch.Tensor] = None,
+                    heads: Optional[tuple] = None) -> torch.Tensor:
     """Attention over ``(B, T, H, dh)`` q/k/v with the first ``kv_len[b]``
     keys valid (all when None) and dropout ``rate`` on the probabilities
-    (``seed``: int32 tensor of one element); see
+    (``seed``: int32 tensor of one element; ``heads``: ``(head_offset,
+    heads_total)`` when q/k/v hold heads ``[head_offset, head_offset + H)``
+    of a model's ``heads_total``, a tensor-parallel rank's shard, whose keep
+    bits are then the full model's of those heads; None: ``(0, H)``); see
     :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention`.  ``rate > 0``
     picks the training route, which needs ``T <= BLOCK_THRESHOLD``; the
     eval route above it has no backward.  float32 or bfloat16.  On CUDA
@@ -320,10 +325,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.ops.adyolo.mhsa_eval(q, k, v, kv_len)
     if long:
         return _LongAttention.apply(q, k, v, kv_len)
+    heads = attention.head_range(H, heads)
     if q.device.type == "cpu":
         if q.dtype == torch.bfloat16:
-            return _PlainBF16Attention.apply(q, k, v, kv_len, seed, rate)
-        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed)
+            return _PlainBF16Attention.apply(q, k, v, kv_len, seed, rate, heads)
+        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed, heads=heads)
     if dh != _DH:
         raise ValueError(f"the kernels take dh == {_DH}, got {dh}")
     if thresh >= 256:  # everything dropped (U8Dropout's convention)
@@ -337,4 +343,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError("dropout needs a seed")
             seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         seed = _int32_on(seed, q.device, "seed").reshape(1)
-        return _TrainAttention.apply(q, k, v, kv_len, seed, thresh)
+        return _TrainAttention.apply(q, k, v, kv_len, seed, thresh, heads)

@@ -1,9 +1,9 @@
-"""The process-group layer of data parallelism (counterpart of
+"""The process-group layer of data and tensor parallelism (counterpart of
 :mod:`adyolo_tpu.parallel.mesh`).
 
-The port runs data parallelism as one process per card under ``torchrun``
-(``torchrun --nproc_per_node N -m adyolo_tpu_torch.cli train ...``); the
-JAX package's device mesh becomes a ``torch.distributed`` group:
+The port runs one process per card under ``torchrun`` (``torchrun
+--nproc_per_node N -m adyolo_tpu_torch.cli train ...``); the JAX package's
+device mesh becomes ``torch.distributed`` groups:
 
 * :func:`init_distributed` reads torchrun's variables and initialises the
   default group (NCCL for CUDA, gloo for the CPU), or uses the group its
@@ -20,25 +20,50 @@ JAX package's device mesh becomes a ``torch.distributed`` group:
   (its backward all-reduces the gradient), and :func:`all_reduce_counts`
   for tensors without a gradient.
 
+Tensor parallelism (``--model_parallel N``, :func:`set_model_parallel`):
+the ranks form a ``(dp, tp)`` grid in the JAX mesh's layout, rank ``r =
+dp_index * N + tp_index`` (``make_mesh``: consecutive devices form a model
+group).  Each model group is a **TP group**, whose ranks hold the
+conformer's shards and run Megatron's two collectives on it
+(:func:`copy_to_tp`, :func:`reduce_from_tp`) and average the gradients
+of the parameters they all hold (:func:`average_replicated_grads`); the
+ranks of one
+``tp_index`` form a **DP group**, over which ``DistributedDataParallel``
+averages that shard's gradients, and a second group over the same ranks
+is the batch group (BatchNorm's moments and AD-YOLO's counts are summed
+over the data replicas, not over TP peers).  :data:`_TP_RULES` is the
+counterpart of JAX's ``_TP_RULES`` / ``state_shardings``, keyed by the
+port's parameter names; :func:`shard_state_dict` and
+:func:`gather_state_dict` carry weights and optimizer moments between a
+full state dict (the checkpoint, in JAX's order) and a rank's shard.
+JAX replicates a leaf that N does not divide; the port refuses such an N
+(:func:`check_model_parallel`).  At N = 1 nothing of this exists and the
+groups are data parallelism's alone.
+
 With no group (a plain ``python -m`` run) every function here is the
 single-process identity and no collective runs.  The JAX ``make_mesh``'s
 trimming of surplus devices is not ported: with one process per card, a
-global batch that the world size does not divide is refused instead
+global batch that the data replicas do not divide is refused instead
 (:func:`check_batch`).
 """
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Any, Callable, Optional, Tuple
+import re
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["PG_TIMEOUT", "init_distributed", "shutdown", "rank", "world_size",
-           "is_main", "batch_group", "all_reduce_sum",
-           "all_reduce_counts", "broadcast_object", "any_rank", "on_main",
-           "check_batch"]
+__all__ = ["PG_TIMEOUT", "init_distributed", "set_model_parallel", "shutdown", "rank",
+           "world_size", "is_main", "tp_rank", "tp_size", "dp_rank", "dp_size",
+           "tp_group", "dp_group", "batch_group", "all_reduce_sum", "all_reduce_counts",
+           "copy_to_tp", "reduce_from_tp", "average_replicated_grads",
+           "broadcast_object", "any_rank", "on_main", "check_batch",
+           "check_model_parallel", "tp_rule", "shard_tensor", "join_tensor",
+           "shard_state_dict", "gather_state_dict", "shard_optimizer_state",
+           "gather_optimizer_state"]
 
 # How long a collective may wait: the other ranks wait for rank 0's
 # threshold scan, val and test in one broadcast, so it covers a full eval.
@@ -46,6 +71,10 @@ PG_TIMEOUT = datetime.timedelta(hours=2)
 
 _groups: Optional[Tuple[Any, Any]] = None  # (batch group, control group)
 _owned = False  # init_distributed created the default group
+# model_parallel N > 1: {"n": N, "tp": TP group, "dp": DDP's group, "batch":
+# the batch group}, this rank's groups of the (dp, tp) grid; None at N = 1
+_tp: Optional[Dict[str, Any]] = None
+_tp_made: Dict[int, Dict[str, Any]] = {}  # the grids made so far, by N
 
 
 def _active() -> bool:
@@ -62,6 +91,38 @@ def world_size() -> int:
 
 def is_main() -> bool:
     return rank() == 0
+
+
+def tp_size() -> int:
+    """Ranks in a model group (``--model_parallel``)."""
+    return 1 if _tp is None else _tp["n"]
+
+
+def tp_rank() -> int:
+    """This rank's index in its model group: which shard it holds."""
+    return rank() % tp_size()
+
+
+def dp_size() -> int:
+    """Data replicas: the ranks that take disjoint shards of the batch."""
+    return world_size() // tp_size()
+
+
+def dp_rank() -> int:
+    """This rank's data replica."""
+    return rank() // tp_size()
+
+
+def tp_group():
+    """The group of this rank's model group (None at N = 1)."""
+    return None if _tp is None else _tp["tp"]
+
+
+def dp_group():
+    """The group over which ``DistributedDataParallel`` averages this rank's
+    gradients: the ranks holding the same shard; None (the default group)
+    at N = 1."""
+    return None if _tp is None else _tp["dp"]
 
 
 def _rank_device(device) -> torch.device:
@@ -81,20 +142,24 @@ def _rank_device(device) -> torch.device:
     return torch.device("cuda", local)
 
 
-def init_distributed(device="cuda"):
-    """Join the data-parallel group; returns this rank's device.
+def init_distributed(device="cuda", model_parallel: int = 1):
+    """Join the process group; returns this rank's device.
 
     A group that the caller initialised is used as it is, on ``device``.
     Otherwise torchrun's ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR`` and ``MASTER_PORT`` start one (NCCL on ``cuda``, gloo
     on the CPU) with :data:`PG_TIMEOUT`, on ``cuda:LOCAL_RANK``; without
     them the run is single-process and ``device`` is returned unchanged.
-    :func:`shutdown` ends a group that this function started."""
+    ``model_parallel`` > 1 builds the (dp, tp) grid's groups
+    (:func:`set_model_parallel`).  :func:`shutdown` ends a group that this
+    function started."""
     global _owned
     if not dist.is_available() or (not _active() and "WORLD_SIZE" not in os.environ):
+        set_model_parallel(model_parallel)
         return device
     if _active():
         _ensure_groups()
+        set_model_parallel(model_parallel)
         return device
     dev = _rank_device(device)
     if dev.type == "cuda":
@@ -103,15 +168,58 @@ def init_distributed(device="cuda"):
                             init_method="env://", timeout=PG_TIMEOUT)
     _owned = True
     _ensure_groups()
+    set_model_parallel(model_parallel)
     return dev
+
+
+def check_model_parallel(n: int, world: Optional[int] = None,
+                         heads: Optional[int] = None) -> None:
+    """Refuse a model-parallel size ``n`` that the ranks (``world``, the
+    world size when None) or the attention's ``heads`` do not divide: each
+    model group holds N consecutive ranks (JAX's ``make_mesh`` asserts the
+    same), and each rank ``heads / N`` whole heads."""
+    world = world_size() if world is None else world
+    if n < 1:
+        raise ValueError(f"model_parallel {n}: must be at least 1")
+    if world % n:
+        raise ValueError(f"model_parallel {n} does not divide the {world} ranks "
+                         "(WORLD_SIZE): each model group is N consecutive ranks")
+    if heads is not None and heads % n:
+        raise ValueError(f"model_parallel {n} does not divide the attention's {heads} "
+                         "heads: each rank holds heads / N whole heads")
+
+
+def set_model_parallel(n: int = 1) -> None:
+    """Make the groups of the (dp, tp) grid for ``n`` ranks a model group;
+    a collective of every rank.  Every rank creates every group, in one
+    order (``new_group`` is itself a collective: a rank that skipped a
+    group it is not in would leave the others waiting): the TP groups, then
+    DDP's DP groups, then the batch groups; a grid made before is taken
+    again.  N = 1 leaves data parallelism's groups alone."""
+    global _tp
+    check_model_parallel(n)
+    if n == 1 or n in _tp_made:
+        _tp = _tp_made.get(n)
+        return
+    world, me = world_size(), rank()
+    grid = [list(range(i * n, (i + 1) * n)) for i in range(world // n)]
+    mine = {}
+    for key, members in (("tp", grid), ("dp", [list(c) for c in zip(*grid)]),
+                         ("batch", [list(c) for c in zip(*grid)])):
+        for ranks in members:
+            g = dist.new_group(ranks, timeout=PG_TIMEOUT)
+            if me in ranks:
+                mine[key] = g
+    _tp = _tp_made[n] = {"n": n, **mine}
 
 
 def shutdown() -> None:
     """Destroy the group if :func:`init_distributed` started it."""
-    global _owned, _groups
+    global _owned, _groups, _tp
     if _owned and _active():
         dist.destroy_process_group()
-        _owned, _groups = False, None
+        _owned, _groups, _tp = False, None, None
+        _tp_made.clear()
 
 
 def _ensure_groups():
@@ -125,8 +233,9 @@ def _ensure_groups():
 
 
 def batch_group():
-    """The group of the collectives inside the forward and the loss."""
-    return _ensure_groups()[0]
+    """The group of the collectives inside the forward and the loss: the
+    data replicas (every rank at N = 1)."""
+    return _ensure_groups()[0] if _tp is None else _tp["batch"]
 
 
 def _control_group():
@@ -213,9 +322,198 @@ def on_main(fn: Callable[[], Any]) -> Any:
 
 
 def check_batch(batch_size: int, n: Optional[int] = None) -> None:
-    """Refuse a global batch that the ``n`` ranks (the world size) do not
-    divide (``adyolo_tpu/data/dataset.py:259``)."""
-    n = world_size() if n is None else n
+    """Refuse a global batch that the ``n`` data replicas (:func:`dp_size`)
+    do not divide (``adyolo_tpu/data/dataset.py:259``)."""
+    n = dp_size() if n is None else n
     if batch_size % n:
         raise ValueError(f"batch_size {batch_size} does not divide across "
-                         f"{n} ranks: each rank takes batch_size / world_size clips")
+                         f"{n} ranks: each data replica takes batch_size / "
+                         "(world_size / model_parallel) clips")
+
+
+# ---- tensor parallelism: the collectives ------------------------------------
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the TP group
+    (every rank's shard of the next product contributes to it), in at
+    least float32."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.to(_acc(grad.dtype)).contiguous()
+        if g is grad:
+            g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.to(grad.dtype), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Sum over the TP group of the ranks' partial products, in at least
+    float32 (returned so: the caller adds the bias and rounds once);
+    identity backward, since every rank's loss sees the same sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.dtype = x.dtype
+        y = x.to(_acc(x.dtype)).contiguous()
+        if y is x:
+            y = y.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel product (Megatron's ``f``): ``x``
+    itself, whose gradient is summed over ``group``; ``x`` with no group."""
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The output of a row-parallel product (Megatron's ``g``): the sum of
+    the ranks' partials over ``group``, in at least float32."""
+    return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+@torch.no_grad()
+def average_replicated_grads(module: torch.nn.Module, group=None) -> None:
+    """Replace the gradient of every parameter that the TP group holds whole
+    by its mean over the group (one all-reduce of them all).  The ranks
+    compute those gradients from the same inputs, but on the card not to the
+    same bits (cuDNN's convolution backward and the loss's gather backward
+    sum with atomics), and the replicated weights must stay equal on every
+    rank.  Where the ranks' gradients are equal the mean is that gradient."""
+    group = tp_group() if group is None else group
+    grads = [p.grad for n, p in module.named_parameters()
+             if p.grad is not None and tp_rule(n) is None]
+    if group is None or not grads:
+        return
+    flat = torch.cat([g.reshape(-1).to(_acc(g.dtype)) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+# ---- tensor parallelism: the rules ------------------------------------------
+
+# (module, leaf) -> how a rank's shard is cut from the full tensor (torch
+# layouts: a Linear's weight is (out, in)):
+#   "col": dim 0 in N contiguous pieces (a column-parallel product's
+#          weight and bias, a per-channel vector);
+#   "row": dim 1 (a row-parallel product's weight; its bias is replicated
+#          and added once, after the sum);
+#   "glu": dim 0 of a (2d, ...) tensor whose halves a | b the GLU pairs
+#          elementwise: rank r holds a's piece r then b's piece r, so
+#          a * sigmoid(b) stays on the rank.  (JAX cuts the 2d axis in N
+#          contiguous pieces and GSPMD regathers the halves.)
+# JAX's rules (adyolo_tpu/parallel/mesh.py:92-110) through convert.py's
+# names: Dense_0 / Dense_1 -> fc1 / fc2, dw_kernel / dw_bias -> dw_conv,
+# scale -> weight, mean / var -> running_mean / running_var.
+_TP_RULES = {
+    ("query", "weight"): "col", ("key", "weight"): "col", ("value", "weight"): "col",
+    ("query", "bias"): "col", ("key", "bias"): "col", ("value", "bias"): "col",
+    ("linear", "weight"): "row",
+    ("fc1", "weight"): "col", ("fc1", "bias"): "col", ("fc2", "weight"): "row",
+    ("pw1", "weight"): "glu", ("pw1", "bias"): "glu",
+    **{("bn1", leaf): "glu" for leaf in ("weight", "bias", "running_mean", "running_var")},
+    ("dw_conv", "weight"): "col", ("dw_conv", "bias"): "col",
+    **{("bn2", leaf): "col" for leaf in ("weight", "bias", "running_mean", "running_var")},
+    ("pw2", "weight"): "row",
+}
+# the rules fire only inside a conformer block's FFNs, MHSA and conv module
+# (the ResNet blocks' bn1 / bn2 and the heads stay replicated)
+_TP_SCOPE = re.compile(r"(?:^|\.)conformer\d+\.(?:ffn1|ffn2|mhsa|conv)\.(\w+)\.(\w+)$")
+
+
+def tp_rule(name: str) -> Optional[str]:
+    """How the state-dict entry ``name`` is sharded ("col", "row", "glu"),
+    or None when it is replicated."""
+    m = _TP_SCOPE.search(name)
+    return None if m is None else _TP_RULES.get(m.groups())
+
+
+def shard_tensor(t: torch.Tensor, kind: str, tp_rank: int, n: int) -> torch.Tensor:
+    """Rank ``tp_rank``'s piece of the full tensor ``t`` (a view)."""
+    if kind == "row":
+        return t.chunk(n, 1)[tp_rank]
+    if kind == "col":
+        return t.chunk(n, 0)[tp_rank]
+    a, b = t.chunk(2, 0)
+    return torch.cat([a.chunk(n, 0)[tp_rank], b.chunk(n, 0)[tp_rank]])
+
+
+def join_tensor(pieces: Sequence[torch.Tensor], kind: str) -> torch.Tensor:
+    """The full tensor from the ranks' pieces, in rank order."""
+    if kind == "row":
+        return torch.cat(list(pieces), 1)
+    if kind == "col":
+        return torch.cat(list(pieces), 0)
+    halves = [p.chunk(2, 0) for p in pieces]
+    return torch.cat([h[0] for h in halves] + [h[1] for h in halves])
+
+
+def shard_state_dict(full: Dict[str, torch.Tensor], tp_rank: int, n: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Rank ``tp_rank``'s state dict from the full one: the sharded entries
+    cut by :data:`_TP_RULES`, the others as they are."""
+    return {k: (shard_tensor(v, kind, tp_rank, n).contiguous()
+                if (kind := tp_rule(k)) else v) for k, v in full.items()}
+
+
+def _gather(t: torch.Tensor, kind: str, group) -> torch.Tensor:
+    t = t.detach().contiguous()
+    pieces = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(pieces, t, group=group)
+    return join_tensor(pieces, kind)
+
+
+def gather_state_dict(state: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+    """The full state dict (weights, BatchNorm stats, or any tensors keyed
+    by parameter names, e.g. gradients) from every rank's ``state`` over
+    the TP group (this rank's when None), on every rank: a collective.  The
+    GLU's pairing is undone, so the result is in the unsharded model's (and
+    JAX's) order."""
+    group = tp_group() if group is None else group
+    return {k: (_gather(v, kind, group) if (kind := tp_rule(k)) else v)
+            for k, v in state.items()}
+
+
+def _map_moments(osd: Dict, names: List[str], fn) -> Dict:
+    """``osd`` (an optimizer's state dict over parameters named ``names``,
+    in order) with every per-element state tensor of a sharded parameter
+    replaced by ``fn(tensor, kind)``; scalars such as Adam's step stay."""
+    state = {}
+    for idx, st in osd["state"].items():
+        kind = tp_rule(names[idx])
+        state[idx] = {k: (fn(v, kind) if kind and torch.is_tensor(v) and v.ndim else v)
+                      for k, v in st.items()}
+    return {**osd, "state": state}
+
+
+def shard_optimizer_state(osd: Dict, names: List[str], tp_rank: int, n: int) -> Dict:
+    """Rank ``tp_rank``'s optimizer state dict from the full one: Adam's
+    moments follow their parameters' rules."""
+    return _map_moments(osd, names,
+                        lambda v, kind: shard_tensor(v, kind, tp_rank, n).contiguous())
+
+
+def gather_optimizer_state(osd: Dict, names: List[str], group=None) -> Dict:
+    """The full optimizer state dict from every rank's over the TP group: a
+    collective, as :func:`gather_state_dict`."""
+    group = tp_group() if group is None else group
+    return _map_moments(osd, names, lambda v, kind: _gather(v, kind, group))

@@ -41,6 +41,22 @@ package's DP step, which is its single-device step on the global batch:
 * the step returns the global batch's loss.
 
 With one rank (no group) the step is the single-device one, bit for bit.
+
+Tensor parallelism (``model_parallel`` N > 1, :func:`~adyolo_tpu_torch.
+parallel.mesh.set_model_parallel`): every rank first takes global rank
+0's full weights, then the conformer is sharded over its TP group
+(:func:`~adyolo_tpu_torch.models.resnet_conformer.shard_conformer_`)
+before the optimizer is built, so Adam's state holds shards.  The N ranks
+of a model group take the same clips and the same generator: the data
+replica's.  After the backward the gradients of the replicated
+parameters are averaged over the TP group
+(:func:`~adyolo_tpu_torch.parallel.mesh.average_replicated_grads`), so
+the replicated weights stay equal on every rank.  With one replica the step uses the generator as the single
+process does, so every dropout bit is the single-process step's and the
+step is the single-process step up to the order of the sums; with
+several, DDP averages over the DP group (the ranks holding the same
+shard), the batch group is the DP group's ranks, and the rank generators
+are the replicas' (``seed * dp + dp_rank``).
 """
 from __future__ import annotations
 
@@ -48,10 +64,12 @@ import contextlib
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from ..config import Config
 from ..models.layers import global_batch_stats
+from ..models.resnet_conformer import shard_conformer_
 from ..models.wrapper import SELDModel, make_criterion
 from ..ops.features import FeatureFrontend
 from ..ops.specaug import spec_augment
@@ -119,23 +137,29 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     (None: the device's default one).  The
     optimizer is ``train_step.optimizer``.
 
-    Under a process group of N > 1 ranks, ``batch`` is this rank's shard
-    (``batch_size / N`` clips, AD-YOLO targets indexed within it), every
-    rank passes the same generator, and the loss returned is the global
-    batch's, equal on every rank."""
+    Under a process group of N > 1 data replicas, ``batch`` is this
+    replica's shard (``batch_size / N`` clips, AD-YOLO targets indexed
+    within it), every rank passes the same generator, and the loss
+    returned is the global batch's, equal on every rank.  Under tensor
+    parallelism ``model`` (a full, initialised ResNet-Conformer) is
+    sharded in place here."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = frontend.device
     features = build_step_features(cfg, frontend)
-    world = mesh.world_size()
-    if world == 1:
+    replicas, tp = mesh.dp_size(), mesh.tp_size()
+    if tp > 1:
+        _broadcast_from_rank0(model)
+        shard_conformer_(model.encoder, mesh.tp_group(), mesh.tp_rank(), tp)
+    if replicas == 1:
         net, criterion, scale = model, make_criterion(cfg), 1.0
         synced = contextlib.nullcontext
     else:
         dev = torch.device(device)
         ids = None if dev.type != "cuda" else [
             torch.cuda.current_device() if dev.index is None else dev.index]
-        net = DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False)
+        net = DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False,
+                                      process_group=mesh.dp_group())
         dense = cfg.args.loss != "adyolo"
         criterion = make_criterion(cfg, None if dense else mesh.all_reduce_counts)
         # DDP averages the ranks' gradients, so the ranks' objectives must
@@ -144,7 +168,7 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
         # x the global mean as they are.  AD-YOLO's term is this rank's
         # sums over the global counts: the N terms add up to the global
         # loss, so each is scaled by N.
-        scale = 1.0 if dense else float(world)
+        scale = 1.0 if dense else float(replicas)
         batch_group = mesh.batch_group()
 
         def synced():
@@ -153,7 +177,7 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
 
     def train_step(batch: Dict, generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        gen = generator if world == 1 else _rank_generator(generator, device)
+        gen = generator if replicas == 1 else _rank_generator(generator, device)
         feat = features(batch["audio"], gen)
         model.train()
         with synced():  # the remat recompute, in the backward, included
@@ -162,25 +186,38 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
                              _mask(batch.get("target_mask"), device))
             optimizer.zero_grad(set_to_none=True)
             (loss * scale if scale != 1.0 else loss).backward()
+        if tp > 1:
+            mesh.average_replicated_grads(model)
         optimizer.step()
-        if world == 1:
+        if replicas == 1:
             return loss.detach()
         # the global batch's loss: the AD-YOLO terms add up to it, the
         # dense means average to it
-        return mesh.all_reduce_counts(loss.detach()) * (scale / world)
+        return mesh.all_reduce_counts(loss.detach()) * (scale / replicas)
 
     train_step.optimizer = optimizer
     return train_step
 
 
 def _rank_generator(generator: Optional[torch.Generator], device) -> torch.Generator:
-    """This rank's generator for one step: seeded with ``seed * N + rank``
-    from one seed drawn from ``generator`` (the device's default one when
-    None), which therefore advances alike on every rank."""
+    """This data replica's generator for one step: seeded with ``seed * N +
+    replica`` (N replicas; the replica is the rank without tensor
+    parallelism) from one seed drawn from ``generator`` (the device's
+    default one when None), which therefore advances alike on every rank;
+    the ranks of a model group draw alike."""
     seed = int(torch.randint(0, 2 ** 31, (1,), generator=generator,
                              device=device if generator is None else generator.device))
     g = torch.Generator(device=device)
-    return g.manual_seed(seed * mesh.world_size() + mesh.rank())
+    return g.manual_seed(seed * mesh.dp_size() + mesh.dp_rank())
+
+
+@torch.no_grad()
+def _broadcast_from_rank0(model: torch.nn.Module) -> None:
+    """Every rank's full weights and BatchNorm stats become global rank 0's,
+    so the ranks cut their shards from one model (DDP's broadcast reaches
+    only the ranks holding the same shard)."""
+    for t in model.state_dict().values():
+        dist.broadcast(t, src=0)
 
 
 def _mask(target_mask, device):

@@ -178,6 +178,25 @@ After the serve phases (8, 9), the export slice:
               adyolo_tpu_torch.cli train --quick_test`` under torchrun's
               variables at world size 1 (NCCL): exit 0, one experiment
               dir, one final test.
+17. tp -- tensor parallelism, last: the train attention routes on a head
+              shard, ``heads=(2, 4)``, at (4, 800, 2, 64), rate 0.2, ragged
+              kv_len, against their plain versions at the same offset and
+              against heads [2, 4) of the full launch (fp32: 2e-5 / 1e-4 x
+              max; bf16: against float64 as phase attn_train_bf16_kernel,
+              and within 2^-7 x max of the full launch); then two ranks on
+              the one card in a gloo group, one model group
+              (``model_parallel`` 2, 2 of the 4 heads a rank), the
+              full-width conformer + AD-YOLO with dropout 0.2 on B = 4 x
+              20 s, against the single-process step on the same batch and
+              generator: fp32 loss within 1e-4 rel, the gathered gradients'
+              L2 distance within 1e-3 or 2x float32's floor (the
+              single-process step, dropout off, on the batch in two clip
+              orders), running stats within 1e-3; bf16 loss within 1e-2
+              rel; the replicated parameters' gradients equal on both
+              ranks; per rank per step K1 once and the train attention pair
+              8 + 8 times, with the plain versions patched to raise; the
+              step time a rank beside one process's, and one TP
+              all-reduce timed alone.
 
 Phases 3-5 and 14 also read each kernel's and library call's device time
 a call from ``torch.profiler`` (``utils/profiling.py::profile_calls``),
@@ -773,11 +792,12 @@ def phase_attn_train_kernel(smi):
     return res
 
 
-def bf16_truth(q, k, v, kv, do, seed):
+def bf16_truth(q, k, v, kv, do, seed, heads=None):
     """Attention and its gradients in float64 on the same bf16 inputs."""
     a = [x.double() for x in (q, k, v)]
-    return (attention.mhsa_attention(*a, kv, rate=RATE, seed=seed),
-            *attention.mhsa_attention_bwd(*a, kv, do.double(), rate=RATE, seed=seed))
+    return (attention.mhsa_attention(*a, kv, rate=RATE, seed=seed, heads=heads),
+            *attention.mhsa_attention_bwd(*a, kv, do.double(), rate=RATE, seed=seed,
+                                          heads=heads))
 
 
 # The H100's issue rates beside its tensor cores, assumed from the
@@ -2443,8 +2463,10 @@ def ddp_model(cfg, dropout):
 
 
 def ddp_record(model):
-    return {"grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-            "stats": {f"{n}.{b}": getattr(m, b).detach().cpu()
+    """The gradients and running stats, copied to the host."""
+    return {"grads": {n: p.grad.detach().to("cpu", copy=True)
+                      for n, p in model.named_parameters()},
+            "stats": {f"{n}.{b}": getattr(m, b).detach().to("cpu", copy=True)
                       for n, m in model.named_modules() if isinstance(m, BatchNorm)
                       for b in ("running_mean", "running_var")}}
 
@@ -2705,6 +2727,259 @@ def phase_ddp(smi, cfg, conf_cfg):
     return path
 
 
+# ---- tensor parallelism: two ranks, one model group, on the one card --------
+
+TP_WORLD = 2  # ranks in the model group: 2 of the 4 heads each
+TP_BATCH = 4  # clips of 20 s
+TP_STEPS = 4  # step 1 is compared; 2-4 are timed
+TP_SEED = 22
+TP_HEADS = (2, 4)  # the head shard of the kernel checks: heads [2, 4) of 4
+TP_BF16_SLICE_TOL = 2.0 ** -7  # bf16 shard vs the full launch's slice, x max
+
+
+def tp_kernel_checks():
+    """Each train route of both dtypes on heads [2, 4) of (4, 800, 4, 64)
+    q/k/v (``heads=TP_HEADS``), rate 0.2, one ragged row: against the
+    plain version at the same offset and against heads [2, 4) of the full
+    launch with the same seed (the slice's errors show that the bits are
+    the full model's: a wrong head index draws another mask)."""
+    rng = np.random.default_rng(TP_SEED)
+    B, T = TP_BATCH, 800
+    kv = torch.tensor([800, 800, 611, 800][:B], dtype=torch.int32, device="cuda")
+    seed = torch.tensor([4321], dtype=torch.int32, device="cuda")
+    h0, ht = TP_HEADS
+    rows = {}
+    for dtype, fwd, bwd in ((torch.float32, "k2_dropout", "k3"),
+                            (torch.bfloat16, "k2_dropout_bf16", "k3_bf16")):
+        q, k, v, do = (torch.tensor(rng.standard_normal((B, T, ht, 64)), dtype=torch.float32,
+                                    device="cuda").to(dtype) for _ in range(4))
+        part = [x[:, :, h0:].contiguous() for x in (q, k, v, do)]
+
+        def run(q, k, v, do, heads):
+            args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed,
+                                                   heads=heads)
+            out.backward(do)
+            return [out.detach()] + [a.grad for a in args]
+
+        zero_counts()
+        got = run(*part, TP_HEADS)
+        full = [x[:, :, h0:] for x in run(q, k, v, do, None)]
+        torch.cuda.synchronize()
+        require(counts()[fwd] == 2 and counts()[bwd] == 2, f"tp kernels: launches {counts()}")
+        names = ("out", "dq", "dk", "dv")
+        row = {"shape": [B, T, ht - h0, 64], "heads": list(TP_HEADS),
+               "slice_err_rel": {}, "slice_bit_equal": {}}
+        for n, g, f in zip(names, got, full):
+            scale = float(f.float().abs().max())
+            row["slice_err_rel"][n] = float((g.float() - f.float()).abs().max()) / scale
+            row["slice_bit_equal"][n] = bool(torch.equal(g, f))
+        if dtype == torch.float32:
+            plain = [attention.mhsa_attention(*part[:3], kv, rate=RATE, seed=seed,
+                                              heads=TP_HEADS),
+                     *attention.mhsa_attention_bwd(*part[:3], kv, part[3], rate=RATE,
+                                                   seed=seed, heads=TP_HEADS)]
+            row["plain_err_rel"] = {n: float((g - w).abs().max()) / float(w.abs().max())
+                                    for n, g, w in zip(names, got, plain)}
+            for n, err in row["plain_err_rel"].items():
+                tol = KERNEL_TOL if n == "out" else GRAD_KERNEL_TOL
+                require(err <= tol, f"tp {fwd}/{bwd} at heads {TP_HEADS}: {n} err {err}")
+                require(row["slice_err_rel"][n] <= tol,
+                        f"tp {fwd}/{bwd}: {n} differs from the full launch's heads "
+                        f"[{h0}, {ht}) by {row['slice_err_rel'][n]}")
+        else:
+            truth = bf16_truth(*part[:3], kv, part[3], seed, TP_HEADS)
+            plain = [attention.mhsa_attention(*part[:3], kv, rate=RATE, seed=seed,
+                                              heads=TP_HEADS),
+                     *attention.mhsa_attention_bwd(*part[:3], kv, part[3], rate=RATE,
+                                                   seed=seed, heads=TP_HEADS)]
+            row["err_vs_f64"], row["plain_err_vs_f64"] = {}, {}
+            for n, g, w, t in zip(names, got, plain, truth):
+                scale = float(t.abs().max())
+                e_k = float((g.double() - t).abs().max())
+                e_p = float((w.double() - t).abs().max())
+                row["err_vs_f64"][n], row["plain_err_vs_f64"][n] = e_k / scale, e_p / scale
+                require(e_k <= BF16_RATIO * e_p + BF16_HALF_STEP * scale,
+                        f"tp {fwd}/{bwd} at heads {TP_HEADS}: {n} err {e_k} vs plain {e_p}")
+                require(row["slice_err_rel"][n] <= TP_BF16_SLICE_TOL,
+                        f"tp {fwd}/{bwd}: {n} differs from the full launch's heads "
+                        f"[{h0}, {ht}) by {row['slice_err_rel'][n]}")
+        rows[f"{fwd}+{bwd}"] = row
+        del q, k, v, do, part, got, full, plain
+    return rows
+
+
+def tp_cases(conf_cfg):
+    return {"fp32": conf_cfg, "bf16": with_train(conf_cfg, compute_dtype="bfloat16")}
+
+
+def tp_allreduce_ms(shape):
+    """One all-reduce of a row-parallel product's output (float32,
+    ``shape``) on the TP group, timed alone: host clock from a synchronised
+    device to the end of its device work, median of 5 after a warm-up."""
+    x = torch.ones(shape, device="cuda")
+    ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=mesh.tp_group())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[1:]))
+
+
+def tp_worker(rank, tmp, conf_cfg):
+    """One rank of phase tp on ``cuda:0`` in a gloo group, one model group
+    of TP_WORLD ranks: TP_STEPS steps of each case on the whole batch from
+    the seeded weights (the step shards them), the plain versions patched
+    to raise, the launch counts set to 0 just before each case's steps and
+    read just after.  After step 1 of fp32 the gathered gradients and
+    running stats (rank 0 writes them) and whether the ranks hold equal
+    gradients of the replicated parameters."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=TP_WORLD)
+    try:
+        mesh.init_distributed("cuda:0", model_parallel=TP_WORLD)
+        fe = make_frontend(conf_cfg)
+        audio, per_clip = synthetic_clips(conf_cfg, np.random.default_rng(TP_SEED), TP_BATCH)
+        batch = clips_batch(conf_cfg, audio, per_clip)
+        out = {}
+        for name, c in tp_cases(conf_cfg).items():
+            model = ddp_model(c, True)
+            step = build_train_step(c, model, fe)
+            gen = torch.Generator(device="cuda").manual_seed(1234)
+            torch.cuda.synchronize()
+            losses, step_ms, per_step, row = [], [], [], {}
+            with plain_versions_raise():
+                zero_counts()
+                for i in range(TP_STEPS):
+                    before = counts()
+                    t0 = time.perf_counter()
+                    losses.append(float(step(batch, gen)))  # ends in a device -> host copy
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    per_step.append({n: v - before[n] for n, v in counts().items()})
+                    if i == 0 and name == "fp32":
+                        rec = ddp_record(model)
+                        same = True
+                        for n, t in list(rec["grads"].items()) + list(rec["stats"].items()):
+                            if mesh.tp_rule(n) is None:
+                                theirs = t.to("cuda")
+                                dist.broadcast(theirs, src=0)
+                                same &= torch.equal(theirs.cpu(), t)
+                        full = {k: {n: t.cpu() for n, t in mesh.gather_state_dict(
+                            {n: t.to("cuda") for n, t in rec[k].items()}).items()}
+                            for k in ("grads", "stats")}
+                        if rank == 0:
+                            torch.save(full, os.path.join(tmp, "fp32.pt"))
+                        row["replicated_equal"] = same
+                launched = counts()
+            row.update(losses=losses, step_ms=step_ms, per_step=per_step, launched=launched)
+            if name == "fp32":
+                row["allreduce_ms"] = tp_allreduce_ms((TP_BATCH, 800, 256))
+            out[name] = row
+            del model, step
+            torch.cuda.empty_cache()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(smi, conf_cfg):
+    """Tensor parallelism on two ranks sharing the one card (gloo: NCCL
+    refuses two ranks on one device); see the module docstring, phase 17.
+    The single-process references are taken first in this process: the
+    fp32 step with dropout (loss, gradients, running stats), float32's
+    floor (the step with dropout off on the batch in two clip orders), the
+    bf16 step's loss, and each dtype's step time.  The launch counts of the
+    ranks' steps (both ranks) are the path ``tp``."""
+    t_phase = time.perf_counter()
+    kernels = tp_kernel_checks()
+    emit({"phase": "tp_kernels", **kernels, "card": smi})
+    fe = make_frontend(conf_cfg)
+    audio, per_clip = synthetic_clips(conf_cfg, np.random.default_rng(TP_SEED), TP_BATCH)
+    ref, single = None, {}
+    for name, c in tp_cases(conf_cfg).items():
+        model = ddp_model(c, True)
+        step = build_train_step(c, model, fe)
+        batch = clips_batch(c, audio, per_clip)
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        losses, ms = [], []
+        for i in range(TP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, gen)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and name == "fp32":
+                ref = {"loss": losses[0], **ddp_record(model)}
+        single[name] = {"losses": losses, "step_ms": ms}
+        del model, step, batch
+    runs = []
+    for idx in (list(range(TP_BATCH))[::-1], list(range(TP_BATCH))):
+        model = ddp_model(conf_cfg, False)
+        step = build_train_step(conf_cfg, model, fe)
+        batch = clips_batch(conf_cfg, audio[idx], [per_clip[i] for i in idx])
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        runs.append({"loss": float(step(batch, gen)), **ddp_record(model)})
+        del model, step, batch
+    floor = grad_distance(runs[0], runs[1])
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(tp_worker, args=(tmp, conf_cfg), nprocs=TP_WORLD, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got = torch.load(os.path.join(tmp, "fp32.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got["loss"] = ranks[0]["fp32"]["losses"][0]
+    fp32 = {**grad_distance(got, ref), "single_process_batch_order_floor": floor}
+    bf16_loss = [ranks[0]["bf16"]["losses"][0], single["bf16"]["losses"][0]]
+    bf16_rel = abs(bf16_loss[0] - bf16_loss[1]) / abs(bf16_loss[1])
+    emit({"phase": "tp_vs_single_process", "fp32": fp32, "bf16_loss": bf16_loss,
+          "bf16_loss_rel": bf16_rel, "card": smi})
+    require(fp32["loss_rel"] <= TRAIN_LOSS_TOL, f"tp fp32: loss {fp32['loss']}")
+    tol = ddp_grad_tol(fp32)
+    require(fp32["grad_l2_rel"] <= tol, f"tp fp32: grads L2 distance {fp32['grad_l2_rel']} > {tol}")
+    require(fp32["stats_rel"] <= TRAIN_GRAD_TOL, f"tp fp32: running stats err {fp32['stats_rel']}")
+    require(bf16_rel <= BF16_TRAIN_LOSS_TOL, f"tp bf16: loss {bf16_loss}")
+    nb = CONFORMER_BLOCKS
+    want_step = {"fp32": {"stft": 1, "k2_dropout": nb, "k3": nb},
+                 "bf16": {"stft": 1, "k2_dropout_bf16": nb, "k3_bf16": nb}}
+    path = None
+    for r, rec in enumerate(ranks):
+        require(rec["fp32"]["replicated_equal"],
+                f"tp: rank {r}'s replicated gradients differ from rank 0's")
+        for name, want in want_step.items():
+            row = rec[name]
+            require(all(np.isfinite(row["losses"])), f"tp {name} rank {r}: {row['losses']}")
+            require(row["losses"] == ranks[0][name]["losses"],
+                    f"tp {name}: the ranks' losses differ")
+            for i, n in enumerate(row["per_step"]):
+                require(n == {**{k: 0 for k in n}, **want},
+                        f"tp {name} rank {r} step {i + 1}: launches {n}, want {want}")
+            path = {k: (0 if path is None else path[k]) + v for k, v in row["launched"].items()}
+    timing = {name: {"median_step_ms_per_rank": [float(np.median(rec[name]["step_ms"][1:]))
+                                                 for rec in ranks],
+                     "one_process_median_step_ms": float(np.median(single[name]["step_ms"][1:])),
+                     "step_ms": [rec[name]["step_ms"] for rec in ranks],
+                     "one_process_step_ms": single[name]["step_ms"]}
+              for name in want_step}
+    emit({"phase": "tp", "model_parallel": TP_WORLD, "backend": "gloo, two ranks sharing one card",
+          "batch": [TP_BATCH, 800, HOP, 4], "fp32": fp32, "bf16_loss": bf16_loss,
+          "timing": timing, "allreduce_ms_rank0": ranks[0]["fp32"]["allreduce_ms"],
+          "allreduces_per_step": 8 * nb, "allreduce_bytes": TP_BATCH * 800 * 256 * 4,
+          "launches": path, "tol": {"loss_rel": TRAIN_LOSS_TOL, "bf16_loss_rel": BF16_TRAIN_LOSS_TOL,
+                                    "grad_l2_rel": tol},
+          "spawn_s": spawn_s, "seconds": time.perf_counter() - t_phase, "card": smi})
+    return path
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -2748,6 +3023,7 @@ def main():
     mic = phase_preprocess_mic(smi, cfg)
     formats = phase_train_cli_formats(smi, cfg)
     ddp = phase_ddp(smi, cfg, conf_cfg)
+    tp = phase_tp(smi, conf_cfg)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
@@ -2765,7 +3041,8 @@ def main():
              "preprocess_mic": mic,
              "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
                                    for n in formats["accdoa"]},
-             "train_cli_formats_conformer": formats["accdoa-conformer"], "ddp": ddp}
+             "train_cli_formats_conformer": formats["accdoa-conformer"], "ddp": ddp,
+             "tp": tp}
     for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
         require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
     require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),
@@ -2785,7 +3062,7 @@ def main():
     emit({"kernels": [
         {"name": "stft_hop_blocks", "route": "cuda",
          "source": "adyolo_tpu_torch/csrc/stft.cu",
-         "replaces": "adyolo_tpu/ops/pallas_stft.py:55",
+         "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
          **launches("stft"), **{n: k[n] for n in keys_k1}},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",

@@ -3,14 +3,16 @@
 
 Run from the repository root::
 
-    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp]
+    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp] [tp] [attnf32]
 
 Phases env and build always run; then ``attn``: attn_train_bf16_kernel,
 ``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
 train_cli_se_bf16 (these four when none is named), ``evalk``:
 attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
 ResNet-Conformer models, thresholds from one B=16 forward each), ``ddp``:
-ddp (two ranks spawned on the card).  Each
+ddp (two ranks spawned on the card), ``tp``: tp (the head-shard kernel
+checks, then two ranks of one model group spawned on the card),
+``attnf32``: attn_train_kernel (the fp32 train routes).  Each
 prints its JSON line as in the full script.  Quicker than the full script
 while one phase is being worked on; the full script stays the check.
 """
@@ -25,8 +27,8 @@ import torch
 
 
 def main():
-    """The spawned ranks of phase ddp import this script as their main
-    module: everything runs from here, not at import."""
+    """The spawned ranks of phases ddp and tp import this script as their
+    main module: everything runs from here, not at import."""
     t0 = time.time()
     smi = cs.phase_env()
     cs.phase_build()
@@ -48,6 +50,10 @@ def main():
         print(cs.phase_attn_eval_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
     if "ddp" in which:
         print(cs.phase_ddp(smi, cfg, conf_cfg)); print("t", time.time() - t0, flush=True)
+    if "attnf32" in which:
+        print(cs.phase_attn_train_kernel(smi)); print("t", time.time() - t0, flush=True)
+    if "tp" in which:
+        print(cs.phase_tp(smi, conf_cfg)); print("t", time.time() - t0, flush=True)
     if "export" in which:
         x = torch.tensor(cs.foa_audio(np.random.default_rng(1), (16, 800, cs.HOP, 4)), device="cuda")
         model = build_model(cfg, generator=torch.Generator().manual_seed(0))

@@ -19,8 +19,10 @@ Run from the repository root on a machine with an NVIDIA GPU::
    of the kernels and of SDPA from ``torch.profiler``, which does not
    count the host: 20 back-to-back autograd calls of SDPA's backward are
    host-bound on the card machine.  Each ``--baseline`` adds the kernels
-   of an older ``attention.cu`` of the same C interface, built alone into
-   the build tree (a one-off: ``git show
+   of an older ``attention.cu`` of the same C interface, or of the one
+   before the train entry points took the head range ``(head_offset,
+   heads_total)`` (a source without ``heads_total`` is called without
+   it), built alone into the build tree (a one-off: ``git show
    f6a829d:adyolo_tpu_torch/csrc/attention.cu > build/attention_pr8.cu``
    gives the first, mma.sync design of this pair), and each baseline's
    forward output is compared with this tree's (its max|difference|).
@@ -62,7 +64,10 @@ def bf16(rng, shape):
 
 def baseline_library(src):
     """Build ``src`` alone into a fresh directory of the build tree and bind
-    the bf16 pair's entry points (the same C interface as this tree's)."""
+    the bf16 pair's entry points; returns the library and whether its train
+    entry points take the head range (else they have two ints fewer)."""
+    with open(src) as f:
+        heads = "heads_total" in f.read()
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     so = os.path.join(tempfile.mkdtemp(dir=build.BUILD_DIR), "baseline.so")
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", so, src],
@@ -72,14 +77,17 @@ def baseline_library(src):
     lib = ctypes.CDLL(so)
     for name in ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes = ha._SIGNATURES[name]
+        sig = ha._SIGNATURES[name]
+        fn.argtypes = sig if heads or "train" not in name and "bwd" not in name else (
+            sig[:-3] + sig[-1:])
         fn.restype = ha._RESTYPES.get(name, ctypes.c_int)
-    return lib
+    return lib, heads
 
 
-def launchers(entry, q, k, v, kv, sd, do, thresh):
+def launchers(entry, heads, q, k, v, kv, sd, do, thresh):
     """The forward and backward entry points of one library on these
-    inputs, as closures that launch once on the current stream."""
+    inputs, as closures that launch once on the current stream; ``heads``:
+    whether its train entry points take the head range."""
     B, T, H, dh = q.shape
     splits = entry("adyolo_mhsa_fwd_bf16_splits")(B, T, H)
     assert splits >= 1, splits
@@ -92,11 +100,12 @@ def launchers(entry, q, k, v, kv, sd, do, thresh):
     stream = torch.cuda.current_stream().cuda_stream
     fwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), sd.data_ptr(),
                 out.data_ptr(), out32.data_ptr(), lse.data_ptr(),
-                scratch.data_ptr() if splits > 1 else 0, B, T, H, dh, thresh, bq, tp, splits,
-                stream)
+                scratch.data_ptr() if splits > 1 else 0, B, T, H, dh, thresh, bq, tp,
+                *((0, H) if heads else ()), splits, stream)
     bwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), sd.data_ptr(),
                 out32.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, T, H, dh, thresh, bq, tp, stream)
+                dk.data_ptr(), dv.data_ptr(), B, T, H, dh, thresh, bq, tp,
+                *((0, H) if heads else ()), stream)
     fwd_fn, bwd_fn = entry("adyolo_mhsa_fwd_train_bf16"), entry("adyolo_mhsa_bwd_bf16")
 
     def fwd():
@@ -155,8 +164,8 @@ def time_case(B, T, lens, libs):
     sd = torch.tensor([3], dtype=torch.int32, device="cuda")
     thresh = attention.dropout_thresh(RATE)
     fns, keep, info = {}, [], {}
-    for name, entry in libs.items():
-        fwd, bwd, held, splits, out = launchers(entry, q, k, v, kv, sd, do, thresh)
+    for name, (entry, heads) in libs.items():
+        fwd, bwd, held, splits, out = launchers(entry, heads, q, k, v, kv, sd, do, thresh)
         fns[f"{name}_fwd"], fns[f"{name}_bwd"] = fwd, bwd
         keep.append(held)
         info[f"{name}_splits"] = splits
@@ -185,7 +194,8 @@ def time_case(B, T, lens, libs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", action="append", default=[],
-                    help="an older attention.cu with the same C interface (repeatable)")
+                    help="an older attention.cu with this C interface, or the one "
+                         "before the head range (repeatable)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -197,11 +207,11 @@ def main():
         ln.strip() for ln in info["ptxas"].splitlines()
         if "bf16" in ln or "Used" in ln or "spill" in ln or "setmaxnreg" in ln
         or "wgmma" in ln or "arning" in ln][-40:]})
-    libs = {"this": ha._entry}
+    libs = {"this": (ha._entry, True)}
     for src in a.baseline:
-        lib = baseline_library(src)
+        lib, heads = baseline_library(src)
         libs[os.path.splitext(os.path.basename(src))[0]] = (
-            lambda name, lib=lib: getattr(lib, name))
+            lambda name, lib=lib: getattr(lib, name), heads)
     time_case(16, 800, [800] * 16, libs)
     time_case(1, 1200, [920], libs)
 

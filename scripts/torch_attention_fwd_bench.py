@@ -8,11 +8,14 @@ Run from the repository root on a machine with a card::
     python3 scripts/torch_attention_fwd_bench.py [--baseline OLD.cu]
 
 This tree's kernels are the repository build, bound by the wrapper
-(``hopper_attention._entry``).  ``--baseline`` is a one-off comparison
-with the FFMA forward of commit d816c2a, whose C interface (a forward
-without key splits or scratch) it binds itself: ``git show
-d816c2a:adyolo_tpu_torch/csrc/attention.cu > build/attention_old.cu``; it
-is built and timed in the same turns, and takes no other interface.
+(``hopper_attention._entry``).  ``--baseline`` is an older
+``attention.cu`` built and timed in the same turns, in one of two C
+interfaces that it binds itself, told apart by the source: the FFMA
+forward of commit d816c2a (no key splits or scratch: ``git show
+d816c2a:adyolo_tpu_torch/csrc/attention.cu > build/attention_old.cu``),
+or a source with key splits from before the train forward took the head
+range (``git show 1f0ed65:adyolo_tpu_torch/csrc/attention.cu >
+build/attention_pr12.cu``).
 Cases: routes k2 and
 k2_dropout at (16, 800, 4, 64) and (1, 1200, 4, 64) with 920 valid keys,
 k4 at (1, 4800, 4, 64) with 3000; each launch is checked against the plain
@@ -39,9 +42,13 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 
 def baseline_library(src):
-    """Build ``src`` (d816c2a's ``attention.cu``) alone into a fresh
-    directory under the build tree and bind its two forward entries in that
-    commit's C interface."""
+    """Build ``src`` alone into a fresh directory under the build tree and
+    bind its two forward entries: in d816c2a's C interface, or, for a
+    source with key splits, in the interface before the head range (the
+    library's ``splits`` attribute says which)."""
+    with open(src) as f:
+        text = f.read()
+    splits = "int splits" in text
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     so = os.path.join(tempfile.mkdtemp(dir=build.BUILD_DIR), "baseline.so")
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", so, src],
@@ -51,14 +58,17 @@ def baseline_library(src):
     print("baseline ptxas:", [ln.strip() for ln in proc.stderr.splitlines()
                               if "registers" in ln][:2], flush=True)
     lib = ctypes.CDLL(so)
-    lib.adyolo_mhsa_fwd.argtypes = [P] * 5 + [I] * 4 + [P]
-    lib.adyolo_mhsa_fwd_train.argtypes = [P] * 7 + [I] * 7 + [P]
-    return lib
+    lib.adyolo_mhsa_fwd.argtypes = [P] * (5 + splits) + [I] * (4 + splits) + [P]
+    lib.adyolo_mhsa_fwd_train.argtypes = [P] * (7 + splits) + [I] * (7 + splits) + [P]
+    return types.SimpleNamespace(adyolo_mhsa_fwd=lib.adyolo_mhsa_fwd,
+                                 adyolo_mhsa_fwd_train=lib.adyolo_mhsa_fwd_train,
+                                 splits=splits, lib=lib)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", help="d816c2a's attention.cu (its C interface only)")
+    ap.add_argument("--baseline", help="an older attention.cu: d816c2a's, or one with "
+                                       "key splits and no head range")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -88,17 +98,18 @@ def main():
         lse = torch.empty((B, H, T), device="cuda")
         runs = {}
         for name, lib in libs.items():
-            old = name == "baseline"
-            splits, sp, scratch = (1, 0, None) if old else hopper_attention._fwd_plan(q)
-            tail = () if old else (splits,)
+            old = name == "baseline"  # without the head range
+            split = not old or lib.splits  # an interface with key splits and scratch
+            splits, sp, scratch = hopper_attention._fwd_plan(q) if split else (1, 0, None)
+            tail = (splits,) if split else ()
             if thresh or rt == "k2_dropout":
                 args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), seed.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), *(() if old else (sp,)),
-                        B, T, H, 64, thresh, bq, tp, *tail)
+                        out.data_ptr(), lse.data_ptr(), *((sp,) if split else ()),
+                        B, T, H, 64, thresh, bq, tp, *(() if old else (0, H)), *tail)
                 fn = lib.adyolo_mhsa_fwd_train
             else:
                 args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), out.data_ptr(),
-                        *(() if old else (sp,)), B, T, H, 64, *tail)
+                        *((sp,) if split else ()), B, T, H, 64, *tail)
                 fn = lib.adyolo_mhsa_fwd
             runs[name] = (fn, args, scratch, splits)
             rc = fn(*args, stream())

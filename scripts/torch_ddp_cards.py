@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Data-parallel training of the PyTorch port across the cards of one
-host: one rank a card over NCCL, started the way ``torchrun`` starts them
-(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``
-read by ``parallel.mesh.init_distributed``).  ``chip_smoke.py``'s phase
-``ddp`` runs two ranks over gloo on one card; this is the NCCL path.
+"""Data- and tensor-parallel training of the PyTorch port across the cards
+of one host: one rank a card over NCCL, started the way ``torchrun`` starts
+them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT`` read by ``parallel.mesh.init_distributed``).
+``chip_smoke.py``'s phases ``ddp`` and ``tp`` run two ranks over gloo on
+one card; this is the NCCL path.
 
 Run from the repository root on a host with N >= 2 cards::
 
-    python3 scripts/torch_ddp_cards.py
+    python3 scripts/torch_ddp_cards.py [dp] [tp]
+
+(both parts when none is named; ``tp`` needs N = 4.)  The ``dp`` part:
 
 1. ``step``: the single-process fp32 step of SE-ResNet34 and of the
    conformer with ``--remat`` (AD-YOLO, dropout 0) on a global batch of
@@ -27,6 +30,28 @@ Run from the repository root on a host with N >= 2 cards::
 3. ``cli``: ``python -m torch.distributed.run --nproc_per_node N -m
    adyolo_tpu_torch.cli train --quick_test`` on a synthetic DCASE2022 set
    (4 clips a rank): exit 0, one experiment dir, one final test.
+
+The ``tp`` part (``--model_parallel``), the full-width conformer +
+AD-YOLO:
+
+4. ``tp_step``: the fp32 step at dp 2 x tp 2 (4 clips a replica, dropout
+   0, against the single-process step on the 8 clips in the replicas'
+   order; float32's floor from the same step in its own order) and at dp
+   1 x tp 4 (4 clips, dropout 0.2, against the single-process step on the
+   same batch and generator; the floor from the step with dropout 0 in
+   two clip orders): held as phase ``tp`` holds it (loss 1e-4 rel, the
+   gathered gradients' L2 distance within 1e-3 or 2x the floor, stats
+   1e-3), the replicated parameters' gradients equal on every rank; per
+   rank per step K1 once and k2_dropout / k3 8 times each, the plain
+   versions patched to raise.
+5. ``tp_scaling``: the bf16 conformer with dropout 0.2, 16 clips a
+   replica, 5 steps at tp 2 (two replicas) and at tp 4 (one): each
+   rank's step time, the audio-s/s against one process's 16-clip step on
+   card 0 in the same call, per rank per step k2_dropout_bf16 / k3_bf16 8
+   times, one TP all-reduce of a row-parallel output timed alone.
+6. ``tp_cli``: ``python -m torch.distributed.run --nproc_per_node 4 -m
+   adyolo_tpu_torch.cli train --encoder resnet-conformer --model_parallel
+   2 --quick_test``: exit 0, one experiment dir, one final test.
 
 Each part prints one JSON line; then the card's nvidia-smi line.
 """
@@ -51,6 +76,10 @@ from adyolo_tpu_torch.parallel import mesh  # noqa: E402
 STEP_PER_RANK = 4  # clips a rank in part 1
 SCALE_PER_RANK = 16  # clips a rank in part 2
 SCALE_STEPS = 5
+# part 4: name -> (model_parallel, dropout on); 4 clips a data replica
+TP_GRIDS = {"dp2xtp2": (2, False), "dp1xtp4": (4, True)}
+TP_PER_REPLICA = 4
+TP_SCALE = (2, 4)  # part 5's model-parallel sizes
 
 
 def rank_main(rank, world, port, tmp, cfg, conf_cfg):
@@ -103,10 +132,188 @@ def rank_main(rank, world, port, tmp, cfg, conf_cfg):
         mesh.shutdown()
 
 
-def single_steps(c, dropout, fe, B, idx_order=None, steps=1):
+def tp_rank_main(rank, world, port, tmp, conf_cfg):
+    """One rank of parts 4 and 5: each grid of :data:`TP_GRIDS`, then the
+    bf16 scaling at each size of :data:`TP_SCALE`; rank 0 writes the
+    gathered fp32 gradients and stats of part 4."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    device = mesh.init_distributed("cuda")  # NCCL, cuda:LOCAL_RANK
+    try:
+        fe = cs.make_frontend(conf_cfg, device=device)
+        out = {}
+        runs = [(name, mp, dropout, conf_cfg, TP_PER_REPLICA, 1)
+                for name, (mp, dropout) in TP_GRIDS.items()]
+        bf16 = cs.with_train(conf_cfg, compute_dtype="bfloat16")
+        runs += [(f"bf16_tp{mp}", mp, True, bf16, SCALE_PER_RANK, SCALE_STEPS) for mp in TP_SCALE]
+        for name, mp, dropout, c, per, steps in runs:
+            mesh.set_model_parallel(mp)
+            dp, r = mesh.dp_size(), mesh.dp_rank()
+            audio, per_clip = cs.synthetic_clips(c, np.random.default_rng(cs.TP_SEED), per * dp)
+            shard = {k: v.to(device) for k, v in cs.clips_batch(
+                c, audio[r::dp], per_clip[r::dp]).items()}
+            model = cs.ddp_model(c, dropout).to(device)
+            step = cs.build_train_step(c, model, fe)
+            gen = torch.Generator(device=device).manual_seed(1234)
+            losses, step_ms, per_step = [], [], []
+            with cs.plain_versions_raise():
+                cs.zero_counts()
+                for _ in range(steps):
+                    before = cs.counts()
+                    t0 = time.perf_counter()
+                    losses.append(float(step(shard, gen)))
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    per_step.append({n: v - before[n] for n, v in cs.counts().items()})
+            row = {"losses": losses, "step_ms": step_ms, "per_step": per_step,
+                   "grid": [dp, mesh.tp_size()]}
+            if steps == 1:
+                rec = cs.ddp_record(model)
+                same = True
+                for n, t in list(rec["grads"].items()) + list(rec["stats"].items()):
+                    if mesh.tp_rule(n) is None:
+                        theirs = t.to(device)
+                        dist.broadcast(theirs, src=0)
+                        same &= torch.equal(theirs.cpu(), t)
+                row["replicated_equal"] = same
+                full = {k: {n: t.cpu() for n, t in mesh.gather_state_dict(
+                    {n: t.to(device) for n, t in rec[k].items()}).items()}
+                    for k in ("grads", "stats")}
+                if rank == 0:
+                    torch.save(full, os.path.join(tmp, f"{name}.pt"))
+            else:
+                x = torch.ones((per, 800, 256), device=device)
+                ms = []
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    dist.all_reduce(x, group=mesh.tp_group())
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                row["allreduce_ms"] = float(np.median(ms[1:]))
+            out[name] = row
+            del model, step, shard
+            torch.cuda.empty_cache()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        mesh.shutdown()
+
+
+def part_tp(smi, world, cfg, conf_cfg, fe):
+    """Parts 4-6 (see the module docstring)."""
+    cs.require(world == 4, f"the tp part needs 4 cards, found {world}")
+    ref, floor = {}, {}
+    for name, (mp, dropout) in TP_GRIDS.items():
+        dp = world // mp
+        B = TP_PER_REPLICA * dp
+        order = [i for r in range(dp) for i in range(r, B, dp)]
+        ref[name] = single_steps(conf_cfg, dropout, fe, B, order, seed=cs.TP_SEED)[2]
+        if dropout:  # the same function in another summation order needs dropout off
+            a = single_steps(conf_cfg, False, fe, B, order, seed=cs.TP_SEED)[2]
+            b = single_steps(conf_cfg, False, fe, B, order[::-1], seed=cs.TP_SEED)[2]
+        else:
+            a, b = single_steps(conf_cfg, False, fe, B, seed=cs.TP_SEED)[2], ref[name]
+        floor[name] = cs.grad_distance(a, b)
+    bf16 = cs.with_train(conf_cfg, compute_dtype="bfloat16")
+    _, one_ms, _ = single_steps(bf16, True, fe, SCALE_PER_RANK, steps=SCALE_STEPS,
+                                seed=cs.TP_SEED)
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="torch_ddp_cards_tp_")
+    try:
+        torch.multiprocessing.spawn(tp_rank_main, args=(world, cs.free_port(), tmp, conf_cfg),
+                                    nprocs=world, join=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        rows = {}
+        for name in TP_GRIDS:
+            got = torch.load(os.path.join(tmp, f"{name}.pt"))
+            got["loss"] = ranks[0][name]["losses"][0]
+            rows[name] = {**cs.grad_distance(got, ref[name]), "grid": ranks[0][name]["grid"],
+                          "single_process_batch_order_floor": floor[name]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cs.emit({"part": "tp_step", "world": world, "backend": "nccl", **rows, "card": smi})
+    nb = cs.CONFORMER_BLOCKS
+    want = {"fp32": {"stft": 1, "k2_dropout": nb, "k3": nb},
+            "bf16": {"stft": 1, "k2_dropout_bf16": nb, "k3_bf16": nb}}
+    for name, row in rows.items():
+        tol = cs.ddp_grad_tol(row)
+        cs.require(row["loss_rel"] <= cs.TRAIN_LOSS_TOL, f"{name}: loss {row['loss']}")
+        cs.require(row["grad_l2_rel"] <= tol, f"{name}: grads {row['grad_l2_rel']} > {tol}")
+        cs.require(row["stats_rel"] <= cs.TRAIN_GRAD_TOL, f"{name}: stats {row['stats_rel']}")
+    for r, rec in enumerate(ranks):
+        for name, row in rec.items():
+            kind = "bf16" if name.startswith("bf16") else "fp32"
+            cs.require(row.get("replicated_equal", True),
+                       f"{name}: rank {r}'s replicated gradients differ from rank 0's")
+            cs.require(all(np.isfinite(row["losses"])), f"{name} rank {r}: {row['losses']}")
+            for i, n in enumerate(row["per_step"]):
+                cs.require(n == {**{k: 0 for k in n}, **want[kind]},
+                           f"{name} rank {r} step {i + 1}: launches {n}, want {want[kind]}")
+    one = float(np.median(one_ms[1:]))
+    n_audio = SCALE_PER_RANK * 20.0
+    scaling = {}
+    for mp in TP_SCALE:
+        name = f"bf16_tp{mp}"
+        rank_ms = [float(np.median(rec[name]["step_ms"][1:])) for rec in ranks]
+        dp = world // mp
+        scaling[name] = {"grid": ranks[0][name]["grid"], "median_step_ms_per_rank": rank_ms,
+                         "audio_s_per_s": dp * n_audio / (max(rank_ms) * 1e-3),
+                         "losses": ranks[0][name]["losses"],
+                         "step_ms": [rec[name]["step_ms"] for rec in ranks],
+                         "allreduce_ms_rank0": ranks[0][name]["allreduce_ms"],
+                         "allreduce_bytes": SCALE_PER_RANK * 800 * 256 * 4}
+    cs.emit({"part": "tp_scaling", "world": world, "backend": "nccl",
+             "clips_per_replica": SCALE_PER_RANK, **scaling,
+             "one_process": {"step_ms": one_ms, "median_step_ms": one,
+                             "audio_s_per_s": n_audio / (one * 1e-3)},
+             "allreduces_per_step": 8 * nb, "card": smi})
+    run_cli(smi, world, cfg, ["--encoder", "resnet-conformer", "--model_parallel", "2"],
+            "tp_cli")
+
+
+def run_cli(smi, world, cfg, extra, part):
+    """``python -m torch.distributed.run --nproc_per_node <world> -m
+    adyolo_tpu_torch.cli train --quick_test`` with ``extra`` on a synthetic
+    DCASE2022 set (4 clips a rank): exit 0, one experiment dir, one final
+    test."""
+    tmp = tempfile.mkdtemp(prefix="torch_ddp_cards_cli_")
+    try:
+        data = os.path.join(tmp, "data")
+        cs.write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
+        configs = cs.preset_dir(tmp, cfg, data_pth=data, name_pth=os.path.join(data, "classes.txt"))
+        results = os.path.join(tmp, "results")
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+             "--master_port", str(cs.free_port()), "-m", "adyolo_tpu_torch.cli", "train",
+             "--quick_test", "--batch_size", str(4 * world), "--nb_iters", "1",
+             "--config_dir", configs, "--results_dir", results, "--exp_id", "cards-cli",
+             *extra],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        cs.require(proc.returncode == 0, f"{part}: exit {proc.returncode}\n"
+                   f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        exps = os.listdir(results)
+        cs.require(exps == ["cards-cli"], f"{part}: experiment dirs {exps}")
+        final = proc.stdout.count("FINAL TEST WITH BEST CHECKPOINT")
+        cs.require(final == 1, f"{part}: the final test ran {final} times")
+        cs.emit({"part": part, "world": world, "args": extra, "seconds": cli_s,
+                 "files": sorted(os.listdir(os.path.join(results, "cards-cli"))), "card": smi})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def single_steps(c, dropout, fe, B, idx_order=None, steps=1, seed=None):
     """``steps`` single-process steps on card 0 from the seeded init on
-    ``B`` clips (in ``idx_order``): the losses, step ms and the record."""
-    audio, per_clip = cs.synthetic_clips(c, np.random.default_rng(cs.DDP_SEED), B)
+    ``B`` clips (in ``idx_order``; the clips drawn from ``seed``, phase
+    ddp's by default): the losses, step ms and the record."""
+    seed = cs.DDP_SEED if seed is None else seed
+    audio, per_clip = cs.synthetic_clips(c, np.random.default_rng(seed), B)
     idx = list(range(B)) if idx_order is None else idx_order
     batch = cs.clips_batch(c, audio[idx], [per_clip[i] for i in idx])
     model = cs.ddp_model(c, dropout)
@@ -121,18 +328,8 @@ def single_steps(c, dropout, fe, B, idx_order=None, steps=1):
     return losses, ms, rec
 
 
-def main():
-    smi = cs.phase_env()
-    world = torch.cuda.device_count()
-    cs.require(world >= 2, f"{world} card(s): this script needs two or more")
-    cs.phase_build()
-    data = os.path.join(REPO, "data", "DCASE2022_SELD")
-    cfg = cs.Config()
-    cfg = cs.dataclasses.replace(cfg, data=cs.dataclasses.replace(
-        cfg.data, data_pth=data, name_pth=os.path.join(data, "classes.txt")))
-    conf_cfg = cs.dataclasses.replace(cfg, args=cs.dataclasses.replace(
-        cfg.args, encoder="resnet-conformer"))
-    fe = cs.make_frontend(cfg)
+def part_dp(smi, world, cfg, conf_cfg, fe):
+    """Parts 1-3 (see the module docstring)."""
     cases = cs.ddp_cases(cfg, conf_cfg)
 
     ref, floor = {}, {}
@@ -196,31 +393,26 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    tmp = tempfile.mkdtemp(prefix="torch_ddp_cards_cli_")
-    try:
-        data = os.path.join(tmp, "data")
-        cs.write_dcase_set(data, cfg, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
-        configs = cs.preset_dir(tmp, cfg, data_pth=data, name_pth=os.path.join(data, "classes.txt"))
-        results = os.path.join(tmp, "results")
-        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
-             "--master_port", str(cs.free_port()), "-m", "adyolo_tpu_torch.cli", "train",
-             "--quick_test", "--batch_size", str(4 * world), "--nb_iters", "1",
-             "--config_dir", configs, "--results_dir", results, "--exp_id", "cards-cli"],
-            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        cs.require(proc.returncode == 0, f"cli: exit {proc.returncode}\n"
-                   f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        exps = os.listdir(results)
-        cs.require(exps == ["cards-cli"], f"cli: experiment dirs {exps}")
-        final = proc.stdout.count("FINAL TEST WITH BEST CHECKPOINT")
-        cs.require(final == 1, f"cli: the final test ran {final} times")
-        cs.emit({"part": "cli", "world": world, "seconds": cli_s,
-                 "files": sorted(os.listdir(os.path.join(results, "cards-cli"))), "card": smi})
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    run_cli(smi, world, cfg, [], "cli")
+
+
+def main():
+    which = sys.argv[1:] or ["dp", "tp"]
+    smi = cs.phase_env()
+    world = torch.cuda.device_count()
+    cs.require(world >= 2, f"{world} card(s): this script needs two or more")
+    cs.phase_build()
+    data = os.path.join(REPO, "data", "DCASE2022_SELD")
+    cfg = cs.Config()
+    cfg = cs.dataclasses.replace(cfg, data=cs.dataclasses.replace(
+        cfg.data, data_pth=data, name_pth=os.path.join(data, "classes.txt")))
+    conf_cfg = cs.dataclasses.replace(cfg, args=cs.dataclasses.replace(
+        cfg.args, encoder="resnet-conformer"))
+    fe = cs.make_frontend(cfg)
+    if "dp" in which:
+        part_dp(smi, world, cfg, conf_cfg, fe)
+    if "tp" in which:
+        part_tp(smi, world, cfg, conf_cfg, fe)
     print(smi, flush=True)
 
 

@@ -544,3 +544,55 @@ def test_forward_runs_on_every_device(cuda_device, rate):
         want = attention.mhsa_attention(q, k, v, kv, rate=rate, seed=seed)
         err = float((got - want).abs().max())
         assert err <= KERNEL_TOL * float(want.abs().max()), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_of_a_head_shard_are_the_full_launchs(cuda_device, dtype):
+    """The train routes on heads [2, 4) of 4 (``heads=(2, 4)``, a tensor-
+    parallel rank's shard), rate 0.2, a ragged row: against heads [2, 4)
+    of the full launch with the same seed (float32: output within 2e-5,
+    gradients within 1e-4 of max; bfloat16: within 2^-7 of max, one
+    rounding apart), and against the plain version at the same offset
+    (float32: the same tolerances; bfloat16: each against float64, the
+    kernel's error at most 2x the plain version's + 2^-9 x max)."""
+    rng = np.random.default_rng(6)
+    q, k, v, do = (torch.tensor(rng.standard_normal((2, 400, 4, 64)), dtype=torch.float32,
+                                device=cuda_device).to(dtype) for _ in range(4))
+    kv = torch.tensor([400, 233], dtype=torch.int32, device=cuda_device)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda_device)
+    heads = (2, 4)
+
+    def run(q, k, v, do, heads=None):
+        args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed, heads=heads)
+        out.backward(do)
+        return [out.detach()] + [a.grad for a in args]
+
+    shard = [x[:, :, 2:].contiguous() for x in (q, k, v, do)]
+    got = run(*shard, heads=heads)
+    full = [x[:, :, 2:] for x in run(q, k, v, do)]
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    for i, (g, w) in enumerate(zip(got, full)):
+        tol = (KERNEL_TOL if i == 0 else GRAD_KERNEL_TOL) if f32 else 2.0 ** -7
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (i, err)
+    if f32:
+        plain = [attention.mhsa_attention(*shard[:3], kv, rate=RATE, seed=seed, heads=heads),
+                 *attention.mhsa_attention_bwd(*shard[:3], kv, shard[3], rate=RATE,
+                                               seed=seed, heads=heads)]
+        for i, (g, w) in enumerate(zip(got, plain)):
+            err = float((g - w).abs().max())
+            assert err <= (KERNEL_TOL if i == 0 else GRAD_KERNEL_TOL) * float(w.abs().max())
+        return
+    a = [x.double() for x in shard]
+    truth = [attention.mhsa_attention(*a[:3], kv, rate=RATE, seed=seed, heads=heads),
+             *attention.mhsa_attention_bwd(*a[:3], kv, a[3], rate=RATE, seed=seed, heads=heads)]
+    plain = [attention.mhsa_attention(*shard[:3], kv, rate=RATE, seed=seed, heads=heads),
+             *attention.mhsa_attention_bwd(*shard[:3], kv, shard[3], rate=RATE, seed=seed,
+                                           heads=heads)]
+    for i, (g, p, t) in enumerate(zip(got, plain, truth)):
+        scale = float(t.abs().max())
+        e_k, e_p = (float((x.double() - t).abs().max()) for x in (g, p))
+        assert e_k <= 2 * e_p + 2.0 ** -9 * scale, (i, e_k, e_p)

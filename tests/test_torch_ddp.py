@@ -93,16 +93,17 @@ FP32 = worker.F64
 JOB_TIMEOUT = 600  # s
 
 
-def _run_ranks(job, out):
-    """Start the rank processes of ``job``; returns a function that waits
-    for them and, with ``check``, fails with a rank's log if it failed."""
+def _run_ranks(job, out, world=WORLD, module="tests.torch_ddp_worker"):
+    """Start the ``world`` rank processes of ``job`` (of the worker
+    ``module``); returns a function that waits for them and, with
+    ``check``, fails with a rank's log if it failed."""
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
     rdv = os.path.join(out, "rendezvous")
-    logs = [open(os.path.join(out, f"{job}.log.r{r}"), "w") for r in range(WORLD)]
-    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_ddp_worker", job,
-                               str(r), str(WORLD), rdv, out], cwd=_REPO, env=env,
+    logs = [open(os.path.join(out, f"{job}.log.r{r}"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-m", module, job,
+                               str(r), str(world), rdv, out], cwd=_REPO, env=env,
                               stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(WORLD)]
+             for r in range(world)]
 
     def wait(check=True):
         try:

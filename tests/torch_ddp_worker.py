@@ -237,14 +237,14 @@ def engine_argv(configs, results, exp_id, *extra):
             "--device", "cpu", *extra]
 
 
-def job_engine(rank: int, world: int, out: str):
-    """Four ``cli train`` runs on the set under ``out``: ``quick``
-    (``--quick_test``, 3 epochs); ``resumed`` (1 epoch) and ``resume``
-    (its ``--resume_pth`` to epoch 3); ``preempted``, where rank 1 alone
-    sees a stop request during its first batch.  Epoch 3 scans the
-    threshold.  Recorded per run: what this rank wrote or evaluated, in
-    order (``events``), its step losses, its steps per epoch, and the
-    threshold of the config it returned."""
+def job_engine(rank: int, world: int, out: str, extra=()):
+    """Four ``cli train`` runs on the set under ``out``, each with the
+    arguments ``extra`` added: ``quick`` (``--quick_test``, 3 epochs);
+    ``resumed`` (1 epoch) and ``resume`` (its ``--resume_pth`` to epoch 3);
+    ``preempted``, where rank 1 alone sees a stop request during its first
+    batch.  Epoch 3 scans the threshold.  Recorded per run: what this rank
+    wrote or evaluated, in order (``events``), its step losses, its steps
+    per epoch, and the threshold of the config it returned."""
     shallow_conformer()
     port_train.SCAN_EVERY = 3
     configs, results = os.path.join(out, "configs"), os.path.join(out, "results")
@@ -299,9 +299,9 @@ def job_engine(rank: int, world: int, out: str):
     port_train.train_model = train_model
 
     run[0] = "quick"
-    cli.main(engine_argv(configs, results, "quick", "--quick_test"))
+    cli.main(engine_argv(configs, results, "quick", "--quick_test", *extra))
     run[0] = "resumed"
-    cli.main(engine_argv(configs, results, "resumed", "--nb_epochs", "1"))
+    cli.main(engine_argv(configs, results, "resumed", "--nb_epochs", "1", *extra))
     if rank == 0:  # the frozen config asks for the quick run's 3 epochs
         fp = os.path.join(results, "resumed", "hyp_exp.yaml")
         cfg = load_config(fp)
@@ -312,7 +312,7 @@ def job_engine(rank: int, world: int, out: str):
     cli.main(["train", "--resume_pth", "resumed", "--results_dir", results,
               "--device", "cpu"])
     run[0] = "preempted"
-    cli.main(engine_argv(configs, results, "preempted", "--nb_epochs", "2"))
+    cli.main(engine_argv(configs, results, "preempted", "--nb_epochs", "2", *extra))
     with open(os.path.join(out, f"engine.r{rank}.json"), "w") as f:
         json.dump(rec, f)
 
