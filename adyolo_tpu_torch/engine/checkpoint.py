@@ -7,8 +7,11 @@ are flax's msgpack encoding of ``{"params", "batch_stats", "opt_state",
 "step"}``: ext type 1 is an ndarray packed as ``(shape, dtype name, C-order
 buffer)``, ext type 3 a numpy scalar packed the same way.  Plain
 ``msgpack`` decodes it.  The port's trainer writes its best model in this
-format (:func:`save_jax_checkpoint`), so either package's ``val`` /
-``test`` / ``infer`` reads what either trainer wrote.
+format (:func:`save_jax_checkpoint`), with the optimizer's state in
+optax's structure for the config's optimizer (:func:`optax_state`), so
+either package's ``val`` / ``test`` / ``infer`` reads what either trainer
+wrote: the JAX package loads the file into its full ``init_state``
+template.
 
 A ``model_ckpt.ckpt`` (:func:`save_train_checkpoint`) is the port's own:
 a ``torch.save`` of the model's state dict (weights and BatchNorm running
@@ -31,9 +34,10 @@ import msgpack
 import numpy as np
 import torch
 
+from ..convert import flax_from_state_dict
 from ..parallel import mesh
 
-__all__ = ["load_jax_checkpoint", "save_jax_checkpoint",
+__all__ = ["load_jax_checkpoint", "save_jax_checkpoint", "optax_state",
            "save_train_checkpoint", "load_train_checkpoint"]
 
 _EXT_NDARRAY = 1
@@ -89,14 +93,69 @@ def load_jax_checkpoint(path: str) -> Tuple[Dict, Dict[str, Any]]:
     return variables, payload["host"]
 
 
-def save_jax_checkpoint(path: str, variables: Dict, host: Dict[str, Any]) -> None:
-    """Write ``variables`` (``{"params", "batch_stats"}`` of numpy arrays)
-    and ``host`` in the checkpoint file format.  It carries no optimizer
-    state, so :func:`load_jax_checkpoint` reads it but the JAX trainer
-    cannot resume from it."""
+def optax_state(optim: str, weight_decay: float, optimizer_state: Dict,
+                params: Dict[str, torch.Tensor]) -> Tuple[Dict, np.ndarray]:
+    """``(opt_state, step)`` of the JAX package's ``TrainState`` from the
+    port's optimizer: optax's state of the chain that
+    ``adyolo_tpu/parallel/train_step.py:86-104`` builds for ``optim`` and
+    ``weight_decay``, as flax serialises it, and the step count.
+
+    ``optimizer_state``: the state dict of the optimizer
+    (:func:`~adyolo_tpu_torch.parallel.train_step.make_optimizer`) over
+    ``params`` (name -> full parameter, in the optimizer's order; under
+    tensor parallelism the gathered state).  Adam's ``mu`` / ``nu`` are its
+    ``exp_avg`` / ``exp_avg_sq`` on the flax paths of their parameters
+    (zeros for a parameter never stepped) and its ``count`` the step of
+    its state; ``step`` is the train step's count of optimizer steps
+    (``param_groups[0]["steps"]``).  A count of parameters, or a moment's
+    shape, that differs from ``params`` raises.  The chains, written out
+    per optimizer:
+
+    * ``Adam``: ``adam`` -> ``{"0": adam, "1": {}}``; with weight decay
+      ``chain(add_decayed_weights, adam)`` -> ``{"0": {}, "1": <adam's>}``;
+    * ``AdamW``: ``adamw`` -> ``{"0": adam, "1": {}, "2": {}}``;
+    * ``SGD``: ``sgd`` -> ``{"0": {}, "1": {}}``; with weight decay
+      ``{"0": {}, "1": <sgd's>}``.
+    """
+    step = np.asarray(optimizer_state["param_groups"][0].get("steps", 0), np.int32)
+    if optim == "SGD":
+        tx = {"0": {}, "1": {}}
+        return ({"0": {}, "1": tx} if weight_decay else tx), step
+    if optim not in ("Adam", "AdamW"):
+        raise NotImplementedError(optim)
+    names = list(params)
+    order = [i for g in optimizer_state["param_groups"] for i in g["params"]]
+    if len(order) != len(names):
+        raise ValueError(f"the optimizer holds {len(order)} parameters, params "
+                         f"{len(names)}")
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    count = 0
+    for name, idx in zip(names, order):
+        st = optimizer_state["state"].get(idx, {})
+        for k, tree in moments.items():
+            m = st.get(k, torch.zeros_like(params[name]))
+            if m.shape != params[name].shape:
+                raise ValueError(f"{k} of {name}: shape {tuple(m.shape)}, the "
+                                 f"parameter's {tuple(params[name].shape)}")
+            tree[name] = m
+        count = max(count, int(st.get("step", 0)))
+    adam = {"count": np.asarray(count, np.int32),
+            "mu": flax_from_state_dict(moments["exp_avg"])["params"],
+            "nu": flax_from_state_dict(moments["exp_avg_sq"])["params"]}
+    if optim == "AdamW":
+        return {"0": adam, "1": {}, "2": {}}, step
+    tx = {"0": adam, "1": {}}
+    return ({"0": {}, "1": tx} if weight_decay else tx), step
+
+
+def save_jax_checkpoint(path: str, variables: Dict, host: Dict[str, Any],
+                        opt_state: Dict, step: np.ndarray) -> None:
+    """Write ``variables`` (``{"params", "batch_stats"}`` of numpy arrays),
+    the optimizer's ``opt_state`` and ``step`` (:func:`optax_state`) and
+    ``host`` in the checkpoint file format."""
     tree = {"params": variables["params"],
             "batch_stats": variables.get("batch_stats", {}),
-            "opt_state": {}, "step": np.zeros((), np.int32)}
+            "opt_state": opt_state, "step": np.asarray(step, np.int32)}
     payload = {"arrays": msgpack.packb(tree, default=_ext_default,
                                        use_bin_type=True),
                "host": host}

@@ -86,7 +86,7 @@ from ..parallel.train_step import build_eval_criterion, build_train_step
 from ..utils.logging import (JsonlLogger, NullLogger, get_logging_meta_config,
                              make_logger)
 from ..utils.rng import get_rng_state, seed_init, set_rng_state
-from .checkpoint import (load_train_checkpoint, save_jax_checkpoint,
+from .checkpoint import (load_train_checkpoint, optax_state, save_jax_checkpoint,
                          save_train_checkpoint)
 from .evaluate import (build_eval_forward, cached_eval_outputs,
                        decode_cached_to_csv, make_frontend, test_epoch,
@@ -420,7 +420,10 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
             save_jax_checkpoint(os.path.join(output_pth, "model_best.ckpt"),
                                 flax_from_state_dict(eval_model.state_dict()),
                                 {"epoch_nb": epoch,
-                                 "confidence_thresh": best_log["best_conf_thresh"]})
+                                 "confidence_thresh": best_log["best_conf_thresh"]},
+                                *optax_state(cfg.train.optim, cfg.train.weight_decay,
+                                             full["optimizer"],
+                                             dict(eval_model.named_parameters())))
         # the rolling checkpoint (train.py:241-248)
         save_ckpt(epoch + 1)
         ckpt_s = time.perf_counter() - t0

@@ -41,11 +41,15 @@ cast, but for bfloat16 ``k4``.
 
 The eval forward (rate 0, autograd not recording) is the custom op
 ``adyolo::mhsa_eval`` (:mod:`adyolo_tpu_torch.ops.library`; its CUDA kernel
-is :func:`eval_forward`), one op in an exported serving graph.  Dispatch
-is by the tensor's device: a CPU tensor goes to the plain
+is :func:`eval_forward`), one op in an exported serving graph; the train
+pair is ``adyolo::mhsa_train`` and ``adyolo::mhsa_train_bwd`` (CUDA kernels
+:func:`train_forward` and :func:`train_backward`) inside one
+``torch.autograd.Function``.  Dispatch is by the tensor's device: a CPU
+tensor goes to the plain
 :func:`adyolo_tpu_torch.ops.attention.mhsa_attention` (differentiable by
 autograd, except on the long eval route, which raises in its backward on
-both devices; bfloat16 training through the written-out
+both devices; bfloat16 training through the train pair's ops, whose CPU
+kernels are the plain forward and the written-out
 :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention_bwd`, K3's rounding);
 a CUDA tensor goes to the kernels, or the call raises.  There is no
 fallback from one to the other.
@@ -66,7 +70,8 @@ import torch
 from ..utils.build import load_library
 from . import attention
 
-__all__ = ["flash_attention", "eval_forward", "route", "LAUNCHES"]
+__all__ = ["flash_attention", "eval_forward", "train_forward", "train_backward",
+           "route", "LAUNCHES"]
 
 LAUNCHES = {"k2": 0, "k4": 0, "k2_dropout": 0, "k3": 0, "k2_dropout_bf16": 0,
             "k3_bf16": 0, "k2_bf16": 0}
@@ -216,66 +221,74 @@ def eval_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _eval_launch(q, k, v, kv_len, rt)
 
 
-class _TrainAttention(torch.autograd.Function):
-    """The train pair of q's dtype: forward on route ``k2_dropout``,
-    backward on ``k3`` (float32), or ``k2_dropout_bf16`` and ``k3_bf16``
-    (bfloat16; the forward's float32 output is kept for the backward's D)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kv_len, seed, thresh, heads):
-        B, T, H, dh = q.shape
-        pair = _TRAIN[q.dtype]
+def train_forward(q, k, v, kv_len, seed, rate, heads):
+    """The train forward on CUDA q/k/v (the CUDA kernel of
+    ``adyolo::mhsa_train``): route ``k2_dropout`` (float32) or
+    ``k2_dropout_bf16`` (bfloat16) at dropout ``rate`` on heads ``heads =
+    (head_offset, heads_total)``.  Returns ``(out, out32, lse)``: ``out32``
+    the bfloat16 forward's float32 output (0 elements for float32, whose
+    ``out`` is float32), ``lse`` the row logsumexp ``(B, H, T)``."""
+    B, T, H, dh = q.shape
+    pair = _TRAIN[q.dtype]
+    with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         lse = torch.empty((B, H, T), device=q.device, dtype=torch.float32)
         splits, ptr, _scratch = _fwd_plan(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                 seed.data_ptr(), out.data_ptr()]
-        out32 = out
         if q.dtype == torch.bfloat16:
             out32 = torch.empty(q.shape, device=q.device, dtype=torch.float32)
             ptrs.append(out32.data_ptr())
-        _launch(pair.fwd_entry, *ptrs, lse.data_ptr(), ptr, B, T, H, dh, thresh,
-                *_hash_args(T, *heads), splits, stream)
-        LAUNCHES[pair.fwd_route] += 1
-        ctx.save_for_backward(q, k, v, kv_len, seed, out32, lse)
-        ctx.thresh, ctx.heads = thresh, heads
-        return out
+        else:
+            out32 = q.new_empty((0,), dtype=torch.float32)
+        _launch(pair.fwd_entry, *ptrs, lse.data_ptr(), ptr, B, T, H, dh,
+                attention.dropout_thresh(rate), *_hash_args(T, *heads), splits, stream)
+    LAUNCHES[pair.fwd_route] += 1
+    return out, out32, lse
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, kv_len, seed, out32, lse = ctx.saved_tensors
-        B, T, H, dh = q.shape
-        pair = _TRAIN[q.dtype]
-        dout = dout.to(q.dtype).contiguous()
+
+def train_backward(q, k, v, kv_len, seed, out32, lse, dout, rate, heads):
+    """The train backward on CUDA tensors (the CUDA kernel of
+    ``adyolo::mhsa_train_bwd``): route ``k3`` or ``k3_bf16``, from the
+    forward's float32 output ``out32`` (its ``out`` for float32) and
+    ``lse``.  Returns ``(dq, dk, dv)``."""
+    B, T, H, dh = q.shape
+    pair = _TRAIN[q.dtype]
+    with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         delta = torch.empty_like(lse)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(pair.bwd_entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 kv_len.data_ptr(), seed.data_ptr(), out32.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, T, H, dh, ctx.thresh,
-                *_hash_args(T, *ctx.heads), stream)
-        LAUNCHES[pair.bwd_route] += 1
-        return dq, dk, dv, None, None, None, None
+                dk.data_ptr(), dv.data_ptr(), B, T, H, dh, attention.dropout_thresh(rate),
+                *_hash_args(T, *heads), stream)
+    LAUNCHES[pair.bwd_route] += 1
+    return dq, dk, dv
 
 
-class _PlainBF16Attention(torch.autograd.Function):
-    """The plain bfloat16 train pair on the CPU: the forward of
-    :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention` and the
-    written-out backward, at K3's rounding points."""
+class _TrainAttention(torch.autograd.Function):
+    """The train pair through ``adyolo::mhsa_train`` and
+    ``adyolo::mhsa_train_bwd``: on CUDA the kernels of q's dtype
+    (:func:`train_forward`, :func:`train_backward`); on the CPU the plain
+    pair, :func:`~adyolo_tpu_torch.ops.attention.mhsa_attention` and the
+    written-out backward at K3's rounding points (the bfloat16 route)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, seed, rate, heads):
-        ctx.save_for_backward(q, k, v, kv_len, seed)
+        out, out32, lse = torch.ops.adyolo.mhsa_train(q, k, v, kv_len, seed, rate, *heads)
+        ctx.save_for_backward(q, k, v, kv_len, seed,
+                              out if q.dtype == torch.float32 else out32, lse)
         ctx.rate, ctx.heads = rate, heads
-        return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed, heads=heads)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_len, seed = ctx.saved_tensors
-        grads = attention.mhsa_attention_bwd(q, k, v, kv_len, dout.to(q.dtype),
-                                             rate=ctx.rate, seed=seed, heads=ctx.heads)
+        q, k, v, kv_len, seed, out32, lse = ctx.saved_tensors
+        grads = torch.ops.adyolo.mhsa_train_bwd(q, k, v, kv_len, seed, out32, lse,
+                                                dout.to(q.dtype).contiguous(), ctx.rate,
+                                                *ctx.heads)
         return (*grads, None, None, None, None)
 
 
@@ -328,7 +341,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     heads = attention.head_range(H, heads)
     if q.device.type == "cpu":
         if q.dtype == torch.bfloat16:
-            return _PlainBF16Attention.apply(q, k, v, kv_len, seed, rate, heads)
+            return _TrainAttention.apply(q, k, v, kv_len, seed, rate, heads)
         return attention.mhsa_attention(q, k, v, kv_len, rate=rate, seed=seed, heads=heads)
     if dh != _DH:
         raise ValueError(f"the kernels take dh == {_DH}, got {dh}")
@@ -343,4 +356,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError("dropout needs a seed")
             seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         seed = _int32_on(seed, q.device, "seed").reshape(1)
-        return _TrainAttention.apply(q, k, v, kv_len, seed, thresh, heads)
+        return _TrainAttention.apply(q, k, v, kv_len, seed, rate, heads)

@@ -135,7 +135,8 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     ``generator``: a ``torch.Generator`` on the model's device, the source of
     every SpecAugment draw and dropout bit of the step, in that order
     (None: the device's default one).  The
-    optimizer is ``train_step.optimizer``.
+    optimizer is ``train_step.optimizer``; its first parameter group counts
+    the steps taken (``"steps"``, saved with its state dict).
 
     Under a process group of N > 1 data replicas, ``batch`` is this
     replica's shard (``batch_size / N`` clips, AD-YOLO targets indexed
@@ -189,6 +190,8 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
         if tp > 1:
             mesh.average_replicated_grads(model)
         optimizer.step()
+        group = optimizer.param_groups[0]
+        group["steps"] = group.get("steps", 0) + 1  # JAX's TrainState.step
         if replicas == 1:
             return loss.detach()
         # the global batch's loss: the AD-YOLO terms add up to it, the

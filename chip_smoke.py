@@ -198,6 +198,26 @@ After the serve phases (8, 9), the export slice:
               step time a rank beside one process's, and one TP
               all-reduce timed alone.
 
+18. bench -- the port's bench (``adyolo_tpu_torch/bench.py``), last: its
+              five default lines through its own functions (5 timed calls
+              after 2 warm-ups, 5 timed train steps after 2): each line a
+              finite positive value, its TFLOP/s and 0 < mfu <= 1; per line
+              K1 once a call (the FLOP count's call and the warm-ups
+              included) and, in the conformer's bf16 step, k2_dropout_bf16
+              and k3_bf16 8 times a step, no other route (the path
+              ``bench``).  Then the path's kernels at its shapes: K1 on
+              (32, 800, 600, 4) against the plain STFT (2e-5 x max), the
+              bf16 pair at (32, 800, 4, 64) against float64 as in phase
+              attn_train_bf16_kernel; the conformer's B = 32 bf16 step on
+              the kernels and on the plain attention from the same weights
+              and generator seed: loss within 1e-2 rel, the worst leaf's
+              gradient within 0.25 x the largest, ``model_flops`` equal
+              (1e-9 rel).  At B = 2 x 2 s: the headline forward's
+              ``model_flops`` with the STFT op's CUDA kernel replaced by the
+              plain STFT equals the kernels' count, and the card's counts
+              equal the CPU's for the SE-ResNet34 forward, its fp32 step
+              and the conformer's bf16 step.
+
 Phases 3-5 and 14 also read each kernel's and library call's device time
 a call from ``torch.profiler`` (``utils/profiling.py::profile_calls``),
 or from CUDA events where the profiler records no device event in three
@@ -229,6 +249,7 @@ import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from adyolo_tpu_torch import bench as bench_mod  # noqa: E402
 from adyolo_tpu_torch import cli  # noqa: E402
 from adyolo_tpu_torch.config import (Config, build_config, load_config,  # noqa: E402
                                      save_config, with_conf_thresh)
@@ -240,7 +261,7 @@ from adyolo_tpu_torch.data.labels import (encode_accdoa, encode_adpit,  # noqa: 
                                           encode_adyolo, encode_seddoa,
                                           pad_yolo_targets)
 from adyolo_tpu_torch.data.scaler import compute_scaler_stats  # noqa: E402
-from adyolo_tpu_torch.engine.checkpoint import save_jax_checkpoint  # noqa: E402
+from adyolo_tpu_torch.engine.checkpoint import optax_state, save_jax_checkpoint  # noqa: E402
 from adyolo_tpu_torch.engine import evaluate as evaluate_mod  # noqa: E402
 from adyolo_tpu_torch.engine import train as train_mod  # noqa: E402
 from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa: E402
@@ -257,9 +278,9 @@ from adyolo_tpu_torch.ops.decode import PostProcessor, _device_decode  # noqa: E
 from adyolo_tpu_torch.ops.dsp import analysis_window, dft_matrices  # noqa: E402
 from adyolo_tpu_torch.ops.features import FeatureFrontend  # noqa: E402
 from adyolo_tpu_torch.parallel import mesh  # noqa: E402
-from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
+from adyolo_tpu_torch.parallel.train_step import build_train_step, make_optimizer  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
-from adyolo_tpu_torch.utils.profiling import group_ms, profile_calls  # noqa: E402
+from adyolo_tpu_torch.utils.profiling import group_ms, model_flops, profile_calls  # noqa: E402
 
 HOP = 600
 KERNEL_TOL = 2e-5
@@ -800,6 +821,29 @@ def bf16_truth(q, k, v, kv, do, seed, heads=None):
                                           heads=heads))
 
 
+def bf16_vs_truth(tag, got, plain, truth, lens):
+    """The bf16 pair's ``got`` (out, dq, dk, dv) against float64 ``truth``:
+    each kernel error at most BF16_RATIO x the plain version's plus
+    BF16_HALF_STEP x max|truth| over the rows with keys, and the kv_len = 0
+    rows zeros.  Returns each output's errors."""
+    rows = [b for b, n in enumerate(lens) if n > 0]
+    res = {}
+    for name, g, p, t in zip(("out", "dq", "dk", "dv"), got, plain, truth):
+        require(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()),
+                f"bf16 {name} {tag}: dtype {g.dtype} or not finite")
+        err = float((g.double()[rows] - t[rows]).abs().max())
+        err_p = float((p.double()[rows] - t[rows]).abs().max())
+        scale = float(t[rows].abs().max())
+        require(err <= BF16_RATIO * err_p + BF16_HALF_STEP * scale,
+                f"bf16 {name} {tag}: kernel err {err} > {BF16_RATIO} * plain err "
+                f"{err_p} + {BF16_HALF_STEP} * {scale}")
+        for b, n in enumerate(lens):
+            if n == 0:
+                require(bool((g[b] == 0).all()), f"bf16 {name} {tag}: kv_len 0 row not 0")
+        res[name] = {"max_abs_err": err, "plain_max_abs_err": err_p, "max_abs_truth": scale}
+    return res
+
+
 # The H100's issue rates beside its tensor cores, assumed from the
 # architecture (not measured), at the 1.83 GHz clock its 989 TFLOP/s
 # assume: ex2 on the MUFU pipe, 16 a clock an SM; 32-bit integer
@@ -849,26 +893,14 @@ def phase_attn_train_bf16_kernel(smi):
         plain = [attention.mhsa_attention(q, k, v, kv, rate=RATE, seed=seed),
                  *attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)]
         truth = bf16_truth(q, k, v, kv, do, seed)
-        rows = [b for b, n in enumerate(lens) if n > 0]
         row = {"phase": "attn_train_bf16_kernel", "case": tag, "shape": [B, T, H, 64],
                "rate": RATE, "kv_len": [int(n) for n in lens] if B == 1 else
                {"min": int(min(lens)), "max": int(max(lens))},
                "tol": {"ratio": BF16_RATIO, "half_step": BF16_HALF_STEP}}
-        for name, g, p, t in zip(("out", "dq", "dk", "dv"), (out.detach(), *grads), plain, truth):
-            require(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()),
-                    f"bf16 {name} {tag}: dtype {g.dtype} or not finite")
-            err = float((g.double()[rows] - t[rows]).abs().max())
-            err_p = float((p.double()[rows] - t[rows]).abs().max())
-            scale = float(t[rows].abs().max())
-            require(err <= BF16_RATIO * err_p + BF16_HALF_STEP * scale,
-                    f"bf16 {name} {tag}: kernel err {err} > {BF16_RATIO} * plain err "
-                    f"{err_p} + {BF16_HALF_STEP} * {scale}")
-            for b, n in enumerate(lens):
-                if n == 0:
-                    require(bool((g[b] == 0).all()), f"bf16 {name} {tag}: kv_len 0 row not 0")
-            row[name] = {"max_abs_err": err, "plain_max_abs_err": err_p, "max_abs_truth": scale}
+        row.update(bf16_vs_truth(tag, (out.detach(), *grads), plain, truth, lens))
+        for name in ("out", "dq", "dk", "dv"):
             rt = "k2_dropout_bf16" if name == "out" else "k3_bf16"
-            res[rt]["max_abs_err"] = max(res[rt]["max_abs_err"], err)
+            res[rt]["max_abs_err"] = max(res[rt]["max_abs_err"], row[name]["max_abs_err"])
         if tag == "full":
             # SDPA on the same bf16 inputs computes the function (no dropout)
             library0 = sdpa(q, k, v, kv)
@@ -1142,6 +1174,14 @@ def read_csvs(d):
     return out
 
 
+def untrained_opt_state(cfg, model):
+    """``(opt_state, step)`` of the config's optimizer before its first
+    step, for a ``model_best.ckpt`` of seeded weights."""
+    opt = make_optimizer(cfg, model.parameters())
+    return optax_state(cfg.train.optim, cfg.train.weight_decay, opt.state_dict(),
+                       dict(model.named_parameters()))
+
+
 def serve(cfg, fe, model, tau, tmp, secs, exp_id):
     """Odd-length wavs of ``secs`` seconds through ``engine.evaluate.infer``
     and then the CLI on an experiment dir in the JAX file format; the two
@@ -1175,7 +1215,7 @@ def serve(cfg, fe, model, tau, tmp, secs, exp_id):
     save_config(cfg, os.path.join(exp, "hyp_exp.yaml"))
     save_jax_checkpoint(os.path.join(exp, "model_best.ckpt"),
                         flax_from_state_dict(model.state_dict()),
-                        {"epoch_nb": 0, "confidence_thresh": tau})
+                        {"epoch_nb": 0, "confidence_thresh": tau}, *untrained_opt_state(cfg, model))
     zero_counts()  # the main path's count starts here
     t0 = time.perf_counter()
     rc = cli.main(["infer", "--eval_pth", exp_id, "--infer_pth", wav_dir,
@@ -1405,7 +1445,7 @@ def phase_export(smi, cfg, conf_cfg, fe, model, conformer, tau, conf_tau, tmp):
         save_config(with_conf_thresh(c, t), os.path.join(exp, "hyp_exp.yaml"))
         save_jax_checkpoint(os.path.join(exp, "model_best.ckpt"),
                             flax_from_state_dict(m.state_dict()),
-                            {"epoch_nb": 0, "confidence_thresh": t})
+                            {"epoch_nb": 0, "confidence_thresh": t}, *untrained_opt_state(c, m))
     arts, rows = {}, {}
     for name in exps:
         for dtype in ("float32", "bfloat16"):
@@ -2980,6 +3020,186 @@ def phase_tp(smi, conf_cfg):
     return path
 
 
+BENCH_SIZES = bench_mod.Sizes(iters=5, warmup=2, train_warmup=2, train_steps=5)
+FLOPS_REL = 1e-9  # model_flops on the kernels vs on the plain versions (and the CPU)
+# the conformer's B=32 bf16 step on the kernels vs on the plain attention:
+# the worst gradient error over the leaves, x the largest gradient (step 1
+# of train_conformer_bf16 at B=16 read 0.0148 of 0.110)
+BF16_STEP_GRAD_TOL = 0.25
+
+
+@contextlib.contextmanager
+def plain_versions(frontend):
+    """The front-end's STFT op and the conformer's attention on their plain
+    versions on the card: the op's CUDA kernel replaced by the plain STFT,
+    the attention called inline (:func:`plain_attention`)."""
+    n_fft = frontend.fft.n_fft
+    w = [t.to(frontend.device) for t in plain_stft.window_dft(frontend.fft_table[2 * n_fft:].cpu())]
+    saved = hopper_stft.launch
+    hopper_stft.launch = lambda x, table: plain_stft.stft(x, *w, n_fft // 2)
+    try:
+        with plain_attention():
+            yield
+    finally:
+        hopper_stft.launch = saved
+
+
+def bench_train_step(b, encoder, dtype):
+    """The bench's train step of ``encoder`` in ``dtype``, its arguments
+    (the bench's batch, a generator seeded 1) and its model."""
+    cfg = dataclasses.replace(
+        b.cfg, args=dataclasses.replace(b.cfg.args, encoder=encoder),
+        train=dataclasses.replace(b.cfg.train, batch_size=b.sizes.train_batch,
+                                  compute_dtype=dtype))
+    model = b.model(cfg, train=True)
+    return (build_train_step(cfg, model, b.frontend),
+            (b.train_batch(), torch.Generator(device=b.device).manual_seed(1)), model)
+
+
+def same_flops(tag, got, want):
+    require(want > 0 and abs(got - want) <= FLOPS_REL * want,
+            f"bench: model_flops {tag}: {got} vs {want}")
+    return {"flops": got, "vs": want}
+
+
+def bench_path_kernels(b):
+    """The bench path's kernels at its shapes against their plain versions:
+    K1 on the train batch's (32, 800, 600, 4) audio within KERNEL_TOL x
+    max; k2_dropout_bf16 and k3_bf16 at the conformer step's (32, 800, 4,
+    64), rate 0.2, all keys valid (the bench's clips are full), against
+    float64 as in attn_train_bf16_kernel."""
+    x = b.train_batch()["audio"]
+    n_fft = b.frontend.fft.n_fft
+    w = [t.cuda() for t in plain_stft.window_dft(b.frontend.fft_table[2 * n_fft:].cpu())]
+    got, want = hopper_stft.stft_hop_blocks(x, b.frontend.fft), plain_stft.stft(x, *w, HOP)
+    err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+    scale = max(float(p.abs().max()) for p in want)
+    require(np.isfinite(err) and err <= KERNEL_TOL * scale,
+            f"bench: STFT kernel at {tuple(x.shape)}: max err {err} > {KERNEL_TOL} * {scale}")
+    res = {"stft": {"shape": list(x.shape), "max_abs_err": err, "max_abs_plain": scale,
+                    "tol_rel": KERNEL_TOL}}
+    del got, want
+    B, T, H = x.shape[0], x.shape[1], 4
+    rng = np.random.default_rng(18)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, T, H, 64)), dtype=torch.float32,
+                                device="cuda").bfloat16() for _ in range(4))
+    seed = torch.tensor([int(rng.integers(-2 ** 31, 2 ** 31))], dtype=torch.int32, device="cuda")
+    kv = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed)
+    grads = torch.autograd.grad(out, args, do)
+    plain = [attention.mhsa_attention(q, k, v, kv, rate=RATE, seed=seed),
+             *attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)]
+    res["bf16_pair"] = {"shape": [B, T, H, 64], "rate": RATE,
+                        "tol": {"ratio": BF16_RATIO, "half_step": BF16_HALF_STEP},
+                        **bf16_vs_truth("bench", (out.detach(), *grads), plain,
+                                        bf16_truth(q, k, v, kv, do, seed), [T] * B)}
+    return res
+
+
+def bench_conformer_steps(b):
+    """The bench's conformer bf16 step (B = 32 x 20 s) from the same
+    weights, batch and generator seed on the kernels and on the plain
+    attention, each under ``model_flops``: the loss within
+    BF16_TRAIN_LOSS_TOL rel, the worst leaf's gradient within
+    BF16_STEP_GRAD_TOL x the largest, and the two counts equal."""
+    runs = {}
+    for tag in ("kernels", "plain"):
+        step, args, model = bench_train_step(b, "resnet-conformer", "bfloat16")
+        loss = []
+        with plain_attention() if tag == "plain" else contextlib.nullcontext():
+            flops = model_flops(lambda: loss.append(float(step(*args))))
+        runs[tag] = (flops, loss[0], grads_of(model))
+        del step, args, model
+    (k_fl, k_loss, k_g), (p_fl, p_loss, p_g) = runs["kernels"], runs["plain"]
+    require(np.isfinite(k_loss) and abs(k_loss - p_loss) <= BF16_TRAIN_LOSS_TOL * abs(p_loss),
+            f"bench: conformer B=32 bf16 step loss {k_loss} vs plain {p_loss}")
+    gmax = max(float(g.abs().max()) for g in p_g.values())
+    worst = max(p_g, key=lambda n: float((k_g[n] - p_g[n]).abs().max()))
+    gerr = float((k_g[worst] - p_g[worst]).abs().max())
+    require(all(bool(torch.isfinite(g).all()) for g in k_g.values())
+            and gerr <= BF16_STEP_GRAD_TOL * gmax,
+            f"bench: conformer B=32 bf16 step gradient {worst}: max err {gerr} > "
+            f"{BF16_STEP_GRAD_TOL} * {gmax}")
+    return {"loss": [k_loss, p_loss], "loss_tol_rel": BF16_TRAIN_LOSS_TOL,
+            "grad_worst_leaf": worst, "grad_max_abs_err": gerr, "grad_max_abs": gmax,
+            "grad_tol": BF16_STEP_GRAD_TOL,
+            "model_flops": same_flops("conformer B=32 bf16 step, plain attention", p_fl, k_fl)}
+
+
+def phase_bench(smi):
+    """The port's bench, its default lines through its own functions (the
+    main path of this phase: the launch counts set to 0 just before the
+    five lines and read just after).  Then the path's kernels at its
+    shapes against their plain versions (:func:`bench_path_kernels`), the
+    conformer's B=32 bf16 step on the kernels against the plain attention
+    (:func:`bench_conformer_steps`), and, at B = 2 x 2 s, the headline
+    forward's ``model_flops`` on the plain versions and the card's counts
+    against the CPU's."""
+    lines, per_line = {}, {}
+    t0 = time.perf_counter()
+    zero_counts()  # the main path's count starts here
+    for name in bench_mod.DEFAULT_CONFIGS:
+        before = counts()
+        out = []
+        errors = bench_mod.run([name], "cuda", BENCH_SIZES, emit=out.append)
+        require(not errors and len(out) == 1, f"bench {name}: {errors}")
+        lines[name] = json.loads(out[0])
+        per_line[name] = {n: c - before[n] for n, c in counts().items()}
+    launched = counts()
+    seconds = {"main_path": time.perf_counter() - t0}
+    sz = BENCH_SIZES
+    for name, rec in lines.items():
+        print(json.dumps(rec), flush=True)
+        require(rec["metric"] == bench_mod.METRIC_OF[name], f"bench {name}: {rec['metric']}")
+        require(np.isfinite(rec["value"]) and rec["value"] > 0, f"bench {name}: {rec}")
+        require(np.isfinite(rec["tflops_per_s"]) and rec["tflops_per_s"] > 0, f"bench {name}: {rec}")
+        require(0 < rec.get("mfu", 0) <= 1, f"bench {name}: mfu {rec.get('mfu')}")
+        calls = 1 + (sz.train_warmup + sz.train_steps if name.startswith("train")
+                     else sz.warmup + sz.iters)
+        want = {n: 0 for n in launched}
+        want["stft"] = calls
+        if name == "train-conformer-bf16":
+            want["k2_dropout_bf16"] = want["k3_bf16"] = 8 * calls
+        require(per_line[name] == want, f"bench {name}: launches {per_line[name]}, want {want}")
+
+    t = time.perf_counter()
+    b = bench_mod.Bench("cuda", BENCH_SIZES)
+    kernels = bench_path_kernels(b)
+    seconds["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    steps = bench_conformer_steps(b)
+    seconds["conformer_steps"] = time.perf_counter() - t
+    del b
+    torch.cuda.empty_cache()
+    # the count is the route's no more than the device's
+    t = time.perf_counter()
+    small = bench_mod.Sizes(batch=2, train_batch=2, clip_s=2)
+    card, cpu = bench_mod.Bench("cuda", small), bench_mod.Bench("cpu", small)
+    fwd, x = build_eval_forward(card.model(card.cfg), card.frontend), card.audio(2)
+    k = model_flops(fwd, x)
+    with plain_versions(card.frontend):
+        checks = {"headline_plain": same_flops("headline, plain", model_flops(fwd, x), k)}
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+
+    def step_flops(b, encoder, dtype):
+        step, args, _ = bench_train_step(b, encoder, dtype)
+        return model_flops(step, *args)
+
+    for tag, count in (
+            ("se_forward", lambda b: model_flops(build_eval_forward(b.model(b.cfg), b.frontend),
+                                                 b.audio(2))),
+            ("se_f32_step", lambda b: step_flops(b, "se-resnet34", "float32")),
+            ("conformer_bf16_step", lambda b: step_flops(b, "resnet-conformer", "bfloat16"))):
+        checks[tag + "_cpu"] = same_flops(f"{tag}, card vs CPU", count(card), count(cpu))
+    seconds["small_flops"] = time.perf_counter() - t
+    emit({"phase": "bench", "sizes": dataclasses.asdict(BENCH_SIZES), "seconds": seconds,
+          "lines": lines, "launches": launched, "launches_per_line": per_line,
+          "kernels_vs_plain": kernels, "conformer_step_vs_plain": steps,
+          "model_flops_checks": checks, "card": smi})
+    return launched
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -3024,6 +3244,7 @@ def main():
     formats = phase_train_cli_formats(smi, cfg)
     ddp = phase_ddp(smi, cfg, conf_cfg)
     tp = phase_tp(smi, conf_cfg)
+    bench = phase_bench(smi)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
@@ -3042,7 +3263,7 @@ def main():
              "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
                                    for n in formats["accdoa"]},
              "train_cli_formats_conformer": formats["accdoa-conformer"], "ddp": ddp,
-             "tp": tp}
+             "tp": tp, "bench": bench}
     for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
         require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
     require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),

@@ -3,7 +3,7 @@
 
 Run from the repository root::
 
-    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp] [tp] [attnf32]
+    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp] [tp] [attnf32] [bench]
 
 Phases env and build always run; then ``attn``: attn_train_bf16_kernel,
 ``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
@@ -12,7 +12,8 @@ attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
 ResNet-Conformer models, thresholds from one B=16 forward each), ``ddp``:
 ddp (two ranks spawned on the card), ``tp``: tp (the head-shard kernel
 checks, then two ranks of one model group spawned on the card),
-``attnf32``: attn_train_kernel (the fp32 train routes).  Each
+``attnf32``: attn_train_kernel (the fp32 train routes), ``bench``:
+bench (the port's bench lines and its FLOP-count checks).  Each
 prints its JSON line as in the full script.  Quicker than the full script
 while one phase is being worked on; the full script stays the check.
 """
@@ -54,6 +55,8 @@ def main():
         print(cs.phase_attn_train_kernel(smi)); print("t", time.time() - t0, flush=True)
     if "tp" in which:
         print(cs.phase_tp(smi, conf_cfg)); print("t", time.time() - t0, flush=True)
+    if "bench" in which:
+        print(cs.phase_bench(smi)); print("t", time.time() - t0, flush=True)
     if "export" in which:
         x = torch.tensor(cs.foa_audio(np.random.default_rng(1), (16, 800, cs.HOP, 4)), device="cuda")
         model = build_model(cfg, generator=torch.Generator().manual_seed(0))

@@ -127,9 +127,9 @@ def quick(setup):
             recorded.optimizer = step.optimizer
             return recorded
 
-        def save_best(path, variables, host):
+        def save_best(path, variables, host, *opt):
             rec["best"].append(copy.deepcopy(rec["model"].state_dict()))
-            return orig_save(path, variables, host)
+            return orig_save(path, variables, host, *opt)
 
         def scan(*a, **kw):
             rec["scan"].append(orig_scan(*a, **kw))

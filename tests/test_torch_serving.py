@@ -21,6 +21,7 @@ import shutil
 import numpy as np
 import jax
 import pytest
+from flax import serialization
 import torch
 
 from adyolo_tpu.config import Config, save_config, with_conf_thresh
@@ -150,7 +151,8 @@ def test_checkpoint_reader_and_writer(experiment, tmp_path):
         for path, a in jax.tree_util.tree_leaves_with_path(ref):
             np.testing.assert_array_equal(got[path], np.asarray(a))
     path = str(tmp_path / "again.ckpt")
-    save_jax_checkpoint(path, variables, host)
+    opt_state = jax.tree_util.tree_map(np.asarray, serialization.to_state_dict(state.opt_state))
+    save_jax_checkpoint(path, variables, host, opt_state, np.asarray(state.step))
     again, host2 = load_jax_checkpoint(path)
     assert host2 == host
     for (p1, a), (p2, b) in zip(jax.tree_util.tree_leaves_with_path(variables),

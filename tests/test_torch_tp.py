@@ -396,13 +396,16 @@ def test_tp_checkpoints_are_full_and_load_in_jax_and_one_process(engine, monkeyp
     monkeypatch.setattr(jax_rc, "ResNetConformer", functools.partial(
         jax_rc.ResNetConformer, num_layers=ddp.BLOCKS))
     jm = jax_build_model(jcfg, "float32")
-    # the file carries no optimizer state (engine/checkpoint.py), so the
-    # template's is empty
+    # the full template: the file holds the gathered Adam state in optax's
+    # structure, at the full model's shapes
     template = jax.eval_shape(lambda: init_state(jcfg, jm, jax_make_frontend(jcfg),
                                                  jax.random.PRNGKey(0)))
     state, jhost = jax_checkpoint.load_checkpoint(os.path.join(exp, "model_best.ckpt"),
-                                                  template._replace(opt_state={}))
+                                                  template)
     assert jhost == host and 1 <= host["epoch_nb"] <= 3
+    for got, want in zip(jax.tree_util.tree_leaves(state.opt_state),
+                         jax.tree_util.tree_leaves(template.opt_state)):
+        assert np.shape(got) == want.shape
     jax.tree_util.tree_map(np.testing.assert_array_equal,
                            jax.tree_util.tree_map(np.asarray, state.params), variables["params"])
 
