@@ -6,8 +6,7 @@ Usage:
                                          [--compute_dtype bfloat16] [--remat] ...
     python -m adyolo_tpu_torch.cli train --resume_pth <exp_id>
     torchrun --nproc_per_node <N> -m adyolo_tpu_torch.cli train ...
-    torchrun --nproc_per_node <N> -m adyolo_tpu_torch.cli train --encoder resnet-conformer \
-        --model_parallel <M> ...
+    torchrun --nproc_per_node <N> -m adyolo_tpu_torch.cli train --model_parallel <M> ...
     python -m adyolo_tpu_torch.cli val   --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli test  --eval_pth <exp_id>
     python -m adyolo_tpu_torch.cli infer --eval_pth <exp_id> --infer_pth <wav_dir>
@@ -24,8 +23,8 @@ read an experiment dir written by either package's trainer, for either
 encoder; ``export`` writes ``<results_dir>/<exp_id>/export/`` (``model.pt2``,
 ``meta.json``, ``hyp_exp.yaml``; :mod:`adyolo_tpu_torch.engine.export`), the
 program of one clip of the config's ``chunk_window_s`` (20 s), traced on
-``--device`` with the encoder in ``--serve_dtype`` (``float32``, the
-default, or ``bfloat16``).  Both encoders train with any ``--loss`` (``seddoa``,
+``--device`` with the encoder in ``--serve_dtype`` (``float32`` or
+``bfloat16``; without the flag, ``ADYOLO_SERVE_DTYPE`` or ``float32``).  Both encoders train with any ``--loss`` (``seddoa``,
 ``masked-seddoa``, ``accdoa``, ``adpit``, ``adyolo``) on FOA or MIC input
 (``audio_format: mic`` in the dataset preset: GCC-PHAT features), in
 float32 or (``--compute_dtype bfloat16``) bf16; ``--remat`` checkpoints
@@ -38,15 +37,17 @@ global batch (BatchNorm's moments and AD-YOLO's denominators are the
 global batch's); rank 0 alone logs, checkpoints and evaluates
 (:mod:`adyolo_tpu_torch.engine.train`).  Under plain ``python -m`` it
 runs in one process.  ``--model_parallel M`` adds tensor parallelism:
-each group of M consecutive ranks shards the ResNet-Conformer's blocks
-(by heads and by FFN and conv channels) and trains one data replica's
-clips, so N / M replicas take ``batch_size / (N / M)`` clips each; the
-step is still the single-process step on the global batch.  Rank 0
-evaluates and checkpoints the gathered, unsharded model.  M must divide
-N and the 4 attention heads, and SE-ResNet34 (nothing to shard) is
-refused with ``M > 1``.  ``val``, ``test``, ``infer`` and ``export`` run
-one process on one device and take ``--model_parallel`` without using
-it, as the JAX package's eval does.
+each group of M consecutive ranks trains one data replica's clips, so
+N / M replicas take ``batch_size / (N / M)`` clips each; the step is
+still the single-process step on the global batch.  The group shards the
+ResNet-Conformer's blocks where M cuts them cleanly (the FFNs where M
+divides their hidden width, the conv module where M divides ``emb_dim``,
+the MHSA where M divides its 4 heads) and holds every other module, and
+all of SE-ResNet34, whole on each of its ranks, as JAX replicates what M
+does not divide.  Rank 0 evaluates and checkpoints the gathered,
+unsharded model.  M must divide N.  ``val``, ``test``, ``infer`` and
+``export`` run one process on one device and take ``--model_parallel``
+without using it, as the JAX package's eval does.
 
 ``preprocess chunking`` cuts the dataset's ``dev-train`` wavs and labels
 into the 20-s training chunks; ``preprocess scaler`` writes
@@ -111,10 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--serve_dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
                         help="export: the encoder's compute dtype in the "
-                             "artifact (default float32)")
+                             "artifact (default: ADYOLO_SERVE_DTYPE, else float32)")
         sp.add_argument("--model_parallel", type=int, default=None,
                         help="train: ranks in a model group, which shard the "
-                             "conformer (WORLD_SIZE = data replicas x this)")
+                             "conformer's modules that it divides and hold the "
+                             "rest whole (WORLD_SIZE = data replicas x this)")
         sp.add_argument("--device", type=str, default="cuda")
 
     pp = sub.add_parser("preprocess")

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import msgpack
 import numpy as np
@@ -177,20 +177,20 @@ def save_train_checkpoint(path: str, model_state: Dict[str, torch.Tensor],
 
 def load_train_checkpoint(path: str, model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer,
-                          tp_rank: int = 0, tp_size: int = 1) -> Dict[str, Any]:
+                          plan: Optional[mesh.TPPlan] = None,
+                          tp_rank: int = 0) -> Dict[str, Any]:
     """Load :func:`save_train_checkpoint`'s model and optimizer state into
     ``model`` and ``optimizer`` (onto their device) and return the host
-    state.  A model sharded over ``tp_size`` > 1 ranks takes rank
-    ``tp_rank``'s shard of the full state, its optimizer's moments cut by
-    the same rules (:mod:`adyolo_tpu_torch.parallel.mesh`).  The file must
-    come from this project's trainer: it is unpickled."""
+    state.  A model sharded by ``plan`` (the train step's) takes rank
+    ``tp_rank``'s shard of the full state, its optimizer's moments cut the
+    same way (:mod:`adyolo_tpu_torch.parallel.mesh`).  The file must come
+    from this project's trainer: it is unpickled."""
     payload = torch.load(path, map_location="cpu", weights_only=False)
     model_state, optimizer_state = payload["model"], payload["optimizer"]
-    if tp_size > 1:
+    if plan is not None and plan.sharded:
         names = [n for n, _ in model.named_parameters()]
-        model_state = mesh.shard_state_dict(model_state, tp_rank, tp_size)
-        optimizer_state = mesh.shard_optimizer_state(optimizer_state, names, tp_rank,
-                                                     tp_size)
+        model_state = mesh.shard_state_dict(model_state, plan, tp_rank)
+        optimizer_state = mesh.shard_optimizer_state(optimizer_state, names, plan, tp_rank)
     model.load_state_dict(model_state, strict=True)
     optimizer.load_state_dict(optimizer_state)
     return payload["host"]

@@ -125,8 +125,10 @@ def export_model(cfg: Config, model: SELDModel, frontend: FeatureFrontend,
     in eval mode) for ``batch_size`` clips of ``seconds`` (default: the
     config's ``chunk_window_s``); returns ``out_dir``.  The trace runs on
     the front-end's device and launches no kernel.  ``serve_dtype``:
-    'float32' (default) or 'bfloat16', the encoder's compute dtype."""
-    serve_dtype = serve_dtype or "float32"
+    'float32' or 'bfloat16', the encoder's compute dtype; None takes
+    ``ADYOLO_SERVE_DTYPE``, else 'float32' (``adyolo_tpu/engine/
+    export.py:58-59``)."""
+    serve_dtype = serve_dtype or os.environ.get("ADYOLO_SERVE_DTYPE", "float32")
     if serve_dtype not in DTYPES:
         raise ValueError(f"serve_dtype {serve_dtype!r}: one of {sorted(DTYPES)}")
     secs = float(seconds if seconds is not None else cfg.data.chunk_window_s)

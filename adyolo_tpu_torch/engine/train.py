@@ -38,18 +38,20 @@ rank 0's checkpoint on every rank (the host RNG streams and the sampler
 advance alike on all ranks) and, at the same world size, continues the
 uninterrupted run.
 
-With ``--model_parallel N`` (the conformer only) the ranks form a (dp,
-tp) grid: each model group of N ranks trains one data replica's shard of
-the batch on the conformer sharded over the group
-(:mod:`adyolo_tpu_torch.parallel.mesh`).  At each epoch's end every rank
+With ``--model_parallel N`` (either encoder, any N that divides the
+ranks) the ranks form a (dp, tp) grid: each model group of N ranks trains
+one data replica's shard of the batch on the model laid out over the
+group (:func:`~adyolo_tpu_torch.parallel.mesh.tp_plan`: the conformer's
+modules that N cuts cleanly are sharded, everything else, SE-ResNet34
+whole, is held whole on every rank).  At each epoch's end every rank
 takes part in gathering the parameters, BatchNorm stats and Adam moments
-into the full state, which rank 0 loads into an unsharded copy of the
-model: it evaluates that copy (the same function as the sharded model)
-and checkpoints the full state, so both files are in JAX's format and
-order, readable by a single-process run and by JAX's
-``load_checkpoint``.  A resume loads the full checkpoint on every rank
-and shards it; ``--model_parallel`` on a resume overrides the frozen
-config's.
+into the full state (an entry held whole is rank 0's as it is), which
+rank 0 loads into an unsharded copy of the model: it evaluates that copy
+(the same function as the sharded model) and checkpoints the full state,
+so both files are in JAX's format and order, readable by a
+single-process run and by JAX's ``load_checkpoint``.  A resume loads the
+full checkpoint on every rank and shards it; ``--model_parallel`` on a
+resume overrides the frozen config's.
 
 Both encoders train, with any of the five losses, on FOA or MIC input, in
 float32 or (``--compute_dtype bfloat16``) in the JAX package's bf16 (the
@@ -78,7 +80,6 @@ from ..config import (Config, build_config, flatten_config, load_config,
 from ..convert import flax_from_state_dict
 from ..data.dataset import EvalLoader, SELDDataset, TrainLoader
 from ..metrics.seld import SegmentScorer
-from ..models.resnet_conformer import HEADS
 from ..models.wrapper import DTYPES, build_model
 from ..ops.decode import PostProcessor
 from ..parallel import mesh
@@ -139,18 +140,14 @@ class _PreemptionGuard:
 
 def check_trainable(cfg: Config) -> None:
     """Raise ``ValueError`` for an unknown compute dtype, a model-parallel
-    size that the ranks or the conformer's heads do not divide or an encoder
-    it cannot shard, or a batch size that the data replicas do not divide,
-    before a fresh run creates its directory."""
+    size below 1 or that the ranks do not divide, or a batch size that the
+    data replicas do not divide, before a fresh run creates its
+    directory."""
     if cfg.train.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
     n = cfg.mesh.model_parallel
-    if n > 1 and cfg.args.encoder != "resnet-conformer":
-        raise ValueError(f"--model_parallel {n} shards the ResNet-Conformer only: "
-                         f"{cfg.args.encoder} has nothing to shard (JAX's rules shard "
-                         "none of it), so its N ranks would repeat one another's work")
-    mesh.check_model_parallel(n, heads=HEADS)
+    mesh.check_model_parallel(n)
     mesh.check_batch(cfg.train.batch_size, mesh.world_size() // n)
 
 
@@ -312,7 +309,7 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
                         generator=torch.Generator().manual_seed(cfg.args.seed),
                         train=True)
     train_step = build_train_step(cfg, model, frontend)  # shards the model under TP
-    optimizer = train_step.optimizer
+    optimizer, plan = train_step.optimizer, train_step.plan
     if main:  # evaluation runs on rank 0 only, on an unsharded model
         valid_loader = EvalLoader(SELDDataset(cfg, "val", is_valid=True), cfg)
         test_loader = EvalLoader(SELDDataset(cfg, "test", is_valid=True), cfg)
@@ -329,7 +326,7 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
     # ---- resume (train.py:145-159): every rank loads rank 0's checkpoint --
     if is_resume:
         host = load_train_checkpoint(os.path.join(output_pth, "model_ckpt.ckpt"),
-                                     model, optimizer, mesh.tp_rank(), tp)
+                                     model, optimizer, plan, mesh.tp_rank())
         train_ds.sampler.set_remaining(host["train_remaining_file"])
         train_ds.filelist = list(host["train_file_list"])
         # the reference resumes at the BEST threshold (train.py:151)
@@ -364,8 +361,8 @@ def _train(args: Dict, is_resume: bool, device) -> Config:
         if tp == 1:
             full["optimizer"] = optimizer.state_dict() if main else None
             return
-        state = mesh.gather_state_dict(model.state_dict())
-        full["optimizer"] = mesh.gather_optimizer_state(optimizer.state_dict(), names)
+        state = mesh.gather_state_dict(model.state_dict(), plan)
+        full["optimizer"] = mesh.gather_optimizer_state(optimizer.state_dict(), names, plan)
         if main:
             eval_model.load_state_dict(state)
 

@@ -47,14 +47,16 @@ leaves the BatchNorm running stats alone, so a remat step equals the
 plain step bit for bit.
 
 Tensor parallelism (:func:`shard_conformer_`, ``--model_parallel N``):
-each conformer block's FFNs, MHSA and conv module are cut Megatron's way
+each conformer block's FFNs, MHSA and conv module that N cuts cleanly
+(:func:`adyolo_tpu_torch.parallel.mesh.tp_plan`) are cut Megatron's way
 over a TP group by :mod:`adyolo_tpu_torch.parallel.mesh`'s rules: every
 product that widens (q/k/v, fc1, pw1) keeps its output columns, every
 product that narrows back to ``d`` (the MHSA output, fc2, pw2) its input
-rows, and one sum over the group closes each module.  A rank holds
-``4 / N`` heads and runs the attention kernels on them with the full
-model's keep bits; every dropout draws the full model's bits, so a
-sharded step is the unsharded step up to the order of the sums.
+rows, and one sum over the group closes each module.  A rank of a
+sharded MHSA holds ``4 / N`` heads and runs the attention kernels on them
+with the full model's keep bits; every dropout draws the full model's
+bits, so a sharded step is the unsharded step up to the order of the
+sums.  A module that N does not cut is kept whole on every rank.
 
 Input ``(B, T, F, C)`` channel-last, as in the JAX package; the conv stack
 runs NCHW.  DCASE shapes: (B, 800, 64, 7) -> (B, 200, 256).
@@ -345,39 +347,44 @@ class ResNetConformer(nn.Module):
 
 
 @torch.no_grad()
-def shard_conformer_(encoder: ResNetConformer, group, tp_rank: int, n: int
-                     ) -> ResNetConformer:
+def shard_conformer_(encoder: nn.Module, group, tp_rank: int, plan: mesh.TPPlan
+                     ) -> nn.Module:
     """Shard the conformer blocks of an initialised full ``encoder`` in
-    place for rank ``tp_rank`` of a TP group of ``n`` ranks
-    (:func:`adyolo_tpu_torch.parallel.mesh.tp_rule`): narrow the sharded
-    parameters and BatchNorm stats, give each MHSA its ``4 / n`` heads and
-    their offset, each depthwise conv its channels, each FFN's first
-    dropout its columns' share of the full bits, and route the products
-    through the group's collectives.  Everything else stays replicated.
-    Build the optimizer after this, so its state holds the shards."""
-    if not isinstance(encoder, ResNetConformer):
-        raise ValueError(f"tensor parallelism shards the ResNet-Conformer only, not "
-                         f"{type(encoder).__name__}")
-    if n == 1:
+    place for rank ``tp_rank`` of a TP group laid out by ``plan``
+    (:func:`adyolo_tpu_torch.parallel.mesh.tp_plan` of the full model):
+    narrow the parameters and BatchNorm stats of the modules it shards,
+    give a sharded MHSA its ``heads / n`` heads and their offset, a sharded
+    conv module's depthwise conv its channels, a sharded FFN's first
+    dropout its columns' share of the full bits, and route their products
+    through the group's collectives.  A module kept whole (and everything
+    outside the blocks) keeps no group: it runs the whole model's
+    computation on the replica's batch and generator, and its gradients
+    are averaged over the group after the backward.  An encoder without
+    conformer blocks (SE-ResNet34) is left as it is.  Build the optimizer
+    after this, so its state holds the shards."""
+    if not plan.sharded:
         return encoder
+    n = plan.n
     for name, mod in encoder.named_modules():
         for store in (mod._parameters, mod._buffers):
             for leaf, t in store.items():
-                kind = mesh.tp_rule(f"{name}.{leaf}")
+                kind = plan.rule(f"{name}.{leaf}")
                 if kind is None or t is None:
                     continue
                 piece = mesh.shard_tensor(t.detach(), kind, tp_rank, n).clone()
                 store[leaf] = nn.Parameter(piece) if store is mod._parameters else piece
     for i in range(encoder.num_layers):
         block = getattr(encoder, f"conformer{i}")
-        mhsa = block.mhsa
-        mesh.check_model_parallel(n, n, mhsa.heads)
-        heads = mhsa.heads // n
-        mhsa.head_range, mhsa.heads = (tp_rank * heads, mhsa.heads), heads
-        dw = block.conv.dw_conv
-        dw.groups = dw.in_channels = dw.out_channels = dw.weight.shape[0]
-        for ffn in (block.ffn1, block.ffn2):
-            ffn.drop1.shard = (tp_rank, n)
-        for mod in (mhsa, block.conv, block.ffn1, block.ffn2):
-            mod.tp = group
+        if "mhsa" in plan.sharded:
+            mhsa = block.mhsa
+            heads = mhsa.heads // n
+            mhsa.head_range, mhsa.heads = (tp_rank * heads, mhsa.heads), heads
+        if "conv" in plan.sharded:
+            dw = block.conv.dw_conv
+            dw.groups = dw.in_channels = dw.out_channels = dw.weight.shape[0]
+        for key in ("ffn1", "ffn2"):
+            if key in plan.sharded:
+                getattr(block, key).drop1.shard = (tp_rank, n)
+        for key in plan.sharded:
+            getattr(block, key).tp = group
     return encoder

@@ -31,14 +31,19 @@ ranks of one
 ``tp_index`` form a **DP group**, over which ``DistributedDataParallel``
 averages that shard's gradients, and a second group over the same ranks
 is the batch group (BatchNorm's moments and AD-YOLO's counts are summed
-over the data replicas, not over TP peers).  :data:`_TP_RULES` is the
-counterpart of JAX's ``_TP_RULES`` / ``state_shardings``, keyed by the
-port's parameter names; :func:`shard_state_dict` and
+over the data replicas, not over TP peers).  :func:`tp_plan` decides, for
+a model and N, which of each conformer block's modules are sharded and
+which are kept whole on every rank of the group (the counterpart of JAX's
+``_tp_spec`` / ``state_shardings``, which shard a leaf only where N
+divides it and replicate the others); its :class:`TPPlan` is what every
+reader of the layout takes: :func:`shard_state_dict` and
 :func:`gather_state_dict` carry weights and optimizer moments between a
-full state dict (the checkpoint, in JAX's order) and a rank's shard.
-JAX replicates a leaf that N does not divide; the port refuses such an N
-(:func:`check_model_parallel`).  At N = 1 nothing of this exists and the
-groups are data parallelism's alone.
+full state dict (the checkpoint, in JAX's order) and a rank's shard, and
+:func:`average_replicated_grads` finds the parameters held whole.  An
+encoder without conformer blocks (SE-ResNet34) is held whole: the ranks
+of a model group repeat one another's work on their replica's clips, as
+JAX's model axis does.  At N = 1 nothing of this exists and the groups
+are data parallelism's alone.
 
 With no group (a plain ``python -m`` run) every function here is the
 single-process identity and no collective runs.  The JAX ``make_mesh``'s
@@ -48,10 +53,11 @@ global batch that the data replicas do not divide is refused instead
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import re
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -61,7 +67,7 @@ __all__ = ["PG_TIMEOUT", "init_distributed", "set_model_parallel", "shutdown", "
            "tp_group", "dp_group", "batch_group", "all_reduce_sum", "all_reduce_counts",
            "copy_to_tp", "reduce_from_tp", "average_replicated_grads",
            "broadcast_object", "any_rank", "on_main", "check_batch",
-           "check_model_parallel", "tp_rule", "shard_tensor", "join_tensor",
+           "check_model_parallel", "TPPlan", "tp_plan", "shard_tensor", "join_tensor",
            "shard_state_dict", "gather_state_dict", "shard_optimizer_state",
            "gather_optimizer_state"]
 
@@ -172,21 +178,17 @@ def init_distributed(device="cuda", model_parallel: int = 1):
     return dev
 
 
-def check_model_parallel(n: int, world: Optional[int] = None,
-                         heads: Optional[int] = None) -> None:
-    """Refuse a model-parallel size ``n`` that the ranks (``world``, the
-    world size when None) or the attention's ``heads`` do not divide: each
-    model group holds N consecutive ranks (JAX's ``make_mesh`` asserts the
-    same), and each rank ``heads / N`` whole heads."""
+def check_model_parallel(n: int, world: Optional[int] = None) -> None:
+    """Refuse a model-parallel size ``n`` below 1 or that the ranks
+    (``world``, the world size when None) do not divide: each model group
+    holds N consecutive ranks (JAX's ``make_mesh`` asserts the same).  Any
+    other N is taken: :func:`tp_plan` keeps whole what N does not cut."""
     world = world_size() if world is None else world
     if n < 1:
         raise ValueError(f"model_parallel {n}: must be at least 1")
     if world % n:
         raise ValueError(f"model_parallel {n} does not divide the {world} ranks "
                          "(WORLD_SIZE): each model group is N consecutive ranks")
-    if heads is not None and heads % n:
-        raise ValueError(f"model_parallel {n} does not divide the attention's {heads} "
-                         "heads: each rank holds heads / N whole heads")
 
 
 def set_model_parallel(n: int = 1) -> None:
@@ -388,16 +390,18 @@ def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
 
 
 @torch.no_grad()
-def average_replicated_grads(module: torch.nn.Module, group=None) -> None:
-    """Replace the gradient of every parameter that the TP group holds whole
-    by its mean over the group (one all-reduce of them all).  The ranks
+def average_replicated_grads(module: torch.nn.Module, plan: TPPlan, group=None) -> None:
+    """Replace the gradient of every parameter that ``plan`` holds whole by
+    its mean over the TP group (one all-reduce of them all).  The ranks
     compute those gradients from the same inputs, but on the card not to the
     same bits (cuDNN's convolution backward and the loss's gather backward
     sum with atomics), and the replicated weights must stay equal on every
-    rank.  Where the ranks' gradients are equal the mean is that gradient."""
+    rank.  Where the ranks' gradients are equal the mean is that gradient.
+    DDP has averaged them over the DP group before: the two groups cross,
+    so each gradient is averaged once over every rank."""
     group = tp_group() if group is None else group
     grads = [p.grad for n, p in module.named_parameters()
-             if p.grad is not None and tp_rule(n) is None]
+             if p.grad is not None and plan.rule(n) is None]
     if group is None or not grads:
         return
     flat = torch.cat([g.reshape(-1).to(_acc(g.dtype)) for g in grads])
@@ -436,15 +440,58 @@ _TP_RULES = {
     ("pw2", "weight"): "row",
 }
 # the rules fire only inside a conformer block's FFNs, MHSA and conv module
-# (the ResNet blocks' bn1 / bn2 and the heads stay replicated)
-_TP_SCOPE = re.compile(r"(?:^|\.)conformer\d+\.(?:ffn1|ffn2|mhsa|conv)\.(\w+)\.(\w+)$")
+# (the ResNet blocks' bn1 / bn2 and the heads stay replicated), and only in
+# the modules that the plan shards
+_TP_SCOPE = re.compile(r"(?:^|\.)conformer\d+\.(ffn1|ffn2|mhsa|conv)\.(\w+)\.(\w+)$")
+_BLOCK = re.compile(r"(?:^|\.)conformer\d+$")
 
 
-def tp_rule(name: str) -> Optional[str]:
-    """How the state-dict entry ``name`` is sharded ("col", "row", "glu"),
-    or None when it is replicated."""
-    m = _TP_SCOPE.search(name)
-    return None if m is None else _TP_RULES.get(m.groups())
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """How a model is laid out over a TP group of ``n`` ranks: the conformer
+    modules (``"ffn1"``, ``"ffn2"``, ``"mhsa"``, ``"conv"``, the same in
+    every block) that are ``sharded``; everything else is held whole on
+    every rank.  Made by :func:`tp_plan`."""
+
+    n: int = 1
+    sharded: FrozenSet[str] = frozenset()
+
+    def rule(self, name: str) -> Optional[str]:
+        """How the state-dict entry ``name`` is cut ("col", "row", "glu"), or
+        None when it is held whole."""
+        m = _TP_SCOPE.search(name)
+        if m is None or m.group(1) not in self.sharded:
+            return None
+        return _TP_RULES.get(m.group(2, 3))
+
+
+def tp_plan(model: torch.nn.Module, n: int) -> TPPlan:
+    """The layout of ``model`` (a full, unsharded model or encoder) over a
+    TP group of ``n`` ranks: the one decision of which conformer modules are
+    sharded.  Each module is sharded where N cuts it cleanly and kept whole
+    on every rank otherwise:
+
+    * an FFN where N divides its hidden width (JAX's ``Dense_0`` /
+      ``Dense_1`` test);
+    * the conv module where N divides ``emb_dim``, so that each rank holds
+      matching pieces of the GLU's two halves;
+    * the MHSA where N divides the heads: each rank runs whole heads
+      through the attention kernels, with the full model's dropout bits.
+
+    JAX shards q/k/v and the output ``linear`` wherever N divides
+    ``emb_dim``, through a head when N does not divide the heads (N = 8 at
+    ``emb_dim`` 256), and GSPMD regathers them; the port keeps that MHSA
+    whole instead.  The arithmetic is the same; only the layout differs.
+    An encoder without conformer blocks (SE-ResNet34) is held whole."""
+    blocks = [m for name, m in model.named_modules() if _BLOCK.search(name)]
+    if n == 1 or not blocks:
+        return TPPlan(n)
+    block = blocks[0]
+    hidden = block.ffn1.fc1.weight.shape[0]
+    dim = block.conv.pw2.weight.shape[0]
+    fits = {"ffn1": hidden % n == 0, "ffn2": block.ffn2.fc1.weight.shape[0] % n == 0,
+            "mhsa": block.mhsa.heads % n == 0, "conv": dim % n == 0}
+    return TPPlan(n, frozenset(k for k, ok in fits.items() if ok))
 
 
 def shard_tensor(t: torch.Tensor, kind: str, tp_rank: int, n: int) -> torch.Tensor:
@@ -467,12 +514,12 @@ def join_tensor(pieces: Sequence[torch.Tensor], kind: str) -> torch.Tensor:
     return torch.cat([h[0] for h in halves] + [h[1] for h in halves])
 
 
-def shard_state_dict(full: Dict[str, torch.Tensor], tp_rank: int, n: int
+def shard_state_dict(full: Dict[str, torch.Tensor], plan: TPPlan, tp_rank: int
                      ) -> Dict[str, torch.Tensor]:
-    """Rank ``tp_rank``'s state dict from the full one: the sharded entries
-    cut by :data:`_TP_RULES`, the others as they are."""
-    return {k: (shard_tensor(v, kind, tp_rank, n).contiguous()
-                if (kind := tp_rule(k)) else v) for k, v in full.items()}
+    """Rank ``tp_rank``'s state dict from the full one: the entries that
+    ``plan`` shards cut by :data:`_TP_RULES`, the others as they are."""
+    return {k: (shard_tensor(v, kind, tp_rank, plan.n).contiguous()
+                if (kind := plan.rule(k)) else v) for k, v in full.items()}
 
 
 def _gather(t: torch.Tensor, kind: str, group) -> torch.Tensor:
@@ -482,38 +529,41 @@ def _gather(t: torch.Tensor, kind: str, group) -> torch.Tensor:
     return join_tensor(pieces, kind)
 
 
-def gather_state_dict(state: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+def gather_state_dict(state: Dict[str, torch.Tensor], plan: TPPlan,
+                      group=None) -> Dict[str, torch.Tensor]:
     """The full state dict (weights, BatchNorm stats, or any tensors keyed
     by parameter names, e.g. gradients) from every rank's ``state`` over
-    the TP group (this rank's when None), on every rank: a collective.  The
-    GLU's pairing is undone, so the result is in the unsharded model's (and
-    JAX's) order."""
+    the TP group (this rank's when None), on every rank: a collective when
+    ``plan`` shards anything.  An entry held whole is this rank's as it is.
+    The GLU's pairing is undone, so the result is in the unsharded model's
+    (and JAX's) order."""
     group = tp_group() if group is None else group
-    return {k: (_gather(v, kind, group) if (kind := tp_rule(k)) else v)
+    return {k: (_gather(v, kind, group) if (kind := plan.rule(k)) else v)
             for k, v in state.items()}
 
 
-def _map_moments(osd: Dict, names: List[str], fn) -> Dict:
+def _map_moments(osd: Dict, names: List[str], plan: TPPlan, fn) -> Dict:
     """``osd`` (an optimizer's state dict over parameters named ``names``,
-    in order) with every per-element state tensor of a sharded parameter
-    replaced by ``fn(tensor, kind)``; scalars such as Adam's step stay."""
+    in order) with every per-element state tensor of a parameter that
+    ``plan`` shards replaced by ``fn(tensor, kind)``; scalars such as
+    Adam's step stay."""
     state = {}
     for idx, st in osd["state"].items():
-        kind = tp_rule(names[idx])
+        kind = plan.rule(names[idx])
         state[idx] = {k: (fn(v, kind) if kind and torch.is_tensor(v) and v.ndim else v)
                       for k, v in st.items()}
     return {**osd, "state": state}
 
 
-def shard_optimizer_state(osd: Dict, names: List[str], tp_rank: int, n: int) -> Dict:
+def shard_optimizer_state(osd: Dict, names: List[str], plan: TPPlan, tp_rank: int) -> Dict:
     """Rank ``tp_rank``'s optimizer state dict from the full one: Adam's
-    moments follow their parameters' rules."""
-    return _map_moments(osd, names,
-                        lambda v, kind: shard_tensor(v, kind, tp_rank, n).contiguous())
+    moments follow their parameters' layout in ``plan``."""
+    return _map_moments(osd, names, plan,
+                        lambda v, kind: shard_tensor(v, kind, tp_rank, plan.n).contiguous())
 
 
-def gather_optimizer_state(osd: Dict, names: List[str], group=None) -> Dict:
+def gather_optimizer_state(osd: Dict, names: List[str], plan: TPPlan, group=None) -> Dict:
     """The full optimizer state dict from every rank's over the TP group: a
     collective, as :func:`gather_state_dict`."""
     group = tp_group() if group is None else group
-    return _map_moments(osd, names, lambda v, kind: _gather(v, kind, group))
+    return _map_moments(osd, names, plan, lambda v, kind: _gather(v, kind, group))

@@ -44,9 +44,12 @@ With one rank (no group) the step is the single-device one, bit for bit.
 
 Tensor parallelism (``model_parallel`` N > 1, :func:`~adyolo_tpu_torch.
 parallel.mesh.set_model_parallel`): every rank first takes global rank
-0's full weights, then the conformer is sharded over its TP group
-(:func:`~adyolo_tpu_torch.models.resnet_conformer.shard_conformer_`)
-before the optimizer is built, so Adam's state holds shards.  The N ranks
+0's full weights, then the conformer modules that N cuts cleanly
+(:func:`~adyolo_tpu_torch.parallel.mesh.tp_plan`) are sharded over the TP
+group (:func:`~adyolo_tpu_torch.models.resnet_conformer.shard_conformer_`)
+before the optimizer is built, so Adam's state holds shards; every other
+parameter, and all of SE-ResNet34's, is held whole on every rank, whose
+step then repeats its peers' work, as JAX's model axis does.  The N ranks
 of a model group take the same clips and the same generator: the data
 replica's.  After the backward the gradients of the replicated
 parameters are averaged over the TP group
@@ -136,22 +139,26 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     every SpecAugment draw and dropout bit of the step, in that order
     (None: the device's default one).  The
     optimizer is ``train_step.optimizer``; its first parameter group counts
-    the steps taken (``"steps"``, saved with its state dict).
+    the steps taken (``"steps"``, saved with its state dict).  The model's
+    layout over the TP group is ``train_step.plan`` (a
+    :class:`~adyolo_tpu_torch.parallel.mesh.TPPlan`, empty without tensor
+    parallelism), which reads and writes of the full state take.
 
     Under a process group of N > 1 data replicas, ``batch`` is this
     replica's shard (``batch_size / N`` clips, AD-YOLO targets indexed
     within it), every rank passes the same generator, and the loss
     returned is the global batch's, equal on every rank.  Under tensor
-    parallelism ``model`` (a full, initialised ResNet-Conformer) is
-    sharded in place here."""
+    parallelism ``model`` (full and initialised, either encoder) is
+    sharded in place here, as far as its plan shards it."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = frontend.device
     features = build_step_features(cfg, frontend)
     replicas, tp = mesh.dp_size(), mesh.tp_size()
+    plan = mesh.tp_plan(model, tp)
     if tp > 1:
         _broadcast_from_rank0(model)
-        shard_conformer_(model.encoder, mesh.tp_group(), mesh.tp_rank(), tp)
+        shard_conformer_(model.encoder, mesh.tp_group(), mesh.tp_rank(), plan)
     if replicas == 1:
         net, criterion, scale = model, make_criterion(cfg), 1.0
         synced = contextlib.nullcontext
@@ -188,7 +195,7 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
             optimizer.zero_grad(set_to_none=True)
             (loss * scale if scale != 1.0 else loss).backward()
         if tp > 1:
-            mesh.average_replicated_grads(model)
+            mesh.average_replicated_grads(model, plan)
         optimizer.step()
         group = optimizer.param_groups[0]
         group["steps"] = group.get("steps", 0) + 1  # JAX's TrainState.step
@@ -199,6 +206,7 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
         return mesh.all_reduce_counts(loss.detach()) * (scale / replicas)
 
     train_step.optimizer = optimizer
+    train_step.plan = plan
     return train_step
 
 
@@ -218,9 +226,18 @@ def _rank_generator(generator: Optional[torch.Generator], device) -> torch.Gener
 def _broadcast_from_rank0(model: torch.nn.Module) -> None:
     """Every rank's full weights and BatchNorm stats become global rank 0's,
     so the ranks cut their shards from one model (DDP's broadcast reaches
-    only the ranks holding the same shard)."""
+    only the ranks holding the same shard): one broadcast per dtype of the
+    whole state, flattened, since each collective costs a round trip."""
+    by_dtype: Dict[torch.dtype, list] = {}
     for t in model.state_dict().values():
-        dist.broadcast(t, src=0)
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for tensors in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.broadcast(flat, src=0)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 def _mask(target_mask, device):

@@ -178,7 +178,7 @@ After the serve phases (8, 9), the export slice:
               adyolo_tpu_torch.cli train --quick_test`` under torchrun's
               variables at world size 1 (NCCL): exit 0, one experiment
               dir, one final test.
-17. tp -- tensor parallelism, last: the train attention routes on a head
+17. tp -- tensor parallelism: the train attention routes on a head
               shard, ``heads=(2, 4)``, at (4, 800, 2, 64), rate 0.2, ragged
               kv_len, against their plain versions at the same offset and
               against heads [2, 4) of the full launch (fp32: 2e-5 / 1e-4 x
@@ -197,8 +197,25 @@ After the serve phases (8, 9), the export slice:
               8 + 8 times, with the plain versions patched to raise; the
               step time a rank beside one process's, and one TP
               all-reduce timed alone.
+18. tp_replicated -- tensor parallelism where N does not cut every
+              module, each part's ranks sharing the one card in a gloo
+              group, one model group, dropout 0.2, B = 4 x 20 s, 2 steps
+              from the seeded weights, step 1 against the single-process
+              step on the same batch and generator with phase tp's gates
+              (fp32 loss 1e-4 rel, gradients' L2 distance within 1e-3 or
+              2x float32's floor, running stats 1e-3; bf16 loss 1e-2 rel):
+              (i) the full conformer at N = 3 (3 ranks; 256, 1024 and the
+              4 heads are not divisible by 3, so every module is whole on
+              every rank), fp32 and bf16; (ii) SE-ResNet34 at N = 2 (2
+              ranks, every parameter whole), fp32; (iii) the conformer
+              cut to 2 blocks at N = 8 (8 ranks; the FFNs and conv modules
+              sharded 8 ways, each MHSA whole), fp32.  Every rank holds
+              each MHSA whole (4 heads, no head range) and rank 0's
+              replicated gradients; per rank per step K1 once and the train
+              attention pair once a block, with the plain versions
+              patched to raise.
 
-18. bench -- the port's bench (``adyolo_tpu_torch/bench.py``), last: its
+19. bench -- the port's bench (``adyolo_tpu_torch/bench.py``), last: its
               five default lines through its own functions (5 timed calls
               after 2 warm-ups, 5 timed train steps after 2): each line a
               finite positive value, its TFLOP/s and 0 < mfu <= 1; per line
@@ -226,12 +243,16 @@ Then one line ``{"kernels": [...]}`` (``launches`` counted over each
 kernel's main path, phase train_cli, or train_conformer_bf16 for the bf16
 training routes and export for k2_bf16, with every path's count beside it
 in ``launches_by_path``), the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Before those two lines the helper
+processes that ``multiprocessing`` started for the ranks are ended, and
+the script fails if any process it started (a grandchild included: it
+reaps its orphans) is still running.
 Nothing of JAX or of the JAX package ``adyolo_tpu`` is imported.
 """
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import pickle
@@ -269,6 +290,7 @@ from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa
 from adyolo_tpu_torch.engine.export import export_model, load_exported  # noqa: E402
 from adyolo_tpu_torch.metrics.seld import SegmentScorer  # noqa: E402
 from adyolo_tpu_torch.models import resnet_conformer  # noqa: E402
+from adyolo_tpu_torch.models import wrapper as wrapper_mod  # noqa: E402
 from adyolo_tpu_torch.models.layers import BatchNorm, U8Dropout  # noqa: E402
 from adyolo_tpu_torch.models.wrapper import (build_model, make_criterion,  # noqa: E402
                                              make_grid_geometry)
@@ -316,6 +338,62 @@ def emit(obj):
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def adopt_orphans():
+    """Makes this process the reaper of every process it starts, so that a
+    grandchild whose parent ended (a rank's own child) is still one of
+    :func:`child_processes` (Linux ``PR_SET_CHILD_SUBREAPER``)."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.prctl(36, 1, 0, 0, 0)
+
+
+def child_processes():
+    """The pids of this process's live children, its zombies reaped."""
+    me, pids = os.getpid(), []
+    for d in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except (OSError, ValueError):
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if int(ppid) != me:
+            continue
+        if state == "Z":
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(int(d), 0)
+        else:
+            pids.append(int(d))
+    return pids
+
+
+def stop_helper_processes(timeout=30.0):
+    """Ends the helpers that ``multiprocessing`` started for the ranks: the
+    forkserver of phase tp_replicated, then the resource tracker.  Each
+    ends when the pipe this process holds to it closes, which would
+    otherwise happen only at this process's exit, and then outlive it for
+    the time its own shutdown takes; each is waited for here, and killed
+    if it has not ended within ``timeout`` seconds."""
+    from multiprocessing import forkserver, resource_tracker
+
+    for helper, pid_attr, fd_attr in (
+            (forkserver._forkserver, "_forkserver_pid", "_forkserver_alive_fd"),
+            (resource_tracker._resource_tracker, "_pid", "_fd")):
+        pid, fd = getattr(helper, pid_attr, None), getattr(helper, fd_attr, None)
+        if pid is None:
+            continue
+        setattr(helper, pid_attr, None)
+        setattr(helper, fd_attr, None)
+        os.close(fd)
+        deadline = time.monotonic() + timeout
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(pid, os.WNOHANG)[0] == 0:
+                if time.monotonic() > deadline:
+                    os.kill(pid, 9)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
 
 
 def nvidia_smi_line():
@@ -1644,7 +1722,7 @@ def engine_probes(rec):
             rec["steps"].append({n: c - before[n] for n, c in counts().items()})
             return loss
 
-        counted.optimizer = step.optimizer
+        counted.optimizer, counted.plan = step.optimizer, step.plan
         return counted
 
     def eval_builder(build):
@@ -2853,6 +2931,60 @@ def tp_cases(conf_cfg):
     return {"fp32": conf_cfg, "bf16": with_train(conf_cfg, compute_dtype="bfloat16")}
 
 
+def tp_gathered_record(model, plan):
+    """After a TP step: the gradients and running stats gathered into the
+    full model's shapes (on the host), and whether every rank of the group
+    holds rank 0's gradients of the parameters that ``plan`` holds whole
+    and rank 0's replicated stats (gloo broadcasts of CUDA tensors)."""
+    rec = ddp_record(model)
+    mine = torch.cat([t.reshape(-1) for n, t in list(rec["grads"].items())
+                      + list(rec["stats"].items()) if plan.rule(n) is None]).to("cuda")
+    theirs = mine.clone()
+    dist.broadcast(theirs, src=0)  # one collective: each costs a round trip
+    same = torch.equal(theirs, mine)
+    full = {k: {n: t.cpu() for n, t in mesh.gather_state_dict(
+        {n: t.to("cuda") for n, t in rec[k].items()}, plan).items()}
+        for k in ("grads", "stats")}
+    return full, same
+
+
+def tp_references(c, fe, dtypes=("fp32",), steps=1):
+    """The single-process references of a TP step on phase tp's batch
+    (TP_BATCH clips drawn from TP_SEED, dropout on, generator seed 1234):
+    per dtype of ``dtypes`` (``"fp32"``, ``"bf16"``) ``steps`` steps' losses
+    and times; ``ref``, fp32 step 1's loss, gradients and running stats;
+    ``floor``, float32's distance between the step with dropout off on
+    the batch in two clip orders."""
+    audio, per_clip = synthetic_clips(c, np.random.default_rng(TP_SEED), TP_BATCH)
+    out = {}
+    for name in dtypes:
+        cc = c if name == "fp32" else with_train(c, compute_dtype="bfloat16")
+        model = ddp_model(cc, True)
+        step = build_train_step(cc, model, fe)
+        batch = clips_batch(cc, audio, per_clip)
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        losses, ms = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, gen)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and name == "fp32":
+                out["ref"] = {"loss": losses[0], **ddp_record(model)}
+        out[name] = {"losses": losses, "step_ms": ms}
+        del model, step, batch
+    runs = []
+    for idx in (list(range(TP_BATCH))[::-1], list(range(TP_BATCH))):
+        model = ddp_model(c, False)
+        step = build_train_step(c, model, fe)
+        batch = clips_batch(c, audio[idx], [per_clip[i] for i in idx])
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        runs.append({"loss": float(step(batch, gen)), **ddp_record(model)})
+        del model, step, batch
+    out["floor"] = grad_distance(runs[0], runs[1])
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_allreduce_ms(shape):
     """One all-reduce of a row-parallel product's output (float32,
     ``shape``) on the TP group, timed alone: host clock from a synchronised
@@ -2900,19 +3032,9 @@ def tp_worker(rank, tmp, conf_cfg):
                     step_ms.append((time.perf_counter() - t0) * 1e3)
                     per_step.append({n: v - before[n] for n, v in counts().items()})
                     if i == 0 and name == "fp32":
-                        rec = ddp_record(model)
-                        same = True
-                        for n, t in list(rec["grads"].items()) + list(rec["stats"].items()):
-                            if mesh.tp_rule(n) is None:
-                                theirs = t.to("cuda")
-                                dist.broadcast(theirs, src=0)
-                                same &= torch.equal(theirs.cpu(), t)
-                        full = {k: {n: t.cpu() for n, t in mesh.gather_state_dict(
-                            {n: t.to("cuda") for n, t in rec[k].items()}).items()}
-                            for k in ("grads", "stats")}
+                        full, row["replicated_equal"] = tp_gathered_record(model, step.plan)
                         if rank == 0:
                             torch.save(full, os.path.join(tmp, "fp32.pt"))
-                        row["replicated_equal"] = same
                 launched = counts()
             row.update(losses=losses, step_ms=step_ms, per_step=per_step, launched=launched)
             if name == "fp32":
@@ -2933,37 +3055,14 @@ def phase_tp(smi, conf_cfg):
     fp32 step with dropout (loss, gradients, running stats), float32's
     floor (the step with dropout off on the batch in two clip orders), the
     bf16 step's loss, and each dtype's step time.  The launch counts of the
-    ranks' steps (both ranks) are the path ``tp``."""
+    ranks' steps (both ranks) are the path ``tp``.  Returns them and the
+    references (:func:`tp_references`), which phase tp_replicated shares."""
     t_phase = time.perf_counter()
     kernels = tp_kernel_checks()
     emit({"phase": "tp_kernels", **kernels, "card": smi})
     fe = make_frontend(conf_cfg)
-    audio, per_clip = synthetic_clips(conf_cfg, np.random.default_rng(TP_SEED), TP_BATCH)
-    ref, single = None, {}
-    for name, c in tp_cases(conf_cfg).items():
-        model = ddp_model(c, True)
-        step = build_train_step(c, model, fe)
-        batch = clips_batch(c, audio, per_clip)
-        gen = torch.Generator(device="cuda").manual_seed(1234)
-        losses, ms = [], []
-        for i in range(TP_STEPS):
-            t0 = time.perf_counter()
-            losses.append(float(step(batch, gen)))
-            ms.append((time.perf_counter() - t0) * 1e3)
-            if i == 0 and name == "fp32":
-                ref = {"loss": losses[0], **ddp_record(model)}
-        single[name] = {"losses": losses, "step_ms": ms}
-        del model, step, batch
-    runs = []
-    for idx in (list(range(TP_BATCH))[::-1], list(range(TP_BATCH))):
-        model = ddp_model(conf_cfg, False)
-        step = build_train_step(conf_cfg, model, fe)
-        batch = clips_batch(conf_cfg, audio[idx], [per_clip[i] for i in idx])
-        gen = torch.Generator(device="cuda").manual_seed(1234)
-        runs.append({"loss": float(step(batch, gen)), **ddp_record(model)})
-        del model, step, batch
-    floor = grad_distance(runs[0], runs[1])
-    torch.cuda.empty_cache()
+    single = tp_references(conf_cfg, fe, ("fp32", "bf16"), TP_STEPS)
+    ref, floor = single["ref"], single["floor"]
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
@@ -3017,6 +3116,185 @@ def phase_tp(smi, conf_cfg):
           "launches": path, "tol": {"loss_rel": TRAIN_LOSS_TOL, "bf16_loss_rel": BF16_TRAIN_LOSS_TOL,
                                     "grad_l2_rel": tol},
           "spawn_s": spawn_s, "seconds": time.perf_counter() - t_phase, "card": smi})
+    return path, single
+
+
+# ---- tensor parallelism of what N does not cut: three layouts on the one card
+
+TPR_STEPS = 2  # step 1 is compared, step 2 timed
+# part: (encoder, model_parallel, conformer blocks, dtypes, the modules sharded)
+TPR_PARTS = {
+    # 256, 1024 and the 4 heads are not divisible by 3: every module whole
+    "conformer_n3": ("resnet-conformer", 3, CONFORMER_BLOCKS, ("fp32", "bf16"), []),
+    "se_n2": ("se-resnet34", 2, None, ("fp32",), []),
+    # the FFNs and conv modules cut 8 ways, each MHSA whole (4 heads)
+    "conformer_n8": ("resnet-conformer", 8, 2, ("fp32",), ["conv", "ffn1", "ffn2"]),
+}
+
+
+@contextlib.contextmanager
+def conformer_blocks(n):
+    """``build_model`` makes the conformer with ``n`` blocks inside (all
+    of them for None or :data:`CONFORMER_BLOCKS`)."""
+    saved = wrapper_mod.ENCODERS["resnet-conformer"]
+    if n not in (None, CONFORMER_BLOCKS):
+        wrapper_mod.ENCODERS["resnet-conformer"] = functools.partial(
+            resnet_conformer.ResNetConformer, num_layers=n)
+    try:
+        yield
+    finally:
+        wrapper_mod.ENCODERS["resnet-conformer"] = saved
+
+
+def tp_replicated_worker(rank, tmp, part, c, t_spawn):
+    """One rank of a part of phase tp_replicated on ``cuda:0`` in a gloo
+    group, one model group of all the part's ranks: TPR_STEPS steps of each
+    dtype on the whole batch from the seeded weights, the plain versions
+    patched to raise, the launch counts set to 0 just before each dtype's
+    steps and read just after; after step 1 of fp32 the gathered gradients
+    and running stats (rank 0 writes them) and whether the ranks hold equal
+    replicated gradients; what the rank holds of conformer block 0; the
+    seconds from the spawn (``t_spawn``, host wall clock) to each stage."""
+    _, n, blocks, dtypes, _ = TPR_PARTS[part]
+    stages = {"started": time.time() - t_spawn}
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=n)
+    try:
+        mesh.init_distributed("cuda:0", model_parallel=n)
+        stages["grouped"] = time.time() - t_spawn
+        fe = make_frontend(c)
+        audio, per_clip = synthetic_clips(c, np.random.default_rng(TP_SEED), TP_BATCH)
+        out = {"stages": stages}
+        for name in dtypes:
+            cc = c if name == "fp32" else with_train(c, compute_dtype="bfloat16")
+            with conformer_blocks(blocks):
+                model = ddp_model(cc, True)
+            step = build_train_step(cc, model, fe)
+            batch = clips_batch(cc, audio, per_clip)
+            gen = torch.Generator(device="cuda").manual_seed(1234)
+            torch.cuda.synchronize()
+            stages[f"{name}_built"] = time.time() - t_spawn
+            losses, step_ms, per_step, row = [], [], [], {}
+            with plain_versions_raise():
+                zero_counts()
+                for i in range(TPR_STEPS):
+                    before = counts()
+                    t0 = time.perf_counter()
+                    losses.append(float(step(batch, gen)))  # ends in a device -> host copy
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    per_step.append({k: v - before[k] for k, v in counts().items()})
+                    if i == 0 and name == "fp32":
+                        full, row["replicated_equal"] = tp_gathered_record(model, step.plan)
+                        if rank == 0:
+                            torch.save(full, os.path.join(tmp, "fp32.pt"))
+                launched = counts()
+            block = getattr(model.encoder, "conformer0", None)
+            row.update(losses=losses, step_ms=step_ms, per_step=per_step, launched=launched,
+                       sharded=sorted(step.plan.sharded),
+                       mhsa=None if block is None else [block.mhsa.heads,
+                                                        block.mhsa.head_range])
+            out[name] = row
+            stages[f"{name}_stepped"] = time.time() - t_spawn
+            del model, step, batch
+            torch.cuda.empty_cache()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_replicated(smi, cfg, conf_cfg, conf_refs=None):
+    """Tensor parallelism where N does not cut everything, each part's ranks
+    sharing the one card over gloo (see the module docstring, phase 18):
+    (i) the full conformer at N = 3, every module whole, fp32 and bf16;
+    (ii) SE-ResNet34 at N = 2, every parameter whole; (iii) the conformer
+    cut to 2 blocks at N = 8, its FFNs and conv modules sharded and each
+    MHSA whole.  Each part's fp32 step 1 against the single-process step
+    on the same batch and generator (``conf_refs``: phase tp's references
+    of the full conformer, taken here when None), with phase tp's gates.
+    The launch counts of every part's ranks are the path
+    ``tp_replicated``."""
+    t_phase = time.perf_counter()
+    fe = make_frontend(cfg)
+    cfgs = {"resnet-conformer": conf_cfg, "se-resnet34": cfg}
+    path, rows, seconds = None, {}, {}
+    for part, (encoder, n, blocks, dtypes, sharded) in TPR_PARTS.items():
+        t_part = time.perf_counter()
+        c = cfgs[encoder]
+        if part == "conformer_n3" and conf_refs is not None:
+            refs = conf_refs
+        else:
+            with conformer_blocks(blocks):
+                refs = tp_references(c, fe, dtypes)
+        require(os.path.isfile(build.library_path()), "tp_replicated: the kernels are not built")
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_tpr_{part}_")
+        try:
+            t0 = time.perf_counter()
+            # forked from a server that imported this script once (the
+            # first part starts it), so the ranks skip its imports; each
+            # initialises CUDA itself
+            torch.multiprocessing.set_forkserver_preload(["chip_smoke"])
+            torch.multiprocessing.start_processes(
+                tp_replicated_worker, args=(tmp, part, c, time.time()), nprocs=n,
+                join=True, start_method="forkserver")
+            spawn_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(n):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            got = torch.load(os.path.join(tmp, "fp32.pt"))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        got["loss"] = ranks[0]["fp32"]["losses"][0]
+        fp32 = {**grad_distance(got, refs["ref"]),
+                "single_process_batch_order_floor": refs["floor"]}
+        tol = ddp_grad_tol(fp32)
+        require(fp32["loss_rel"] <= TRAIN_LOSS_TOL, f"tp_replicated {part}: loss {fp32['loss']}")
+        require(fp32["grad_l2_rel"] <= tol,
+                f"tp_replicated {part}: grads L2 distance {fp32['grad_l2_rel']} > {tol}")
+        require(fp32["stats_rel"] <= TRAIN_GRAD_TOL,
+                f"tp_replicated {part}: running stats err {fp32['stats_rel']}")
+        row = {"model_parallel": n, "blocks": blocks, "sharded": sharded, "fp32": fp32,
+               "grad_l2_tol": tol}
+        if "bf16" in dtypes:
+            bf16_loss = [ranks[0]["bf16"]["losses"][0], refs["bf16"]["losses"][0]]
+            row["bf16_loss"] = bf16_loss
+            row["bf16_loss_rel"] = abs(bf16_loss[0] - bf16_loss[1]) / abs(bf16_loss[1])
+            require(row["bf16_loss_rel"] <= BF16_TRAIN_LOSS_TOL,
+                    f"tp_replicated {part}: bf16 loss {bf16_loss}")
+        nb = blocks or 0
+        want_step = {"fp32": {"stft": 1, **({"k2_dropout": nb, "k3": nb} if nb else {})},
+                     "bf16": {"stft": 1, "k2_dropout_bf16": nb, "k3_bf16": nb}}
+        mhsa = [resnet_conformer.HEADS, None] if nb else None
+        for r, rec in enumerate(ranks):
+            require(rec["fp32"]["replicated_equal"],
+                    f"tp_replicated {part}: rank {r}'s replicated gradients differ from rank 0's")
+            for name in dtypes:
+                d = rec[name]
+                require(d["sharded"] == sharded and d["mhsa"] == mhsa,
+                        f"tp_replicated {part} rank {r}: sharded {d['sharded']}, "
+                        f"MHSA heads / range {d['mhsa']}")
+                require(all(np.isfinite(d["losses"])), f"tp_replicated {part} rank {r}: "
+                        f"{d['losses']}")
+                require(d["losses"] == ranks[0][name]["losses"],
+                        f"tp_replicated {part} {name}: the ranks' losses differ")
+                for i, k in enumerate(d["per_step"]):
+                    require(k == {**{x: 0 for x in k}, **want_step[name]},
+                            f"tp_replicated {part} {name} rank {r} step {i + 1}: launches "
+                            f"{k}, want {want_step[name]}")
+                path = {k: (0 if path is None else path[k]) + v for k, v in d["launched"].items()}
+        row["timing"] = {name: {"step_ms_per_rank": [rec[name]["step_ms"] for rec in ranks],
+                                "one_process_step_ms": refs[name]["step_ms"]}
+                         for name in dtypes}
+        seconds[part] = {"spawn": spawn_s, "part": time.perf_counter() - t_part,
+                         "rank0_stages": ranks[0]["stages"]}
+        rows[part] = row
+    emit({"phase": "tp_replicated", "backend": "gloo, the part's ranks sharing one card",
+          "batch": [TP_BATCH, 800, HOP, 4], **rows, "launches": path,
+          "tol": {"loss_rel": TRAIN_LOSS_TOL, "bf16_loss_rel": BF16_TRAIN_LOSS_TOL,
+                  "stats_rel": TRAIN_GRAD_TOL},
+          "part_seconds": seconds, "seconds": time.perf_counter() - t_phase, "card": smi})
     return path
 
 
@@ -3202,6 +3480,7 @@ def phase_bench(smi):
 
 def main():
     smi = phase_env()
+    adopt_orphans()
     phase_build()
 
     # the repository's DCASE2022 scaler stats, found from any working dir
@@ -3243,7 +3522,8 @@ def main():
     mic = phase_preprocess_mic(smi, cfg)
     formats = phase_train_cli_formats(smi, cfg)
     ddp = phase_ddp(smi, cfg, conf_cfg)
-    tp = phase_tp(smi, conf_cfg)
+    tp, conf_refs = phase_tp(smi, conf_cfg)
+    tp_replicated = phase_tp_replicated(smi, cfg, conf_cfg, conf_refs)
     bench = phase_bench(smi)
 
     foreign = sorted(m for m in sys.modules
@@ -3263,7 +3543,7 @@ def main():
              "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
                                    for n in formats["accdoa"]},
              "train_cli_formats_conformer": formats["accdoa-conformer"], "ddp": ddp,
-             "tp": tp, "bench": bench}
+             "tp": tp, "tp_replicated": tp_replicated, "bench": bench}
     for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
         require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
     require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),
@@ -3308,6 +3588,9 @@ def main():
         {**attn, "name": "flash_attention/k2_bf16",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
          **launches("k2_bf16", "export"), **{n: eval_bf16_k[n] for n in keys_a}}]})
+    stop_helper_processes()
+    left = child_processes()
+    require(not left, f"processes left running: {left}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -3315,4 +3598,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_helper_processes()

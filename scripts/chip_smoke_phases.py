@@ -3,7 +3,7 @@
 
 Run from the repository root::
 
-    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp] [tp] [attnf32] [bench]
+    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp] [tp] [tp_replicated] [attnf32] [bench]
 
 Phases env and build always run; then ``attn``: attn_train_bf16_kernel,
 ``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
@@ -12,6 +12,9 @@ attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
 ResNet-Conformer models, thresholds from one B=16 forward each), ``ddp``:
 ddp (two ranks spawned on the card), ``tp``: tp (the head-shard kernel
 checks, then two ranks of one model group spawned on the card),
+``tp_replicated``: tp_replicated (the conformer at N = 3 and, cut to 2
+blocks, at N = 8, SE-ResNet34 at N = 2, each part's ranks spawned on the
+card; after ``tp`` it shares that phase's single-process references),
 ``attnf32``: attn_train_kernel (the fp32 train routes), ``bench``:
 bench (the port's bench lines and its FLOP-count checks).  Each
 prints its JSON line as in the full script.  Quicker than the full script
@@ -53,8 +56,12 @@ def main():
         print(cs.phase_ddp(smi, cfg, conf_cfg)); print("t", time.time() - t0, flush=True)
     if "attnf32" in which:
         print(cs.phase_attn_train_kernel(smi)); print("t", time.time() - t0, flush=True)
+    refs = None
     if "tp" in which:
-        print(cs.phase_tp(smi, conf_cfg)); print("t", time.time() - t0, flush=True)
+        path, refs = cs.phase_tp(smi, conf_cfg)
+        print(path); print("t", time.time() - t0, flush=True)
+    if "tp_replicated" in which:
+        print(cs.phase_tp_replicated(smi, cfg, conf_cfg, refs)); print("t", time.time() - t0, flush=True)
     if "bench" in which:
         print(cs.phase_bench(smi)); print("t", time.time() - t0, flush=True)
     if "export" in which:
@@ -72,4 +79,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        cs.stop_helper_processes()

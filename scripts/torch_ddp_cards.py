@@ -32,18 +32,21 @@ Run from the repository root on a host with N >= 2 cards::
    (4 clips a rank): exit 0, one experiment dir, one final test.
 
 The ``tp`` part (``--model_parallel``), the full-width conformer +
-AD-YOLO:
+AD-YOLO, and SE-ResNet34 + AD-YOLO held whole on every rank:
 
-4. ``tp_step``: the fp32 step at dp 2 x tp 2 (4 clips a replica, dropout
-   0, against the single-process step on the 8 clips in the replicas'
-   order; float32's floor from the same step in its own order) and at dp
-   1 x tp 4 (4 clips, dropout 0.2, against the single-process step on the
-   same batch and generator; the floor from the step with dropout 0 in
-   two clip orders): held as phase ``tp`` holds it (loss 1e-4 rel, the
-   gathered gradients' L2 distance within 1e-3 or 2x the floor, stats
-   1e-3), the replicated parameters' gradients equal on every rank; per
-   rank per step K1 once and k2_dropout / k3 8 times each, the plain
-   versions patched to raise.
+4. ``tp_step``: the conformer's fp32 step at dp 2 x tp 2 (4 clips a
+   replica, dropout 0, against the single-process step on the 8 clips in
+   the replicas' order; float32's floor from the same step in its own
+   order) and at dp 1 x tp 4 (4 clips, dropout 0.2, against the
+   single-process step on the same batch and generator; the floor from
+   the step with dropout 0 in two clip orders); SE-ResNet34's fp32 step at
+   dp 2 x tp 2 as the conformer's, then 4 more steps, each rank's step
+   time beside one process's on the 8 clips on card 0: held as phase
+   ``tp`` holds it (loss 1e-4 rel, the gathered gradients' L2 distance
+   within 1e-3 or 2x the floor, stats 1e-3), the replicated parameters'
+   gradients equal on every rank; per rank per step K1 once and, for the
+   conformer, k2_dropout / k3 8 times each, the plain versions patched to
+   raise.
 5. ``tp_scaling``: the bf16 conformer with dropout 0.2, 16 clips a
    replica, 5 steps at tp 2 (two replicas) and at tp 4 (one): each
    rank's step time, the audio-s/s against one process's 16-clip step on
@@ -76,8 +79,11 @@ from adyolo_tpu_torch.parallel import mesh  # noqa: E402
 STEP_PER_RANK = 4  # clips a rank in part 1
 SCALE_PER_RANK = 16  # clips a rank in part 2
 SCALE_STEPS = 5
-# part 4: name -> (model_parallel, dropout on); 4 clips a data replica
-TP_GRIDS = {"dp2xtp2": (2, False), "dp1xtp4": (4, True)}
+# part 4: name -> (encoder, model_parallel, dropout on, steps); 4 clips a
+# data replica; step 1 is compared, the others timed
+TP_GRIDS = {"dp2xtp2": ("resnet-conformer", 2, False, 1),
+            "dp1xtp4": ("resnet-conformer", 4, True, 1),
+            "se_dp2xtp2": ("se-resnet34", 2, False, SCALE_STEPS)}
 TP_PER_REPLICA = 4
 TP_SCALE = (2, 4)  # part 5's model-parallel sizes
 
@@ -132,18 +138,19 @@ def rank_main(rank, world, port, tmp, cfg, conf_cfg):
         mesh.shutdown()
 
 
-def tp_rank_main(rank, world, port, tmp, conf_cfg):
+def tp_rank_main(rank, world, port, tmp, cfg, conf_cfg):
     """One rank of parts 4 and 5: each grid of :data:`TP_GRIDS`, then the
     bf16 scaling at each size of :data:`TP_SCALE`; rank 0 writes the
-    gathered fp32 gradients and stats of part 4."""
+    gathered fp32 gradients and stats of part 4's step 1."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     device = mesh.init_distributed("cuda")  # NCCL, cuda:LOCAL_RANK
     try:
         fe = cs.make_frontend(conf_cfg, device=device)
         out = {}
-        runs = [(name, mp, dropout, conf_cfg, TP_PER_REPLICA, 1)
-                for name, (mp, dropout) in TP_GRIDS.items()]
+        cfgs = {"resnet-conformer": conf_cfg, "se-resnet34": cfg}
+        runs = [(name, mp, dropout, cfgs[encoder], TP_PER_REPLICA, steps)
+                for name, (encoder, mp, dropout, steps) in TP_GRIDS.items()]
         bf16 = cs.with_train(conf_cfg, compute_dtype="bfloat16")
         runs += [(f"bf16_tp{mp}", mp, True, bf16, SCALE_PER_RANK, SCALE_STEPS) for mp in TP_SCALE]
         for name, mp, dropout, c, per, steps in runs:
@@ -155,32 +162,22 @@ def tp_rank_main(rank, world, port, tmp, conf_cfg):
             model = cs.ddp_model(c, dropout).to(device)
             step = cs.build_train_step(c, model, fe)
             gen = torch.Generator(device=device).manual_seed(1234)
-            losses, step_ms, per_step = [], [], []
+            losses, step_ms, per_step, row = [], [], [], {}
             with cs.plain_versions_raise():
                 cs.zero_counts()
-                for _ in range(steps):
+                for i in range(steps):
                     before = cs.counts()
                     t0 = time.perf_counter()
                     losses.append(float(step(shard, gen)))
                     step_ms.append((time.perf_counter() - t0) * 1e3)
                     per_step.append({n: v - before[n] for n, v in cs.counts().items()})
-            row = {"losses": losses, "step_ms": step_ms, "per_step": per_step,
-                   "grid": [dp, mesh.tp_size()]}
-            if steps == 1:
-                rec = cs.ddp_record(model)
-                same = True
-                for n, t in list(rec["grads"].items()) + list(rec["stats"].items()):
-                    if mesh.tp_rule(n) is None:
-                        theirs = t.to(device)
-                        dist.broadcast(theirs, src=0)
-                        same &= torch.equal(theirs.cpu(), t)
-                row["replicated_equal"] = same
-                full = {k: {n: t.cpu() for n, t in mesh.gather_state_dict(
-                    {n: t.to(device) for n, t in rec[k].items()}).items()}
-                    for k in ("grads", "stats")}
-                if rank == 0:
-                    torch.save(full, os.path.join(tmp, f"{name}.pt"))
-            else:
+                    if i == 0 and name in TP_GRIDS:
+                        full, row["replicated_equal"] = cs.tp_gathered_record(model, step.plan)
+                        if rank == 0:
+                            torch.save(full, os.path.join(tmp, f"{name}.pt"))
+            row.update(losses=losses, step_ms=step_ms, per_step=per_step,
+                       grid=[dp, mesh.tp_size()], sharded=sorted(step.plan.sharded))
+            if name not in TP_GRIDS:
                 x = torch.ones((per, 800, 256), device=device)
                 ms = []
                 for _ in range(6):
@@ -202,17 +199,20 @@ def tp_rank_main(rank, world, port, tmp, conf_cfg):
 def part_tp(smi, world, cfg, conf_cfg, fe):
     """Parts 4-6 (see the module docstring)."""
     cs.require(world == 4, f"the tp part needs 4 cards, found {world}")
-    ref, floor = {}, {}
-    for name, (mp, dropout) in TP_GRIDS.items():
+    ref, floor, ref_ms = {}, {}, {}
+    cfgs = {"resnet-conformer": conf_cfg, "se-resnet34": cfg}
+    for name, (encoder, mp, dropout, steps) in TP_GRIDS.items():
+        c = cfgs[encoder]
         dp = world // mp
         B = TP_PER_REPLICA * dp
         order = [i for r in range(dp) for i in range(r, B, dp)]
-        ref[name] = single_steps(conf_cfg, dropout, fe, B, order, seed=cs.TP_SEED)[2]
+        _, ref_ms[name], ref[name] = single_steps(c, dropout, fe, B, order, steps=steps,
+                                                  seed=cs.TP_SEED)
         if dropout:  # the same function in another summation order needs dropout off
-            a = single_steps(conf_cfg, False, fe, B, order, seed=cs.TP_SEED)[2]
-            b = single_steps(conf_cfg, False, fe, B, order[::-1], seed=cs.TP_SEED)[2]
+            a = single_steps(c, False, fe, B, order, seed=cs.TP_SEED)[2]
+            b = single_steps(c, False, fe, B, order[::-1], seed=cs.TP_SEED)[2]
         else:
-            a, b = single_steps(conf_cfg, False, fe, B, seed=cs.TP_SEED)[2], ref[name]
+            a, b = single_steps(c, False, fe, B, seed=cs.TP_SEED)[2], ref[name]
         floor[name] = cs.grad_distance(a, b)
     bf16 = cs.with_train(conf_cfg, compute_dtype="bfloat16")
     _, one_ms, _ = single_steps(bf16, True, fe, SCALE_PER_RANK, steps=SCALE_STEPS,
@@ -221,7 +221,8 @@ def part_tp(smi, world, cfg, conf_cfg, fe):
 
     tmp = tempfile.mkdtemp(prefix="torch_ddp_cards_tp_")
     try:
-        torch.multiprocessing.spawn(tp_rank_main, args=(world, cs.free_port(), tmp, conf_cfg),
+        torch.multiprocessing.spawn(tp_rank_main,
+                                    args=(world, cs.free_port(), tmp, cfg, conf_cfg),
                                     nprocs=world, join=True)
         ranks = []
         for r in range(world):
@@ -232,13 +233,21 @@ def part_tp(smi, world, cfg, conf_cfg, fe):
             got = torch.load(os.path.join(tmp, f"{name}.pt"))
             got["loss"] = ranks[0][name]["losses"][0]
             rows[name] = {**cs.grad_distance(got, ref[name]), "grid": ranks[0][name]["grid"],
+                          "sharded": ranks[0][name]["sharded"],
                           "single_process_batch_order_floor": floor[name]}
+            if TP_GRIDS[name][3] > 1:  # timed: each rank's steps beside one card's
+                rows[name]["timing"] = {
+                    "median_step_ms_per_rank": [float(np.median(rec[name]["step_ms"][1:]))
+                                                for rec in ranks],
+                    "one_card_median_step_ms": float(np.median(ref_ms[name][1:])),
+                    "step_ms": [rec[name]["step_ms"] for rec in ranks],
+                    "one_card_step_ms": ref_ms[name]}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cs.emit({"part": "tp_step", "world": world, "backend": "nccl", **rows, "card": smi})
     nb = cs.CONFORMER_BLOCKS
     want = {"fp32": {"stft": 1, "k2_dropout": nb, "k3": nb},
-            "bf16": {"stft": 1, "k2_dropout_bf16": nb, "k3_bf16": nb}}
+            "bf16": {"stft": 1, "k2_dropout_bf16": nb, "k3_bf16": nb}, "se": {"stft": 1}}
     for name, row in rows.items():
         tol = cs.ddp_grad_tol(row)
         cs.require(row["loss_rel"] <= cs.TRAIN_LOSS_TOL, f"{name}: loss {row['loss']}")
@@ -246,7 +255,7 @@ def part_tp(smi, world, cfg, conf_cfg, fe):
         cs.require(row["stats_rel"] <= cs.TRAIN_GRAD_TOL, f"{name}: stats {row['stats_rel']}")
     for r, rec in enumerate(ranks):
         for name, row in rec.items():
-            kind = "bf16" if name.startswith("bf16") else "fp32"
+            kind = "bf16" if name.startswith("bf16") else "se" if name.startswith("se") else "fp32"
             cs.require(row.get("replicated_equal", True),
                        f"{name}: rank {r}'s replicated gradients differ from rank 0's")
             cs.require(all(np.isfinite(row["losses"])), f"{name} rank {r}: {row['losses']}")
@@ -311,7 +320,7 @@ def run_cli(smi, world, cfg, extra, part):
 def single_steps(c, dropout, fe, B, idx_order=None, steps=1, seed=None):
     """``steps`` single-process steps on card 0 from the seeded init on
     ``B`` clips (in ``idx_order``; the clips drawn from ``seed``, phase
-    ddp's by default): the losses, step ms and the record."""
+    ddp's by default): the losses, step ms and step 1's record."""
     seed = cs.DDP_SEED if seed is None else seed
     audio, per_clip = cs.synthetic_clips(c, np.random.default_rng(seed), B)
     idx = list(range(B)) if idx_order is None else idx_order
@@ -320,11 +329,12 @@ def single_steps(c, dropout, fe, B, idx_order=None, steps=1, seed=None):
     step = cs.build_train_step(c, model, fe)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     losses, ms = [], []
-    for _ in range(steps):
+    for i in range(steps):
         t0 = time.perf_counter()
         losses.append(float(step(batch, gen)))
         ms.append((time.perf_counter() - t0) * 1e3)
-    rec = {"loss": losses[0], **cs.ddp_record(model)}
+        if i == 0:
+            rec = {"loss": losses[0], **cs.ddp_record(model)}
     return losses, ms, rec
 
 

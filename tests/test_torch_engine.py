@@ -124,7 +124,7 @@ def quick(setup):
                 rec["losses"].append(loss.clone())
                 return loss
 
-            recorded.optimizer = step.optimizer
+            recorded.optimizer, recorded.plan = step.optimizer, step.plan
             return recorded
 
         def save_best(path, variables, host, *opt):

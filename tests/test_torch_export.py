@@ -14,7 +14,8 @@ port's served on the CPU (the plain versions of its ops).  The counterparts of
 * f32 round trip (``:18``, ``:134``): the port's served output equals its
   live eval forward within 1e-6 (B=2), and JAX's served output within
   1e-4 x max; ``meta.json`` holds JAX's keys and values but ``platforms``.
-* the CLI parses ``export --serve_dtype bfloat16`` (``:53``).
+* the CLI parses ``export --serve_dtype bfloat16`` (``:53``); without it
+  ``ADYOLO_SERVE_DTYPE`` picks the dtype in both packages.
 * bf16 (``:66``): ``serve_dtype`` and ``output_dtype`` in meta; the
   port's served output no farther from a float64 forward (JAX's model in
   float64 on the same features) than 2x JAX's bf16 artifact is, plus
@@ -225,6 +226,23 @@ def test_bf16_within_jax_gates_of_f32_live(bf16):
     d = np.abs(r["port"].numpy() - _live(e, r["audio"]))
     assert d.max() < 0.1 and d.mean() < 0.01, (d.max(), d.mean())
     assert d.max() > 0  # the encoder did compute in bf16
+
+
+def test_serve_dtype_from_the_environment(exps, tmp_path, monkeypatch):
+    """Without ``serve_dtype``, ``ADYOLO_SERVE_DTYPE`` sets the artifact's
+    dtype in both packages' ``export_model`` (``adyolo_tpu/engine/
+    export.py:58-59``): bfloat16 in both metas, the served output within
+    JAX's gates of the f32 live forward and not equal to it; a value
+    outside float32 / bfloat16 is refused."""
+    e = exps["se-resnet34"]
+    monkeypatch.setenv("ADYOLO_SERVE_DTYPE", "bfloat16")
+    r = _both(e, str(tmp_path), B=1, serve_dtype=None, seed=1)
+    assert r["meta"]["serve_dtype"] == r["jmeta"]["serve_dtype"] == "bfloat16"
+    d = np.abs(r["port"].numpy() - _live(e, r["audio"]))
+    assert 0 < d.max() < 0.1 and d.mean() < 0.01, (d.max(), d.mean())
+    monkeypatch.setenv("ADYOLO_SERVE_DTYPE", "float16")
+    with pytest.raises(ValueError, match="serve_dtype 'float16'"):
+        export_model(e["cfg"], e["model"], e["frontend"], str(tmp_path / "bad"))
 
 
 def test_conformer_long_clip(exps, tmp_path, monkeypatch):

@@ -35,8 +35,11 @@ run, rank 0 alone writes and evaluates, the final test once; the best
 checkpoint loads in JAX's ``load_checkpoint`` and in a single-process
 port model, the rolling one holds the full shapes; a run of 1 epoch
 resumed for 2 more gives the uninterrupted run's step losses.
-(i) The refusals (N not dividing the ranks or the heads, SE-ResNet34 with
-N > 1) and the flag's parsing.
+(i) The refusals that stay (N below 1 or not dividing the ranks, a batch
+the replicas do not divide), the layouts taken where N does not divide
+the heads or the encoder has no conformer blocks
+(``tests/test_torch_tp_replicated.py`` trains them), and the flag's
+parsing.
 
 The three jobs start together (8 rank processes, one thread each).
 """
@@ -181,16 +184,17 @@ def test_tp_rules_shard_what_jax_shards():
             if s.spec != jax.sharding.PartitionSpec():
                 want[(coll,) + tuple(k.key for k in path)] = list(s.spec).index("model")
     with torch.device("meta"):
-        keys = port_wrapper.SELDModel("resnet-conformer", "adyolo").state_dict()
-    full = {k: torch.zeros(v.shape) for k, v in keys.items() if mesh.tp_rule(k)}
+        meta = port_wrapper.SELDModel("resnet-conformer", "adyolo")
+    keys, plan = meta.state_dict(), mesh.tp_plan(meta, 2)
+    full = {k: torch.zeros(v.shape) for k, v in keys.items() if plan.rule(k)}
     got = dict(_flax_paths(flax_from_state_dict(full)))
-    shard = dict(_flax_paths(flax_from_state_dict(mesh.shard_state_dict(full, 1, 2))))
+    shard = dict(_flax_paths(flax_from_state_dict(mesh.shard_state_dict(full, plan, 1))))
     assert got.keys() == want.keys() and len(want) == 8 * 26
     for path, axis in want.items():
         halved = list(got[path].shape)
         halved[axis] //= 2
         assert list(shard[path].shape) == halved, path
-    assert not any(mesh.tp_rule(k) for k in keys if ".conformer" not in k)
+    assert not any(plan.rule(k) for k in keys if ".conformer" not in k)
 
 
 def test_adam_moments_follow_the_parameters():
@@ -203,14 +207,14 @@ def test_adam_moments_follow_the_parameters():
     for p in model.parameters():
         p.grad = torch.ones_like(p)
     opt.step()
-    names = [n for n, _ in model.named_parameters()]
-    params = mesh.shard_state_dict(dict(model.named_parameters()), 1, 2)
-    osd = mesh.shard_optimizer_state(opt.state_dict(), names, 1, 2)
+    names, plan = [n for n, _ in model.named_parameters()], mesh.tp_plan(model, 2)
+    params = mesh.shard_state_dict(dict(model.named_parameters()), plan, 1)
+    osd = mesh.shard_optimizer_state(opt.state_dict(), names, plan, 1)
     n_sharded = 0
     for idx, st in osd["state"].items():
         assert st["exp_avg"].shape == st["exp_avg_sq"].shape == params[names[idx]].shape
         assert st["step"] == 1
-        n_sharded += mesh.tp_rule(names[idx]) is not None
+        n_sharded += plan.rule(names[idx]) is not None
     assert n_sharded == 2 * 22  # 22 sharded parameters a block (26 entries with the stats)
 
 
@@ -220,10 +224,10 @@ def test_shard_then_join_is_the_identity():
         model = worker.build(worker.case_config({}), dropout=False)[0]
     finally:
         port_wrapper.ENCODERS["resnet-conformer"] = saved
-    sd = model.state_dict()
-    pieces = [mesh.shard_state_dict(sd, r, 2) for r in range(2)]
+    sd, plan = model.state_dict(), mesh.tp_plan(model, 2)
+    pieces = [mesh.shard_state_dict(sd, plan, r) for r in range(2)]
     for k, t in sd.items():
-        kind = mesh.tp_rule(k)
+        kind = plan.rule(k)
         if kind is None:
             assert all(p[k] is t for p in pieces), k
             continue
@@ -412,23 +416,54 @@ def test_tp_checkpoints_are_full_and_load_in_jax_and_one_process(engine, monkeyp
 
 # ---- (i): refusals and the flag ---------------------------------------------------
 
-def test_model_parallel_refusals():
+def test_model_parallel_refusals(monkeypatch):
+    """The refusals that stay: N below 1, N not dividing the ranks, a batch
+    that the data replicas do not divide.  SE-ResNet34 at N = 2 and the
+    conformer at N = 3 and 8 (4 heads) are taken: ``shard_conformer_``
+    leaves SE-ResNet34 whole, shards nothing of the conformer at N = 3
+    (1024, 256 and 4 heads are not divisible by 3) and, at N = 8, its FFNs
+    and conv modules while each MHSA stays whole."""
     with pytest.raises(ValueError, match="does not divide the 4 ranks"):
         mesh.check_model_parallel(3, 4)
-    with pytest.raises(ValueError, match="does not divide the attention's 4 heads"):
-        mesh.check_model_parallel(8, 8, heads=4)
     with pytest.raises(ValueError, match="at least 1"):
         mesh.check_model_parallel(0, 4)
-    mesh.check_model_parallel(4, 8, heads=4)
+    mesh.check_model_parallel(4, 8)
+    mesh.check_model_parallel(8, 8)  # more ranks than heads
     with pytest.raises(ValueError, match="does not divide the 1 ranks"):
         mesh.set_model_parallel(2)  # one process, no group
     cfg = Config()
-    se = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, model_parallel=2))
-    with pytest.raises(ValueError, match="ResNet-Conformer only"):
-        port_train.check_trainable(se)
-    with pytest.raises(ValueError, match="ResNet-Conformer only"):
-        port_rc.shard_conformer_(port_wrapper.build_model(cfg, device="meta").encoder,
-                                 None, 0, 2)
+
+    def config(encoder, n, batch_size=cfg.train.batch_size):
+        return dataclasses.replace(
+            cfg, args=dataclasses.replace(cfg.args, encoder=encoder),
+            mesh=dataclasses.replace(cfg.mesh, model_parallel=n),
+            train=dataclasses.replace(cfg.train, batch_size=batch_size))
+
+    monkeypatch.setattr(mesh, "world_size", lambda: 6)
+    with pytest.raises(ValueError, match="does not divide the 6 ranks"):
+        port_train.check_trainable(config("resnet-conformer", 4))
+    with pytest.raises(ValueError, match="does not divide across 2 ranks"):
+        port_train.check_trainable(config("se-resnet34", 3, batch_size=5))
+    for encoder, n, world in (("se-resnet34", 2, 4), ("resnet-conformer", 3, 6),
+                              ("resnet-conformer", 8, 8)):
+        monkeypatch.setattr(mesh, "world_size", lambda: world)
+        c = config(encoder, n)
+        port_train.check_trainable(c)
+        model = port_wrapper.build_model(c, device="meta")
+        shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        plan = mesh.tp_plan(model, n)
+        port_rc.shard_conformer_(model.encoder, None, 0, plan)
+        cut = {k: tuple(v.shape) for k, v in model.state_dict().items() if v.shape != shapes[k]}
+        if encoder == "se-resnet34" or n == 3:
+            assert not plan.sharded and not cut
+            continue
+        assert plan.sharded == {"ffn1", "ffn2", "conv"}
+        block = model.encoder.conformer0
+        assert block.ffn1.fc1.weight.shape == (128, 256) and block.conv.pw1.weight.shape == (64, 256)
+        assert block.conv.dw_conv.weight.shape == (32, 1, 3) and block.ffn1.drop1.shard == (0, 8)
+        assert block.mhsa.heads == 4 and block.mhsa.head_range is None and block.mhsa.tp is None
+        assert block.mhsa.query.weight.shape == (256, 256)
+        assert all(".mhsa." not in k for k in cut) and len(cut) == 8 * 19
 
 
 def test_model_parallel_flag_parses():

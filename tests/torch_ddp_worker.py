@@ -274,7 +274,7 @@ def job_engine(rank: int, world: int, out: str, extra=()):
             rec["losses"].setdefault(run[0], []).append(float(loss))
             return loss
 
-        recorded.optimizer = step.optimizer
+        recorded.optimizer, recorded.plan = step.optimizer, step.plan
         return recorded
 
     def one_epoch(loader, step, gen, max_batches, guard):

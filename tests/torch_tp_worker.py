@@ -74,7 +74,7 @@ def build(cfg, float64=False, dropout=True, seed=0):
 def step_record(cfg, batch, float64=False, dropout=True, seed=0):
     """One step from the seeded init with generator seed 1: the loss, every
     parameter's gradient and every BatchNorm's running stats, as this rank
-    holds them, and the model."""
+    holds them, the model and its layout over the TP group."""
     model, step = build(cfg, float64, dropout, seed)
     attn = port_rc.flash_attention
     if float64:  # the kernels' wrapper takes float32 and bfloat16
@@ -83,7 +83,7 @@ def step_record(cfg, batch, float64=False, dropout=True, seed=0):
         loss = float(step(batch, torch.Generator().manual_seed(1)))
     finally:
         port_rc.flash_attention = attn
-    return {"loss": loss, "model": model,
+    return {"loss": loss, "model": model, "plan": step.plan,
             "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
             "stats": {f"{n}.{b}": getattr(m, b).detach().clone()
                       for n, m in model.named_modules() if isinstance(m, BatchNorm)
@@ -92,8 +92,8 @@ def step_record(cfg, batch, float64=False, dropout=True, seed=0):
 
 def gathered(rec):
     """``rec``'s gradients and stats in the unsharded model's shapes."""
-    return {**rec, "grads": mesh.gather_state_dict(rec["grads"]),
-            "stats": mesh.gather_state_dict(rec["stats"])}
+    return {**rec, "grads": mesh.gather_state_dict(rec["grads"], rec["plan"]),
+            "stats": mesh.gather_state_dict(rec["stats"], rec["plan"])}
 
 
 @contextlib.contextmanager
@@ -126,7 +126,7 @@ def replicated_equal(rec) -> bool:
     parameters and rank 0's replicated running stats."""
     same = True
     for name, t in list(rec["grads"].items()) + list(rec["stats"].items()):
-        if mesh.tp_rule(name) is None:
+        if rec["plan"].rule(name) is None:
             buf = t.clone()
             dist.broadcast(buf, src=0)
             same &= torch.equal(buf, t)
