@@ -56,9 +56,12 @@ fallback from one to the other.
 
 ``LAUNCHES`` counts launches per route; a count is bumped right after a
 launch is accepted, and nowhere else.  A forward on a grid under a wave
-runs its key tiles in splits and a merge (two launches, one count); the
-wrapper keeps the split plan per device and shape and allocates the
-merge's scratch.
+runs its key tiles in splits and a merge (two device kernels, one count);
+the wrapper keeps the split plan per device and shape and allocates the
+merge's scratch.  ``KERNELS`` counts the device kernels of those
+launches by kernel name (:func:`forward_kernels`,
+:func:`backward_kernels`), bumped with ``LAUNCHES``: what a profile of
+the calls must hold (``utils/profiling.py::kernels_launched``).
 """
 from __future__ import annotations
 
@@ -71,10 +74,13 @@ from ..utils.build import load_library
 from . import attention
 
 __all__ = ["flash_attention", "eval_forward", "train_forward", "train_backward",
-           "route", "LAUNCHES"]
+           "route", "forward_kernels", "backward_kernels", "LAUNCHES", "KERNELS"]
 
 LAUNCHES = {"k2": 0, "k4": 0, "k2_dropout": 0, "k3": 0, "k2_dropout_bf16": 0,
             "k3_bf16": 0, "k2_bf16": 0}
+KERNELS = {"mhsa_fwd_kernel": 0, "mhsa_fwd_bf16_kernel": 0, "mhsa_fwd_merge_kernel": 0,
+           "mhsa_bwd_dq_kernel": 0, "mhsa_bwd_dkdv_kernel": 0, "mhsa_bwd_dq_bf16_kernel": 0,
+           "mhsa_bwd_dkdv_bf16_kernel": 0}
 
 _DH = 64  # the kernels' head dim
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -150,6 +156,28 @@ def _int32_on(x, device, name):
     return x.contiguous()
 
 
+def forward_kernels(dtype, splits):
+    """The device kernels of one forward launch on ``dtype`` q/k/v in
+    ``splits`` key splits (``csrc/attention.cu::launch_fwd``,
+    ``launch_fwd_bf16``): the forward kernel, and the merge above one
+    split."""
+    fwd = "mhsa_fwd_bf16_kernel" if dtype == torch.bfloat16 else "mhsa_fwd_kernel"
+    return {fwd: 1, "mhsa_fwd_merge_kernel": 1} if splits > 1 else {fwd: 1}
+
+
+def backward_kernels(dtype):
+    """The device kernels of one backward launch on ``dtype`` q/k/v: the dq
+    pass, then the dk/dv pass (``adyolo_mhsa_bwd``, ``adyolo_mhsa_bwd_bf16``)."""
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    return {f"mhsa_bwd_dq{sfx}_kernel": 1, f"mhsa_bwd_dkdv{sfx}_kernel": 1}
+
+
+def _count(rt, kernels):
+    LAUNCHES[rt] += 1
+    for name, n in kernels.items():
+        KERNELS[name] += n
+
+
 def _launch(name, *args):
     rc = _entry(name)(*args)
     if rc != 0:
@@ -194,7 +222,7 @@ def _eval_launch(q, k, v, kv_len, rt):
     entry = "adyolo_mhsa_fwd_bf16" if q.dtype == torch.bfloat16 else "adyolo_mhsa_fwd"
     _launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
             out.data_ptr(), ptr, B, T, H, dh, splits, stream)
-    LAUNCHES[rt] += 1
+    _count(rt, forward_kernels(q.dtype, splits))
     return out
 
 
@@ -244,7 +272,7 @@ def train_forward(q, k, v, kv_len, seed, rate, heads):
             out32 = q.new_empty((0,), dtype=torch.float32)
         _launch(pair.fwd_entry, *ptrs, lse.data_ptr(), ptr, B, T, H, dh,
                 attention.dropout_thresh(rate), *_hash_args(T, *heads), splits, stream)
-    LAUNCHES[pair.fwd_route] += 1
+    _count(pair.fwd_route, forward_kernels(q.dtype, splits))
     return out, out32, lse
 
 
@@ -264,7 +292,7 @@ def train_backward(q, k, v, kv_len, seed, out32, lse, dout, rate, heads):
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, T, H, dh, attention.dropout_thresh(rate),
                 *_hash_args(T, *heads), stream)
-    LAUNCHES[pair.bwd_route] += 1
+    _count(pair.bwd_route, backward_kernels(q.dtype))
     return dq, dk, dv
 
 

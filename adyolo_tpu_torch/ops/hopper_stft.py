@@ -15,7 +15,8 @@ kernel (:func:`launch`), or the call raises.  There is no fallback from
 one to the other.
 
 ``LAUNCHES`` counts kernel launches; it is bumped right after a launch is
-accepted, and nowhere else.
+accepted, and nowhere else.  ``KERNELS`` counts the same launches by
+device kernel name, one a launch, as ``hopper_attention.KERNELS`` does.
 """
 from __future__ import annotations
 
@@ -28,9 +29,10 @@ import torch
 from ..utils.build import load_library
 
 __all__ = ["FFTPlan", "fft_plan", "radix_plan", "stft_hop_blocks", "launch",
-           "LAUNCHES"]
+           "LAUNCHES", "KERNELS"]
 
 LAUNCHES = 0
+KERNELS = {"stft_hop_blocks_fft_kernel": 0}
 
 _C = 4  # channels the kernel carries together (one float4)
 _MAX_N = 2400  # frame slots of a kernel buffer (stft.cu CAP): the largest n_fft
@@ -162,4 +164,5 @@ def launch(x: torch.Tensor, table: torch.Tensor):
     if rc != 0:
         raise RuntimeError(f"STFT kernel launch refused: cudaError {rc}")
     LAUNCHES += 1
+    KERNELS["stft_hop_blocks_fft_kernel"] += 1
     return re, im

@@ -2,9 +2,12 @@
 :mod:`adyolo_tpu.utils.profiling` without its TPU-only parts).
 
 * :func:`profile_calls` / :func:`group_ms` -- device time by kernel group
-  from ``torch.profiler``: ``chip_smoke.py`` (the train and serve
-  profiles, the bf16 attention pair's device time a call) and
-  ``scripts/torch_attention_bf16_check.py``;
+  from ``torch.profiler``, void where the profile does not hold the
+  kernels the calls launched (:func:`kernels_launched`), and
+  :func:`check_device_ms`, void where a kernel's reading lies below its
+  bound or above its own single call: ``chip_smoke.py`` (the kernels'
+  device time a call, the train and serve profiles) and
+  ``scripts/torch_{attention_bf16_check,se_step_profile,ddp_cards}.py``;
 * :func:`trace` -- a ``torch.profiler`` capture written as a Chrome trace;
 * :class:`PhaseTimer` and :func:`throughput_audio_s` -- the coarse
   per-phase wall-clock timing and the audio-seconds-per-second rate;
@@ -25,11 +28,13 @@ import math
 import os
 import sys
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, NamedTuple, Optional
 
 import torch
 
-__all__ = ["PROFILE_GROUPS", "OTHER", "group_ms", "profile_calls", "trace",
+__all__ = ["PROFILE_GROUPS", "OTHER", "DEVICE_SLACK", "group_ms", "profile_calls",
+           "kernels_launched", "group_of", "DeviceEvent", "summarize_events",
+           "missing_kernels", "void_profile", "check_device_ms", "trace",
            "PhaseTimer", "throughput_audio_s", "benchmark", "model_flops",
            "stft_flops", "attention_flops", "rnn_flops",
            "device_name", "device_peak_flops", "mfu"]
@@ -45,71 +50,213 @@ PROFILE_GROUPS = (  # kernel-name substrings, first match wins
     ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk")),
 )
 OTHER = "other (elementwise, reductions, copies)"
+# A call's device time above this x its time between two CUDA events is
+# not its own: the events bracket all of its device work.
+DEVICE_SLACK = 1.05
 
 
-def profile_calls(fn, n, attempts=3):
+def profile_calls(fn, n, attempts=3, expect=None, warmup=True, every_rank=False):
     """Device time by kernel group (``ms_per_step``) a call over ``n`` calls
     ``fn(i)`` under torch.profiler, their sum (``busy_ms_per_step``), and
     the device's idle share of the host-clock window.
 
+    ``expect``: ``{kernel-name substring: kernels one call launches}``
+    (:func:`kernels_launched` counts it).  An attempt whose profile holds
+    another number than ``n`` times that of an expected kernel lost or
+    gained events: it is discarded and the profiler run again, up to
+    ``attempts`` times; then the expected kernels' groups come back void
+    (:func:`void_profile`), never as a number.  ``warmup``: each attempt
+    first makes one traced call ``fn(0)`` whose events are discarded (the
+    tracer loses kernels of the first call it traces); False for a call
+    that must run no more than the ``n`` times (a CLI resume).
+
     The profiler now and then records no device event at all.  It is then
-    run again, up to ``attempts`` times; if it never records one, CUDA
-    events time the ``n`` calls instead (``source`` ``"cuda_events"``):
-    ``busy_ms_per_step`` is then the event time a call, gaps included, and
-    the groups, the idle share and the kernel count are None."""
+    run again too; if no attempt records one, CUDA events time the ``n``
+    calls instead (``source`` ``"cuda_events"``): ``busy_ms_per_step`` is
+    then the event time a call, gaps included, and the groups, the idle
+    share and the kernel counts are None.
+
+    ``every_rank``: ``fn`` is a collective of the process group (a
+    data-parallel step), so every rank must make as many calls as the
+    others.  Each decision (keep the attempt, take it again, time with
+    CUDA events) is then taken by all ranks together over the control
+    group (:func:`~adyolo_tpu_torch.parallel.mesh.any_rank`): an attempt is
+    kept only where it is whole on every rank, and a rank whose own
+    profile was whole comes back void beside one whose profile was not."""
+    def agree(ok):
+        if not every_rank:
+            return ok
+        from ..parallel import mesh
+        return not mesh.any_rank(not ok)
+
+    last = None
     for _ in range(attempts):
-        res = _profiled(fn, n)
-        if res is not None:
+        res = _profiled(fn, n, expect, warmup)
+        if agree(res is not None and not missing_kernels(res)):
             return res
-        print("torch.profiler recorded no device time; profiling again", file=sys.stderr)
-    print(f"torch.profiler recorded no device time in {attempts} attempts; "
-          "timing with CUDA events", file=sys.stderr)
-    return _event_timed(fn, n)
+        if res is None:
+            why = "torch.profiler recorded no device time"
+        elif missing_kernels(res):
+            why = f"torch.profiler's kernel counts {missing_kernels(res)} (seen, expected) " \
+                  "are not the calls'"
+        else:
+            why = "another rank's profile is not whole"
+        print(f"{why}; profiling again", file=sys.stderr)
+        last = res if res is not None else last
+    if agree(last is None):
+        print(f"torch.profiler recorded no device time in {attempts} attempts; "
+              "timing with CUDA events", file=sys.stderr)
+        return _event_timed(fn, n)
+    print(f"no profile was whole in {attempts} attempts; the reading is void", file=sys.stderr)
+    return void_profile(last, expect)
 
 
 def group_ms(prof, *groups):
     """Device time a call of the kernel ``groups`` of a ``profile_calls``
-    result; all of the event time where CUDA events timed the calls, which
-    holds only for a call that launches those groups' kernels alone."""
+    result: None if one of them is void; all of the event time where CUDA
+    events timed the calls, which holds only for a call that launches
+    those groups' kernels alone."""
     if prof["ms_per_step"] is None:
         return prof["busy_ms_per_step"]
-    return sum(prof["ms_per_step"][g] for g in groups)
+    ms = [prof["ms_per_step"][g] for g in groups]
+    return None if any(m is None for m in ms) else sum(ms)
 
 
-def _profiled(fn, n):
-    from torch.profiler import ProfilerActivity, profile
+def kernels_launched(fn) -> Dict[str, int]:
+    """The device kernels one call ``fn()`` launches through the port's
+    kernel wrappers, by kernel name: the change of their ``KERNELS``
+    counters over the call (empty where the wrappers run their plain
+    versions, on CPU tensors).  The ``expect`` of :func:`profile_calls`."""
+    from ..ops import hopper_attention, hopper_stft
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    def snapshot():
+        return {**hopper_stft.KERNELS, **hopper_attention.KERNELS}
+
+    before = snapshot()
+    fn()
+    return {k: c - before[k] for k, c in snapshot().items() if c != before[k]}
+
+
+def group_of(name: str) -> str:
+    """The ``PROFILE_GROUPS`` group of a kernel name (first match), else
+    ``OTHER``."""
+    name = name.lower()
+    return next((g for g, keys in PROFILE_GROUPS if any(s in name for s in keys)), OTHER)
+
+
+class DeviceEvent(NamedTuple):
+    """What :func:`summarize_events` reads of a profiler event."""
+    name: str
+    device_type: object  # torch.autograd.DeviceType
+    elapsed_us: float
+    user_annotation: bool = False
+
+
+def summarize_events(events, n, wall_ms, expect=None):
+    """The profile of ``n`` calls from their ``events`` (:class:`DeviceEvent`)
+    and the host-clock ``wall_ms`` of the window: device time by group a
+    call, their sum, the idle share, the kernels a call (in all and by
+    group), the six largest kernels of ``OTHER``, and for each expected
+    kernel name (``expect``, see :func:`profile_calls`) the events seen
+    against ``n`` times the expected number (``kernel_counts``).  None when
+    no device kernel was recorded.
+
+    A user annotation (DDP's forward, a gloo collective) is a span on the
+    device's timeline, not device work: it is left out."""
     groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
     groups[OTHER] = 0.0
+    by_group = dict.fromkeys(groups, 0)
     other = {}
+    seen = dict.fromkeys(expect or (), 0)
     n_kernels = 0
-    for e in prof.events():
-        # a user annotation (DDP's forward, a gloo collective) is a span on
-        # the device's timeline, not device work
-        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False):
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.user_annotation:
             continue
         n_kernels += 1
         name = e.name.lower()
-        us = e.time_range.elapsed_us()
-        grp = next((g for g, keys in PROFILE_GROUPS if any(s in name for s in keys)), OTHER)
-        groups[grp] += us / 1e3 / n
+        for k in seen:
+            seen[k] += k in name
+        grp = group_of(name)
+        groups[grp] += e.elapsed_us / 1e3 / n
+        by_group[grp] += 1
         if grp == OTHER:
-            other[e.name[:90]] = other.get(e.name[:90], 0.0) + us / 1e3 / n
+            other[e.name[:90]] = other.get(e.name[:90], 0.0) + e.elapsed_us / 1e3 / n
     if n_kernels == 0:
         return None
     busy = sum(groups.values())
     return {"source": "profiler", "steps": n, "wall_ms_per_step": wall_ms / n,
             "busy_ms_per_step": busy, "idle_share": 1.0 - busy / (wall_ms / n),
             "kernels_per_step": n_kernels / n, "ms_per_step": groups,
+            "kernels_per_step_by_group": {g: c / n for g, c in by_group.items() if c},
+            "kernel_counts": {k: {"seen": s, "expected": n * expect[k]}
+                              for k, s in seen.items()},
             "top_other_ms_per_step": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def missing_kernels(prof) -> Dict[str, tuple]:
+    """The expected kernels whose events a profile does not hold exactly:
+    ``{name: (seen, expected)}`` over its calls; empty when it is whole."""
+    return {k: (c["seen"], c["expected"]) for k, c in (prof.get("kernel_counts") or {}).items()
+            if c["seen"] != c["expected"]}
+
+
+def void_profile(prof, expect):
+    """``prof`` with the groups of the ``expect``ed kernels void (None), and
+    with them the busy time and the idle share, which sum those groups;
+    ``source`` ``"void"``.  The counts seen stay in ``kernel_counts``.
+    Without ``expect`` every group is void.  ``prof`` None (this rank recorded no device event where another rank
+    did, see :func:`profile_calls`): every field that reads the device is
+    None."""
+    if prof is None:
+        return {"source": "void", "steps": None, "wall_ms_per_step": None,
+                "busy_ms_per_step": None, "idle_share": None, "kernels_per_step": None,
+                "ms_per_step": None, "kernel_counts": None, "top_other_ms_per_step": {}}
+    ms = dict(prof["ms_per_step"])
+    for g in {group_of(k) for k in expect} if expect else list(ms):
+        ms[g] = None
+    return {**prof, "source": "void", "ms_per_step": ms, "busy_ms_per_step": None,
+            "idle_share": None}
+
+
+def check_device_ms(ms, bound_ms, single_ms):
+    """``(ms, None)`` for a device time a call that the card could have
+    taken, else ``(None, reason)``: void below the call's ``bound_ms`` (no
+    card beats its bound) or above DEVICE_SLACK x ``single_ms``, the call's
+    own time between two CUDA events, which bracket its device work; void
+    as well when ``ms`` is None (a void profile)."""
+    if ms is None:
+        return None, "void profile: kernel counts not the calls'"
+    if ms < bound_ms:
+        return None, f"{ms:.4f} ms below the bound {bound_ms:.4f} ms"
+    if ms > DEVICE_SLACK * single_ms:
+        return None, f"{ms:.4f} ms above {DEVICE_SLACK} x the single call {single_ms:.4f} ms"
+    return ms, None
+
+
+def _profiled(fn, n, expect, warmup):
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    # The tracer loses the first traced call's K1 in most profiles of two
+    # SE-ResNet34 steps on an H100, also after a warm-up of one small
+    # kernel, and rarely after a synchronised warm-up call of fn, whose
+    # events are discarded: scripts/torch_profiler_warmup_check.py.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        if warmup:
+            fn(0)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    return summarize_events(
+        (DeviceEvent(e.name, e.device_type, e.time_range.elapsed_us(),
+                     getattr(e, "is_user_annotation", False)) for e in prof.events()),
+        n, wall_ms, expect)
 
 
 def _event_timed(fn, n):

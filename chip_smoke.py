@@ -52,10 +52,14 @@ before the last line:
               within 1e-3 * max|logit| of the same model on plain-STFT
               features (DCASE2022 scaler stats); audio-seconds per second;
               then a ``torch.profiler`` breakdown of two more forwards.
+              Then forward_b1: one 30-s clip (B = 1 x 1200 frames, the
+              ``cli infer`` bucket), the same checks, the CUDA-event median
+              of 10 and a profile of 5 forwards.
 7. forward_conformer -- the same with ResNet-Conformer + AD-YOLO (emb 256,
               8 blocks, 4 heads): the STFT kernel launched once and the
               attention kernel 8 times (route k2), within 1e-3 *
-              max|logit| of the model on plain STFT and plain attention.
+              max|logit| of the model on plain STFT and plain attention;
+              forward_conformer_b1 as forward_b1.
               Then forward_conformer_long: one clip in the 4800-frame
               bucket, 3000 frames valid (route k4 8 times), the same
               check, CUDA-event median of 10, and a profiled breakdown of
@@ -238,7 +242,16 @@ After the serve phases (8, 9), the export slice:
 Phases 3-5 and 14 also read each kernel's and library call's device time
 a call from ``torch.profiler`` (``utils/profiling.py::profile_calls``),
 or from CUDA events where the profiler records no device event in three
-attempts (the rows' ``device_ms_source``).
+attempts (the rows' ``device_ms_source``).  A kernel's profile must hold
+exactly the device kernels its calls launched, as the wrappers count them
+(``KERNELS``; K4 at (1, 4800) runs a split kernel and a merge), or it is
+taken again and, after three attempts, void; a reading below its row's
+``bound_ms`` or above 1.05 x its own single-call median is void:
+``device_ms`` (``library_device_ms``) null beside its reason in
+``device_ms_void`` (``library_device_ms_void``).
+A void reading is a measurement outcome; the correctness checks stay
+fatal.  Every profile of a step or a forward holds the same count of the
+kernels one unprofiled call launched, or its groups are void.
 Then one line ``{"kernels": [...]}`` (``launches`` counted over each
 kernel's main path, phase train_cli, or train_conformer_bf16 for the bf16
 training routes and export for k2_bf16, with every path's count beside it
@@ -302,7 +315,9 @@ from adyolo_tpu_torch.ops.features import FeatureFrontend  # noqa: E402
 from adyolo_tpu_torch.parallel import mesh  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step, make_optimizer  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
-from adyolo_tpu_torch.utils.profiling import group_ms, model_flops, profile_calls  # noqa: E402
+from adyolo_tpu_torch.utils.profiling import (check_device_ms, group_ms,  # noqa: E402
+                                              group_of, kernels_launched, model_flops,
+                                              profile_calls)
 
 HOP = 600
 KERNEL_TOL = 2e-5
@@ -418,6 +433,41 @@ def cuda_ms(fn, n):
         e.synchronize()
         out.append(s.elapsed_time(e))
     return out
+
+
+def device_reading(fn, bound_ms, single_ms, kernels=True):
+    """Device time a call of ``fn()`` from one ``profile_calls`` of 10
+    calls, checked.  ``kernels``: the groups of the port's kernels that one
+    unprofiled call launches, counted by the wrappers
+    (``kernels_launched``), which the profile must hold exactly; else
+    (a library call) all the call launches.  A reading below ``bound_ms``
+    or above DEVICE_SLACK x ``single_ms`` (the call's median between two
+    CUDA events) is void.  Returns ``ms`` (None when void), ``void`` (the
+    reason), ``source`` and the kernel counts seen."""
+    expect = kernels_launched(fn) if kernels else None
+    require(expect is None or expect, "device_reading: the call launched no kernel")
+    groups = sorted({group_of(k) for k in expect}) if kernels else None
+    prof = profile_calls(lambda _: fn(), 10, expect=expect)
+    ms, why = check_device_ms(group_ms(prof, *groups) if kernels
+                              else prof["busy_ms_per_step"], bound_ms, single_ms)
+    return {"ms": ms, "void": why, "source": prof["source"],
+            "kernel_counts": prof.get("kernel_counts")}
+
+
+def device_fields(kernel, library, bound_ms, kernel_ms, library_ms):
+    """A row's checked device times a call (:func:`device_reading`) of a
+    kernel's call and of its library call, each against the kernel's
+    ``bound_ms`` and its own single-call median; a void one is None beside
+    its reason."""
+    k = device_reading(kernel, bound_ms, kernel_ms)
+    lib = device_reading(library, bound_ms, library_ms, kernels=False)
+    return {"device_ms": k["ms"], "device_ms_void": k["void"],
+            "library_device_ms": lib["ms"], "library_device_ms_void": lib["void"],
+            "device_ms_source": [k["source"], lib["source"]],
+            "device_ms_kernel_counts": k["kernel_counts"]}
+
+
+DEVICE_KEYS = ("device_ms", "device_ms_void", "library_device_ms", "library_device_ms_void")
 
 
 def bound(flop, nbytes):
@@ -618,18 +668,15 @@ def phase_kernel(smi, fe, dft):
             K, n_fft = HOP + 1, 2 * HOP
             fft_flop = B * T * 4 * (2.5 * n_fft * np.log2(n_fft) + n_fft)
             nbytes = 4.0 * (B * T * HOP * 4 + n_fft + 2 * B * T * K * 4)
-            # device time a call, from the profiler: the kernel's own group;
-            # for torch.stft, all it launches
-            dev_k = profile_calls(lambda _: hopper_stft.stft_hop_blocks(x, fe.fft), 10)
-            dev_l = profile_calls(lambda _: library(), 10)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
-                        "device_ms": group_ms(dev_k, "K1 STFT"),
-                        "library_device_ms": dev_l["busy_ms_per_step"],
-                        "device_ms_source": [dev_k["source"], dev_l["source"]],
                         "library_ms": float(np.median(l_ms)), "library": "torch.stft",
                         "library_max_abs_err": lib_err, **bound(fft_flop, nbytes),
                         "runs": len(k_ms), "gb_s": nbytes / (np.median(k_ms) * 1e-3) / 1e9,
                         "card": smi})
+            # device time a call, from the profiler: the kernel's own group;
+            # for torch.stft, all it launches
+            row.update(device_fields(lambda: hopper_stft.stft_hop_blocks(x, fe.fft), library,
+                                     row["bound_ms"], row["ms"], row["library_ms"]))
             del xs
         res[tag] = row
         emit(row)
@@ -711,13 +758,7 @@ def phase_attn_kernel(smi):
                 p_ms += cuda_ms(lambda: attention.mhsa_attention(q, k, v, kv), 10)
                 l_ms += cuda_ms(library, 10)
             flop = attn_flop(4, T, lens)
-            dev_k = profile_calls(
-                lambda _: hopper_attention.flash_attention(q, k, v, kv), 10)
-            dev_l = profile_calls(lambda _: library(), 10)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
-                        "device_ms": group_ms(dev_k, "attention fwd"),
-                        "library_device_ms": dev_l["busy_ms_per_step"],
-                        "device_ms_source": [dev_k["source"], dev_l["source"]],
                         "library_ms": float(np.median(l_ms)),
                         "library": "F.scaled_dot_product_attention",
                         "library_max_abs_err": lib_err,
@@ -726,11 +767,12 @@ def phase_attn_kernel(smi):
                         "tflops": flop / (np.median(k_ms) * 1e-3) / 1e12,
                         "plain_tflops": flop / (np.median(p_ms) * 1e-3) / 1e12,
                         "card": smi})
+            row.update(device_fields(lambda: hopper_attention.flash_attention(q, k, v, kv),
+                                     library, row["bound_ms"], row["ms"], row["library_ms"]))
             if timed == "kernels":
                 res[rt].update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "bound_by", "bound_units",
-                                                    "bound_ffma_ms", "device_ms",
-                                                    "library_device_ms")})
+                                                    "bound_ffma_ms") + DEVICE_KEYS})
         emit(row)
         del q, k, v, got, want
 
@@ -865,24 +907,21 @@ def phase_attn_train_kernel(smi):
                 for n, fn in fns.items():
                     ms[n] += cuda_ms(fn, 10)
             ms = {n: float(np.median(t)) for n, t in ms.items()}
-            # device time a call: the kernels' own groups; for SDPA, all it launches
-            prof = {n: profile_calls(lambda _, f=fns[n]: f(), 10)
-                    for n in ("kernel_fwd", "kernel_bwd", "library_fwd", "library_bwd")}
-            dev = {n: p["busy_ms_per_step"] if n.startswith("library") else
-                   group_ms(p, "attention fwd", "attention bwd")
-                   for n, p in prof.items()}
-            row.update(ms=ms, runs=30, device_ms=dev, card=smi,
-                       device_ms_source={n: p["source"] for n, p in prof.items()})
             fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
             res["k2_dropout"].update(
                 ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"], library_ms=ms["library_fwd"],
-                device_ms=dev["kernel_fwd"], library_device_ms=dev["library_fwd"],
                 **attn_bound(fl_f, attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1)))
             res["k3"].update(
                 ms=ms["kernel_bwd"], plain_ms=ms["plain_bwd"], library_ms=ms["library_bwd"],
-                device_ms=dev["kernel_bwd"], library_device_ms=dev["library_bwd"],
                 **attn_bound(fl_b, attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2,
                                               kv_writes=2, stats=1)))
+            # device time a call: the kernels' own groups; for SDPA, all it launches
+            dev = {rt: device_fields(fns[f"kernel_{p}"], fns[f"library_{p}"],
+                                     res[rt]["bound_ms"], ms[f"kernel_{p}"], ms[f"library_{p}"])
+                   for rt, p in (("k2_dropout", "fwd"), ("k3", "bwd"))}
+            for rt, d in dev.items():
+                res[rt].update({n: d[n] for n in DEVICE_KEYS})
+            row.update(ms=ms, runs=30, device=dev, card=smi)
             row.update(tflops_fwd=fl_f / (ms["kernel_fwd"] * 1e-3) / 1e12,
                        tflops_bwd=fl_b / (ms["kernel_bwd"] * 1e-3) / 1e12)
             del sdpa_args, lib_out
@@ -1014,34 +1053,27 @@ def phase_attn_train_bf16_kernel(smi):
             fl_f, fl_b = attn_flop(H, T, lens, 4), attn_flop(H, T, lens, 10)
             by_f = attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2, stats=1, el=2)
             by_b = attn_bytes(B, T, H, lens, q_rows=4, kv_reads=2, kv_writes=2, stats=1, el=2)
-            # device time a call: the kernels' own groups; for SDPA, all it launches
-            prof = {n: profile_calls(lambda _, f=fns[n]: f(), 10)
-                    for n in ("kernel_fwd", "kernel_bwd", "library_fwd", "library_bwd")}
-            dev = {n: p["busy_ms_per_step"] if n.startswith("library") else
-                   group_ms(p, "attention fwd", "attention bwd")
-                   for n, p in prof.items()}
             elems = H * T * float(np.sum(lens))  # (query, key) pairs a pass
             floors = {p: {"floor_exp2_ms": p * elems / MUFU_EX2_S * 1e3,
                           "floor_hash_ms": p * elems * KEEP_HASH_OPS / INT32_OPS_S * 1e3}
                       for p in (1, 2)}  # the forward's pass, the backward's two
             res["k2_dropout_bf16"].update(ms=ms["kernel_fwd"], plain_ms=ms["plain_fwd"],
-                                          library_ms=ms["library_fwd"], **bf16_bound(fl_f, by_f),
-                                          device_ms=dev["kernel_fwd"],
-                                          library_device_ms=dev["library_fwd"])
+                                          library_ms=ms["library_fwd"], **bf16_bound(fl_f, by_f))
             res["k3_bf16"].update(ms=ms["kernel_bwd"], plain_ms=ms["plain_bwd"],
-                                  library_ms=ms["library_bwd"], **bf16_bound(fl_b, by_b),
-                                  device_ms=dev["kernel_bwd"],
-                                  library_device_ms=dev["library_bwd"])
+                                  library_ms=ms["library_bwd"], **bf16_bound(fl_b, by_b))
+            # device time a call: the kernels' own groups; for SDPA, all it launches
+            dev = {rt: device_fields(fns[f"kernel_{p}"], fns[f"library_{p}"],
+                                     res[rt]["bound_ms"], ms[f"kernel_{p}"], ms[f"library_{p}"])
+                   for rt, p in (("k2_dropout_bf16", "fwd"), ("k3_bf16", "bwd"))}
+            for rt, d in dev.items():
+                res[rt].update({n: d[n] for n in DEVICE_KEYS})
             row.update(ms=ms, runs=30, library="F.scaled_dot_product_attention (bf16, "
                        "dropout_p 0.2)", library_max_abs_err_rate0=lib_err,
                        tflops_fwd=fl_f / (ms["kernel_fwd"] * 1e-3) / 1e12,
                        tflops_bwd=fl_b / (ms["kernel_bwd"] * 1e-3) / 1e12,
                        bound_fwd_ms=res["k2_dropout_bf16"]["bound_ms"],
                        bound_bwd_ms=res["k3_bf16"]["bound_ms"],
-                       device_ms=dev, device_ms_by_group={n: p["ms_per_step"]
-                                                          for n, p in prof.items()},
-                       device_ms_source={n: p["source"] for n, p in prof.items()},
-                       floors_ms={"fwd": floors[1], "bwd": floors[2],
+                       device=dev, floors_ms={"fwd": floors[1], "bwd": floors[2],
                                   "assumed_per_sm_clock": {"ex2": 16, "int32": 64,
                                                            "ghz": 1.83}}, card=smi)
             del sdpa_args, lib_out
@@ -1089,8 +1121,11 @@ def grads_of(model):
 
 def profile_steps(step, batches, gen, n):
     """Device time by kernel group over ``n`` steps under torch.profiler, and
-    the device's busy and idle share of the host-clock window."""
-    return profile_calls(lambda i: step(batches[i % len(batches)], gen), n)
+    the device's busy and idle share of the host-clock window.  The profile
+    must hold the port's kernels that one more, unprofiled step launches
+    (``kernels_launched``), or its groups come back void."""
+    expect = kernels_launched(lambda: step(batches[0], gen))
+    return profile_calls(lambda i: step(batches[i % len(batches)], gen), n, expect=expect)
 
 
 def phase_train_conformer(smi, cfg, fe):
@@ -1199,7 +1234,42 @@ def phase_forward(smi, fe, dft, model, phase):
     # where the time goes: two more forwards, profiled
     emit({"phase": phase + "_profile",
           **profile_steps(lambda b, _: fwd(b), [x], None, 2), "card": smi})
+    phase_forward_b1(smi, fe, dft, model, fwd, phase)
     return logits
+
+
+def phase_forward_b1(smi, fe, dft, model, fwd, phase):
+    """One 30-s clip, ``cli infer``'s bucket of 1200 frames (B = 1, every
+    frame valid): the request a service serves clip by clip.  Its launches
+    (K1 once; the conformer's attention 8 times, in key splits and a merge),
+    logits against the all-plain forward, the CUDA-event median of 10
+    calls, and a profile of 5 more."""
+    rng = np.random.default_rng(14)
+    x = torch.tensor(foa_audio(rng, (1, 1200, HOP, 4)), device="cuda")
+    before = counts()
+    logits = fwd(x)
+    torch.cuda.synchronize()
+    grown = {n: c - before[n] for n, c in counts().items()}
+    want = {**{n: 0 for n in grown}, "stft": 1}
+    if phase == "forward_conformer":
+        want["k2"] = 8
+    require(grown == want, f"{phase}_b1: launches {grown}, want {want}")
+    require(tuple(logits.shape) == (1, 300, 2560) and bool(torch.isfinite(logits).all()),
+            f"{phase}_b1: logits {tuple(logits.shape)}, or not finite")
+    with torch.inference_mode(), plain_attention():
+        re, im = plain_stft.stft(x, *dft, HOP)
+        ref = model(fe.features_from_stft(re, im))
+        del re, im
+    err = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    require(err <= FORWARD_TOL * scale,
+            f"{phase}_b1 vs the all-plain forward: {err} > {FORWARD_TOL} * {scale}")
+    ms = cuda_ms(lambda: fwd(x), 10)
+    emit({"phase": phase + "_b1", "shape": [1, 1200, HOP, 4], "launches": grown,
+          "max_abs_err": err, "max_abs_logit": scale, "tol_rel": FORWARD_TOL,
+          "ms": float(np.median(ms)), "card": smi})
+    emit({"phase": phase + "_b1_profile",
+          **profile_steps(lambda b, _: fwd(b), [x], None, 5), "card": smi})
 
 
 def phase_forward_conformer_long(smi, fe, dft, model):
@@ -1414,23 +1484,19 @@ def phase_attn_eval_bf16_kernel(smi):
                 k_ms += cuda_ms(kernel, 10)
                 p_ms += cuda_ms(lambda: attention.mhsa_attention(q, k, v, kv), 10)
                 l_ms += cuda_ms(library, 10)
-            dev_k = profile_calls(lambda _: kernel(), 10)
-            dev_l = profile_calls(lambda _: library(), 10)
             flop = attn_flop(H, T, lens)
             row.update({"ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
                         "library_ms": float(np.median(l_ms)),
-                        "device_ms": group_ms(dev_k, "attention fwd"),
-                        "library_device_ms": dev_l["busy_ms_per_step"],
-                        "device_ms_source": [dev_k["source"], dev_l["source"]],
                         "library": "F.scaled_dot_product_attention (bf16)",
                         "library_max_abs_err": lib_err,
                         **bf16_bound(flop, attn_bytes(B, T, H, lens, q_rows=2, kv_reads=2,
                                                       el=2)),
                         "runs": len(k_ms), "card": smi})
+            row.update(device_fields(kernel, library, row["bound_ms"], row["ms"],
+                                     row["library_ms"]))
             if tag == "full":
                 res.update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                "bound_by", "bound_units", "device_ms",
-                                                "library_device_ms")})
+                                                "bound_by", "bound_units") + DEVICE_KEYS})
         emit(row)
         del q, k, v, out, plain, truth
     return res
@@ -1840,7 +1906,7 @@ def phase_train_cli(smi, cfg, bare_step_ms):
             rcs = []
             resume_profile = profile_calls(lambda _: rcs.append(cli.main(
                 ["train", "--resume_pth", exp_id, "--results_dir", results,
-                 "--device", "cuda"])), 1)
+                 "--device", "cuda"])), 1, warmup=False)
             launched = counts()
         require(rcs == [0], f"resume returned {rcs}")
 
@@ -2647,7 +2713,8 @@ def ddp_worker(rank, tmp, cfg, conf_cfg):
                     per_step.append({n: v - before[n] for n, v in counts().items()})
                 launched = counts()
             if name == "conformer_bf16":  # where a rank's step goes
-                prof = profile_calls(lambda i: step(shard, gen), 2)
+                prof = profile_calls(lambda i: step(shard, gen), 2, every_rank=True,
+                                     expect=kernels_launched(lambda: step(shard, gen)))
                 collectives = ddp_collective_ms(model)
             rec = ddp_record(model)
             same = True
@@ -3533,7 +3600,7 @@ def main():
     k = stft_k["serving"]
     k["max_abs_err"] = max(r["max_abs_err"] for r in stft_k.values())
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
-    keys_k1 = keys + ("device_ms", "library_device_ms")
+    keys_k1 = keys + DEVICE_KEYS
     keys_a = keys_k1 + ("bound_units",)
     paths = {"serve": se, "serve_conformer": conf, "export": export,
              "train_conformer": train,

@@ -3,9 +3,11 @@
 
 Run from the repository root::
 
-    python3 scripts/chip_smoke_phases.py [attn] [se] [conf] [cli] [evalk] [export] [ddp] [tp] [tp_replicated] [attnf32] [bench]
+    python3 scripts/chip_smoke_phases.py [stftk] [attnk] [attnf32] [attn] [evalk] [fwd] [se] [conf] [cli] [export] [ddp] [tp] [tp_replicated] [bench]
 
-Phases env and build always run; then ``attn``: attn_train_bf16_kernel,
+Phases env and build always run; then ``stftk``: kernel (K1 against its
+plain version, timed, device time a call), ``attnk``: attn_kernel (routes
+k2 and k4), ``attn``: attn_train_bf16_kernel,
 ``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
 train_cli_se_bf16 (these four when none is named), ``evalk``:
 attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
@@ -15,7 +17,9 @@ checks, then two ranks of one model group spawned on the card),
 ``tp_replicated``: tp_replicated (the conformer at N = 3 and, cut to 2
 blocks, at N = 8, SE-ResNet34 at N = 2, each part's ranks spawned on the
 card; after ``tp`` it shares that phase's single-process references),
-``attnf32``: attn_train_kernel (the fp32 train routes), ``bench``:
+``attnf32``: attn_train_kernel (the fp32 train routes), ``fwd``:
+forward, forward_conformer (each with its B = 1 x 1200 clip) and
+forward_conformer_long, ``bench``:
 bench (the port's bench lines and its FLOP-count checks).  Each
 prints its JSON line as in the full script.  Quicker than the full script
 while one phase is being worked on; the full script stays the check.
@@ -42,6 +46,12 @@ def main():
     conf_cfg = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, encoder="resnet-conformer"))
     fe = make_frontend(cfg)
     which = sys.argv[1:] or ["attn", "se", "conf", "cli"]
+    if "stftk" in which or "fwd" in which:
+        dft = cs.window_dft(cfg.data.window, cfg.data.win_length, cfg.data.n_fft)
+    if "stftk" in which:
+        print("stft_k", cs.phase_kernel(smi, fe, dft)["serving"]); print("t", time.time() - t0, flush=True)
+    if "attnk" in which:
+        print("attn_k", cs.phase_attn_kernel(smi)); print("t", time.time() - t0, flush=True)
     if "attn" in which:
         print("bf16_k", cs.phase_attn_train_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
     if "se" in which:
@@ -56,6 +66,15 @@ def main():
         print(cs.phase_ddp(smi, cfg, conf_cfg)); print("t", time.time() - t0, flush=True)
     if "attnf32" in which:
         print(cs.phase_attn_train_kernel(smi)); print("t", time.time() - t0, flush=True)
+    if "fwd" in which:
+        for c in (cfg, conf_cfg):
+            model = build_model(c, generator=torch.Generator().manual_seed(0))
+            phase = "forward" if c is cfg else "forward_conformer"
+            cs.phase_forward(smi, fe, dft, model, phase)
+            if c is conf_cfg:
+                cs.phase_forward_conformer_long(smi, fe, dft, model)
+            del model
+        print("t", time.time() - t0, flush=True)
     refs = None
     if "tp" in which:
         path, refs = cs.phase_tp(smi, conf_cfg)

@@ -17,7 +17,8 @@ Run from the repository root on a machine with an NVIDIA GPU::
    ``retain_graph``); the host time a call of each (the same loop on the
    host clock, to the last launch's return); and the device time a call
    of the kernels and of SDPA from ``torch.profiler``, which does not
-   count the host: 20 back-to-back autograd calls of SDPA's backward are
+   count the host (null where the profile does not hold the kernels the
+   calls launched, a void reading): 20 back-to-back autograd calls of SDPA's backward are
    host-bound on the card machine.  Each ``--baseline`` adds the kernels
    of an older ``attention.cu`` of the same C interface, or of the one
    before the train entry points took the head range ``(head_offset,
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from adyolo_tpu_torch.ops import attention, hopper_attention as ha  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
-from adyolo_tpu_torch.utils.profiling import group_ms, profile_calls  # noqa: E402
+from adyolo_tpu_torch.utils.profiling import group_ms, group_of, profile_calls  # noqa: E402
 
 RATE = 0.2
 ENTRIES = ("adyolo_mhsa_fwd_train_bf16", "adyolo_mhsa_bwd_bf16", "adyolo_mhsa_fwd_bf16_splits",
@@ -150,11 +151,15 @@ def sdpa_fns(q, k, v, kv, do, mask):
     return fwd, bwd
 
 
-def profiled_ms(fn, kernels):
+def profiled_ms(fn, expect):
     """Device time a call of ``fn`` from the profiler over 10 calls: the
-    attention kernels' groups when ``kernels``, else all it launches."""
-    p = profile_calls(lambda _: fn(), 10)
-    return group_ms(p, "attention fwd", "attention bwd") if kernels else p["busy_ms_per_step"]
+    groups of the attention kernels ``expect`` names (the kernels one call
+    launches, which the profile must hold, else None: void), or, when
+    ``expect`` is None, all it launches."""
+    p = profile_calls(lambda _: fn(), 10, expect=expect)
+    if expect is None:
+        return p["busy_ms_per_step"]
+    return group_ms(p, *sorted({group_of(k) for k in expect}))
 
 
 def time_case(B, T, lens, libs):
@@ -172,6 +177,10 @@ def time_case(B, T, lens, libs):
         if name != "this":  # the older kernels compute the same forward
             ref = keep[0][1]
             info[f"{name}_fwd_max_abs_diff"] = float((out.float() - ref.float()).abs().max())
+    # the kernels a call of this tree's entry points launches (ctypes
+    # bypasses the wrapper's counters): what its profile must hold
+    expect = {"this_fwd": ha.forward_kernels(torch.bfloat16, info["this_splits"]),
+              "this_bwd": ha.backward_kernels(torch.bfloat16)}
     fns["sdpa_fwd"], fns["sdpa_bwd"] = sdpa_fns(q, k, v, kv, do, True)
     if min(lens) == T:
         fns["sdpa_nomask_fwd"], fns["sdpa_nomask_bwd"] = sdpa_fns(q, k, v, kv, do, False)
@@ -183,7 +192,7 @@ def time_case(B, T, lens, libs):
             ms[n].append(d)
             host[n].append(h)
     emit({"timing": [B, T, 4, 64], "kv_len": lens if B == 1 else "full", "rate": RATE,
-          "profiled_ms": {n: profiled_ms(fn, not n.startswith("sdpa"))
+          "profiled_ms": {n: profiled_ms(fn, expect.get(n))
                           for n, fn in fns.items() if n.startswith(("this", "sdpa"))},
           "device_ms_per_launch": {n: float(np.median(t)) for n, t in ms.items()},
           "spread_ms": {n: [float(min(t)), float(max(t))] for n, t in ms.items()},

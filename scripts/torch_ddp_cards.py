@@ -117,7 +117,9 @@ def rank_main(rank, world, port, tmp, cfg, conf_cfg):
                     per_step.append({n: v - before[n] for n, v in cs.counts().items()})
             row = {"losses": losses, "step_ms": step_ms, "per_step": per_step}
             if name == "conformer_bf16":
-                row["profile"] = cs.profile_calls(lambda i: step(shard, gen), 2)
+                row["profile"] = cs.profile_calls(
+                    lambda i: step(shard, gen), 2, every_rank=True,
+                    expect=cs.kernels_launched(lambda: step(shard, gen)))
                 row["collectives"] = cs.ddp_collective_ms(model)
             rec = cs.ddp_record(model)
             same = True

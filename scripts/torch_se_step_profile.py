@@ -10,10 +10,12 @@ Builds the bench's train step (``adyolo_tpu_torch.bench``: seeded
 SE-ResNet34 + AD-YOLO, Adam, dropout 0.2, synthetic AD-YOLO targets;
 float32, or bfloat16 compute with ``--bf16``) at each batch size, takes 3
 warm-up steps, then one ``profile_calls`` of 2 steps
-(``adyolo_tpu_torch/utils/profiling.py``) and prints one JSON line per
-batch: the step's device time by kernel group, the largest kernels
-outside the named groups, its busy time and idle share, and the host
-clock of 3 unprofiled steps.  The step keeps the port's precision policy
+(``adyolo_tpu_torch/utils/profiling.py``), which must hold the K1 launch
+that one more step makes, and prints one JSON line per batch: the step's
+device time by kernel group, the largest kernels outside the named
+groups, its busy time and idle share, and the host clock of 3 unprofiled
+steps.  A profile that lost K1's events prints ``"source": "void"`` and
+null for K1's group, the busy time and the idle share.  The step keeps the port's precision policy
 (TF32 off, ``cudnn.benchmark`` off); ``--cudnn-benchmark`` turns
 ``cudnn.benchmark`` on for a comparison, which the bench never does.
 Run each setting in a process of its own: cuDNN keeps the plan it chose
@@ -33,7 +35,7 @@ import torch  # noqa: E402
 
 from adyolo_tpu_torch import bench  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step  # noqa: E402
-from adyolo_tpu_torch.utils.profiling import profile_calls  # noqa: E402
+from adyolo_tpu_torch.utils.profiling import kernels_launched, profile_calls  # noqa: E402
 
 
 def run(batch, cudnn_benchmark, dtype):
@@ -50,13 +52,15 @@ def run(batch, cudnn_benchmark, dtype):
         t0 = time.perf_counter()
         step(data, gen).item()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    prof = profile_calls(lambda i: step(data, gen), 2)
+    prof = profile_calls(lambda i: step(data, gen), 2,
+                         expect=kernels_launched(lambda: step(data, gen)))
     return {"batch": batch, "compute_dtype": dtype, "tf32": torch.backends.cudnn.allow_tf32,
             "cudnn_benchmark": cudnn_benchmark, "host_step_ms": host_ms,
             "busy_ms_per_step": prof["busy_ms_per_step"],
             "idle_share": prof["idle_share"], "ms_per_step": prof["ms_per_step"],
             "top_other_ms_per_step": prof["top_other_ms_per_step"],
             "kernels_per_step": prof["kernels_per_step"], "source": prof["source"],
+            "kernel_counts": prof.get("kernel_counts"),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 

@@ -38,7 +38,8 @@ from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry
 from adyolo_tpu_torch.parallel.train_step import build_train_step
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+from tests.test_torch_config import (  # noqa: F401
+    one_torch_thread, port_config, module_tmp, scratch_path)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -74,7 +75,7 @@ def _adam_state(opt_state):
 
 
 @pytest.mark.parametrize("name", sorted(OPTIMIZERS))
-def test_jax_reads_port_checkpoint_with_full_template(name, tmp_path):
+def test_jax_reads_port_checkpoint_with_full_template(name, scratch_path):
     optim, wd = OPTIMIZERS[name]
     jcfg = _jax_config(optim, wd)
     cfg = port_config(jcfg)
@@ -87,7 +88,7 @@ def test_jax_reads_port_checkpoint_with_full_template(name, tmp_path):
     params = dict(model.named_parameters())
     variables = flax_from_state_dict(model.state_dict())
     host = {"epoch_nb": 1, "confidence_thresh": 0.5}
-    path = str(tmp_path / "model_best.ckpt")
+    path = str(scratch_path / "model_best.ckpt")
     save_jax_checkpoint(path, variables, host,
                         *optax_state(optim, wd, osd, params))
 
@@ -123,8 +124,8 @@ def test_jax_reads_port_checkpoint_with_full_template(name, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("ckpt_engine"))
+def trained(module_tmp):
+    root = str(module_tmp("ckpt_engine"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=2, n_val=1, n_test=1,
                               train_secs=1, eval_secs=2, chunk_window_s=1, seed=7)
     configs = os.path.join(root, "configs")

@@ -9,12 +9,14 @@
 
 :func:`port_config` is how the other port tests build the port's
 ``Config`` from the same YAML as the JAX one they hand to JAX functions,
-and :func:`one_torch_thread` the fixture with which the heavier ones run
-PyTorch's CPU ops on one thread.
+:func:`one_torch_thread` the fixture with which the heavier ones run
+PyTorch's CPU ops on one thread, and :func:`module_tmp` and
+:func:`scratch_path` the temp directories of those that write checkpoints.
 """
 import dataclasses
 import inspect
 import os
+import shutil
 
 import pytest
 import torch
@@ -44,6 +46,30 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def module_tmp(tmp_path_factory):
+    """``tmp_path_factory.mktemp`` for a module's fixtures, each directory
+    deleted when the module's tests end.  The port's tests write
+    full-width checkpoints (about 2 GB in the heaviest module, 9 GB in a
+    whole run), and pytest keeps the temp directories of its last three
+    sessions: kept, a few runs fill the disk."""
+    made = []
+
+    def mktemp(name):
+        made.append(tmp_path_factory.mktemp(name))
+        return made[-1]
+    yield mktemp
+    for path in made:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+@pytest.fixture
+def scratch_path(tmp_path):
+    """``tmp_path``, deleted when the test ends (see :func:`module_tmp`)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _as_dict(cfg):

@@ -75,7 +75,7 @@ from adyolo_tpu_torch.parallel import mesh
 
 from tests import torch_ddp_worker as worker
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+from tests.test_torch_config import one_torch_thread, port_config, module_tmp  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -125,10 +125,10 @@ def _run_ranks(job, out, world=WORLD, module="tests.torch_ddp_worker"):
 # ---- global step ------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def jobs(tmp_path_factory):
+def jobs(module_tmp):
     """Both jobs' rank processes, started together: the step comparisons
     and the engine runs on a synthetic set."""
-    root = str(tmp_path_factory.mktemp("ddp"))
+    root = str(module_tmp("ddp"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=8, n_val=2, n_test=2,
                               train_secs=1, eval_secs=2, chunk_window_s=1, seed=4)
     configs = os.path.join(root, "engine", "configs")

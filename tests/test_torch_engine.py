@@ -54,7 +54,7 @@ from adyolo_tpu_torch.models import wrapper as port_wrapper
 from adyolo_tpu_torch.parallel.train_step import build_train_step
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread  # noqa: F401
+from tests.test_torch_config import one_torch_thread, module_tmp  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -75,8 +75,8 @@ def shallow():
 
 
 @pytest.fixture(scope="module")
-def setup(shallow, tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("engine"))
+def setup(shallow, module_tmp):
+    root = str(module_tmp("engine"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=6, n_val=2, n_test=2,
                               train_secs=1, eval_secs=2, chunk_window_s=1, seed=4)
     configs = os.path.join(root, "configs")

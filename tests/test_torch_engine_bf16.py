@@ -36,14 +36,14 @@ from adyolo_tpu_torch.models import resnet_conformer as port_rc
 from adyolo_tpu_torch.models import wrapper as port_wrapper
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread  # noqa: F401
+from tests.test_torch_config import one_torch_thread, module_tmp  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")
-def setup(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("engine_bf16"))
+def setup(module_tmp):
+    root = str(module_tmp("engine_bf16"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=2, n_val=2, n_test=1,
                               train_secs=1, eval_secs=2, chunk_window_s=1, seed=5)
     configs = os.path.join(root, "configs")

@@ -55,7 +55,7 @@ from adyolo_tpu_torch.ops.decode import PostProcessor, _device_decode
 from adyolo_tpu_torch.parallel.train_step import build_eval_criterion, build_train_step
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+from tests.test_torch_config import one_torch_thread, port_config, module_tmp  # noqa: F401
 from tests.test_torch_serving import _gap_threshold, _read_csv
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -81,8 +81,8 @@ def shallow():
 
 
 @pytest.fixture(scope="module")
-def experiment(shallow, tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("eval"))
+def experiment(shallow, module_tmp):
+    root = str(module_tmp("eval"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=1, n_val=2,
                               n_test=2, eval_secs=3, seed=5)
     cfg = jax_config.Config()

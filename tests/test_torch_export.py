@@ -56,7 +56,8 @@ from adyolo_tpu_torch.models import wrapper as port_wrapper
 from adyolo_tpu_torch.ops import attention
 from adyolo_tpu_torch.ops.decode import PostProcessor
 
-from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+from tests.test_torch_config import (  # noqa: F401
+    one_torch_thread, port_config, module_tmp, scratch_path)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -82,11 +83,11 @@ def two_blocks():
 
 
 @pytest.fixture(scope="module")
-def exps(two_blocks, tmp_path_factory):
+def exps(two_blocks, module_tmp):
     """Per encoder: the JAX-written experiment and both packages' models."""
     out = {}
     for encoder in ENCODERS:
-        root = str(tmp_path_factory.mktemp(encoder))
+        root = str(module_tmp(encoder))
         data = os.path.join(root, "data")
         os.makedirs(data)
         rng = np.random.default_rng(4)
@@ -146,15 +147,15 @@ def _both(e, tmp, B, serve_dtype="float32", seed=0, secs=SECS):
 
 
 @pytest.fixture(scope="module", params=ENCODERS)
-def f32(request, exps, tmp_path_factory):
+def f32(request, exps, module_tmp):
     e = exps[request.param]
-    return e, _both(e, str(tmp_path_factory.mktemp("f32")), B=2)
+    return e, _both(e, str(module_tmp("f32")), B=2)
 
 
 @pytest.fixture(scope="module", params=ENCODERS)
-def bf16(request, exps, tmp_path_factory):
+def bf16(request, exps, module_tmp):
     e = exps[request.param]
-    res = _both(e, str(tmp_path_factory.mktemp("bf16")), B=1, serve_dtype="bfloat16",
+    res = _both(e, str(module_tmp("bf16")), B=1, serve_dtype="bfloat16",
                 seed=1)
     # the truth: JAX's model in float64 on the port's features
     feat = e["frontend"](torch.tensor(res["audio"]).reshape(1, -1, 600, 4))
@@ -228,7 +229,7 @@ def test_bf16_within_jax_gates_of_f32_live(bf16):
     assert d.max() > 0  # the encoder did compute in bf16
 
 
-def test_serve_dtype_from_the_environment(exps, tmp_path, monkeypatch):
+def test_serve_dtype_from_the_environment(exps, scratch_path, monkeypatch):
     """Without ``serve_dtype``, ``ADYOLO_SERVE_DTYPE`` sets the artifact's
     dtype in both packages' ``export_model`` (``adyolo_tpu/engine/
     export.py:58-59``): bfloat16 in both metas, the served output within
@@ -236,21 +237,21 @@ def test_serve_dtype_from_the_environment(exps, tmp_path, monkeypatch):
     outside float32 / bfloat16 is refused."""
     e = exps["se-resnet34"]
     monkeypatch.setenv("ADYOLO_SERVE_DTYPE", "bfloat16")
-    r = _both(e, str(tmp_path), B=1, serve_dtype=None, seed=1)
+    r = _both(e, str(scratch_path), B=1, serve_dtype=None, seed=1)
     assert r["meta"]["serve_dtype"] == r["jmeta"]["serve_dtype"] == "bfloat16"
     d = np.abs(r["port"].numpy() - _live(e, r["audio"]))
     assert 0 < d.max() < 0.1 and d.mean() < 0.01, (d.max(), d.mean())
     monkeypatch.setenv("ADYOLO_SERVE_DTYPE", "float16")
     with pytest.raises(ValueError, match="serve_dtype 'float16'"):
-        export_model(e["cfg"], e["model"], e["frontend"], str(tmp_path / "bad"))
+        export_model(e["cfg"], e["model"], e["frontend"], str(scratch_path / "bad"))
 
 
-def test_conformer_long_clip(exps, tmp_path, monkeypatch):
+def test_conformer_long_clip(exps, scratch_path, monkeypatch):
     """Above the block threshold: the long eval route of both packages."""
     monkeypatch.setattr(attention, "BLOCK_THRESHOLD", 40)
     monkeypatch.setattr(jax_rc.MHSA, "BLOCK_THRESHOLD", 40)
     e = exps["resnet-conformer"]
-    r = _both(e, str(tmp_path), B=1, seed=2)
+    r = _both(e, str(scratch_path), B=1, seed=2)
     assert r["port"].shape == (1, 20, 2560)
     np.testing.assert_allclose(r["port"].numpy(), _live(e, r["audio"]),
                                atol=LIVE_TOL, rtol=LIVE_TOL)

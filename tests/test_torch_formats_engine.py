@@ -45,7 +45,7 @@ from adyolo_tpu_torch.engine import train as port_train
 from adyolo_tpu_torch.models import wrapper as port_wrapper
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+from tests.test_torch_config import one_torch_thread, port_config, module_tmp  # noqa: F401
 from tests.test_torch_evaluate import _record
 from tests.test_torch_serving import _gap_threshold
 
@@ -76,10 +76,10 @@ def short_buckets():
 
 
 @pytest.fixture(scope="module", params=["accdoa", "adpit"])
-def experiment(request, short_buckets, tmp_path_factory):
+def experiment(request, short_buckets, module_tmp):
     loss = request.param
     exp = f"exp-{loss}"
-    root = str(tmp_path_factory.mktemp(f"eval_{loss}"))
+    root = str(module_tmp(f"eval_{loss}"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=1, n_val=1,
                               n_test=2, eval_secs=3, seed=8)
     cfg = jax_config.Config()
@@ -142,8 +142,8 @@ def test_test_model_matches_jax(experiment):
 
 
 @pytest.fixture(scope="module")
-def synth_setup(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("formats_cli"))
+def synth_setup(module_tmp):
+    root = str(module_tmp("formats_cli"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=4, n_val=2, n_test=1,
                               train_secs=1, eval_secs=2, chunk_window_s=1, seed=9)
     configs = os.path.join(root, "configs")

@@ -39,7 +39,7 @@ from adyolo_tpu_torch.ops.dsp import irfft_lag_matrices
 from adyolo_tpu_torch.parallel.train_step import build_step_features
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+from tests.test_torch_config import one_torch_thread, port_config, scratch_path  # noqa: F401
 from tests.test_torch_formats_engine import run_cli_formats, short_buckets  # noqa: F401
 from tests.test_torch_specaug import _jax_draws
 
@@ -200,12 +200,12 @@ def test_mic_dataset_paths_rotation_and_batches_match_jax(mic_root, capsys):
         assert os.path.join("mic_dev", f"dev-{split}") in ds.wav_pth
 
 
-def test_cli_quick_test_on_mic(mic_root, short_buckets, tmp_path, monkeypatch):  # noqa: F811
-    configs = str(tmp_path / "configs")
+def test_cli_quick_test_on_mic(mic_root, short_buckets, scratch_path, monkeypatch):  # noqa: F811
+    configs = str(scratch_path / "configs")
     os.makedirs(configs)
     with open(os.path.join(configs, "hyp_data_DCASE2022.yaml"), "w") as f:
         yaml.safe_dump({"data_pth": mic_root, "name_pth": os.path.join(mic_root, "classes.txt"),
                         "chunk_window_s": 1, "audio_format": "mic"}, f)
-    setup = {"data": mic_root, "configs": configs, "results": str(tmp_path / "results")}
+    setup = {"data": mic_root, "configs": configs, "results": str(scratch_path / "results")}
     printed = run_cli_formats(setup, "adyolo", monkeypatch, fmt="mic")
     assert len(printed["test"]) == 9

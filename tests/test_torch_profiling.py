@@ -1,7 +1,13 @@
 """adyolo_tpu_torch/utils/profiling.py.
 
 * The device time a call, read from torch.profiler, or from CUDA events
-  where the profiler records no device event.
+  where the profiler records no device event.  The event summary on
+  synthetic events: a profile must hold exactly the kernels the calls
+  launched (``KERNELS``, one K4 call a split kernel and a merge); one that
+  lost the split kernel's events is profiled again and then comes back
+  void, never as the merge's time; user annotations and host events stay
+  out of the sums; a reading below its bound or above 1.05 x its single
+  call is void.
 * ``model_flops``: the closed forms, exactly, for the plain attention,
   ``adyolo::mhsa_eval``, the training attention's forward and backward
   (both CPU routes, and the train pair's ops whatever runs inside them),
@@ -22,6 +28,9 @@ import dataclasses
 import functools
 import json
 import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -37,11 +46,12 @@ from adyolo_tpu_torch.ops import stft as plain_stft
 from adyolo_tpu_torch.ops.features import FeatureFrontend, identity_scaler
 from adyolo_tpu_torch.parallel.train_step import build_train_step
 from adyolo_tpu_torch.utils import profiling
-from adyolo_tpu_torch.utils.profiling import (OTHER, PROFILE_GROUPS, attention_flops,
-                                              group_ms, model_flops, profile_calls,
-                                              rnn_flops, stft_flops)
+from adyolo_tpu_torch.utils.profiling import (OTHER, PROFILE_GROUPS, DeviceEvent,
+                                              attention_flops, check_device_ms, group_ms,
+                                              missing_kernels, model_flops, profile_calls,
+                                              rnn_flops, stft_flops, summarize_events)
 
-from tests.test_torch_config import one_torch_thread  # noqa: F401
+from tests.test_torch_config import one_torch_thread, scratch_path  # noqa: F401
 
 
 def _profiled(groups):
@@ -62,19 +72,190 @@ def test_group_ms_takes_the_event_time_without_groups():
     assert group_ms(p, "attention fwd", "attention bwd") == 0.125
 
 
-def test_profile_calls_retries_then_times_with_events(monkeypatch):
+# ---- the event summary: a profile must hold the calls' kernels ---------------
+
+CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+# the names CUPTI gives the kernels of one K4 call at (1, 4800): 4 key
+# splits of the forward kernel in one launch, then the merge
+SPLIT = "void mhsa_fwd_kernel<false>(float const*, float const*, float const*, int const*)"
+MERGE = "void mhsa_fwd_merge_kernel(float const*, float const*, float const*, int const*)"
+K4 = hopper_attention.forward_kernels(torch.float32, 4)
+
+
+def _k4_events(n, split=True):
+    """The events of ``n`` K4 calls: 0.290 ms in the split kernel and
+    0.020 ms in the merge a call, beside host events, a user annotation on
+    the device's timeline and an elementwise kernel; ``split`` False drops
+    the split kernel's events, as a profile that lost them reads."""
+    ev = []
+    for _ in range(n):
+        ev += [DeviceEvent("aten::empty", CPU, 3.0),
+               DeviceEvent("cudaLaunchKernel", CPU, 5.0),
+               DeviceEvent("ProfilerStep#1", CUDA, 900.0, user_annotation=True),
+               DeviceEvent("void at::native::vectorized_elementwise_kernel", CUDA, 4.0)]
+        ev += [DeviceEvent(SPLIT, CUDA, 290.0)] if split else []
+        ev += [DeviceEvent(MERGE, CUDA, 20.0)]
+    return ev
+
+
+def test_wrapper_counts_name_the_kernels_each_launch_runs():
+    """One launch a route, one or two device kernels: the split forward and
+    its merge, the backward's two passes; each name a kernel of csrc/."""
+    assert K4 == {"mhsa_fwd_kernel": 1, "mhsa_fwd_merge_kernel": 1}
+    assert hopper_attention.forward_kernels(torch.bfloat16, 1) == {"mhsa_fwd_bf16_kernel": 1}
+    assert hopper_attention.backward_kernels(torch.float32) == {
+        "mhsa_bwd_dq_kernel": 1, "mhsa_bwd_dkdv_kernel": 1}
+    assert hopper_attention.backward_kernels(torch.bfloat16) == {
+        "mhsa_bwd_dq_bf16_kernel": 1, "mhsa_bwd_dkdv_bf16_kernel": 1}
+    csrc = os.path.join(os.path.dirname(hopper_attention.__file__), os.pardir, "csrc")
+    launched = set()
+    for name in ("attention.cu", "stft.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            launched |= set(re.findall(r"(\w+)(?:<\w+>)?<<<", f.read()))
+    assert launched == set(hopper_attention.KERNELS) | set(hopper_stft.KERNELS)
+    groups = {k: profiling.group_of(f"void {k}(float const*)") for k in launched}
+    assert groups == {k: "K1 STFT" if "stft" in k else
+                      "attention bwd" if "bwd" in k else "attention fwd" for k in launched}
+
+
+def test_kernels_launched_reads_the_counters_over_one_call(monkeypatch):
+    monkeypatch.setattr(hopper_attention, "LAUNCHES", dict(hopper_attention.LAUNCHES))
+    monkeypatch.setattr(hopper_attention, "KERNELS", dict(hopper_attention.KERNELS))
+    before = dict(hopper_attention.LAUNCHES)
+    assert profiling.kernels_launched(lambda: hopper_attention._count("k4", K4)) == K4
+    assert hopper_attention.LAUNCHES == {**before, "k4": before["k4"] + 1}
+    # on CPU tensors the wrappers run their plain versions: no kernel
+    q, k, v = _qkv(1, 8)
+    assert profiling.kernels_launched(lambda: hopper_attention.flash_attention(q, k, v)) == {}
+
+
+def test_summary_accepts_a_complete_k4_profile():
+    p = summarize_events(_k4_events(10), 10, 40.0, K4)
+    assert p["kernel_counts"] == {k: {"seen": 10, "expected": 10} for k in K4}
+    assert missing_kernels(p) == {}
+    assert group_ms(p, "attention fwd") == pytest.approx(0.310)
+    assert p["kernels_per_step"] == 3 and p["kernels_per_step_by_group"] == {
+        "attention fwd": 2, OTHER: 1}
+    # the user annotation is left out of the sums, the host events too
+    assert p["busy_ms_per_step"] == pytest.approx(0.314)
+    assert p["idle_share"] == pytest.approx(1 - 0.314 / 4.0)
+
+
+def test_summary_leaves_out_user_annotations():
+    ev = [DeviceEvent("DistributedDataParallel.forward", CUDA, 5000.0, user_annotation=True),
+          DeviceEvent(SPLIT, CUDA, 300.0)]
+    p = summarize_events(ev, 1, 10.0, {"mhsa_fwd_kernel": 1})
+    assert p["busy_ms_per_step"] == pytest.approx(0.3) and p["kernels_per_step"] == 1
+    assert summarize_events(ev[:1], 1, 10.0) is None  # no device kernel at all
+
+
+def _fake_profiles(monkeypatch, results):
+    """``profile_calls`` on the given per-attempt summaries; CUDA events
+    stand in as ``"events"``."""
     tries, timed = [], []
-    monkeypatch.setattr(profiling, "_profiled", lambda fn, n: tries.append(n))
+
+    def profiled(fn, n, expect, warmup):
+        tries.append((n, expect) if warmup else (n, expect, "no warm-up"))
+        return next(results)
+
+    monkeypatch.setattr(profiling, "_profiled", profiled)
     monkeypatch.setattr(profiling, "_event_timed", lambda fn, n: timed.append(n) or "events")
-    assert profile_calls(lambda _: None, 7) == "events"
-    assert tries == [7, 7, 7] and timed == [7]
+    return tries, timed
+
+
+def test_a_profile_missing_the_split_kernel_is_retried_then_void(monkeypatch):
+    """The merge alone reads 0.020 ms a call, below K4's bound: never a
+    reading.  Three attempts, then the attention group is void."""
+    lost = summarize_events(_k4_events(10, split=False), 10, 40.0, K4)
+    assert missing_kernels(lost) == {"mhsa_fwd_kernel": (0, 10)}
+    tries, timed = _fake_profiles(monkeypatch, iter([lost] * 3))
+    p = profile_calls(lambda _: None, 10, expect=K4)
+    assert tries == [(10, K4)] * 3 and timed == []
+    assert p["source"] == "void" and group_ms(p, "attention fwd") is None
+    assert p["busy_ms_per_step"] is None and p["idle_share"] is None
+    assert p["ms_per_step"][OTHER] == pytest.approx(0.004)  # the other groups stay
+    assert p["kernel_counts"]["mhsa_fwd_kernel"] == {"seen": 0, "expected": 10}
+
+
+def test_a_profile_missing_kernels_is_taken_again(monkeypatch):
+    lost = summarize_events(_k4_events(10, split=False), 10, 40.0, K4)
+    whole = summarize_events(_k4_events(10), 10, 40.0, K4)
+    tries, timed = _fake_profiles(monkeypatch, iter([lost, None, whole]))
+    p = profile_calls(lambda _: None, 10, expect=K4)
+    assert p is whole and len(tries) == 3 and timed == []
+    # a profile holding more events than the calls launched is no reading either
+    extra = summarize_events(_k4_events(10) + [DeviceEvent(SPLIT, CUDA, 290.0)], 10, 40.0, K4)
+    assert missing_kernels(extra) == {"mhsa_fwd_kernel": (11, 10)}
+
+
+def test_profile_calls_retries_then_times_with_events(monkeypatch):
+    """Zero device events in every attempt: CUDA events time the calls."""
+    no_kernel = summarize_events([DeviceEvent("aten::mm", CPU, 9.0)], 7, 1.0, K4)
+    assert no_kernel is None
+    tries, timed = _fake_profiles(monkeypatch, iter([no_kernel] * 3))
+    assert profile_calls(lambda _: None, 7, expect=K4) == "events"
+    assert tries == [(7, K4)] * 3 and timed == [7]
 
 
 def test_profile_calls_keeps_the_first_profile_with_device_time(monkeypatch):
-    results = iter([None, "second"])
-    monkeypatch.setattr(profiling, "_profiled", lambda fn, n: next(results))
-    monkeypatch.setattr(profiling, "_event_timed", lambda fn, n: pytest.fail("events"))
-    assert profile_calls(lambda _: None, 3) == "second"
+    second = summarize_events(_k4_events(3), 3, 12.0)
+    tries, timed = _fake_profiles(monkeypatch, iter([None, second]))
+    assert profile_calls(lambda _: None, 3, warmup=False) is second
+    assert tries == [(3, None, "no warm-up")] * 2 and timed == []
+
+
+def test_ranks_retake_or_void_a_collective_profile_together(scratch_path):
+    """Two gloo ranks profile a call that all-reduces over both
+    (``profile_calls(every_rank=True)``, ``tests/torch_profile_ranks.py``):
+    an attempt whole on one rank and not on the other is taken again by
+    both; what stays incomplete on one rank is void on both; CUDA events
+    time the calls only where no rank recorded a device event.  Every rank
+    makes as many calls as the other, or the calls' all-reduces pair with
+    another collective."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    rdv = str(scratch_path / "rendezvous")
+    logs = [open(scratch_path / f"r{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_profile_ranks", str(r), "2",
+                               rdv, str(scratch_path)], cwd=repo, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=240)
+    finally:
+        for p, f in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, (scratch_path / f"r{r}.log").read_text()[-4000:]
+    got = [json.loads((scratch_path / f"profile.r{r}.json").read_text()) for r in range(2)]
+    calls = {"whole_at_once": 3, "rank1_whole_late": 6, "rank1_always_lost": 9,
+             "rank1_never_traced": 9, "none_anywhere": 11}  # 1 warm-up + 2 an attempt
+    source = {"whole_at_once": "profiler", "rank1_whole_late": "profiler",
+              "rank1_always_lost": "void", "rank1_never_traced": "void",
+              "none_anywhere": "cuda_events"}
+    for name, n in calls.items():
+        for r in range(2):
+            row = got[r][name]
+            assert row["calls"] == [n, n] and row["sums"] == [2.0], (name, r, row)
+            assert row["source"] == source[name], (name, r, row)
+            if source[name] == "profiler":
+                assert row["fwd_ms"] == pytest.approx(0.31)
+            elif source[name] == "void":
+                assert row["fwd_ms"] is None
+
+
+@pytest.mark.parametrize("ms,want", [(0.033, None), (0.089, 0.089), (0.312, 0.312),
+                                     (0.4368, 0.4368), (0.44, None), (None, None)])
+def test_check_device_ms_voids_below_the_bound_and_above_the_single_call(ms, want):
+    """K4's bound 0.089 ms and a single call of 0.416 ms: 0.033 (the void
+    reading of the records) and anything above 1.05 x 0.416 are void."""
+    got, why = check_device_ms(ms, 0.089, 0.416)
+    assert got == want and (why is None) == (want is not None)
+    if ms is not None and want is None:
+        assert ("below the bound" in why) == (ms < 0.089)
 
 
 @pytest.mark.cuda
@@ -87,6 +268,13 @@ def test_profile_calls_on_cuda():
     e = profile_calls(lambda _: x @ x, 5, attempts=0)
     assert e["source"] == "cuda_events" and e["ms_per_step"] is None
     assert group_ms(e, "GEMM (cuBLAS)") == e["busy_ms_per_step"] > 0
+    q = torch.randn(1, 4800, 4, 64, device="cuda")
+    kv = torch.tensor([3000], dtype=torch.int32, device="cuda")
+    expect = profiling.kernels_launched(lambda: hopper_attention.flash_attention(q, q, q, kv))
+    assert expect == K4
+    k4 = profile_calls(lambda _: hopper_attention.flash_attention(q, q, q, kv), 10,
+                       expect=expect)
+    assert k4["source"] == "profiler" and missing_kernels(k4) == {}
 
 
 # ---- model FLOPs -------------------------------------------------------------

@@ -39,7 +39,8 @@ from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry
 from adyolo_tpu_torch.ops.decode import _device_decode
 
 from tests.synth_data import make_synth_dataset
-from tests.test_torch_config import one_torch_thread, port_config  # noqa: F401
+from tests.test_torch_config import (  # noqa: F401
+    one_torch_thread, port_config, module_tmp, scratch_path)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -68,9 +69,9 @@ def _gap_threshold(cls_conf):
 
 
 @pytest.fixture(scope="module", params=["se-resnet34", "resnet-conformer"])
-def experiment(request, tmp_path_factory):
+def experiment(request, module_tmp):
     encoder = request.param
-    root = str(tmp_path_factory.mktemp("serve"))
+    root = str(module_tmp("serve"))
     data = make_synth_dataset(os.path.join(root, "data"), n_train=1, n_val=2,
                               n_test=1, eval_secs=7, seed=3)
     rng = np.random.default_rng(4)
@@ -142,7 +143,7 @@ def test_port_infer_matches_jax_infer(experiment):
     assert n_rows > 0  # the threshold lets some detections through
 
 
-def test_checkpoint_reader_and_writer(experiment, tmp_path):
+def test_checkpoint_reader_and_writer(experiment, scratch_path):
     _, exp_dir, _, state = experiment
     variables, host = load_jax_checkpoint(os.path.join(exp_dir, "model_best.ckpt"))
     assert host["epoch_nb"] == 0 and 0.0 < host["confidence_thresh"] < 1.0
@@ -150,7 +151,7 @@ def test_checkpoint_reader_and_writer(experiment, tmp_path):
         got = dict(jax.tree_util.tree_leaves_with_path(variables[coll]))
         for path, a in jax.tree_util.tree_leaves_with_path(ref):
             np.testing.assert_array_equal(got[path], np.asarray(a))
-    path = str(tmp_path / "again.ckpt")
+    path = str(scratch_path / "again.ckpt")
     opt_state = jax.tree_util.tree_map(np.asarray, serialization.to_state_dict(state.opt_state))
     save_jax_checkpoint(path, variables, host, opt_state, np.asarray(state.step))
     again, host2 = load_jax_checkpoint(path)

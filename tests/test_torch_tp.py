@@ -75,7 +75,7 @@ from adyolo_tpu_torch.parallel import mesh
 
 from tests import torch_ddp_worker as ddp
 from tests import torch_tp_worker as worker
-from tests.test_torch_config import one_torch_thread  # noqa: F401
+from tests.test_torch_config import one_torch_thread, module_tmp  # noqa: F401
 from tests.synth_data import make_synth_dataset
 from tests.test_torch_ddp import _jax_step, _run_ranks
 
@@ -95,9 +95,9 @@ JOBS = {"tp": 2, "grid": 4, "engine": 2}  # job: ranks
 # ---- the jobs -----------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def jobs(tmp_path_factory):
+def jobs(module_tmp):
     """Every job's rank processes, started together."""
-    root = str(tmp_path_factory.mktemp("tp"))
+    root = str(module_tmp("tp"))
     out = {job: os.path.join(root, job) for job in JOBS}
     os.makedirs(out["tp"])
     os.makedirs(out["grid"])

@@ -60,7 +60,7 @@ from adyolo_tpu_torch.models import wrapper as port_wrapper
 from adyolo_tpu_torch.parallel import mesh
 
 from tests import torch_ddp_worker as ddp
-from tests.test_torch_config import one_torch_thread  # noqa: F401
+from tests.test_torch_config import one_torch_thread, module_tmp  # noqa: F401
 from tests.test_torch_ddp import _run_ranks
 from tests.test_torch_tp import _flax_paths, _hold_f64, _write_engine_set
 
@@ -74,9 +74,9 @@ MHSA_LEAVES = ("query", "key", "value", "linear")
 
 
 @pytest.fixture(scope="module")
-def jobs(tmp_path_factory):
+def jobs(module_tmp):
     """Every job's rank processes, started together."""
-    root = str(tmp_path_factory.mktemp("tp_replicated"))
+    root = str(module_tmp("tp_replicated"))
     out = {job: os.path.join(root, job) for job in JOBS}
     os.makedirs(out["n3"])
     os.makedirs(out["se"])
