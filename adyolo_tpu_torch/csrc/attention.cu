@@ -126,6 +126,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "errors.cuh"
+
+using adyolo::check_launch;
+using adyolo::enter;
+using adyolo::fail;
+using adyolo::fail_driver;
+
 namespace {
 
 constexpr int DH = 64;            // head dim
@@ -1785,7 +1792,9 @@ mhsa_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
 int check_shape(int B, int T, int H, int dh) {
     if (B < 1 || T < 1 || H < 1 || dh != DH || (long long)B * H > 65535) {
-        return (int)cudaErrorInvalidValue;
+        return fail((int)cudaErrorInvalidValue,
+                    "shape check: B=%d T=%d H=%d dh=%d (B, T, H >= 1, dh == %d, B*H <= 65535)",
+                    B, T, H, dh, DH);
     }
     return 0;
 }
@@ -1804,16 +1813,36 @@ Drop make_drop(int thresh, int bq, int tp, int H, int h0, int ht) {
     return d;
 }
 
-// The hash arguments of a training launch, checked.
-bool bad_hash_args(int T, int H, int thresh, int bq, int tp, int h0, int ht) {
-    return thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T || h0 < 0 ||
-           ht < h0 + H;
+// The hash arguments of a training launch, checked: 0 or the failure.
+int check_hash_args(int T, int H, int thresh, int bq, int tp, int h0, int ht) {
+    if (thresh < 0 || thresh > 255 || bq < 1 || T % bq != 0 || tp < T || h0 < 0 ||
+        ht < h0 + H) {
+        return fail((int)cudaErrorInvalidValue,
+                    "dropout hash arguments: thresh=%d bq=%d T=%d tp=%d heads [%d, %d) of %d",
+                    thresh, bq, T, tp, h0, h0 + H, ht);
+    }
+    return 0;
 }
 
+// The dynamic shared-memory opt-in of `kernel` (named `name`) on the
+// current device: 0 or the failure.
 template <typename K>
-int set_smem(K kernel, size_t bytes) {
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)bytes);
+int set_smem(K kernel, size_t bytes, const char* name) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    return e == cudaSuccess
+               ? 0
+               : fail((int)e, "cudaFuncSetAttribute(%s, max dynamic shared memory %zu B)", name,
+                      bytes);
+}
+
+// A forward's split count and scratch, checked: 0 or the failure.
+int check_splits(int splits, const void* scratch) {
+    if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && scratch == nullptr)) {
+        return fail((int)cudaErrorInvalidValue, "key splits %d (1..%d; scratch %s)", splits,
+                    MAX_SPLITS, scratch ? "given" : "null");
+    }
+    return 0;
 }
 
 // The key splits of a forward launch over B*H*ceil(T/64) query tiles:
@@ -1839,11 +1868,12 @@ template <bool TRAIN>
 int launch_fwd(const void* q, const void* k, const void* v, const void* kv_len,
                const void* seed, void* out, void* lse, void* scratch, int B, int T, int H,
                int splits, Drop d, void* stream) {
-    if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && scratch == nullptr)) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (int rc = check_splits(splits, scratch)) return rc;
     // per launch, as the attribute is per device
-    if (int rc = set_smem(mhsa_fwd_kernel<TRAIN>, FWD_SMEM)) return rc;
+    if (int rc = set_smem(mhsa_fwd_kernel<TRAIN>, FWD_SMEM,
+                          TRAIN ? "mhsa_fwd_kernel<true>" : "mhsa_fwd_kernel<false>")) {
+        return rc;
+    }
     const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
     cudaStream_t st = (cudaStream_t)stream;
     const long long n_out = (long long)B * T * H * DH;
@@ -1857,7 +1887,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kv_len,
         static_cast<const float*>(v), static_cast<const int*>(kv_len),
         static_cast<const int*>(seed), static_cast<float*>(out), static_cast<float*>(lse),
         part, pm, pl, T, H, splits, scale_log2, d);
-    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    if (int rc = check_launch(TRAIN ? "mhsa_fwd_kernel<true>" : "mhsa_fwd_kernel<false>")) {
+        return rc;
+    }
     if (splits > 1) {
         const long long n = n_out / 4;
         mhsa_fwd_merge_kernel<<<(unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
@@ -1865,8 +1897,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kv_len,
             part, pm, pl, static_cast<const int*>(kv_len), static_cast<float*>(out), nullptr,
             static_cast<float*>(lse), B, T, H, splits,
             TRAIN && d.t24 != 0u ? d.kscale : 1.0f);
+        return check_launch("mhsa_fwd_merge_kernel");
     }
-    return (int)cudaGetLastError();
+    return 0;
 }
 
 // cuTensorMapEncodeTiled, looked up in the driver at run time, so that the
@@ -1876,23 +1909,48 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The tensor map of a (B, T, H, 64) bfloat16 tensor in place, as
+// Makes the current device's primary context current on the calling
+// thread, which the CUDA driver call in head_map needs (cuTensorMapEncodeTiled
+// fails with CUDA_ERROR_INVALID_CONTEXT without one).  The runtime binds
+// it only at its first call on a thread that needs a context, and a
+// thread may reach a launcher before any such call: autograd's device
+// thread, whose first CUDA work is the bf16 backward when the caching
+// allocator serves all of that backward's tensors from blocks it holds
+// (PyTorch binds no context to the thread for its default device).  Since
+// CUDA 12 cudaSetDevice initialises and binds the primary context.
+int bind_context() {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e) return fail((int)e, "bind_context: cudaGetDevice");
+    e = cudaSetDevice(dev);
+    return e ? fail((int)e, "bind_context: cudaSetDevice(%d)", dev) : 0;
+}
+
+// The tensor map of a (B, T, H, 64) bfloat16 tensor `name` in place, as
 // (64, H, T, B) with a (64, 1, 64, 1) box in the 128-byte swizzle; rows
-// past T read as zeros.
-int head_map(CUtensorMap* map, const void* x, int B, int T, int H) {
+// past T read as zeros.  0, or the failure: the CUDA driver's lookup, the
+// address's alignment, or the encode's own CUresult.
+int head_map(CUtensorMap* map, const void* x, int B, int T, int H, const char* name) {
     static EncodeTiledFn encode = nullptr;
     if (encode == nullptr) {
         void* fn = nullptr;
         cudaDriverEntryPointQueryResult found;
         const cudaError_t e = cudaGetDriverEntryPointByVersion(
             "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-        if (e != cudaSuccess) return (int)e;
+        if (e != cudaSuccess) {
+            return fail((int)e, "head_map(%s): cudaGetDriverEntryPointByVersion"
+                        "(cuTensorMapEncodeTiled)", name);
+        }
         if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
-            return (int)cudaErrorNotSupported;
+            return fail((int)cudaErrorNotSupported, "head_map(%s): cuTensorMapEncodeTiled not "
+                        "found in the driver (query result %d)", name, (int)found);
         }
         encode = reinterpret_cast<EncodeTiledFn>(fn);
     }
-    if (reinterpret_cast<unsigned long long>(x) % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (reinterpret_cast<unsigned long long>(x) % 16 != 0) {
+        return fail((int)cudaErrorInvalidValue, "head_map(%s): address %p is not 16-byte "
+                    "aligned", name, x);
+    }
     const cuuint64_t dims[4] = {DH, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
     const cuuint64_t strides[3] = {DH * 2, (cuuint64_t)H * DH * 2, (cuuint64_t)T * H * DH * 2};
     const cuuint32_t box[4] = {DH, 1, BT, 1};
@@ -1901,27 +1959,43 @@ int head_map(CUtensorMap* map, const void* x, int B, int T, int H) {
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+    if (r != CUDA_SUCCESS) {
+        return fail_driver((int)r, "head_map(%s): cuTensorMapEncodeTiled at %p, (B, T, H) = "
+                           "(%d, %d, %d)", name, x, B, T, H);
+    }
+    return 0;
 }
 
-// Blocks of `kernel` resident on the current device at once (SMs x
-// blocks an SM, >= 1), or -cudaError.
+// Blocks of `kernel` (named `name`) resident on the current device at
+// once (SMs x blocks an SM, >= 1), or -cudaError, recorded.
 template <typename K>
-long long resident_blocks(K kernel, size_t smem, int threads) {
+long long resident_blocks(K kernel, size_t smem, int threads, const char* name) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
-    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (!e) e = (cudaError_t)set_smem(kernel, smem);
-    if (!e) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (e) return -(long long)e;
-    return per_sm < 1 ? -(long long)cudaErrorInvalidConfiguration : (long long)sms * per_sm;
+    if (e) return -(long long)fail((int)e, "resident_blocks(%s): cudaGetDevice", name);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e) {
+        return -(long long)fail((int)e, "resident_blocks(%s): cudaDeviceGetAttribute"
+                                "(multiprocessor count, device %d)", name, dev);
+    }
+    if (int rc = set_smem(kernel, smem, name)) return -(long long)rc;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e) {
+        return -(long long)fail((int)e, "resident_blocks(%s): cudaOccupancyMaxActiveBlocks"
+                                "PerMultiprocessor(%d threads, %zu B)", name, threads, smem);
+    }
+    if (per_sm < 1) {
+        return -(long long)fail((int)cudaErrorInvalidConfiguration, "resident_blocks(%s): no "
+                                "block of %d threads and %zu B fits an SM", name, threads, smem);
+    }
+    return (long long)sms * per_sm;
 }
 
 // The persistent grid of a warp-specialised kernel over n_work items, or
-// -cudaError.
+// -cudaError, recorded.
 template <typename K>
-int ws_grid(K kernel, size_t smem, long long n_work) {
-    const long long slots = resident_blocks(kernel, smem, WS_THREADS);
+int ws_grid(K kernel, size_t smem, long long n_work, const char* name) {
+    const long long slots = resident_blocks(kernel, smem, WS_THREADS, name);
     if (slots < 0) return (int)slots;
     return (int)(n_work < slots ? n_work : slots);
 }
@@ -1930,15 +2004,15 @@ template <bool TRAIN>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_len,
                     const void* seed, void* out, void* out32, void* lse, void* scratch, int B,
                     int T, int H, int splits, Drop d, void* stream) {
-    if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && scratch == nullptr)) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (int rc = check_splits(splits, scratch)) return rc;
+    if (int rc = bind_context()) return rc;
     CUtensorMap mq, mk, mv;
-    if (int rc = head_map(&mq, q, B, T, H)) return rc;
-    if (int rc = head_map(&mk, k, B, T, H)) return rc;
-    if (int rc = head_map(&mv, v, B, T, H)) return rc;
+    if (int rc = head_map(&mq, q, B, T, H, "q")) return rc;
+    if (int rc = head_map(&mk, k, B, T, H, "k")) return rc;
+    if (int rc = head_map(&mv, v, B, T, H, "v")) return rc;
+    const char* name = TRAIN ? "mhsa_fwd_bf16_kernel<true>" : "mhsa_fwd_bf16_kernel<false>";
     const long long n_work = (long long)((T + BT - 1) / BT) * B * H * splits;
-    const int grid = ws_grid(mhsa_fwd_bf16_kernel<TRAIN>, FWDB_SMEM, n_work);
+    const int grid = ws_grid(mhsa_fwd_bf16_kernel<TRAIN>, FWDB_SMEM, n_work, name);
     if (grid < 0) return -grid;
     const float scale_log2 = (1.0f / sqrtf((float)DH)) * LOG2E;
     cudaStream_t st = (cudaStream_t)stream;
@@ -1951,7 +2025,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_
         mq, mk, mv, static_cast<const int*>(kv_len), static_cast<const int*>(seed),
         static_cast<bf16*>(out), static_cast<float*>(out32), static_cast<float*>(lse), part, pm,
         pl, B, T, H, splits, scale_log2, d);
-    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    if (int rc = check_launch(name)) return rc;
     if (splits > 1) {
         const long long n = n_out / 4;
         mhsa_fwd_merge_kernel<<<(unsigned)((n + MERGE_THREADS - 1) / MERGE_THREADS),
@@ -1959,15 +2033,16 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* kv_
             part, pm, pl, static_cast<const int*>(kv_len), static_cast<float*>(out32),
             static_cast<bf16*>(out), static_cast<float*>(lse), B, T, H, splits,
             TRAIN && d.t24 != 0u ? d.kscale : 1.0f);
+        return check_launch("mhsa_fwd_merge_kernel");
     }
-    return (int)cudaGetLastError();
+    return 0;
 }
 
 // The key splits of a forward of kernel `kernel` run in blocks of
 // `threads` (see pick_splits), or -cudaError.
 template <typename K>
-int fwd_splits(K kernel, size_t smem, int threads, int B, int T, int H) {
-    const long long slots = resident_blocks(kernel, smem, threads);
+int fwd_splits(K kernel, size_t smem, int threads, int B, int T, int H, const char* name) {
+    const long long slots = resident_blocks(kernel, smem, threads, name);
     if (slots < 0) return (int)slots;
     const int n = (T + BT - 1) / BT;
     return pick_splits((long long)B * H * n, n, slots);
@@ -1982,7 +2057,8 @@ int fwd_splits(K kernel, size_t smem, int threads, int B, int T, int H) {
 // == 0) and tp = ceil(T / 128) * 128 index the dropout hash.  A forward
 // takes `splits` from adyolo_mhsa_fwd_splits and, when it is above 1, a
 // float32 `scratch` of adyolo_mhsa_fwd_scratch_floats elements.  Each
-// launches on `stream` and returns cudaGetLastError() (0 on success).
+// launches on `stream` and returns 0 on success, else the CUDA error of
+// the site that failed, which adyolo_last_error (csrc/errors.cu) names.
 
 // Dynamic shared memory a kernel launches with: 0 the forward, 1 the dq
 // pass, 2 the dk/dv pass; 3, 4, 5 the same of the bfloat16 kernels.
@@ -1994,13 +2070,17 @@ extern "C" long long adyolo_mhsa_smem_bytes(int which) {
 // The key splits a forward of this shape runs in on the current device
 // (>= 1), or -cudaError.  Not cached: the caller keeps a plan per device.
 extern "C" int adyolo_mhsa_fwd_splits(int B, int T, int H) {
-    return fwd_splits(mhsa_fwd_kernel<true>, FWD_SMEM, THREADS, B, T, H);
+    if (int rc = enter("adyolo_mhsa_fwd_splits")) return -rc;
+    return fwd_splits(mhsa_fwd_kernel<true>, FWD_SMEM, THREADS, B, T, H,
+                      "mhsa_fwd_kernel<true>");
 }
 
 // The same for the bfloat16 forwards (train and eval: one shared-memory
 // size and launch bound, so one occupancy).
 extern "C" int adyolo_mhsa_fwd_bf16_splits(int B, int T, int H) {
-    return fwd_splits(mhsa_fwd_bf16_kernel<true>, FWDB_SMEM, WS_THREADS, B, T, H);
+    if (int rc = enter("adyolo_mhsa_fwd_bf16_splits")) return -rc;
+    return fwd_splits(mhsa_fwd_bf16_kernel<true>, FWDB_SMEM, WS_THREADS, B, T, H,
+                      "mhsa_fwd_bf16_kernel<true>");
 }
 
 // Floats of the scratch a forward in `splits` > 1 key splits needs.
@@ -2012,6 +2092,7 @@ extern "C" long long adyolo_mhsa_fwd_scratch_floats(int B, int T, int H, int spl
 extern "C" int adyolo_mhsa_fwd(const void* q, const void* k, const void* v,
                                const void* kv_len, void* out, void* scratch, int B, int T,
                                int H, int dh, int splits, void* stream) {
+    if (int rc = enter("adyolo_mhsa_fwd")) return rc;
     if (int rc = check_shape(B, T, H, dh)) return rc;
     return launch_fwd<false>(q, k, v, kv_len, nullptr, out, nullptr, scratch, B, T, H, splits,
                              make_drop(0, 1, 128, H, 0, H), stream);
@@ -2025,10 +2106,9 @@ extern "C" int adyolo_mhsa_fwd_train(const void* q, const void* k, const void* v
                                      void* lse, void* scratch, int B, int T, int H, int dh,
                                      int thresh, int bq, int tp, int head_offset, int heads_total,
                                      int splits, void* stream) {
+    if (int rc = enter("adyolo_mhsa_fwd_train")) return rc;
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (int rc = check_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) return rc;
     Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
     return launch_fwd<true>(q, k, v, kv_len, seed, out, lse, scratch, B, T, H, splits, d,
@@ -2042,12 +2122,11 @@ extern "C" int adyolo_mhsa_bwd(const void* q, const void* k, const void* v,
                                void* dq, void* dk, void* dv, int B, int T, int H,
                                int dh, int thresh, int bq, int tp, int head_offset,
                                int heads_total, void* stream) {
+    if (int rc = enter("adyolo_mhsa_bwd")) return rc;
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    if (int rc = set_smem(mhsa_bwd_dq_kernel, DQ_SMEM)) return rc;
-    if (int rc = set_smem(mhsa_bwd_dkdv_kernel, DKDV_SMEM)) return rc;
+    if (int rc = check_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) return rc;
+    if (int rc = set_smem(mhsa_bwd_dq_kernel, DQ_SMEM, "mhsa_bwd_dq_kernel")) return rc;
+    if (int rc = set_smem(mhsa_bwd_dkdv_kernel, DKDV_SMEM, "mhsa_bwd_dkdv_kernel")) return rc;
     Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
     const float scale = 1.0f / sqrtf((float)DH);
@@ -2059,14 +2138,14 @@ extern "C" int adyolo_mhsa_bwd(const void* q, const void* k, const void* v,
         static_cast<const int*>(seed), static_cast<const float*>(out),
         static_cast<const float*>(dout), static_cast<const float*>(lse),
         static_cast<float*>(delta), static_cast<float*>(dq), T, H, scale, d);
-    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    if (int rc = check_launch("mhsa_bwd_dq_kernel")) return rc;
     mhsa_bwd_dkdv_kernel<<<grid, THREADS, DKDV_SMEM, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(kv_len),
         static_cast<const int*>(seed), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale, d);
-    return (int)cudaGetLastError();
+    return check_launch("mhsa_bwd_dkdv_kernel");
 }
 
 // bf16 train forward (K2 with its dropout branch on bfloat16 q/k/v): out
@@ -2078,10 +2157,9 @@ extern "C" int adyolo_mhsa_fwd_train_bf16(const void* q, const void* k, const vo
                                           int H, int dh, int thresh, int bq, int tp,
                                           int head_offset, int heads_total, int splits,
                                           void* stream) {
+    if (int rc = enter("adyolo_mhsa_fwd_train_bf16")) return rc;
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (int rc = check_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) return rc;
     Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
     return launch_fwd_bf16<true>(q, k, v, kv_len, seed, out, out32, lse, scratch, B, T, H,
@@ -2093,6 +2171,7 @@ extern "C" int adyolo_mhsa_fwd_train_bf16(const void* q, const void* k, const vo
 extern "C" int adyolo_mhsa_fwd_bf16(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* out, void* scratch, int B, int T,
                                     int H, int dh, int splits, void* stream) {
+    if (int rc = enter("adyolo_mhsa_fwd_bf16")) return rc;
     if (int rc = check_shape(B, T, H, dh)) return rc;
     return launch_fwd_bf16<false>(q, k, v, kv_len, nullptr, out, nullptr, nullptr, scratch, B,
                                   T, H, splits, make_drop(0, 1, 128, H, 0, H), stream);
@@ -2106,19 +2185,21 @@ extern "C" int adyolo_mhsa_bwd_bf16(const void* q, const void* k, const void* v,
                                     void* dk, void* dv, int B, int T, int H, int dh,
                                     int thresh, int bq, int tp, int head_offset,
                                     int heads_total, void* stream) {
+    if (int rc = enter("adyolo_mhsa_bwd_bf16")) return rc;
     if (int rc = check_shape(B, T, H, dh)) return rc;
-    if (bad_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (int rc = check_hash_args(T, H, thresh, bq, tp, head_offset, heads_total)) return rc;
+    if (int rc = bind_context()) return rc;
     CUtensorMap mq, mk, mv, mdo;
-    if (int rc = head_map(&mq, q, B, T, H)) return rc;
-    if (int rc = head_map(&mk, k, B, T, H)) return rc;
-    if (int rc = head_map(&mv, v, B, T, H)) return rc;
-    if (int rc = head_map(&mdo, dout, B, T, H)) return rc;
+    if (int rc = head_map(&mq, q, B, T, H, "q")) return rc;
+    if (int rc = head_map(&mk, k, B, T, H, "k")) return rc;
+    if (int rc = head_map(&mv, v, B, T, H, "v")) return rc;
+    if (int rc = head_map(&mdo, dout, B, T, H, "dout")) return rc;
     const long long n_work = (long long)((T + BT - 1) / BT) * B * H;  // both passes
-    const int grid_dq = ws_grid(mhsa_bwd_dq_bf16_kernel, DQB_SMEM, n_work);
+    const int grid_dq = ws_grid(mhsa_bwd_dq_bf16_kernel, DQB_SMEM, n_work,
+                                "mhsa_bwd_dq_bf16_kernel");
     if (grid_dq < 0) return -grid_dq;
-    const int grid_dkdv = ws_grid(mhsa_bwd_dkdv_bf16_kernel, DKDVB_SMEM, n_work);
+    const int grid_dkdv = ws_grid(mhsa_bwd_dkdv_bf16_kernel, DKDVB_SMEM, n_work,
+                                  "mhsa_bwd_dkdv_bf16_kernel");
     if (grid_dkdv < 0) return -grid_dkdv;
     Drop d = make_drop(thresh, bq, tp, H, head_offset, heads_total);
     d.nq = T / bq;
@@ -2129,10 +2210,10 @@ extern "C" int adyolo_mhsa_bwd_bf16(const void* q, const void* k, const void* v,
         static_cast<const float*>(out32), static_cast<const bf16*>(dout),
         static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), B, T,
         H, scale, d);
-    if (cudaError_t e = cudaGetLastError()) return (int)e;
+    if (int rc = check_launch("mhsa_bwd_dq_bf16_kernel")) return rc;
     mhsa_bwd_dkdv_bf16_kernel<<<grid_dkdv, WS_THREADS, DKDVB_SMEM, st>>>(
         mq, mk, mv, mdo, static_cast<const int*>(kv_len), static_cast<const int*>(seed),
         static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), B, T, H, scale, d);
-    return (int)cudaGetLastError();
+    return check_launch("mhsa_bwd_dkdv_bf16_kernel");
 }

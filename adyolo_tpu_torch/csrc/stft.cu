@@ -1,5 +1,7 @@
 // Framed STFT for Hopper (sm_90a): a mixed-radix Stockham FFT in shared
-// memory.
+// memory, in two kernels: `stft_hop_blocks_fft_kernel` for the DCASE
+// geometry n_fft = 2*hop (described first), and `stft_frames_fft_kernel`
+// for flat audio at any hop (its own section below).
 //
 // Replaces the TPU kernel adyolo_tpu/ops/pallas_stft.py::_make_kernel /
 // _pallas_stft_impl (the Pallas fused framed STFT).  It computes what that
@@ -38,11 +40,19 @@
 
 #include <cuda_runtime.h>
 
+#include "errors.cuh"
+
+using adyolo::check_launch;
+using adyolo::enter;
+using adyolo::fail;
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int CAP = 2400;        // float4 slots of each of a block's two buffers: the largest n
 constexpr int MAX_PASSES = 16;
+constexpr int MAX_N = 4096;      // the frames kernel's largest n
+constexpr int FRAME_SLOTS = 2400;  // the frames kernel's float4 slots a buffer, at n <= 1200
 
 struct Plan {
     int n_pass;
@@ -170,6 +180,44 @@ __device__ __forceinline__ void radix_pass(const float4* src, float4* dst,
     __syncthreads();
 }
 
+// The plan's Stockham passes over `frames` transforms of n points that
+// start in buf[0], ping-ponging with buf[1]; the buffer that ends with the
+// transforms.
+__device__ __forceinline__ const float4* fft_passes(float4* const* buf,
+                                                    const float2* __restrict__ tw, int n,
+                                                    int frames, const Plan& plan) {
+    int ns = 1, cur = 0;
+    for (int p = 0; p < plan.n_pass; ++p, cur ^= 1) {
+        switch (plan.radix[p]) {
+            case 2: radix_pass<2>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+            case 3: radix_pass<3>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+            case 4: radix_pass<4>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+            default: radix_pass<5>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
+        }
+        ns *= plan.radix[p];
+    }
+    return buf[cur];
+}
+
+// Splits the channel pairs of the `frames` transforms Z [frames][n] (z0 =
+// (x, y) carries c0 + i c1, z1 = (z, w) c2 + i c3) and writes bins
+// 0..n/2 of each as float4 re and im from element out0 on, channel-last.
+__device__ __forceinline__ void split_pairs(const float4* Z, int n, int frames, long long out0,
+                                            float4* __restrict__ re, float4* __restrict__ im) {
+    const int K = n / 2 + 1;
+    const float inv_k = 1.0f / static_cast<float>(K);
+    for (int idx = threadIdx.x; idx < frames * K; idx += THREADS) {
+        const int f = div_small(idx, inv_k);
+        const int k = idx - f * K;
+        const float4 z = Z[f * n + k];
+        const float4 c = Z[f * n + (k == 0 ? 0 : n - k)];  // Z[n - k], conjugated below
+        re[out0 + idx] = make_float4(0.5f * (z.x + c.x), 0.5f * (z.y + c.y),
+                                     0.5f * (z.z + c.z), 0.5f * (z.w + c.w));
+        im[out0 + idx] = make_float4(0.5f * (z.y - c.y), 0.5f * (c.x - z.x),
+                                     0.5f * (z.w - c.w), 0.5f * (c.z - z.z));
+    }
+}
+
 __global__ void __launch_bounds__(THREADS, 2)
 stft_hop_blocks_fft_kernel(const float4* __restrict__ x, long long clip_stride, int T,
                            int hop, const float* __restrict__ table, Plan plan,
@@ -225,32 +273,109 @@ stft_hop_blocks_fft_kernel(const float4* __restrict__ x, long long clip_stride, 
     }
     __syncthreads();
 
-    int ns = 1, cur = 0;
-    for (int p = 0; p < plan.n_pass; ++p, cur ^= 1) {
-        switch (plan.radix[p]) {
-            case 2: radix_pass<2>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
-            case 3: radix_pass<3>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
-            case 4: radix_pass<4>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
-            default: radix_pass<5>(buf[cur], buf[cur ^ 1], tw, n, frames, ns); break;
-        }
-        ns *= plan.radix[p];
-    }
+    const float4* Z = fft_passes(buf, tw, n, frames, plan);
+    split_pairs(Z, n, min(frames, T - t0), ((long long)b * T + t0) * K, re, im);
+}
 
-    // split the pairs: z0 = (x, y) carries c0 + i c1, z1 = (z, w) c2 + i c3
-    const float4* Z = buf[cur];
+// ---------------------------------------------------------------------------
+// Any hop: `stft_frames_fft_kernel` on flat (B, N, 4) audio.
+//
+// Frame t of a clip holds the librosa center=True samples
+//   s = t hop + m - n/2,  m < n,
+// of the flat clip x: the left edge reflected (s < 0 reads x[-s]), samples
+// from N on zeros (JAX's right pad), T = N / hop frames, the window of
+// win_length zero-padded to n in the table (counterpart of
+// adyolo_tpu/ops/features.py::_stft_re_im on flat audio, which frames by
+// reshaped slices when hop | n and by a gather otherwise).  It serves
+// every n_fft other than 2*hop that the plan takes: n even, a product of
+// 2, 3 and 5, up to MAX_N = 4096 (2400-sample windows of 48-kHz audio in
+// 4096).
+//
+// Design: a block owns F = max(1, FRAME_SLOTS / n) consecutive frames (F =
+// 1 at n >= 1201) and reads each frame's n samples straight from the clip,
+// as float4 (the 4 FOA channels), coalesced, 8 loads in flight a thread;
+// frames overlap by n - hop samples, and those rereads are left to L2.
+// Then the same Stockham passes, table and pair split as the hop-block
+// kernel, over buffers of F n float4: 64 KB a block at n = 2048 (3 blocks
+// an SM), 128 KB at n = 4096 (1 block an SM, opted in above 48 KB).
+//
+// What bounds it on an H100: memory.  At B = 16 x 20 s of 24-kHz audio,
+// (n, hop) = (2048, 600), it reads 123 MB of audio and writes 420 MB of
+// re/im (0.162 ms at 3.35 TB/s) for 3.2 GFLOP of FFT.
+__global__ void __launch_bounds__(THREADS, 2)
+stft_frames_fft_kernel(const float4* __restrict__ x, long long clip_stride, long long N, int T,
+                       int hop, int n, const float* __restrict__ table, Plan plan, int frames,
+                       int blocks_per_clip, float4* __restrict__ re, float4* __restrict__ im) {
+    extern __shared__ __align__(16) float4 smem[];
+    const int half = n / 2;
+    const int K = half + 1;
+    float4* buf[2] = {smem, smem + frames * n};  // ping-pong, [frames][n] each
+    const float2* tw = reinterpret_cast<const float2*>(table);  // [n] e^{-2 pi i m / n}
+    const float* win = table + 2 * n;                              // [n] the window
+
+    const int tid = threadIdx.x;
+    const int b = blockIdx.x / blocks_per_clip;
+    const int t0 = (blockIdx.x - b * blocks_per_clip) * frames;
     const int nf = min(frames, T - t0);
-    const long long out0 = ((long long)b * T + t0) * K;
-    const float inv_k = 1.0f / static_cast<float>(K);
-    for (int idx = tid; idx < nf * K; idx += THREADS) {
-        const int f = div_small(idx, inv_k);
-        const int k = idx - f * K;
-        const float4 z = Z[f * n + k];
-        const float4 c = Z[f * n + (k == 0 ? 0 : n - k)];  // Z[n - k], conjugated below
-        re[out0 + idx] = make_float4(0.5f * (z.x + c.x), 0.5f * (z.y + c.y),
-                                     0.5f * (z.z + c.z), 0.5f * (z.w + c.w));
-        im[out0 + idx] = make_float4(0.5f * (z.y - c.y), 0.5f * (c.x - z.x),
-                                     0.5f * (z.w - c.w), 0.5f * (c.z - z.z));
+    const float4* clip = x + (long long)b * clip_stride;
+    const float inv_n = 1.0f / static_cast<float>(n);
+
+    constexpr int STAGE = 8;  // loads a thread issues before its stores
+    const int total = nf * n;
+    for (int base = 0; base < total; base += STAGE * THREADS) {
+        float4 v[STAGE];
+#pragma unroll
+        for (int i = 0; i < STAGE; ++i) {
+            const int idx = base + tid + i * THREADS;
+            v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (idx < total) {
+                const int f = div_small(idx, inv_n);
+                const long long s = (long long)(t0 + f) * hop + (idx - f * n) - half;
+                const long long src = s < 0 ? -s : s;  // the reflected left edge
+                if (src < N) v[i] = __ldg(clip + src);  // zeros from N on
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < STAGE; ++i) {
+            const int idx = base + tid + i * THREADS;
+            if (idx < total) {
+                const int m = idx - div_small(idx, inv_n) * n;
+                buf[0][idx] = scale(v[i], __ldg(win + m));
+            }
+        }
     }
+    __syncthreads();
+
+    const float4* Z = fft_passes(buf, tw, n, nf, plan);
+    split_pairs(Z, n, nf, ((long long)b * T + t0) * K, re, im);
+}
+
+// The radix plan of a launch, checked against n: 0 or the failure.
+int make_plan(const int* radices, int n_pass, int n, Plan* plan) {
+    if (n_pass < 1 || n_pass > MAX_PASSES) {
+        return fail((int)cudaErrorInvalidValue, "radix plan: %d passes (1..%d)", n_pass,
+                    MAX_PASSES);
+    }
+    plan->n_pass = n_pass;
+    long long prod = 1;
+    for (int p = 0; p < n_pass; ++p) {
+        if (radices[p] < 2 || radices[p] > 5) {
+            return fail((int)cudaErrorInvalidValue, "radix plan: pass %d has radix %d (2..5)",
+                        p, radices[p]);
+        }
+        plan->radix[p] = radices[p];
+        prod *= radices[p];
+    }
+    if (prod != n) {
+        return fail((int)cudaErrorInvalidValue, "radix plan: the radices multiply to %lld, "
+                    "not n_fft %d", prod, n);
+    }
+    return 0;
+}
+
+// Frames a block of the frames kernel owns at this n.
+int frames_per_block(int n) {
+    return n >= FRAME_SLOTS ? 1 : FRAME_SLOTS / n;
 }
 
 }  // namespace
@@ -265,33 +390,82 @@ extern "C" long long adyolo_stft_smem_bytes() {
 // (3 * n,) float32, n = 2 * hop: the twiddles e^{-2 pi i m / n} as (re, im)
 // pairs, then the window; radices: the n_pass radices of the plan (each
 // 2, 3, 4 or 5, product n); re, im: (B, T, hop + 1, 4) float32.  Launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// on `stream` and returns 0 on success, else the CUDA error of the site
+// that failed, which adyolo_last_error (csrc/errors.cu) names.
 extern "C" int adyolo_stft_fft(const void* x, long long clip_stride, int B, int T, int hop,
                                const void* table, const int* radices, int n_pass, void* re,
                                void* im, void* stream) {
+    if (int rc = enter("adyolo_stft_fft")) return rc;
     const int n = 2 * hop;
-    if (B < 1 || T < 2 || hop < 1 || n > CAP || n_pass < 1 || n_pass > MAX_PASSES ||
-        clip_stride < (long long)T * hop) {
-        return (int)cudaErrorInvalidValue;
+    if (B < 1 || T < 2 || hop < 1 || n > CAP || clip_stride < (long long)T * hop) {
+        return fail((int)cudaErrorInvalidValue, "arguments: B=%d T=%d hop=%d clip_stride=%lld "
+                    "(B >= 1, T >= 2, 2 hop <= %d, clip_stride >= T hop)", B, T, hop,
+                    clip_stride, CAP);
     }
     Plan plan;
-    plan.n_pass = n_pass;
-    long long prod = 1;
-    for (int p = 0; p < n_pass; ++p) {
-        if (radices[p] < 2 || radices[p] > 5) return (int)cudaErrorInvalidValue;
-        plan.radix[p] = radices[p];
-        prod *= radices[p];
-    }
-    if (prod != n) return (int)cudaErrorInvalidValue;
+    if (int rc = make_plan(radices, n_pass, n, &plan)) return rc;
     const int frames = CAP / n;
     const int blocks_per_clip = (T + frames - 1) / frames;
-    if ((long long)B * blocks_per_clip > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if ((long long)B * blocks_per_clip > 0x7fffffffLL) {
+        return fail((int)cudaErrorInvalidValue, "grid of %lld blocks",
+                    (long long)B * blocks_per_clip);
+    }
     const size_t smem = (size_t)adyolo_stft_smem_bytes();
-    cudaError_t e = cudaFuncSetAttribute(stft_hop_blocks_fft_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    const cudaError_t e = cudaFuncSetAttribute(
+        stft_hop_blocks_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) {
+        return fail((int)e, "cudaFuncSetAttribute(stft_hop_blocks_fft_kernel, max dynamic "
+                    "shared memory %zu B)", smem);
+    }
     stft_hop_blocks_fft_kernel<<<B * blocks_per_clip, THREADS, smem, (cudaStream_t)stream>>>(
         static_cast<const float4*>(x), clip_stride, T, hop, static_cast<const float*>(table),
         plan, frames, blocks_per_clip, static_cast<float4*>(re), static_cast<float4*>(im));
-    return (int)cudaGetLastError();
+    return check_launch("stft_hop_blocks_fft_kernel");
+}
+
+// Dynamic shared memory of a frames-kernel launch at n_fft `n`.
+extern "C" long long adyolo_stft_frames_smem_bytes(int n) {
+    return n < 2 ? -1LL : (long long)(2 * frames_per_block(n) * n * sizeof(float4));
+}
+
+// C entry point of the frames kernel.  x: flat (B, N, 4) float32 audio,
+// clip b at x + b * clip_stride (float4 units), 16-byte aligned; T = N /
+// hop frames; table: (3 * n,) float32, as above; radices as above, product
+// n; re, im: (B, T, n / 2 + 1, 4) float32.  Needs n even, n <= 4096 and N
+// > n / 2 (the reflection of frame 0 stays inside the clip).  Launches on
+// `stream`; returns as adyolo_stft_fft.
+extern "C" int adyolo_stft_frames_fft(const void* x, long long clip_stride, long long N, int B,
+                                      int T, int hop, int n, const void* table,
+                                      const int* radices, int n_pass, void* re, void* im,
+                                      void* stream) {
+    if (int rc = enter("adyolo_stft_frames_fft")) return rc;
+    if (B < 1 || hop < 1 || n < 2 || n % 2 != 0 || n > MAX_N || N <= n / 2 || T < 1 ||
+        T != N / hop || clip_stride < N) {
+        return fail((int)cudaErrorInvalidValue, "arguments: B=%d N=%lld T=%d hop=%d n_fft=%d "
+                    "clip_stride=%lld (B, hop, T >= 1, T == N / hop, n_fft even <= %d, N > "
+                    "n_fft / 2, clip_stride >= N)", B, N, T, hop, n, clip_stride, MAX_N);
+    }
+    if (reinterpret_cast<unsigned long long>(x) % 16 != 0) {
+        return fail((int)cudaErrorInvalidValue, "audio address %p is not 16-byte aligned", x);
+    }
+    Plan plan;
+    if (int rc = make_plan(radices, n_pass, n, &plan)) return rc;
+    const int frames = frames_per_block(n);
+    const int blocks_per_clip = (T + frames - 1) / frames;
+    if ((long long)B * blocks_per_clip > 0x7fffffffLL) {
+        return fail((int)cudaErrorInvalidValue, "grid of %lld blocks",
+                    (long long)B * blocks_per_clip);
+    }
+    const size_t smem = (size_t)adyolo_stft_frames_smem_bytes(n);
+    const cudaError_t e = cudaFuncSetAttribute(
+        stft_frames_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) {
+        return fail((int)e, "cudaFuncSetAttribute(stft_frames_fft_kernel, max dynamic shared "
+                    "memory %zu B)", smem);
+    }
+    stft_frames_fft_kernel<<<B * blocks_per_clip, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const float4*>(x), clip_stride, N, T, hop, n,
+        static_cast<const float*>(table), plan, frames, blocks_per_clip,
+        static_cast<float4*>(re), static_cast<float4*>(im));
+    return check_launch("stft_frames_fft_kernel");
 }

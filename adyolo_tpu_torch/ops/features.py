@@ -12,9 +12,12 @@ Counterpart of :mod:`adyolo_tpu.ops.features`:
   spectrum onto ``mel_bins`` centred lags (:func:`_gcc_phat_mel`);
 * scaler standardisation ``(f - mean) / std``.
 
-On a CUDA device the STFT is the hand-written Hopper kernel
-(:func:`adyolo_tpu_torch.ops.hopper_stft.stft_hop_blocks`); on the CPU it
-is the plain PyTorch version.  The mel projections and GCC-PHAT's two lag
+On a CUDA device the STFT is a hand-written Hopper kernel
+(:func:`adyolo_tpu_torch.ops.hopper_stft.stft_hop_blocks`: the hop-block
+kernel at ``n_fft == 2 * hop``, the frames kernel at any other hop); on
+the CPU it is the plain PyTorch version.  Every even ``n_fft`` up to 4096
+whose prime factors are 2, 3 and 5 runs; another is refused when the
+front-end is built, on any device.  The mel projections and GCC-PHAT's two lag
 products are fp32 ``torch.matmul``: JAX computes them with ``einsum``,
 outside any Pallas kernel, too.
 """
@@ -140,7 +143,8 @@ class FeatureFrontend(nn.Module):
     GCC-PHAT pairs).
 
     ``audio``: float32 in [-1, 1], hop-block ``(B, T, hop, 4)`` (the
-    loaders' layout) or flat ``(B, N, 4)``, on ``device``.
+    loaders' layout at ``n_fft == 2 * hop``) or flat ``(B, N, 4)`` (any
+    hop), on ``device``.
     ``valid_frames``: optional (B,) count of valid STFT frames of bucketed
     clips; padded frames are zeroed and left out of the dB peak.
 
@@ -156,11 +160,12 @@ class FeatureFrontend(nn.Module):
         super().__init__()
         if data_cfg.audio_format not in ("foa", "mic"):
             raise ValueError(f"audio_format={data_cfg.audio_format!r}: 'foa' or 'mic'")
-        if 2 * data_cfg.hop_length != data_cfg.n_fft:
+        try:
+            hopper_stft.check_n_fft(data_cfg.n_fft)
+        except ValueError as e:
             raise NotImplementedError(
-                f"hop_length={data_cfg.hop_length} with n_fft={data_cfg.n_fft}: "
-                "the STFT frames at n_fft // 2, so it needs n_fft == "
-                "2 * hop_length (the DCASE geometry, 1200 / 600)")
+                f"STFT geometry n_fft={data_cfg.n_fft}, hop_length={data_cfg.hop_length}, "
+                f"win_length={data_cfg.win_length}: {e}") from None
         self.cfg = data_cfg
         self.device = torch.device(device)
         w = analysis_window(data_cfg.window, data_cfg.win_length, data_cfg.n_fft)
@@ -192,7 +197,7 @@ class FeatureFrontend(nn.Module):
         return hopper_stft.FFTPlan(self.fft_table)
 
     def stft(self, audio: torch.Tensor):
-        return hopper_stft.stft_hop_blocks(audio, self.fft)
+        return hopper_stft.stft_hop_blocks(audio, self.fft, self.cfg.hop_length)
 
     def _aux(self, re, im) -> torch.Tensor:
         if self.cfg.audio_format == "foa":

@@ -70,7 +70,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.build import load_library
+from ..utils.build import launch_error, load_library
 from . import attention
 
 __all__ = ["flash_attention", "eval_forward", "train_forward", "train_backward",
@@ -181,8 +181,7 @@ def _count(rt, kernels):
 def _launch(name, *args):
     rc = _entry(name)(*args)
     if rc != 0:
-        raise RuntimeError(f"attention kernel launch refused ({name}): "
-                           f"cudaError {rc}")
+        raise launch_error("attention kernel launch refused", rc)
 
 
 def _hash_args(T, head_offset, heads_total):
@@ -202,7 +201,7 @@ def _fwd_plan(q):
     if plan is None:
         splits = _entry(_TRAIN[q.dtype].splits_entry)(B, T, H)
         if splits < 1:
-            raise RuntimeError(f"attention kernel: no split plan, cudaError {-splits}")
+            raise launch_error("attention kernel: no split plan", -splits)
         n = _entry("adyolo_mhsa_fwd_scratch_floats")(B, T, H, splits) if splits > 1 else 0
         plan = _plans[key] = (splits, n)
     splits, n = plan

@@ -1,11 +1,13 @@
 """The eval paths of the Hopper kernels as custom operators
 (``torch.library.custom_op``), one op each in a traced graph.
 
-* ``adyolo::stft(x, table) -> (re, im)``: K1, the windowed DFT of
-  hop-block ``(B, T, hop, 4)`` or flat ``(B, N, 4)`` float32 audio with the
-  twiddle-and-window ``table`` of an :class:`~adyolo_tpu_torch.ops.
-  hopper_stft.FFTPlan` (``3 * n_fft`` floats, ``hop = n_fft // 2``); re
-  and im ``(B, T, hop + 1, 4)`` float32, ``T = N // hop`` for flat audio.
+* ``adyolo::stft(x, table, hop) -> (re, im)``: K1, the windowed DFT of
+  hop-block ``(B, T, hop, 4)`` audio (``n_fft == 2 * hop``) or of the
+  librosa ``center=True`` frames of flat ``(B, N, 4)`` float32 audio at
+  any ``hop``, with the twiddle-and-window ``table`` of an
+  :class:`~adyolo_tpu_torch.ops.hopper_stft.FFTPlan` (``3 * n_fft``
+  floats); re and im ``(B, T, n_fft // 2 + 1, 4)`` float32, ``T = N //
+  hop`` for flat audio.
 * ``adyolo::mhsa_eval(q, k, v, kv_len) -> out``: the eval attention of
   ``(B, T, H, 64)`` float32 or bfloat16 q/k/v with the first ``kv_len[b]``
   keys valid (``kv_len`` None: all), on routes ``k2``, ``k4`` and
@@ -60,21 +62,21 @@ __all__ = ["stft", "mhsa_eval", "mhsa_train", "mhsa_train_bwd"]
 
 
 @torch.library.custom_op("adyolo::stft", mutates_args=(), device_types="cpu")
-def stft(x: torch.Tensor, table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def stft(x: torch.Tensor, table: torch.Tensor, hop: int
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     n_fft = table.shape[0] // 3
-    return plain_stft.stft(x, *plain_stft.window_dft(table[2 * n_fft:]), n_fft // 2)
+    return plain_stft.stft(x, *plain_stft.window_dft(table[2 * n_fft:]), hop)
 
 
 @stft.register_kernel("cuda")
-def _stft_cuda(x, table):
-    return hopper_stft.launch(x, table)
+def _stft_cuda(x, table, hop):
+    return hopper_stft.launch(x, table, hop)
 
 
 @stft.register_fake
-def _stft_fake(x, table):
-    hop = table.shape[0] // 3 // 2
+def _stft_fake(x, table, hop):
     T = x.shape[1] if x.ndim == 4 else x.shape[1] // hop
-    shape = (x.shape[0], T, hop + 1, x.shape[-1])
+    shape = (x.shape[0], T, table.shape[0] // 3 // 2 + 1, x.shape[-1])
     return x.new_empty(shape), x.new_empty(shape)
 
 

@@ -12,6 +12,10 @@ with a plain C interface (no PyTorch headers, so a build takes seconds)::
 The library is named by a hash of the sources and the flags, built on
 first use, and reused while neither changes.  A failed build raises
 :class:`KernelBuildError` carrying nvcc's stderr; there is no fallback.
+An entry point that returns an error has recorded where it failed
+(``csrc/errors.cuh``); :func:`launch_error` turns that record into a
+:class:`KernelLaunchError` naming the entry point, the site and the CUDA
+error.
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ import threading
 import time
 from typing import Optional
 
-__all__ = ["KernelBuildError", "BUILD_DIR", "NVCC_FLAGS", "LINK_FLAGS", "sources",
-           "nvcc_path", "library_path", "build", "load_library"]
+__all__ = ["KernelBuildError", "KernelLaunchError", "BUILD_DIR", "NVCC_FLAGS",
+           "LINK_FLAGS", "sources", "nvcc_path", "library_path", "build", "load_library",
+           "launch_error"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -42,6 +47,16 @@ _lib: Optional[ctypes.CDLL] = None
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused the sources."""
+
+
+class KernelLaunchError(RuntimeError):
+    """An entry point of the kernel library returned an error: ``entry``,
+    ``site`` (what failed, with its values), ``code`` and ``name`` (the
+    CUDA error's, or the CUDA driver's for a ``CUresult``)."""
+
+    def __init__(self, what, entry, site, code, name):
+        super().__init__(f"{what}: {entry}: {site}: {name} ({code})")
+        self.entry, self.site, self.code, self.name = entry, site, code, name
 
 
 def sources() -> list:
@@ -129,3 +144,21 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(build()["path"])
         return _lib
+
+
+def launch_error(what: str, rc: int) -> KernelLaunchError:
+    """The error to raise for an entry point call of this thread that
+    returned ``rc`` (not 0): the library's record of the failure
+    (``adyolo_last_error``), read on the thread that made the call."""
+    fn = load_library().adyolo_last_error
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_char_p)] * 2 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_char_p)]
+    entry, site, name = ctypes.c_char_p(), ctypes.c_char_p(), ctypes.c_char_p()
+    code = ctypes.c_int()
+    if not fn(ctypes.pointer(entry), ctypes.pointer(site), ctypes.pointer(code),
+              ctypes.pointer(name)):
+        return KernelLaunchError(what, "(unknown entry point)", "no failure recorded",
+                                 abs(rc), f"return code {rc}")
+    return KernelLaunchError(what, entry.value.decode(), site.value.decode(), code.value,
+                             name.value.decode())

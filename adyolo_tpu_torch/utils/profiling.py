@@ -40,7 +40,7 @@ __all__ = ["PROFILE_GROUPS", "OTHER", "DEVICE_SLACK", "group_ms", "profile_calls
            "device_name", "device_peak_flops", "mfu"]
 
 PROFILE_GROUPS = (  # kernel-name substrings, first match wins
-    ("K1 STFT", ("stft_hop_blocks",)),
+    ("K1 STFT", ("stft_hop_blocks", "stft_frames")),
     ("attention fwd", ("mhsa_fwd",)),
     ("attention bwd", ("mhsa_bwd",)),
     ("optimizer", ("multi_tensor", "adam")),
@@ -430,10 +430,9 @@ def _cudnn_rnn_backward_formula(input, weight, weight_stride0, weight_buf, hx, c
                      2 if bidirectional else 1, output_mask)
 
 
-def _stft_formula(x, table, out_shape=None, **kw):
-    n_fft = table[0] // 3
-    T = x[1] if len(x) == 4 else x[1] // (n_fft // 2)
-    return stft_flops(x[0] * T * x[-1], n_fft)
+def _stft_formula(x, table, hop, out_shape=None, **kw):
+    T = x[1] if len(x) == 4 else x[1] // hop
+    return stft_flops(x[0] * T * x[-1], table[0] // 3)
 
 
 def _attention_formula(q, *args, out_shape=None, **kw):

@@ -25,7 +25,15 @@ before the last line:
               max|plain|; median times over 30 runs each, CUDA events, in
               turns with the plain version and ``torch.stft`` (the library
               yardstick, checked to compute the same function within
-              1e-4 * max).
+              1e-4 * max).  Then K1's frames kernel (flat audio at any
+              hop): (2, 203 * hop + 17, 4) at (n_fft, hop, win) = (2048,
+              600, 1200), (1024, 600, 1024), (2400, 600, 2400) and (4096,
+              1200, 2400) against ``framed_dft_flat`` within 2e-5 * max,
+              one launch each; the timed row ``frames_serving`` at (16,
+              800 * 600, 4), n_fft 2048, win 1200, beside the plain
+              version and ``torch.stft`` (held to the function on the
+              frames before the last: its right edge is reflected, JAX's
+              zeros).
 4. attn_kernel -- the Hopper attention kernel (3xTF32 tensor cores) vs
               the plain attention at (B, T, 4, 64): (16, 800) all keys
               valid and with random kv_len (one row 0), (1, 1200) len 920,
@@ -46,6 +54,14 @@ before the last line:
               medians of 30 runs of forward, backward and both, in turns
               with the plain version and SDPA (dropout_p 0.2); the forward
               alone also at (1, 1200) len 920.
+4b. attn_launch_order -- in a process of its own (this script with
+              ``--attn-launch-order``): the plain fp32 attention at (1,
+              9600, 4, 64) with 8000 keys valid, then, the first kernel
+              calls on autograd's device thread, the bf16 train pair and
+              the fp32 train pair at (16, 800, 4, 64), rate 0.2, through
+              autograd, held with the rules of phases
+              attn_train_bf16_kernel and attn_train_kernel (the bf16
+              backward's tensor-map encode once failed in that order).
 6. forward -- FeatureFrontend + SE-ResNet34 + AD-YOLO at full width (13
               classes, seeded random init, eval, fp32) on 16 x 20-s clips:
               finite (16, 200, 2560) logits, the kernel launched, and
@@ -54,7 +70,11 @@ before the last line:
               then a ``torch.profiler`` breakdown of two more forwards.
               Then forward_b1: one 30-s clip (B = 1 x 1200 frames, the
               ``cli infer`` bucket), the same checks, the CUDA-event median
-              of 10 and a profile of 5 forwards.
+              of 10 and a profile of 5 forwards.  Then
+              forward_other_geometry: the same model at n_fft 2048, win
+              1200 on flat 16 x 20-s clips (K1's frames kernel once),
+              within 1e-3 * max of the all-plain forward; median of 10, a
+              profile of 2 that holds the frames kernel.
 7. forward_conformer -- the same with ResNet-Conformer + AD-YOLO (emb 256,
               8 blocks, 4 heads): the STFT kernel launched once and the
               attention kernel 8 times (route k2), within 1e-3 *
@@ -109,7 +129,10 @@ before the last line:
 
 Then the bf16 phases (attn_train_bf16_kernel, train_seresnet34,
 train_conformer_bf16, train_cli_se_bf16; each function's docstring says
-what it holds), and:
+what it holds), cli_other_geometry (``cli train`` 2 epochs x 1 step,
+``val``, ``infer`` and ``export`` of SE-ResNet34 at n_fft 2048, win 1200,
+every K1 launch the frames kernel; the artifact's served call against the
+live forward), and:
 
 12. preprocess_mic -- a DCASE2022-layout MIC set written by the script
               (two 30-s dev-train clips, val and test clips of 23 and 35 s;
@@ -299,7 +322,7 @@ from adyolo_tpu_torch.engine.checkpoint import optax_state, save_jax_checkpoint 
 from adyolo_tpu_torch.engine import evaluate as evaluate_mod  # noqa: E402
 from adyolo_tpu_torch.engine import train as train_mod  # noqa: E402
 from adyolo_tpu_torch.engine.evaluate import (build_eval_forward, infer,  # noqa: E402
-                                              make_frontend)
+                                              load_best_model, make_frontend)
 from adyolo_tpu_torch.engine.export import export_model, load_exported  # noqa: E402
 from adyolo_tpu_torch.metrics.seld import SegmentScorer  # noqa: E402
 from adyolo_tpu_torch.models import resnet_conformer  # noqa: E402
@@ -320,6 +343,10 @@ from adyolo_tpu_torch.utils.profiling import (check_device_ms, group_ms,  # noqa
                                               profile_calls)
 
 HOP = 600
+# the DCASE SELD baseline's geometry at a 600-sample hop: a window of 2 hops
+# in the next power of two (seld-dcase2022, cls_feature_class.py), which
+# the frames kernel of K1 runs
+OTHER_N_FFT, OTHER_WIN = 2048, 1200
 KERNEL_TOL = 2e-5
 GRAD_KERNEL_TOL = 1e-4  # kernel vs plain attention gradients, x max|grad|
 LIBRARY_TOL = 1e-4  # torch.stft / SDPA vs the plain version, x max|plain|
@@ -502,12 +529,18 @@ def attn_bound(flop, nbytes):
 
 def zero_counts():
     hopper_stft.LAUNCHES = 0
+    for name in hopper_stft.KERNELS:
+        hopper_stft.KERNELS[name] = 0
     for rt in hopper_attention.LAUNCHES:
         hopper_attention.LAUNCHES[rt] = 0
 
 
 def counts():
-    return {"stft": hopper_stft.LAUNCHES, **hopper_attention.LAUNCHES}
+    """Launches by route: ``stft`` K1's hop-block kernel, ``stft_frames``
+    its frames kernel (any hop), then the attention routes."""
+    return {"stft": hopper_stft.KERNELS["stft_hop_blocks_fft_kernel"],
+            "stft_frames": hopper_stft.KERNELS["stft_frames_fft_kernel"],
+            **hopper_attention.LAUNCHES}
 
 
 @contextlib.contextmanager
@@ -553,7 +586,8 @@ def ptxas_kernels(log):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            name = next(k for k in ("stft_hop_blocks_fft_kernel", "mhsa_fwd_kernelILb1",
+            name = next(k for k in ("stft_hop_blocks_fft_kernel", "stft_frames_fft_kernel",
+                                    "mhsa_fwd_kernelILb1",
                                     "mhsa_fwd_kernelILb0", "mhsa_fwd_merge_kernel",
                                     "mhsa_bwd_dq_kernel", "mhsa_bwd_dkdv_kernel",
                                     "mhsa_fwd_bf16_kernelILb1", "mhsa_fwd_bf16_kernelILb0",
@@ -575,9 +609,12 @@ def phase_build():
     info = build.build(force=True)
     lib = build.load_library()
     lib.adyolo_stft_smem_bytes.restype = ctypes.c_longlong
+    lib.adyolo_stft_frames_smem_bytes.restype = ctypes.c_longlong
     lib.adyolo_mhsa_smem_bytes.restype = ctypes.c_longlong
     kernels = ptxas_kernels(info["ptxas"])
     dyn = {"stft_hop_blocks_fft_kernel": lib.adyolo_stft_smem_bytes(),
+           # at n_fft 2048; 4096 takes 2x
+           "stft_frames_fft_kernel": lib.adyolo_stft_frames_smem_bytes(OTHER_N_FFT),
            "mhsa_fwd_kernel<true>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_kernel<false>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_merge_kernel": 0,
@@ -681,6 +718,104 @@ def phase_kernel(smi, fe, dft):
         res[tag] = row
         emit(row)
         del x
+    res["frames"] = phase_kernel_frames(smi, rng, fe.cfg.window)
+    return res
+
+
+# (n_fft, hop, win_length) of the frames kernel's cases: the DCASE
+# baseline's 2048 / 600 / 1200, a power-of-two n_fft equal to the window,
+# a 2400 window in its own n_fft (radices 4 4 2 3 5 5), and 48-kHz audio's
+# 2400 window in 4096 (1 frame a block, 128 KB of shared memory)
+OTHER_GEOMETRIES = ((OTHER_N_FFT, HOP, OTHER_WIN), (1024, HOP, 1024), (2400, HOP, 2400),
+                    (4096, 2 * HOP, 2400))
+
+
+def phase_kernel_frames(smi, rng, window):
+    """K1's frames kernel (flat audio at any hop) against the plain flat
+    framing ``framed_dft_flat`` of the same samples, within KERNEL_TOL x
+    max: (2, 203 hops + 17, 4) at each of OTHER_GEOMETRIES, one launch a
+    call; then the timed row at 16 x 20 s, (16, 800 * 600, 4) at n_fft
+    2048, win 1200: single calls (CUDA events, in turns with the plain
+    version and ``torch.stft``), the profiler's device time a call, and the
+    bound.  ``torch.stft`` pads the right edge by reflection where JAX pads
+    zeros, so it is held to the function on the frames before the last."""
+    res = {"max_abs_err": 0.0}
+    for n_fft, hop, win in OTHER_GEOMETRIES:
+        plan = hopper_stft.fft_plan(analysis_window(window, win, n_fft), "cuda")
+        mats = window_dft(window, win, n_fft)
+        a = foa_audio(rng, (2, 203 * hop + 17, 4))
+        a[:, :n_fft] = rng.uniform(-0.5, 0.5, (2, n_fft, 4))  # the reflected left edge
+        x = torch.tensor(a, device="cuda")
+        before = counts()
+        kr, ki = hopper_stft.stft_hop_blocks(x, plan, hop)
+        torch.cuda.synchronize()
+        grown = {n: c - before[n] for n, c in counts().items()}
+        require(grown == {**{n: 0 for n in grown}, "stft_frames": 1},
+                f"STFT frames kernel {n_fft}/{hop}: launches {grown}")
+        pr, pi = plain_stft.framed_dft_flat(x, *mats, hop)
+        err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+        scale = max(float(pr.abs().max()), float(pi.abs().max()))
+        require(kr.shape == (2, 203, n_fft // 2 + 1, 4) and np.isfinite(err)
+                and err <= KERNEL_TOL * scale,
+                f"STFT frames kernel {n_fft}/{hop}/{win}: shape {tuple(kr.shape)}, max err "
+                f"{err} > {KERNEL_TOL} * {scale}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        emit({"phase": "kernel", "case": f"frames_{n_fft}_{hop}_{win}", "shape": list(a.shape),
+              "radices": list(plan.radices), "max_abs_err": err, "max_abs_plain": scale,
+              "tol_rel": KERNEL_TOL})
+        del x, kr, ki, pr, pi
+
+    n_fft, hop, win = OTHER_GEOMETRIES[0]
+    plan = hopper_stft.fft_plan(analysis_window(window, win, n_fft), "cuda")
+    mats = window_dft(window, win, n_fft)
+    x = torch.tensor(foa_audio(rng, (16, 800 * hop, 4)), device="cuda")
+    B, N = x.shape[:2]
+    T, K = N // hop, n_fft // 2 + 1
+    kr, ki = hopper_stft.stft_hop_blocks(x, plan, hop)
+    pr, pi = plain_stft.framed_dft_flat(x, *mats, hop)
+    err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+    scale = max(float(pr.abs().max()), float(pi.abs().max()))
+    require(np.isfinite(err) and err <= KERNEL_TOL * scale,
+            f"STFT frames kernel at {(B, N, 4)}: max err {err} > {KERNEL_TOL} * {scale}")
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    del kr, ki
+    xs = x.permute(0, 2, 1).reshape(B * 4, N).contiguous()
+    win_t = torch.as_tensor(analysis_window(window, win, n_fft), device="cuda")
+
+    def library():
+        return torch.stft(xs, n_fft=n_fft, hop_length=hop, window=win_t, center=True,
+                          pad_mode="reflect", return_complex=True)
+
+    lib = library()[..., :T].reshape(B, 4, K, T).permute(0, 3, 2, 1)
+    lib_err = float(torch.maximum((lib.real - pr)[:, :T - 1].abs().max(),
+                                  (lib.imag - pi)[:, :T - 1].abs().max()))
+    require(lib_err <= LIBRARY_TOL * scale,
+            f"torch.stft is not the STFT's function before the last frame: {lib_err} > "
+            f"{LIBRARY_TOL} * {scale}")
+    del lib, pr, pi
+    k_ms, p_ms, l_ms = [], [], []
+    for _ in range(3):  # in turns: kernel, plain, library, ...
+        k_ms += cuda_ms(lambda: hopper_stft.stft_hop_blocks(x, plan, hop), 10)
+        p_ms += cuda_ms(lambda: plain_stft.framed_dft_flat(x, *mats, hop), 10)
+        l_ms += cuda_ms(library, 10)
+    # the function's least work: a real FFT per frame and channel, audio in
+    # once, re/im out once
+    fft_flop = B * T * 4 * (2.5 * n_fft * np.log2(n_fft) + n_fft)
+    nbytes = 4.0 * (B * N * 4 + 3 * n_fft + 2 * B * T * K * 4)
+    row = {"phase": "kernel", "case": "frames_serving", "shape": [B, N, 4],
+           "geometry": {"n_fft": n_fft, "hop": hop, "win_length": win},
+           "radices": list(plan.radices), "max_abs_err": err, "max_abs_plain": scale,
+           "tol_rel": KERNEL_TOL, "ms": float(np.median(k_ms)),
+           "plain_ms": float(np.median(p_ms)), "library_ms": float(np.median(l_ms)),
+           "library": "torch.stft", "library_max_abs_err_before_last_frame": lib_err,
+           **bound(fft_flop, nbytes), "runs": len(k_ms),
+           "gb_s": nbytes / (np.median(k_ms) * 1e-3) / 1e9, "card": smi}
+    row.update(device_fields(lambda: hopper_stft.stft_hop_blocks(x, plan, hop), library,
+                             row["bound_ms"], row["ms"], row["library_ms"]))
+    emit(row)
+    res.update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+                + DEVICE_KEYS})
+    del x, xs
     return res
 
 
@@ -1082,6 +1217,92 @@ def phase_attn_train_bf16_kernel(smi):
     return res
 
 
+ORDER_ARG = "--attn-launch-order"  # the argument of phase attn_launch_order's process
+ORDER_PLAIN = (1, 9600, 8000)  # the plain attention first: B, T, valid keys
+ORDER_TRAIN = (16, 800)  # then the train pairs: B, T
+
+
+def attn_launch_order_child():
+    """Phase attn_launch_order's body, in a process of its own: the plain
+    float32 attention at (1, 9600, 4, 64) with 8000 keys valid, which
+    leaves ~1.5 GB score blocks in the caching allocator, and then, the
+    first kernel calls on autograd's device thread, the bf16 train pair
+    (k2_dropout_bf16 + k3_bf16) and the float32 pair (k2_dropout + k3) at
+    (16, 800, 4, 64), rate 0.2, all keys valid, through autograd.  The bf16
+    pair is held against float64 as in attn_train_bf16_kernel, the float32
+    pair against the plain attention and its written-out backward as in
+    attn_train_kernel.  Counts are the wrappers' route counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(19)
+    Bp, Tp, Lp = ORDER_PLAIN
+    q, k, v = (torch.tensor(rng.standard_normal((Bp, Tp, 4, 64)), dtype=torch.float32,
+                            device="cuda") for _ in range(3))
+    big = attention.mhsa_attention(q, k, v, torch.full((Bp,), Lp, dtype=torch.int32,
+                                                       device="cuda"))
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(big).all()), "attn_launch_order: the plain attention is "
+            "not finite")
+    del q, k, v, big
+    (B, T), H = ORDER_TRAIN, 4
+    seed = torch.tensor([int(rng.integers(-2 ** 31, 2 ** 31))], dtype=torch.int32,
+                        device="cuda")
+    kv = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    row = {"phase": "attn_launch_order",
+           "before": {"plain_fp32_attention": [Bp, Tp, 4, 64], "kv_len": Lp},
+           "shape": [B, T, H, 64], "rate": RATE}
+    for dtype, fwd_rt, bwd_rt in ((torch.bfloat16, "k2_dropout_bf16", "k3_bf16"),
+                                  (torch.float32, "k2_dropout", "k3")):
+        q, k, v, do = (torch.tensor(rng.standard_normal((B, T, H, 64)), dtype=torch.float32,
+                                    device="cuda").to(dtype) for _ in range(4))
+        args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = dict(hopper_attention.LAUNCHES)
+        out = hopper_attention.flash_attention(*args, kv, rate=RATE, seed=seed)
+        grads = torch.autograd.grad(out, args, do)
+        torch.cuda.synchronize()
+        grown = {n: c - before[n] for n, c in hopper_attention.LAUNCHES.items()}
+        require(grown == {**{n: 0 for n in grown}, fwd_rt: 1, bwd_rt: 1},
+                f"attn_launch_order {dtype}: launches {grown}")
+        if dtype == torch.bfloat16:
+            plain = [attention.mhsa_attention(q, k, v, kv, rate=RATE, seed=seed),
+                     *attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)]
+            row["bf16"] = {"tol": {"ratio": BF16_RATIO, "half_step": BF16_HALF_STEP},
+                           **bf16_vs_truth("attn_launch_order", (out.detach(), *grads), plain,
+                                           bf16_truth(q, k, v, kv, do, seed), [T] * B)}
+        else:
+            want = attention.mhsa_attention(q, k, v, kv, rate=RATE, seed=seed)
+            wgrads = attention.mhsa_attention_bwd(q, k, v, kv, do, rate=RATE, seed=seed)
+            errs = {}
+            for name, g, w, tol in (("out", out.detach(), want, KERNEL_TOL),
+                                    *((n, g, w, GRAD_KERNEL_TOL)
+                                      for n, g, w in zip(("dq", "dk", "dv"), grads, wgrads))):
+                err, scale = float((g - w).abs().max()), float(w.abs().max())
+                require(bool(torch.isfinite(g).all()) and err <= tol * scale,
+                        f"attn_launch_order fp32 {name}: max err {err} > {tol} * {scale}")
+                errs[name] = {"max_abs_err": err, "max_abs_plain": scale, "tol_rel": tol}
+            row["fp32"] = errs
+        row.setdefault("launches", {}).update({fwd_rt: grown[fwd_rt], bwd_rt: grown[bwd_rt]})
+        del q, k, v, do, args, out, grads
+    emit(row)
+
+
+def phase_attn_launch_order(smi):
+    """The training attention in a fresh process after a large plain
+    attention (:func:`attn_launch_order_child`): the bf16 backward's
+    launcher once failed there, the process's history being what made it
+    fail, so the phase runs in a process of its own and fails with it."""
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), ORDER_ARG],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = child.stdout.strip().splitlines()
+    require(child.returncode == 0 and lines,
+            f"attn_launch_order: the process exited {child.returncode}:\n"
+            f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+    row = {**json.loads(lines[-1]), "seconds": time.perf_counter() - t0, "card": smi}
+    emit(row)
+    return row
+
+
 def synthetic_clips(cfg, rng, B):
     """B 20-s int16 FOA chunks in the hop-block layout (B, 800, 600, 4) and
     each one's AD-YOLO targets, of random events (one to three a label
@@ -1304,6 +1525,155 @@ def phase_forward_conformer_long(smi, fe, dft, model):
           "card": smi})
     emit({"phase": "forward_conformer_long_profile",
           **profile_steps(lambda b, _: fwd(b, valid), [x], None, 2), "card": smi})
+
+
+def other_geometry(cfg):
+    """``cfg`` at the DCASE SELD baseline's STFT geometry, n_fft 2048 and a
+    1200-sample window at the 600-sample hop: the loaders and the export
+    take flat (B, N, 4) audio there, and K1 runs its frames kernel."""
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, n_fft=OTHER_N_FFT, win_length=OTHER_WIN))
+
+
+def phase_forward_other_geometry(smi, cfg, model):
+    """FeatureFrontend + SE-ResNet34 + AD-YOLO (``model``, the phase
+    forward's) at n_fft 2048, win 1200, hop 600 on flat 16 x 20-s clips:
+    K1's frames kernel once, finite (16, 200, 2560) logits within
+    FORWARD_TOL x max of the all-plain forward (the plain flat framing);
+    the CUDA-event median of 10 forwards and their host p50, and a profile
+    of two more, which must hold the frames kernel."""
+    c = other_geometry(cfg)
+    fe = make_frontend(c)
+    fwd = build_eval_forward(model, fe)
+    dft = window_dft(c.data.window, c.data.win_length, c.data.n_fft)
+    rng = np.random.default_rng(20)
+    x = torch.tensor(foa_audio(rng, (16, 800 * HOP, 4)), device="cuda")
+    zero_counts()
+    logits = fwd(x)
+    torch.cuda.synchronize()
+    launched = counts()
+    require(launched == {**{n: 0 for n in launched}, "stft_frames": 1},
+            f"forward_other_geometry: launches {launched}, want stft_frames 1")
+    require(tuple(logits.shape) == (16, 200, 2560) and bool(torch.isfinite(logits).all()),
+            f"forward_other_geometry: logits {tuple(logits.shape)}, or not finite")
+    with torch.inference_mode():
+        re, im = plain_stft.framed_dft_flat(x, *dft, HOP)
+        ref = model(fe.features_from_stft(re, im))
+        del re, im
+    err = float((logits - ref).abs().max())
+    scale = float(ref.abs().max())
+    require(err <= FORWARD_TOL * scale,
+            f"forward_other_geometry vs the all-plain forward: {err} > {FORWARD_TOL} * {scale}")
+    t = float(np.median(cuda_ms(lambda: fwd(x), 10)))
+    prof = profile_steps(lambda b, _: fwd(b), [x], None, 2)
+    require(prof["source"] == "cuda_events"
+            or "stft_frames_fft_kernel" in (prof["kernel_counts"] or {}),
+            f"forward_other_geometry: the profile holds no frames kernel: {prof['kernel_counts']}")
+    emit({"phase": "forward_other_geometry", "shape": [16, 800 * HOP, 4],
+          "geometry": {"n_fft": c.data.n_fft, "hop": c.data.hop_length,
+                       "win_length": c.data.win_length},
+          "launches": launched, "max_abs_err": err, "max_abs_logit": scale,
+          "tol_rel": FORWARD_TOL, "ms": t, "host_p50_ms": p50_ms(lambda: fwd(x), 10),
+          "audio_s_per_s": 16 * 20.0 / (t * 1e-3), "card": smi})
+    emit({"phase": "forward_other_geometry_profile", **prof, "card": smi})
+    return launched
+
+
+OTHER_INFER_SECS = (23, 35)
+
+
+def phase_cli_other_geometry(smi, cfg):
+    """The entry points at n_fft 2048, win 1200 (the preset's data config
+    rewritten), on a synthetic DCASE2022-layout set: ``cli train``
+    (SE-ResNet34, fp32, 2 epochs x 1 step of 16 x 20 s, val and test each
+    epoch, the final test), ``val``, ``infer`` on two wavs and ``export``;
+    then the artifact served once on flat audio (B = 1 x 20 s) with the
+    plain versions patched to raise, within SERVE_TOL x max of the live
+    forward of the experiment's best model (and whether bit-equal).
+    Every K1 launch is the frames kernel: per train step and eval clip
+    once.  The counts of the train call (this path's) are set to 0 just
+    before it and read just after."""
+    t_phase = time.perf_counter()
+    c = other_geometry(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_geometry_")
+    try:
+        data = os.path.join(tmp, "data")
+        write_dcase_set(data, c, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
+        configs = preset_dir(tmp, c, data_pth=data, name_pth=os.path.join(data, "classes.txt"),
+                             n_fft=OTHER_N_FFT, win_length=OTHER_WIN)
+        results = os.path.join(tmp, "results")
+        exp_id = "chip-geometry"
+        exp = os.path.join(results, exp_id)
+        seconds = {}
+
+        def run(tag, argv):
+            before = counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--results_dir", results, "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds[tag] = time.perf_counter() - t0
+            require(rc == 0, f"cli_other_geometry: {tag} returned {rc}")
+            return {n: k - before[n] for n, k in counts().items()}
+
+        zero_counts()
+        train = run("train", ["train", "--encoder", "se-resnet34", "--logger", "--nb_epochs", "2",
+                              "--nb_iters", "1", "--batch_size", str(CLI_BATCH),
+                              "--config_dir", configs, "--exp_id", exp_id])
+        frozen = load_config(os.path.join(exp, "hyp_exp.yaml"))
+        require((frozen.data.n_fft, frozen.data.win_length) == (OTHER_N_FFT, OTHER_WIN),
+                f"cli_other_geometry: the frozen config has n_fft {frozen.data.n_fft}, "
+                f"win {frozen.data.win_length}")
+        logs = read_logs(exp)
+        for split in ("train", "val", "test"):
+            got = logs[f"logs/{split}/loss"]
+            require(sorted(got) == [1, 2] and np.isfinite(list(got.values())).all(),
+                    f"cli_other_geometry {split} loss {got}")
+        n_clips = 2 + 2 * 2 * len(EVAL_SECS) + 3 * len(EVAL_SECS)
+        require(train == {**{n: 0 for n in train}, "stft_frames": n_clips},
+                f"cli_other_geometry train: launches {train}, want stft_frames {n_clips}")
+        val = run("val", ["val", "--eval_pth", exp_id])
+        require(val["stft_frames"] > 0 and val["stft_frames"] % len(EVAL_SECS) == 0
+                and val == {**{n: 0 for n in val}, "stft_frames": val["stft_frames"]},
+                f"cli_other_geometry val: launches {val}")
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        rng = np.random.default_rng(21)
+        for i, secs in enumerate(OTHER_INFER_SECS):
+            write_wav(os.path.join(wav_dir, f"clip{i}.wav"),
+                      (rng.standard_normal((secs * c.data.sr + 91, 4)) * 1500).astype(np.int16),
+                      c.data.sr)
+        infer_n = run("infer", ["infer", "--eval_pth", exp_id, "--infer_pth", wav_dir])
+        require(infer_n == {**{n: 0 for n in infer_n}, "stft_frames": len(OTHER_INFER_SECS)},
+                f"cli_other_geometry infer: launches {infer_n}")
+        csvs = read_csvs(os.path.join(exp, "output_infer"))
+        require(len(csvs) == len(OTHER_INFER_SECS), f"cli_other_geometry infer wrote {sorted(csvs)}")
+        run("export", ["export", "--eval_pth", exp_id])
+        call, meta = load_exported(os.path.join(exp, "export"))
+        require(meta["input_layout"] == "flat" and meta["serve_dtype"] == "float32",
+                f"cli_other_geometry export: meta {meta}")
+        x = torch.tensor(foa_audio(rng, tuple(meta["input_shape"])), device="cuda")
+        with plain_versions_raise():
+            before = counts()
+            served = call(x)
+            torch.cuda.synchronize()
+            per_call = {n: k - before[n] for n, k in counts().items()}
+        require(per_call == {**{n: 0 for n in per_call}, "stft_frames": 1},
+                f"cli_other_geometry: launches per served call {per_call}")
+        model, _ = load_best_model(frozen, exp, "cuda")
+        live = build_eval_forward(model, make_frontend(frozen))(x)
+        served_vs_live = {**check_served("other geometry", served, live, "float32"),
+                          "bit_equal": bool(torch.equal(served, live))}
+        emit({"phase": "cli_other_geometry",
+              "geometry": {"n_fft": OTHER_N_FFT, "hop": c.data.hop_length,
+                           "win_length": OTHER_WIN},
+              "losses": {s: logs[f"logs/{s}/loss"] for s in ("train", "val", "test")},
+              "launches": {"train": train, "val": val, "infer": infer_n,
+                           "served_call": per_call},
+              "served_vs_live": served_vs_live, "tol_rel": SERVE_TOL, "cli_s": seconds,
+              "seconds": time.perf_counter() - t_phase, "card": smi})
+        return train
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def pick_threshold(cfg, logits):
@@ -1943,8 +2313,8 @@ def phase_train_cli(smi, cfg, bare_step_ms):
                     f"eval clip of {e['frames']} frames: launches {e}")
         require(any(e["frames"] > attention.BLOCK_THRESHOLD for e in rec["evals"]),
                 "no eval clip on route k4")
-        for name, n in launched.items():  # the float32 run: no bf16 route
-            require((n == 0) if name.endswith("_bf16") else (n > 0),
+        for name, n in launched.items():  # float32 at n_fft 2 hop: no bf16 route, no frames kernel
+            require((n == 0) if name.endswith("_bf16") or name == "stft_frames" else (n > 0),
                     f"train_cli: kernel route {name} launched {n} times")
 
         # the resume: epoch 11 from the stored pool, file list, best_log, generator
@@ -3381,7 +3751,7 @@ def plain_versions(frontend):
     n_fft = frontend.fft.n_fft
     w = [t.to(frontend.device) for t in plain_stft.window_dft(frontend.fft_table[2 * n_fft:].cpu())]
     saved = hopper_stft.launch
-    hopper_stft.launch = lambda x, table: plain_stft.stft(x, *w, n_fft // 2)
+    hopper_stft.launch = lambda x, table, hop: plain_stft.stft(x, *w, hop)
     try:
         with plain_attention():
             yield
@@ -3566,8 +3936,10 @@ def main():
     attn_k = phase_attn_kernel(smi)
     train_k = phase_attn_train_kernel(smi)
     bf16_k = phase_attn_train_bf16_kernel(smi)
+    phase_attn_launch_order(smi)
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
     tau = pick_threshold(cfg, phase_forward(smi, fe, dft, model, "forward"))
+    other_fwd = phase_forward_other_geometry(smi, cfg, model)
     conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
     conf_tau = pick_threshold(conf_cfg, phase_forward(smi, fe, dft, conformer,
                                                       "forward_conformer"))
@@ -3586,6 +3958,7 @@ def main():
     se_train = phase_train_seresnet34(smi, cfg, fe)
     conf_bf16 = phase_train_conformer_bf16(smi, conf_cfg, fe)
     se_cli = phase_train_cli_se_bf16(smi, cfg)
+    other_cli = phase_cli_other_geometry(smi, cfg)
     mic = phase_preprocess_mic(smi, cfg)
     formats = phase_train_cli_formats(smi, cfg)
     ddp = phase_ddp(smi, cfg, conf_cfg)
@@ -3597,6 +3970,7 @@ def main():
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "adyolo_tpu"))
     require(not foreign, f"the JAX package or JAX was imported: {foreign}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    frames_k = stft_k.pop("frames")
     k = stft_k["serving"]
     k["max_abs_err"] = max(r["max_abs_err"] for r in stft_k.values())
     attn = {"route": "cuda", "source": "adyolo_tpu_torch/csrc/attention.cu"}
@@ -3606,6 +3980,7 @@ def main():
              "train_conformer": train,
              "train_cli": engine, "train_seresnet34_bf16": se_train,
              "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli,
+             "forward_other_geometry": other_fwd, "cli_other_geometry": other_cli,
              "preprocess_mic": mic,
              "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
                                    for n in formats["accdoa"]},
@@ -3613,6 +3988,8 @@ def main():
              "tp": tp, "tp_replicated": tp_replicated, "bench": bench}
     for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
         require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
+    require(paths["cli_other_geometry"]["stft_frames"] > 0,
+            "cli_other_geometry: K1's frames kernel never launched")
     require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),
             f"export: a kernel of the path never launched: {paths['export']}")
     require(paths["train_cli_formats_conformer"]["k2_dropout"] > 0
@@ -3632,6 +4009,11 @@ def main():
          "source": "adyolo_tpu_torch/csrc/stft.cu",
          "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
          **launches("stft"), **{n: k[n] for n in keys_k1}},
+        {"name": "stft_frames", "route": "cuda",
+         "source": "adyolo_tpu_torch/csrc/stft.cu",
+         "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
+         **launches("stft_frames", "cli_other_geometry"),
+         **{n: frames_k[n] for n in keys_k1}},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
          **launches("k2"), **{n: attn_k["k2"][n] for n in keys_a}},
@@ -3665,6 +4047,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [ORDER_ARG]:
+        require(torch.cuda.is_available(), "no CUDA device")
+        attn_launch_order_child()
+        sys.exit(0)
     try:
         main()
     finally:

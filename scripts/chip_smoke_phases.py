@@ -3,7 +3,7 @@
 
 Run from the repository root::
 
-    python3 scripts/chip_smoke_phases.py [stftk] [attnk] [attnf32] [attn] [evalk] [fwd] [se] [conf] [cli] [export] [ddp] [tp] [tp_replicated] [bench]
+    python3 scripts/chip_smoke_phases.py [stftk] [attnk] [attnf32] [attn] [order] [evalk] [fwd] [geometry] [se] [conf] [cli] [export] [ddp] [tp] [tp_replicated] [bench]
 
 Phases env and build always run; then ``stftk``: kernel (K1 against its
 plain version, timed, device time a call), ``attnk``: attn_kernel (routes
@@ -11,7 +11,11 @@ k2 and k4), ``attn``: attn_train_bf16_kernel,
 ``se``: train_seresnet34, ``conf``: train_conformer_bf16, ``cli``:
 train_cli_se_bf16 (these four when none is named), ``evalk``:
 attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
-ResNet-Conformer models, thresholds from one B=16 forward each), ``ddp``:
+ResNet-Conformer models, thresholds from one B=16 forward each),
+``order``: attn_launch_order (the train attention pairs in a fresh
+process after a large plain attention), ``geometry``:
+forward_other_geometry and cli_other_geometry (SE-ResNet34 and the entry
+points at n_fft 2048, win 1200, on K1's frames kernel), ``ddp``:
 ddp (two ranks spawned on the card), ``tp``: tp (the head-shard kernel
 checks, then two ranks of one model group spawned on the card),
 ``tp_replicated``: tp_replicated (the conformer at N = 3 and, cut to 2
@@ -49,11 +53,19 @@ def main():
     if "stftk" in which or "fwd" in which:
         dft = cs.window_dft(cfg.data.window, cfg.data.win_length, cfg.data.n_fft)
     if "stftk" in which:
-        print("stft_k", cs.phase_kernel(smi, fe, dft)["serving"]); print("t", time.time() - t0, flush=True)
+        stft_k = cs.phase_kernel(smi, fe, dft)
+        print("stft_k", stft_k["serving"], stft_k["frames"]); print("t", time.time() - t0, flush=True)
     if "attnk" in which:
         print("attn_k", cs.phase_attn_kernel(smi)); print("t", time.time() - t0, flush=True)
     if "attn" in which:
         print("bf16_k", cs.phase_attn_train_bf16_kernel(smi)); print("t", time.time() - t0, flush=True)
+    if "order" in which:
+        cs.phase_attn_launch_order(smi); print("t", time.time() - t0, flush=True)
+    if "geometry" in which:
+        model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        cs.phase_forward_other_geometry(smi, cfg, model)
+        del model
+        cs.phase_cli_other_geometry(smi, cfg); print("t", time.time() - t0, flush=True)
     if "se" in which:
         print(cs.phase_train_seresnet34(smi, cfg, fe)); print("t", time.time() - t0, flush=True)
     if "conf" in which:

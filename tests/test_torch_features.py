@@ -108,14 +108,23 @@ def test_mic_not_ported():
                         device="cpu")
 
 
-def test_hop_other_than_half_n_fft_raises_on_any_device():
-    """The STFT frames at n_fft // 2 (its kernel's geometry), so another hop
-    is refused up front, on the CPU as on the card; the shipped DCASE
-    geometries construct."""
-    cfg = dataclasses.replace(PortDataConfig(), hop_length=480, n_fft=1200)
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="hop_length=480 with n_fft=1200"):
-            FeatureFrontend(cfg, device=device)
+def test_geometries_the_kernels_do_not_take_raise():
+    """Any hop frames flat audio (``tests/test_torch_geometry.py`` holds it
+    against JAX), but hop-block audio needs n_fft == 2 * hop, as JAX's
+    ``framed_dft_chunked``; an n_fft with a prime factor above 5, or above
+    4096, is refused when the front-end is built, on the CPU as on the
+    card, naming the geometry; the shipped DCASE geometries construct."""
+    other = dataclasses.replace(PortDataConfig(), n_fft=2048, win_length=1200)
+    fe = FeatureFrontend(other, device="cpu")
+    assert fe(torch.zeros(1, 4 * HOP + 5, 4)).shape == (1, 4, 64, 7)
+    with pytest.raises(ValueError, match="n_fft == 2\\*hop"):
+        fe(torch.zeros(1, 4, HOP, 4))
+    for n_fft, why in ((1400, "2, 3 and 5"), (4800, "n_fft <= 4096")):  # 1400 = 8 * 7 * 25
+        cfg = dataclasses.replace(PortDataConfig(), n_fft=n_fft, win_length=1200)
+        for device in ("cpu", "cuda"):
+            with pytest.raises(NotImplementedError,
+                               match=f"n_fft={n_fft}, hop_length=600, win_length=1200: .*{why}"):
+                FeatureFrontend(cfg, device=device)
     for year in (2020, 2021, 2022):
         with open(f"configs/hyp_data_DCASE{year}.yaml") as f:
             shipped = yaml.safe_load(f)

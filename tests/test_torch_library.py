@@ -1,6 +1,8 @@
 """The custom ops of ``adyolo_tpu_torch.ops.library`` on the CPU.
 
-* ``torch.library.opcheck`` on ``adyolo::stft`` (hop-block and flat audio)
+* ``torch.library.opcheck`` on ``adyolo::stft`` (hop-block and flat audio;
+  flat audio at n_fft 2048, win 1200, hop 600, whose fake gives the
+  output shapes at that hop)
   and on ``adyolo::mhsa_eval`` (float32 and bfloat16; every key valid, and
   kv_len < T with a kv_len = 0 row): schema, fake kernel (the output shapes,
   dtypes and strides the kernels write), and tracing.  Their CPU kernels are
@@ -46,8 +48,8 @@ RATIO = 2.0
 HALF_STEP = 2.0 ** -9
 
 
-def _plan():
-    return hopper_stft.fft_plan(analysis_window("hann", 1200, 1200), "cpu")
+def _plan(n_fft=1200, win=1200):
+    return hopper_stft.fft_plan(analysis_window("hann", win, n_fft), "cpu")
 
 
 def _audio(shape, seed=0):
@@ -55,15 +57,30 @@ def _audio(shape, seed=0):
                         dtype=torch.float32)
 
 
-@pytest.mark.parametrize("shape", [(2, 7, 600, 4), (2, 7 * 600 + 17, 4)],
-                         ids=["hop_blocks", "flat"])
-def test_opcheck_stft(shape):
-    x, table = _audio(shape), _plan().table
-    torch.library.opcheck(torch.ops.adyolo.stft.default, (x, table))
-    re, im = torch.ops.adyolo.stft(x, table)
-    assert re.shape == im.shape == (2, 7, 601, 4)
-    want = plain_stft.stft(x, *plain_stft.window_dft(table[2400:]), 600)
+@pytest.mark.parametrize("shape,n_fft,win", [((2, 7, 600, 4), 1200, 1200),
+                                             ((2, 7 * 600 + 17, 4), 1200, 1200),
+                                             ((2, 7 * 600 + 17, 4), 2048, 1200)],
+                         ids=["hop_blocks", "flat", "flat_n2048"])
+def test_opcheck_stft(shape, n_fft, win):
+    x, table = _audio(shape), _plan(n_fft, win).table
+    torch.library.opcheck(torch.ops.adyolo.stft.default, (x, table, 600))
+    re, im = torch.ops.adyolo.stft(x, table, 600)
+    assert re.shape == im.shape == (2, 7, n_fft // 2 + 1, 4)
+    want = plain_stft.stft(x, *plain_stft.window_dft(table[2 * n_fft:]), 600)
     assert torch.equal(re, want[0]) and torch.equal(im, want[1])
+
+
+@pytest.mark.parametrize("n_fft,hop", [(2048, 600), (1024, 600), (4096, 1200), (1200, 480)])
+def test_stft_fake_shapes_at_any_hop(n_fft, hop):
+    """The fake (what a trace sees) gives T = N // hop frames of
+    n_fft // 2 + 1 bins on flat audio, the shapes the CPU kernel returns."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    x, table = _audio((1, 9 * hop + 31, 4)), _plan(n_fft, min(n_fft, 1200)).table
+    with FakeTensorMode() as mode:
+        fre, fim = torch.ops.adyolo.stft(mode.from_tensor(x), mode.from_tensor(table), hop)
+    re, im = torch.ops.adyolo.stft(x, table, hop)
+    assert tuple(fre.shape) == tuple(fim.shape) == tuple(re.shape) == (1, 9, n_fft // 2 + 1, 4)
 
 
 def _qkv(dtype, B=3, T=24, seed=1):

@@ -70,8 +70,19 @@ def _data_cfgs(root, fmt, **kw):
 
 @pytest.mark.parametrize("fmt", ["foa", "mic"])
 def test_scaler_stats_match_jax(tmp_path, fmt):
+    _check_scaler_stats(tmp_path, fmt)
+
+
+@pytest.mark.parametrize("fmt", ["foa", "mic"])
+def test_scaler_stats_match_jax_at_n_fft_2048(tmp_path, fmt):
+    """The DCASE SELD baseline's STFT geometry (n_fft 2048, a 1200-sample
+    window at the 600-sample hop): the pass frames flat clips at any hop."""
+    _check_scaler_stats(tmp_path, fmt, n_fft=2048, win_length=1200)
+
+
+def _check_scaler_stats(tmp_path, fmt, **geometry):
     root = _write_set(str(tmp_path / fmt), fmt, seed=1)
-    jd, pd = _data_cfgs(root, fmt)
+    jd, pd = _data_cfgs(root, fmt, **geometry)
     want = jax_scaler_stats(jd, verbose=False)
     got = compute_scaler_stats(pd, device="cpu", verbose=False)
     aux = "IV" if fmt == "foa" else "GCC"

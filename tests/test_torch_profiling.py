@@ -371,6 +371,18 @@ def test_stft_op_and_plain_stft_count_the_fft_convention(flat):
     assert model_flops(plain_stft.stft, x, *w, 600) == 4 * 56 * 1200 * 601
 
 
+def test_stft_op_counts_frames_at_any_hop():
+    """At n_fft 2048, win 1200, hop 600 on flat audio of 7 hops + 17: 7
+    frames a channel, 2 clips x 4 channels, each 2.5 x 2048 x log2(2048) =
+    56,320 FLOP, so 56 x 56,320 = 3,153,920 (worked by hand)."""
+    window = np.pad(np.hanning(1200), (424, 424)).astype(np.float32)
+    plan = hopper_stft.fft_plan(window, "cpu")
+    x = torch.randn(2, 7 * 600 + 17, 4, generator=torch.Generator().manual_seed(2))
+    assert model_flops(hopper_stft.stft_hop_blocks, x, plan, 600) == 3_153_920
+    # the T of the op's formula is N // hop: 480 gives 8 frames a channel
+    assert model_flops(hopper_stft.stft_hop_blocks, x, plan, 480) == 64 * 56_320
+
+
 def _gru_shapes(x, gru, batch_first=True):
     """The shapes ``aten._cudnn_rnn`` and its backward see for ``gru``."""
     w = [tuple(p.shape) for p in gru._flat_weights]

@@ -6,10 +6,18 @@ wrapper's CPU dispatch are held against JAX ``framed_dft_chunked`` /
 (float32 sums over 1200 taps in different orders; measured ~1e-6).
 A numpy model of the kernel's FFT (the radix plan, the float32 table of
 ``fft_plan``, the pass order and the channel-pair split) is held against
-JAX ``framed_dft_chunked`` within the same bound.  The kernel itself runs
-only on a CUDA device (``-m cuda``).
+JAX ``framed_dft_chunked`` within the same bound.  The frames kernel (flat
+audio at any hop): a numpy model of its edge rules and radix plan against
+JAX ``framed_dft`` under ``jax.enable_x64`` within 2.5e-7 x max at its four
+geometries (a left reflection off by one fails it), and the CPU dispatch
+against JAX's front-end STFT within 2e-5 x max.  The launchers' failure
+reports are read through a fake library.  The kernels themselves run only
+on a CUDA device (``-m cuda``).
 """
+import types
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -19,9 +27,11 @@ from adyolo_tpu.ops.dsp import analysis_window, dft_matrices
 from adyolo_tpu.ops.stft import framed_dft as jax_framed_dft
 from adyolo_tpu.ops.stft import framed_dft_chunked as jax_chunked
 from adyolo_tpu.ops.stft import stft as jax_stft
+from adyolo_tpu.ops.features import _stft_re_im as jax_stft_re_im
 from adyolo_tpu_torch.ops import hopper_stft
 from adyolo_tpu_torch.ops import stft as port_stft
 from adyolo_tpu_torch.ops.dsp import analysis_window as port_window
+from adyolo_tpu_torch.utils import build
 
 HOP, NFFT = 600, 1200
 TOL = 2e-5
@@ -111,12 +121,19 @@ def _fft_model(a, plan):
     into the four real channels.  ``a``: (B, T, hop, 4) -> (re, im)."""
     B, T, hop, _ = a.shape
     n = plan.n_fft
-    table = plan.table.numpy()
-    tw = (table[0:2 * n:2] + 1j * table[1:2 * n:2]).astype(np.complex64)
-    win = table[2 * n:]
+    win = plan.table.numpy()[2 * n:]
     flat = a.reshape(B, T * hop, 4)
     left = np.concatenate([flat[:, hop - np.arange(hop)][:, None], a[:, :-1]], axis=1)
-    frames = np.concatenate([left, a], axis=2) * win[None, None, :, None]
+    return _fft_passes(np.concatenate([left, a], axis=2) * win[None, None, :, None], plan)
+
+
+def _fft_passes(frames, plan):
+    """The kernels' FFT of windowed ``frames`` (B, T, n_fft, 4) float32:
+    the channel pairs, the Stockham passes and the split (see
+    :func:`_fft_model`)."""
+    n = plan.n_fft
+    table = plan.table.numpy()
+    tw = (table[0:2 * n:2] + 1j * table[1:2 * n:2]).astype(np.complex64)
     x = np.stack([frames[..., 0] + 1j * frames[..., 1],
                   frames[..., 2] + 1j * frames[..., 3]], axis=2).astype(np.complex64)
     ns = 1
@@ -218,8 +235,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         hopper_stft.stft_hop_blocks(x, hopper_stft.fft_plan(np.ones(1000, np.float32), "cpu"))
     with pytest.raises(ValueError, match="2, 3 and 5"):
         hopper_stft.fft_plan(np.ones(1204, np.float32), "cpu")  # 4 * 7 * 43
-    with pytest.raises(ValueError, match="n_fft <= 2400"):
-        hopper_stft.fft_plan(np.ones(3000, np.float32), "cpu")
+    with pytest.raises(ValueError, match="n_fft <= 4096"):
+        hopper_stft.fft_plan(np.ones(4500, np.float32), "cpu")  # 4 * 9 * 125
+    with pytest.raises(ValueError, match="even n_fft"):
+        hopper_stft.fft_plan(np.ones(1125, np.float32), "cpu")
+    with pytest.raises(ValueError, match="hop-block width"):
+        hopper_stft.stft_hop_blocks(x, plan, 300)
+    with pytest.raises(ValueError, match="too short"):  # N <= n_fft / 2: no reflection
+        hopper_stft.stft_hop_blocks(torch.zeros(1, 1024, 4), _frames_plan(2048, 1200), 600)
     with pytest.raises(ValueError, match="device"):
         hopper_stft.stft_hop_blocks(x.to("meta"), _plan("meta"))
     with pytest.raises(ValueError, match="device"):
@@ -299,5 +322,193 @@ def test_kernel_flat_input_matches_plain_on_cuda(cuda_device):
     torch.cuda.synchronize()
     assert hopper_stft.LAUNCHES == before + 1
     pr, pi = port_stft.framed_dft_flat(x, w_re, w_im, HOP)
+    _close(kr.cpu(), pr.cpu())
+    _close(ki.cpu(), pi.cpu())
+
+
+# (n_fft, hop, win_length) of the frames kernel's cases: the DCASE
+# baseline's 2048 / 600 / 1200, n_fft equal to a power-of-two window, a
+# 2400 window in its own n_fft, 48-kHz audio's 2400 window in 4096
+FRAME_GEOMETRIES = [(2048, 600, 1200), (1024, 600, 1024), (2400, 600, 2400),
+                    (4096, 1200, 2400)]
+MODEL_TOL = 2.5e-7  # the numpy model against float64 JAX, x max
+
+
+def _frames_plan(n_fft, win, device="cpu"):
+    return hopper_stft.fft_plan(port_window("han", win, n_fft), device)
+
+
+def _flat_frames_audio(n_fft, hop, seed):
+    """(2, 203 hops + 17, 4) audio whose first n_fft samples, the ones the
+    reflected left edge reads, are unlike the rest."""
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal((2, 203 * hop + 17, 4)) * 0.1).astype(np.float32)
+    a[:, :n_fft] = rng.uniform(-0.8, 0.8, (2, n_fft, 4))
+    return a
+
+
+def _frames_model(x, plan, hop, reflect_shift=0):
+    """The frames kernel as it computes, in numpy float32/complex64: frame
+    t's sample m reads s = t hop + m - n_fft/2 of the flat clip, x[-s +
+    reflect_shift] left of 0 (0: librosa's reflection), zero from N on;
+    the table's window; then :func:`_fft_passes`.  ``x``: (B, N, 4)."""
+    B, N, _ = x.shape
+    n = plan.n_fft
+    T = N // hop
+    s = np.arange(T)[:, None] * hop + np.arange(n)[None, :] - n // 2
+    src = np.where(s < 0, -s + reflect_shift, s)
+    frames = np.where((src < N)[None, :, :, None], x[:, np.minimum(src, N - 1)], 0.0)
+    return _fft_passes((frames * plan.table.numpy()[2 * n:][None, None, :, None])
+                       .astype(np.float32), plan)
+
+
+def _jax_framed_dft64(x, n_fft, hop, win):
+    """JAX's flat-audio STFT (``features._stft_re_im``'s padding, then
+    ``framed_dft``) on float64 audio under ``jax.enable_x64``: the sums in
+    float64 over the float32 DFT matrices, the result rounded to float32."""
+    w_re, w_im = dft_matrices(n_fft, analysis_window("han", win, n_fft))
+    B, N, _ = x.shape
+    T = N // hop
+    with jax.enable_x64():
+        xp = jnp.pad(jnp.asarray(x, jnp.float64), ((0, 0), (n_fft // 2, 0), (0, 0)),
+                     mode="reflect")
+        rpad = (T - 1) * hop + n_fft - xp.shape[1]
+        if rpad > 0:
+            xp = jnp.pad(xp, ((0, 0), (0, rpad), (0, 0)))
+        re, im = jax_framed_dft(xp, n_fft, hop, T, jnp.asarray(w_re, jnp.float64),
+                                jnp.asarray(w_im, jnp.float64))
+        return np.asarray(re), np.asarray(im)
+
+
+@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES)
+def test_frames_model_matches_jax_framed_dft(n_fft, hop, win):
+    """The frames kernel's radix plan and edge rules, modelled, against
+    JAX ``framed_dft`` in float64 within 2.5e-7 x max; the same model with
+    the left reflection off by one sample is far outside it."""
+    plan = _frames_plan(n_fft, win)
+    assert plan.radices == hopper_stft.radix_plan(n_fft)
+    assert hopper_stft.kernel_of(n_fft, hop) == "stft_frames_fft_kernel"
+    a = _flat_frames_audio(n_fft, hop, seed=n_fft)
+    jr, ji = _jax_framed_dft64(a, n_fft, hop, win)
+    assert jr.shape == (2, 203, n_fft // 2 + 1, 4)
+    scale = max(float(np.abs(jr).max()), float(np.abs(ji).max()))
+    mr, mi = _frames_model(a, plan, hop)
+    err = max(float(np.abs(mr - jr).max()), float(np.abs(mi - ji).max()))
+    assert err <= MODEL_TOL * scale, (err, scale)
+    br, bi = _frames_model(a, plan, hop, reflect_shift=1)
+    bad = max(float(np.abs(br - jr).max()), float(np.abs(bi - ji).max()))
+    assert bad > 1e4 * MODEL_TOL * scale, (bad, scale)
+
+
+@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES)
+def test_flat_any_hop_matches_jax_front_end_stft(n_fft, hop, win):
+    """The wrapper's CPU dispatch on flat audio at n_fft != 2 * hop (the
+    plain flat framing, no launch) against the JAX front-end's STFT of flat
+    audio within 2e-5 x max."""
+    w_re, w_im = dft_matrices(n_fft, analysis_window("han", win, n_fft))
+    a = _flat_frames_audio(n_fft, hop, seed=n_fft + 1)
+    jr, ji = jax_stft_re_im(jnp.asarray(a), n_fft, hop, jnp.asarray(w_re), jnp.asarray(w_im))
+    before = dict(hopper_stft.KERNELS)
+    re, im = hopper_stft.stft_hop_blocks(torch.tensor(a), _frames_plan(n_fft, win), hop)
+    assert hopper_stft.KERNELS == before
+    assert re.shape == (2, 203, n_fft // 2 + 1, 4)
+    _close(re, jr)
+    _close(im, ji)
+
+
+def test_hop_block_audio_needs_n_fft_twice_the_hop():
+    """As JAX's ``framed_dft_chunked``: hop-block audio at another n_fft
+    raises (flat audio is the input there); the kernel of each geometry."""
+    x = torch.tensor(_audio(1, 4, seed=3))
+    with pytest.raises(ValueError, match="n_fft == 2\\*hop"):
+        hopper_stft.stft_hop_blocks(x, _frames_plan(2048, 1200), HOP)
+    with pytest.raises(ValueError, match="n_fft == 2\\*hop"):
+        jax_chunked(jnp.asarray(x.numpy()), *map(jnp.asarray, dft_matrices(
+            2048, analysis_window("han", 1200, 2048))))
+    assert hopper_stft.kernel_of(1200, 600) == "stft_hop_blocks_fft_kernel"
+    assert hopper_stft.kernel_of(2400, 1200) == "stft_hop_blocks_fft_kernel"
+    # n_fft = 2 * hop above the hop-block kernel's 2400: the frames kernel
+    assert hopper_stft.kernel_of(4000, 2000) == "stft_frames_fft_kernel"
+    assert hopper_stft.radix_plan(2048) == (4, 4, 4, 4, 4, 2)
+    assert hopper_stft.radix_plan(4096) == (4,) * 6
+    assert hopper_stft.radix_plan(2400) == (4, 4, 2, 3, 5, 5)
+
+
+def _fake_library(record):
+    """A kernel library whose last failure is ``record``: (entry, site,
+    code, name), or None for none recorded."""
+
+    strings = None if record is None else [t.encode() for t in record[:2] + record[3:]]
+
+    def adyolo_last_error(entry, site, code, name):
+        if record is None:
+            return 0
+        # c_char_p points into these bytes, which the closure keeps alive
+        entry.contents.value, site.contents.value, name.contents.value = strings
+        code.contents.value = record[2]
+        return 1
+
+    return types.SimpleNamespace(adyolo_last_error=adyolo_last_error)
+
+
+def test_launch_errors_name_the_entry_the_site_and_the_error(monkeypatch):
+    """A refused launch raises with the C entry point, the failing site and
+    the CUDA error's name, as the library recorded them on the thread; with
+    no record, the return code alone."""
+    rec = ("adyolo_mhsa_bwd_bf16", "head_map(dout): address 0x7f0000000002 is not "
+           "16-byte aligned", 1, "cudaErrorInvalidValue")
+    monkeypatch.setattr(build, "load_library", lambda: _fake_library(rec))
+    err = build.launch_error("attention kernel launch refused", 1)
+    assert isinstance(err, build.KernelLaunchError)
+    assert (err.entry, err.site, err.code, err.name) == rec
+    assert str(err) == ("attention kernel launch refused: adyolo_mhsa_bwd_bf16: "
+                        "head_map(dout): address 0x7f0000000002 is not 16-byte aligned: "
+                        "cudaErrorInvalidValue (1)")
+    monkeypatch.setattr(build, "load_library", lambda: _fake_library(None))
+    err = build.launch_error("STFT kernel launch refused", 700)
+    assert err.code == 700 and "no failure recorded" in str(err)
+
+
+def test_every_c_entry_point_records_where_it_failed():
+    """Each launcher of csrc/ starts with ``enter`` (a pending error is
+    refused, not read as its own) and returns no bare CUDA error: every
+    failing return goes through ``fail``, ``fail_driver`` or
+    ``check_launch``, and no site reads ``cudaGetLastError`` itself."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(hopper_stft.__file__), os.pardir, "csrc")
+    entries = []
+    for name in ("attention.cu", "stft.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            src = f.read()
+        assert "return (int)cudaError" not in src and "return (int)e;" not in src
+        assert "cudaGetLastError" not in src
+        for m in re.finditer(r'extern "C" (?:int|long long) (adyolo_\w+)\(', src):
+            body = src[m.end():src.index("\n}\n", m.end())]
+            launches = "<<<" in body or "launch_fwd" in body or "fwd_splits" in body
+            if launches:
+                assert f'enter("{m.group(1)}")' in body, m.group(1)
+                entries.append(m.group(1))
+    assert sorted(entries) == sorted(
+        ["adyolo_stft_fft", "adyolo_stft_frames_fft", "adyolo_mhsa_fwd_splits",
+         "adyolo_mhsa_fwd_bf16_splits", "adyolo_mhsa_fwd", "adyolo_mhsa_fwd_train",
+         "adyolo_mhsa_bwd", "adyolo_mhsa_fwd_train_bf16", "adyolo_mhsa_fwd_bf16",
+         "adyolo_mhsa_bwd_bf16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES)
+def test_frames_kernel_matches_plain_on_cuda(cuda_device, n_fft, hop, win):
+    """The frames kernel on flat audio against the plain flat framing of
+    the same samples, one launch a call."""
+    w_re, w_im = (torch.tensor(w, device=cuda_device)
+                  for w in dft_matrices(n_fft, analysis_window("han", win, n_fft)))
+    x = torch.tensor(_flat_frames_audio(n_fft, hop, seed=n_fft + 2), device=cuda_device)
+    before = hopper_stft.KERNELS["stft_frames_fft_kernel"]
+    kr, ki = hopper_stft.stft_hop_blocks(x, _frames_plan(n_fft, win, cuda_device), hop)
+    torch.cuda.synchronize()
+    assert hopper_stft.KERNELS["stft_frames_fft_kernel"] == before + 1
+    pr, pi = port_stft.framed_dft_flat(x, w_re, w_im, hop)
     _close(kr.cpu(), pr.cpu())
     _close(ki.cpu(), pi.cpu())
