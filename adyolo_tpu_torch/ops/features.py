@@ -14,12 +14,12 @@ Counterpart of :mod:`adyolo_tpu.ops.features`:
 
 On a CUDA device the STFT is a hand-written Hopper kernel
 (:func:`adyolo_tpu_torch.ops.hopper_stft.stft_hop_blocks`: the hop-block
-kernel at ``n_fft == 2 * hop``, the frames kernel at any other hop); on
-the CPU it is the plain PyTorch version.  Every even ``n_fft`` up to 4096
-whose prime factors are 2, 3 and 5 runs; another is refused when the
-front-end is built, on any device.  The mel projections and GCC-PHAT's two lag
-products are fp32 ``torch.matmul``: JAX computes them with ``einsum``,
-outside any Pallas kernel, too.
+kernel at ``n_fft == 2 * hop <= 2400`` with prime factors 2, 3 and 5, the
+frames kernel at every other geometry, odd ``n_fft``, any prime factor and
+any size included); on the CPU it is the plain PyTorch version.  Every
+geometry the JAX package takes runs.  The mel projections and GCC-PHAT's
+two lag products are fp32 ``torch.matmul``: JAX computes them with
+``einsum``, outside any Pallas kernel, too.
 """
 from __future__ import annotations
 
@@ -160,12 +160,6 @@ class FeatureFrontend(nn.Module):
         super().__init__()
         if data_cfg.audio_format not in ("foa", "mic"):
             raise ValueError(f"audio_format={data_cfg.audio_format!r}: 'foa' or 'mic'")
-        try:
-            hopper_stft.check_n_fft(data_cfg.n_fft)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"STFT geometry n_fft={data_cfg.n_fft}, hop_length={data_cfg.hop_length}, "
-                f"win_length={data_cfg.win_length}: {e}") from None
         self.cfg = data_cfg
         self.device = torch.device(device)
         w = analysis_window(data_cfg.window, data_cfg.win_length, data_cfg.n_fft)

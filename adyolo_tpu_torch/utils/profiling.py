@@ -34,7 +34,7 @@ import torch
 
 __all__ = ["PROFILE_GROUPS", "OTHER", "DEVICE_SLACK", "group_ms", "profile_calls",
            "kernels_launched", "group_of", "DeviceEvent", "summarize_events",
-           "missing_kernels", "void_profile", "check_device_ms", "trace",
+           "missing_kernels", "void_profile", "check_device_ms", "library_count_void", "trace",
            "PhaseTimer", "throughput_audio_s", "benchmark", "model_flops",
            "stft_flops", "attention_flops", "rnn_flops",
            "device_name", "device_peak_flops", "mfu"]
@@ -231,6 +231,24 @@ def check_device_ms(ms, bound_ms, single_ms):
     if ms > DEVICE_SLACK * single_ms:
         return None, f"{ms:.4f} ms above {DEVICE_SLACK} x the single call {single_ms:.4f} ms"
     return ms, None
+
+
+def library_count_void(prof, per_call) -> Optional[str]:
+    """Why a profile of library calls (``torch.stft``, SDPA; taken without
+    ``expect``: the port does not count their kernels) cannot be read as
+    theirs, or None.  ``per_call``: the device kernels one profiled call
+    holds (its ``kernels_per_step``); a profile of n calls must hold n
+    times as many, else the tracer lost or gained events and its time a
+    call is not the calls'.  No count (``per_call`` None, or a profile
+    timed with CUDA events or void) is a reason too."""
+    if per_call is None:
+        return "no profiled count of one call's kernels"
+    if prof.get("source") != "profiler":
+        return f"the profile's source is {prof.get('source')!r}: its kernels are not counted"
+    if prof["kernels_per_step"] != per_call:
+        return (f"{prof['kernels_per_step']:g} device kernels a call, not the {per_call:g} of "
+                f"one profiled call")
+    return None
 
 
 def _profiled(fn, n, expect, warmup):

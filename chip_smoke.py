@@ -13,7 +13,9 @@ before the last line:
 2. build   -- compile ``adyolo_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
               one nvcc per source, all at once; per kernel its registers,
               spills and shared memory (ptxas, and the dynamic size the
-              launch asks for).
+              launch asks for); the frames kernel's route, tile, span
+              slots and shared memory by its C rule against the wrapper's
+              ``frames_config`` at every n_fft of FRAMES_RULE_SWEEP.
 3. kernel  -- the Hopper STFT kernel (an FFT) vs its plain PyTorch
               version at the serving shape (16, 800, 600, 4), a ragged
               (3, 803) case, the shortest (1, 2) and (2, 1201), whose last
@@ -25,15 +27,21 @@ before the last line:
               max|plain|; median times over 30 runs each, CUDA events, in
               turns with the plain version and ``torch.stft`` (the library
               yardstick, checked to compute the same function within
-              1e-4 * max).  Then K1's frames kernel (flat audio at any
-              hop): (2, 203 * hop + 17, 4) at (n_fft, hop, win) = (2048,
-              600, 1200), (1024, 600, 1024), (2400, 600, 2400) and (4096,
-              1200, 2400) against ``framed_dft_flat`` within 2e-5 * max,
-              one launch each; the timed row ``frames_serving`` at (16,
-              800 * 600, 4), n_fft 2048, win 1200, beside the plain
-              version and ``torch.stft`` (held to the function on the
-              frames before the last: its right edge is reflected, JAX's
-              zeros).
+              1e-4 * max).  Then K1's frames kernel (every other
+              geometry): (2, 203 * hop + 17, 4) at (n_fft, hop, win) =
+              (2048, 600, 1200), (1024, 600, 1024), (2400, 600, 2400),
+              (4096, 1200, 2400), G3 (2204, 1102, 2204), G4 (4800, 2400,
+              4800), G5 (2205, 1102, 2205), (2402, 1201, 2402) (a generic
+              1201-point pass), (8192, 2048, 8192) and (7919, 1980, 7919)
+              (one span slot), and (9600, 2400, 9600), (11274, 4000,
+              11274) and (16384, 4096, 16384) (the global route) against ``framed_dft_flat`` within 2e-5 * max, with
+              the launches ``hopper_stft.kernels_of`` names; the timed
+              rows ``frames_serving`` at (16, 800 * 600, 4), n_fft 2048,
+              win 1200 (G1), and ``frames_G3``, ``frames_G5``,
+              ``frames_G4`` at 16 x 20 s of 44.1- and 96-kHz audio, each
+              beside the plain version and ``torch.stft`` (held to the
+              function on the frames before the last: its right edge is
+              reflected, JAX's zeros).
 4. attn_kernel -- the Hopper attention kernel (3xTF32 tensor cores) vs
               the plain attention at (B, T, 4, 64): (16, 800) all keys
               valid and with random kv_len (one row 0), (1, 1200) len 920,
@@ -74,7 +82,8 @@ before the last line:
               forward_other_geometry: the same model at n_fft 2048, win
               1200 on flat 16 x 20-s clips (K1's frames kernel once),
               within 1e-3 * max of the all-plain forward; median of 10, a
-              profile of 2 that holds the frames kernel.
+              profile of 2 that holds the frames kernel; forward_G3 the
+              same at 44.1 kHz, hop 1102, n_fft = win = 2204.
 7. forward_conformer -- the same with ResNet-Conformer + AD-YOLO (emb 256,
               8 blocks, 4 heads): the STFT kernel launched once and the
               attention kernel 8 times (route k2), within 1e-3 *
@@ -132,7 +141,8 @@ train_conformer_bf16, train_cli_se_bf16; each function's docstring says
 what it holds), cli_other_geometry (``cli train`` 2 epochs x 1 step,
 ``val``, ``infer`` and ``export`` of SE-ResNet34 at n_fft 2048, win 1200,
 every K1 launch the frames kernel; the artifact's served call against the
-live forward), and:
+live forward), cli_G3 (the same at 44.1 kHz, hop 1102, n_fft = win =
+2204, on a 44.1-kHz set: the slice's path), and:
 
 12. preprocess_mic -- a DCASE2022-layout MIC set written by the script
               (two 30-s dev-train clips, val and test clips of 23 and 35 s;
@@ -271,14 +281,18 @@ exactly the device kernels its calls launched, as the wrappers count them
 taken again and, after three attempts, void; a reading below its row's
 ``bound_ms`` or above 1.05 x its own single-call median is void:
 ``device_ms`` (``library_device_ms``) null beside its reason in
-``device_ms_void`` (``library_device_ms_void``).
+``device_ms_void`` (``library_device_ms_void``).  A library call's
+kernels are not the port's: one profiled call counts them, and the
+profile of 10 must hold 10 times as many, or its reading is void too.
 A void reading is a measurement outcome; the correctness checks stay
 fatal.  Every profile of a step or a forward holds the same count of the
 kernels one unprofiled call launched, or its groups are void.
 Then one line ``{"kernels": [...]}`` (``launches`` counted over each
 kernel's main path, phase train_cli, or train_conformer_bf16 for the bf16
-training routes and export for k2_bf16, with every path's count beside it
-in ``launches_by_path``), the card's nvidia-smi line, and last
+training routes, export for k2_bf16 and cli_G3 for K1's frames kernel,
+with every path's count beside it in ``launches_by_path``; the frames
+kernel's entry also carries its G3, G5 and G4 rows and its routes' counts
+by path), the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Before those two lines the helper
 processes that ``multiprocessing`` started for the ranks are ended, and
 the script fails if any process it started (a grandchild included: it
@@ -339,7 +353,8 @@ from adyolo_tpu_torch.parallel import mesh  # noqa: E402
 from adyolo_tpu_torch.parallel.train_step import build_train_step, make_optimizer  # noqa: E402
 from adyolo_tpu_torch.utils import build  # noqa: E402
 from adyolo_tpu_torch.utils.profiling import (check_device_ms, group_ms,  # noqa: E402
-                                              group_of, kernels_launched, model_flops,
+                                              group_of, kernels_launched,
+                                              library_count_void, model_flops,
                                               profile_calls)
 
 HOP = 600
@@ -347,6 +362,18 @@ HOP = 600
 # in the next power of two (seld-dcase2022, cls_feature_class.py), which
 # the frames kernel of K1 runs
 OTHER_N_FFT, OTHER_WIN = 2048, 1200
+# (n_fft, hop, win_length, sr) of the frames kernel's timed geometries: G1
+# the baseline's above; the DCASE preset's 25 / 50 ms at 44.1 kHz as n_fft
+# = 2 hop = 2^2 19 29 (G3, the slice's path) and as the exact 50-ms window,
+# odd (G5, 3^2 5 7^2); at 96 kHz (G4, 4800)
+GEOMETRY = {"G1": (OTHER_N_FFT, HOP, OTHER_WIN, 24000), "G3": (2204, 1102, 2204, 44100),
+            "G5": (2205, 1102, 2205, 44100), "G4": (4800, 2400, 4800, 96000)}
+# n_fft at which phase build holds the frames kernel's route rule in C (what
+# a launch checks) to the wrapper's copy: every n_fft below 300, a stride
+# through the rest up to the global route, and each route's edges
+FRAMES_RULE_SWEEP = sorted(set(range(2, 300)) | set(range(300, 16500, 97)) | {
+    1023, 1201, 2047, 2048, 2204, 2205, 2402, 4096, 4097, 4800, 5534, 5535, 5642, 5643, 7680,
+    7681, 7919, 8192, 8193, 9600, 11274, 16384})
 KERNEL_TOL = 2e-5
 GRAD_KERNEL_TOL = 1e-4  # kernel vs plain attention gradients, x max|grad|
 LIBRARY_TOL = 1e-4  # torch.stft / SDPA vs the plain version, x max|plain|
@@ -467,18 +494,27 @@ def device_reading(fn, bound_ms, single_ms, kernels=True):
     calls, checked.  ``kernels``: the groups of the port's kernels that one
     unprofiled call launches, counted by the wrappers
     (``kernels_launched``), which the profile must hold exactly; else
-    (a library call) all the call launches.  A reading below ``bound_ms``
-    or above DEVICE_SLACK x ``single_ms`` (the call's median between two
-    CUDA events) is void.  Returns ``ms`` (None when void), ``void`` (the
-    reason), ``source`` and the kernel counts seen."""
+    (a library call) all the call launches, which must be 10 times the
+    device kernels of one profiled call (``library_count_void``).  A
+    reading below ``bound_ms`` or above DEVICE_SLACK x ``single_ms`` (the
+    call's median between two CUDA events) is void.  Returns ``ms`` (None
+    when void), ``void`` (the reason), ``source`` and the kernel counts
+    seen (a library call's: a call's, in one call and in the 10)."""
     expect = kernels_launched(fn) if kernels else None
     require(expect is None or expect, "device_reading: the call launched no kernel")
     groups = sorted({group_of(k) for k in expect}) if kernels else None
+    if not kernels:
+        one = profile_calls(lambda _: fn(), 1)
+        per_call = one["kernels_per_step"] if one["source"] == "profiler" else None
     prof = profile_calls(lambda _: fn(), 10, expect=expect)
     ms, why = check_device_ms(group_ms(prof, *groups) if kernels
                               else prof["busy_ms_per_step"], bound_ms, single_ms)
-    return {"ms": ms, "void": why, "source": prof["source"],
-            "kernel_counts": prof.get("kernel_counts")}
+    counts_seen = prof.get("kernel_counts")
+    if not kernels:
+        why = library_count_void(prof, per_call) or why
+        ms = None if why else ms
+        counts_seen = {"one_call": per_call, "a_call_of_10": prof.get("kernels_per_step")}
+    return {"ms": ms, "void": why, "source": prof["source"], "kernel_counts": counts_seen}
 
 
 def device_fields(kernel, library, bound_ms, kernel_ms, library_ms):
@@ -491,7 +527,8 @@ def device_fields(kernel, library, bound_ms, kernel_ms, library_ms):
     return {"device_ms": k["ms"], "device_ms_void": k["void"],
             "library_device_ms": lib["ms"], "library_device_ms_void": lib["void"],
             "device_ms_source": [k["source"], lib["source"]],
-            "device_ms_kernel_counts": k["kernel_counts"]}
+            "device_ms_kernel_counts": k["kernel_counts"],
+            "library_kernel_counts": lib["kernel_counts"]}
 
 
 DEVICE_KEYS = ("device_ms", "device_ms_void", "library_device_ms", "library_device_ms_void")
@@ -537,10 +574,23 @@ def zero_counts():
 
 def counts():
     """Launches by route: ``stft`` K1's hop-block kernel, ``stft_frames``
-    its frames kernel (any hop), then the attention routes."""
-    return {"stft": hopper_stft.KERNELS["stft_hop_blocks_fft_kernel"],
-            "stft_frames": hopper_stft.KERNELS["stft_frames_fft_kernel"],
+    its frames kernel in shared memory (every other geometry),
+    ``stft_frames_global`` the frames kernel's global route (its pass and
+    split kernels), then the attention routes."""
+    k = hopper_stft.KERNELS
+    return {"stft": k["stft_hop_blocks_fft_kernel"], "stft_frames": k["stft_frames_fft_kernel"],
+            "stft_frames_global": k["stft_frames_pass_kernel"] + k["stft_frames_split_kernel"],
             **hopper_attention.LAUNCHES}
+
+
+def expected_counts(n_fft, hop, calls=1):
+    """:func:`counts`' growth over ``calls`` STFT calls at ``(n_fft,
+    hop)``, every other route 0 (``hopper_stft.kernels_of``)."""
+    want = dict.fromkeys(counts(), 0)
+    for name, n in hopper_stft.kernels_of(n_fft, hop).items():
+        key = {"stft_hop_blocks_fft_kernel": "stft", "stft_frames_fft_kernel": "stft_frames"}
+        want[key.get(name, "stft_frames_global")] += calls * n
+    return want
 
 
 @contextlib.contextmanager
@@ -586,15 +636,18 @@ def ptxas_kernels(log):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            name = next(k for k in ("stft_hop_blocks_fft_kernel", "stft_frames_fft_kernel",
-                                    "mhsa_fwd_kernelILb1",
+            name = next(k for k in ("stft_hop_blocks_fft_kernel",
+                                    "stft_frames_fft_kernelILi16E",
+                                    "stft_frames_fft_kernelILi32E", "stft_frames_pass_kernel",
+                                    "stft_frames_split_kernel", "mhsa_fwd_kernelILb1",
                                     "mhsa_fwd_kernelILb0", "mhsa_fwd_merge_kernel",
                                     "mhsa_bwd_dq_kernel", "mhsa_bwd_dkdv_kernel",
                                     "mhsa_fwd_bf16_kernelILb1", "mhsa_fwd_bf16_kernelILb0",
                                     "mhsa_bwd_dq_bf16_kernel",
                                     "mhsa_bwd_dkdv_bf16_kernel", mangled)
                         if k in mangled)
-            name = name.replace("ILb1", "<true>").replace("ILb0", "<false>")
+            name = (name.replace("ILb1", "<true>").replace("ILb0", "<false>")
+                    .replace("ILi16E", "<16>").replace("ILi32E", "<32>"))
             out[name] = {}
         elif name and "spill stores" in ln:
             out[name]["spill_store_bytes"] = int(ln.split("bytes spill stores")[0].split(",")[-1])
@@ -609,12 +662,31 @@ def phase_build():
     info = build.build(force=True)
     lib = build.load_library()
     lib.adyolo_stft_smem_bytes.restype = ctypes.c_longlong
-    lib.adyolo_stft_frames_smem_bytes.restype = ctypes.c_longlong
+    lib.adyolo_stft_frames_config.restype = ctypes.c_longlong
+    lib.adyolo_stft_frames_config.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_int, ctypes.c_void_p]
     lib.adyolo_mhsa_smem_bytes.restype = ctypes.c_longlong
     kernels = ptxas_kernels(info["ptxas"])
+
+    def c_config(n_fft, hop):
+        radices, n_pass = hopper_stft._radices_c(hopper_stft.frames_radix_plan(n_fft))
+        out = (ctypes.c_int * 3)()
+        smem = lib.adyolo_stft_frames_config(n_fft, hop, radices, n_pass, out)
+        return hopper_stft.FramesConfig(out[0], out[1], out[2], smem)
+
+    # the frames kernel's route, tile, ring and shared memory by the C rule
+    # (what a launch checks) against the wrapper's copy (frames_config,
+    # which decides the launches), over FRAMES_RULE_SWEEP
+    for n_fft in FRAMES_RULE_SWEEP:
+        for hop in sorted({max(1, n_fft // 4), max(1, n_fft // 2), HOP}):
+            c, py = c_config(n_fft, hop), hopper_stft.frames_config(n_fft, hop)
+            require(c == py, f"frames kernel at {n_fft}/{hop}: {c} by the C rule, {py} by "
+                    "frames_config")
+    # each shared instance's shared memory at G1 and G4
+    frames_smem = {"stft_frames_fft_kernel<16>": c_config(*GEOMETRY["G1"][:2]).smem_bytes,
+                   "stft_frames_fft_kernel<32>": c_config(*GEOMETRY["G4"][:2]).smem_bytes}
     dyn = {"stft_hop_blocks_fft_kernel": lib.adyolo_stft_smem_bytes(),
-           # at n_fft 2048; 4096 takes 2x
-           "stft_frames_fft_kernel": lib.adyolo_stft_frames_smem_bytes(OTHER_N_FFT),
+           **frames_smem, "stft_frames_pass_kernel": 0, "stft_frames_split_kernel": 0,
            "mhsa_fwd_kernel<true>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_kernel<false>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_merge_kernel": 0,
@@ -724,51 +796,29 @@ def phase_kernel(smi, fe, dft):
 
 # (n_fft, hop, win_length) of the frames kernel's cases: the DCASE
 # baseline's 2048 / 600 / 1200, a power-of-two n_fft equal to the window,
-# a 2400 window in its own n_fft (radices 4 4 2 3 5 5), and 48-kHz audio's
-# 2400 window in 4096 (1 frame a block, 128 KB of shared memory)
+# a 2400 window in its own n_fft, 48-kHz audio's 2400 window in 4096; G3,
+# G4 and G5 (GEOMETRY); a large prime factor (2402 = 2 x 1201: a generic
+# 1201-point pass); shared_wide at one span slot, 8192 and the prime 7919
+# (a generic 7919-point pass); and the global route (a pass kernel a radix
+# and the split kernel) at 9600, 96-kHz audio's 100-ms window (register
+# radices 16, 8, 3, 5, 5), 11274 = 2 x 3 x 1879 (a generic pass) and 16384
 OTHER_GEOMETRIES = ((OTHER_N_FFT, HOP, OTHER_WIN), (1024, HOP, 1024), (2400, HOP, 2400),
-                    (4096, 2 * HOP, 2400))
+                    (4096, 2 * HOP, 2400), GEOMETRY["G3"][:3], GEOMETRY["G4"][:3],
+                    GEOMETRY["G5"][:3], (2402, 1201, 2402), (8192, 2048, 8192),
+                    (7919, 1980, 7919), (9600, 2400, 9600), (11274, 4000, 11274),
+                    (16384, 4096, 16384))
 
 
-def phase_kernel_frames(smi, rng, window):
-    """K1's frames kernel (flat audio at any hop) against the plain flat
-    framing ``framed_dft_flat`` of the same samples, within KERNEL_TOL x
-    max: (2, 203 hops + 17, 4) at each of OTHER_GEOMETRIES, one launch a
-    call; then the timed row at 16 x 20 s, (16, 800 * 600, 4) at n_fft
-    2048, win 1200: single calls (CUDA events, in turns with the plain
-    version and ``torch.stft``), the profiler's device time a call, and the
-    bound.  ``torch.stft`` pads the right edge by reflection where JAX pads
-    zeros, so it is held to the function on the frames before the last."""
-    res = {"max_abs_err": 0.0}
-    for n_fft, hop, win in OTHER_GEOMETRIES:
-        plan = hopper_stft.fft_plan(analysis_window(window, win, n_fft), "cuda")
-        mats = window_dft(window, win, n_fft)
-        a = foa_audio(rng, (2, 203 * hop + 17, 4))
-        a[:, :n_fft] = rng.uniform(-0.5, 0.5, (2, n_fft, 4))  # the reflected left edge
-        x = torch.tensor(a, device="cuda")
-        before = counts()
-        kr, ki = hopper_stft.stft_hop_blocks(x, plan, hop)
-        torch.cuda.synchronize()
-        grown = {n: c - before[n] for n, c in counts().items()}
-        require(grown == {**{n: 0 for n in grown}, "stft_frames": 1},
-                f"STFT frames kernel {n_fft}/{hop}: launches {grown}")
-        pr, pi = plain_stft.framed_dft_flat(x, *mats, hop)
-        err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
-        scale = max(float(pr.abs().max()), float(pi.abs().max()))
-        require(kr.shape == (2, 203, n_fft // 2 + 1, 4) and np.isfinite(err)
-                and err <= KERNEL_TOL * scale,
-                f"STFT frames kernel {n_fft}/{hop}/{win}: shape {tuple(kr.shape)}, max err "
-                f"{err} > {KERNEL_TOL} * {scale}")
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        emit({"phase": "kernel", "case": f"frames_{n_fft}_{hop}_{win}", "shape": list(a.shape),
-              "radices": list(plan.radices), "max_abs_err": err, "max_abs_plain": scale,
-              "tol_rel": KERNEL_TOL})
-        del x, kr, ki, pr, pi
-
-    n_fft, hop, win = OTHER_GEOMETRIES[0]
+def frames_row(smi, rng, window, tag, n_fft, hop, win, sr):
+    """The frames kernel at one timed geometry, 16 x 20 s of audio at
+    ``sr``: within KERNEL_TOL x max of the plain flat framing; single calls
+    (CUDA events, in turns with the plain version and ``torch.stft``), the
+    profiler's device time a call of each, checked, and the byte bound.
+    ``torch.stft`` pads the right edge by reflection where JAX pads zeros,
+    so it is held to the function on the frames before the last."""
     plan = hopper_stft.fft_plan(analysis_window(window, win, n_fft), "cuda")
     mats = window_dft(window, win, n_fft)
-    x = torch.tensor(foa_audio(rng, (16, 800 * hop, 4)), device="cuda")
+    x = torch.tensor(foa_audio(rng, (16, 20 * sr, 4)), device="cuda")
     B, N = x.shape[:2]
     T, K = N // hop, n_fft // 2 + 1
     kr, ki = hopper_stft.stft_hop_blocks(x, plan, hop)
@@ -776,8 +826,7 @@ def phase_kernel_frames(smi, rng, window):
     err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
     scale = max(float(pr.abs().max()), float(pi.abs().max()))
     require(np.isfinite(err) and err <= KERNEL_TOL * scale,
-            f"STFT frames kernel at {(B, N, 4)}: max err {err} > {KERNEL_TOL} * {scale}")
-    res["max_abs_err"] = max(res["max_abs_err"], err)
+            f"STFT frames kernel {tag} at {(B, N, 4)}: max err {err} > {KERNEL_TOL} * {scale}")
     del kr, ki
     xs = x.permute(0, 2, 1).reshape(B * 4, N).contiguous()
     win_t = torch.as_tensor(analysis_window(window, win, n_fft), device="cuda")
@@ -790,8 +839,8 @@ def phase_kernel_frames(smi, rng, window):
     lib_err = float(torch.maximum((lib.real - pr)[:, :T - 1].abs().max(),
                                   (lib.imag - pi)[:, :T - 1].abs().max()))
     require(lib_err <= LIBRARY_TOL * scale,
-            f"torch.stft is not the STFT's function before the last frame: {lib_err} > "
-            f"{LIBRARY_TOL} * {scale}")
+            f"torch.stft is not the STFT's function before the last frame at {tag}: {lib_err} "
+            f"> {LIBRARY_TOL} * {scale}")
     del lib, pr, pi
     k_ms, p_ms, l_ms = [], [], []
     for _ in range(3):  # in turns: kernel, plain, library, ...
@@ -802,9 +851,15 @@ def phase_kernel_frames(smi, rng, window):
     # once, re/im out once
     fft_flop = B * T * 4 * (2.5 * n_fft * np.log2(n_fft) + n_fft)
     nbytes = 4.0 * (B * N * 4 + 3 * n_fft + 2 * B * T * K * 4)
-    row = {"phase": "kernel", "case": "frames_serving", "shape": [B, N, 4],
-           "geometry": {"n_fft": n_fft, "hop": hop, "win_length": win},
-           "radices": list(plan.radices), "max_abs_err": err, "max_abs_plain": scale,
+    cfg = hopper_stft.frames_config(n_fft, hop)
+    row = {"phase": "kernel", "case": "frames_serving" if tag == "G1" else f"frames_{tag}",
+           "shape": [B, N, 4], "geometry": {"n_fft": n_fft, "hop": hop, "win_length": win,
+                                            "sr": sr},
+           "radices": list(plan.frames_radices),
+           "frames_route": {"route": hopper_stft.FRAME_ROUTES[cfg.route],
+                            "frames_a_tile": cfg.frames, "span_slots": cfg.ring,
+                            "smem_bytes": cfg.smem_bytes},
+           "max_abs_err": err, "max_abs_plain": scale,
            "tol_rel": KERNEL_TOL, "ms": float(np.median(k_ms)),
            "plain_ms": float(np.median(p_ms)), "library_ms": float(np.median(l_ms)),
            "library": "torch.stft", "library_max_abs_err_before_last_frame": lib_err,
@@ -813,9 +868,57 @@ def phase_kernel_frames(smi, rng, window):
     row.update(device_fields(lambda: hopper_stft.stft_hop_blocks(x, plan, hop), library,
                              row["bound_ms"], row["ms"], row["library_ms"]))
     emit(row)
-    res.update({n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-                + DEVICE_KEYS})
     del x, xs
+    return row
+
+
+def phase_kernel_frames(smi, rng, window):
+    """K1's frames kernel (every geometry but the hop-block kernel's)
+    against the plain flat framing ``framed_dft_flat`` of the same samples,
+    within KERNEL_TOL x max: (2, 203 hops + 17, 4) at each of
+    OTHER_GEOMETRIES, with the launches ``hopper_stft.kernels_of`` names;
+    then the timed rows at G1 (``frames_serving``), G3, G5 and G4
+    (:func:`frames_row`).  G1's row is the kernel's headline; the others
+    stand under ``geometries``."""
+    res = {"max_abs_err": 0.0}
+    for n_fft, hop, win in OTHER_GEOMETRIES:
+        plan = hopper_stft.fft_plan(analysis_window(window, win, n_fft), "cuda")
+        mats = window_dft(window, win, n_fft)
+        a = foa_audio(rng, (2, 203 * hop + 17, 4))
+        a[:, :n_fft] = rng.uniform(-0.5, 0.5, (2, n_fft, 4))  # the reflected left edge
+        x = torch.tensor(a, device="cuda")
+        before = counts()
+        kr, ki = hopper_stft.stft_hop_blocks(x, plan, hop)
+        torch.cuda.synchronize()
+        grown = {n: c - before[n] for n, c in counts().items()}
+        require(grown == expected_counts(n_fft, hop),
+                f"STFT frames kernel {n_fft}/{hop}: launches {grown}, want "
+                f"{expected_counts(n_fft, hop)}")
+        pr, pi = plain_stft.framed_dft_flat(x, *mats, hop)
+        err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+        scale = max(float(pr.abs().max()), float(pi.abs().max()))
+        require(kr.shape == (2, 203, n_fft // 2 + 1, 4) and np.isfinite(err)
+                and err <= KERNEL_TOL * scale,
+                f"STFT frames kernel {n_fft}/{hop}/{win}: shape {tuple(kr.shape)}, max err "
+                f"{err} > {KERNEL_TOL} * {scale}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        cfg = hopper_stft.frames_config(n_fft, hop)
+        emit({"phase": "kernel", "case": f"frames_{n_fft}_{hop}_{win}", "shape": list(a.shape),
+              "radices": list(plan.frames_radices), "launches": grown,
+              "frames_route": hopper_stft.FRAME_ROUTES[cfg.route], "max_abs_err": err,
+              "max_abs_plain": scale, "tol_rel": KERNEL_TOL})
+        del x, kr, ki, pr, pi, mats
+
+    res["geometries"] = {}
+    for tag, (n_fft, hop, win, sr) in GEOMETRY.items():
+        row = frames_row(smi, rng, window, tag, n_fft, hop, win, sr)
+        res["max_abs_err"] = max(res["max_abs_err"], row["max_abs_err"])
+        keep = {n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                    "geometry", "frames_route", "radices") + DEVICE_KEYS}
+        if tag == "G1":
+            res.update(keep)
+        else:
+            res["geometries"][tag] = {**keep, "max_abs_err": row["max_abs_err"]}
     return res
 
 
@@ -1527,64 +1630,71 @@ def phase_forward_conformer_long(smi, fe, dft, model):
           **profile_steps(lambda b, _: fwd(b, valid), [x], None, 2), "card": smi})
 
 
-def other_geometry(cfg):
-    """``cfg`` at the DCASE SELD baseline's STFT geometry, n_fft 2048 and a
-    1200-sample window at the 600-sample hop: the loaders and the export
-    take flat (B, N, 4) audio there, and K1 runs its frames kernel."""
+def other_geometry(cfg, tag="G1"):
+    """``cfg`` at STFT geometry ``tag`` of GEOMETRY: G1, the DCASE SELD
+    baseline's n_fft 2048 and 1200-sample window at the 600-sample hop (the
+    loaders and the export take flat (B, N, 4) audio there); G3, 44.1-kHz
+    audio at the preset's 25 / 50 ms (hop 1102, n_fft = window = 2204: flat
+    20-s chunks, hop-block eval buckets).  K1 runs its frames kernel."""
+    n_fft, hop, win, sr = GEOMETRY[tag]
     return dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, n_fft=OTHER_N_FFT, win_length=OTHER_WIN))
+        cfg.data, n_fft=n_fft, win_length=win, hop_length=hop, sr=sr))
 
 
-def phase_forward_other_geometry(smi, cfg, model):
+def phase_forward_other_geometry(smi, cfg, model, tag="G1"):
     """FeatureFrontend + SE-ResNet34 + AD-YOLO (``model``, the phase
-    forward's) at n_fft 2048, win 1200, hop 600 on flat 16 x 20-s clips:
-    K1's frames kernel once, finite (16, 200, 2560) logits within
-    FORWARD_TOL x max of the all-plain forward (the plain flat framing);
-    the CUDA-event median of 10 forwards and their host p50, and a profile
-    of two more, which must hold the frames kernel."""
-    c = other_geometry(cfg)
+    forward's) at geometry ``tag`` (:func:`other_geometry`) on flat 16 x
+    20-s clips: K1's frames kernel once, finite (16, 200, 2560) logits
+    within FORWARD_TOL x max of the all-plain forward (the plain flat
+    framing); the CUDA-event median of 10 forwards and their host p50, and
+    a profile of two more, which must hold the frames kernel.  Rows
+    ``forward_other_geometry`` (G1) or ``forward_<tag>``."""
+    c = other_geometry(cfg, tag)
+    phase = "forward_other_geometry" if tag == "G1" else f"forward_{tag}"
+    hop = c.data.hop_length
     fe = make_frontend(c)
     fwd = build_eval_forward(model, fe)
     dft = window_dft(c.data.window, c.data.win_length, c.data.n_fft)
     rng = np.random.default_rng(20)
-    x = torch.tensor(foa_audio(rng, (16, 800 * HOP, 4)), device="cuda")
+    x = torch.tensor(foa_audio(rng, (16, 20 * c.data.sr, 4)), device="cuda")
     zero_counts()
     logits = fwd(x)
     torch.cuda.synchronize()
     launched = counts()
-    require(launched == {**{n: 0 for n in launched}, "stft_frames": 1},
-            f"forward_other_geometry: launches {launched}, want stft_frames 1")
+    want = expected_counts(c.data.n_fft, hop)
+    require(launched == want, f"{phase}: launches {launched}, want {want}")
     require(tuple(logits.shape) == (16, 200, 2560) and bool(torch.isfinite(logits).all()),
-            f"forward_other_geometry: logits {tuple(logits.shape)}, or not finite")
+            f"{phase}: logits {tuple(logits.shape)}, or not finite")
     with torch.inference_mode():
-        re, im = plain_stft.framed_dft_flat(x, *dft, HOP)
+        re, im = plain_stft.framed_dft_flat(x, *dft, hop)
         ref = model(fe.features_from_stft(re, im))
         del re, im
     err = float((logits - ref).abs().max())
     scale = float(ref.abs().max())
     require(err <= FORWARD_TOL * scale,
-            f"forward_other_geometry vs the all-plain forward: {err} > {FORWARD_TOL} * {scale}")
+            f"{phase} vs the all-plain forward: {err} > {FORWARD_TOL} * {scale}")
     t = float(np.median(cuda_ms(lambda: fwd(x), 10)))
     prof = profile_steps(lambda b, _: fwd(b), [x], None, 2)
     require(prof["source"] == "cuda_events"
             or "stft_frames_fft_kernel" in (prof["kernel_counts"] or {}),
-            f"forward_other_geometry: the profile holds no frames kernel: {prof['kernel_counts']}")
-    emit({"phase": "forward_other_geometry", "shape": [16, 800 * HOP, 4],
-          "geometry": {"n_fft": c.data.n_fft, "hop": c.data.hop_length,
-                       "win_length": c.data.win_length},
+            f"{phase}: the profile holds no frames kernel: {prof['kernel_counts']}")
+    emit({"phase": phase, "shape": list(x.shape),
+          "geometry": {"n_fft": c.data.n_fft, "hop": hop, "win_length": c.data.win_length,
+                       "sr": c.data.sr},
           "launches": launched, "max_abs_err": err, "max_abs_logit": scale,
           "tol_rel": FORWARD_TOL, "ms": t, "host_p50_ms": p50_ms(lambda: fwd(x), 10),
           "audio_s_per_s": 16 * 20.0 / (t * 1e-3), "card": smi})
-    emit({"phase": "forward_other_geometry_profile", **prof, "card": smi})
+    emit({"phase": f"{phase}_profile", **prof, "card": smi})
     return launched
 
 
 OTHER_INFER_SECS = (23, 35)
 
 
-def phase_cli_other_geometry(smi, cfg):
-    """The entry points at n_fft 2048, win 1200 (the preset's data config
-    rewritten), on a synthetic DCASE2022-layout set: ``cli train``
+def phase_cli_other_geometry(smi, cfg, tag="G1"):
+    """The entry points at geometry ``tag`` (:func:`other_geometry`: the
+    preset's data config rewritten), on a synthetic DCASE2022-layout set
+    at its rate: ``cli train``
     (SE-ResNet34, fp32, 2 epochs x 1 step of 16 x 20 s, val and test each
     epoch, the final test), ``val``, ``infer`` on two wavs and ``export``;
     then the artifact served once on flat audio (B = 1 x 20 s) with the
@@ -1592,27 +1702,30 @@ def phase_cli_other_geometry(smi, cfg):
     forward of the experiment's best model (and whether bit-equal).
     Every K1 launch is the frames kernel: per train step and eval clip
     once.  The counts of the train call (this path's) are set to 0 just
-    before it and read just after."""
+    before it and read just after.  Rows ``cli_other_geometry`` (G1) or
+    ``cli_<tag>``."""
     t_phase = time.perf_counter()
-    c = other_geometry(cfg)
+    c = other_geometry(cfg, tag)
+    phase = "cli_other_geometry" if tag == "G1" else f"cli_{tag}"
+    n_fft, hop, win, sr = GEOMETRY[tag]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_geometry_")
     try:
         data = os.path.join(tmp, "data")
         write_dcase_set(data, c, os.path.join(cfg.data.data_pth, "scaler_wts.pkl"))
         configs = preset_dir(tmp, c, data_pth=data, name_pth=os.path.join(data, "classes.txt"),
-                             n_fft=OTHER_N_FFT, win_length=OTHER_WIN)
+                             n_fft=n_fft, win_length=win, hop_length=hop, sr=sr)
         results = os.path.join(tmp, "results")
         exp_id = "chip-geometry"
         exp = os.path.join(results, exp_id)
         seconds = {}
 
-        def run(tag, argv):
+        def run(what, argv):
             before = counts()
             t0 = time.perf_counter()
             rc = cli.main(argv + ["--results_dir", results, "--device", "cuda"])
             torch.cuda.synchronize()
-            seconds[tag] = time.perf_counter() - t0
-            require(rc == 0, f"cli_other_geometry: {tag} returned {rc}")
+            seconds[what] = time.perf_counter() - t0
+            require(rc == 0, f"{phase}: {what} returned {rc}")
             return {n: k - before[n] for n, k in counts().items()}
 
         zero_counts()
@@ -1620,21 +1733,21 @@ def phase_cli_other_geometry(smi, cfg):
                               "--nb_iters", "1", "--batch_size", str(CLI_BATCH),
                               "--config_dir", configs, "--exp_id", exp_id])
         frozen = load_config(os.path.join(exp, "hyp_exp.yaml"))
-        require((frozen.data.n_fft, frozen.data.win_length) == (OTHER_N_FFT, OTHER_WIN),
-                f"cli_other_geometry: the frozen config has n_fft {frozen.data.n_fft}, "
-                f"win {frozen.data.win_length}")
+        got = (frozen.data.n_fft, frozen.data.hop_length, frozen.data.win_length, frozen.data.sr)
+        require(got == GEOMETRY[tag], f"{phase}: the frozen config's (n_fft, hop, win, sr) "
+                f"{got}, want {GEOMETRY[tag]}")
         logs = read_logs(exp)
         for split in ("train", "val", "test"):
             got = logs[f"logs/{split}/loss"]
             require(sorted(got) == [1, 2] and np.isfinite(list(got.values())).all(),
-                    f"cli_other_geometry {split} loss {got}")
+                    f"{phase} {split} loss {got}")
         n_clips = 2 + 2 * 2 * len(EVAL_SECS) + 3 * len(EVAL_SECS)
-        require(train == {**{n: 0 for n in train}, "stft_frames": n_clips},
-                f"cli_other_geometry train: launches {train}, want stft_frames {n_clips}")
+        require(train == expected_counts(n_fft, hop, n_clips),
+                f"{phase} train: launches {train}, want {expected_counts(n_fft, hop, n_clips)}")
         val = run("val", ["val", "--eval_pth", exp_id])
         require(val["stft_frames"] > 0 and val["stft_frames"] % len(EVAL_SECS) == 0
-                and val == {**{n: 0 for n in val}, "stft_frames": val["stft_frames"]},
-                f"cli_other_geometry val: launches {val}")
+                and val == expected_counts(n_fft, hop, val["stft_frames"]),
+                f"{phase} val: launches {val}")
         wav_dir = os.path.join(tmp, "wavs")
         os.makedirs(wav_dir)
         rng = np.random.default_rng(21)
@@ -1643,29 +1756,28 @@ def phase_cli_other_geometry(smi, cfg):
                       (rng.standard_normal((secs * c.data.sr + 91, 4)) * 1500).astype(np.int16),
                       c.data.sr)
         infer_n = run("infer", ["infer", "--eval_pth", exp_id, "--infer_pth", wav_dir])
-        require(infer_n == {**{n: 0 for n in infer_n}, "stft_frames": len(OTHER_INFER_SECS)},
-                f"cli_other_geometry infer: launches {infer_n}")
+        require(infer_n == expected_counts(n_fft, hop, len(OTHER_INFER_SECS)),
+                f"{phase} infer: launches {infer_n}")
         csvs = read_csvs(os.path.join(exp, "output_infer"))
-        require(len(csvs) == len(OTHER_INFER_SECS), f"cli_other_geometry infer wrote {sorted(csvs)}")
+        require(len(csvs) == len(OTHER_INFER_SECS), f"{phase} infer wrote {sorted(csvs)}")
         run("export", ["export", "--eval_pth", exp_id])
         call, meta = load_exported(os.path.join(exp, "export"))
         require(meta["input_layout"] == "flat" and meta["serve_dtype"] == "float32",
-                f"cli_other_geometry export: meta {meta}")
+                f"{phase} export: meta {meta}")
         x = torch.tensor(foa_audio(rng, tuple(meta["input_shape"])), device="cuda")
         with plain_versions_raise():
             before = counts()
             served = call(x)
             torch.cuda.synchronize()
             per_call = {n: k - before[n] for n, k in counts().items()}
-        require(per_call == {**{n: 0 for n in per_call}, "stft_frames": 1},
-                f"cli_other_geometry: launches per served call {per_call}")
+        require(per_call == expected_counts(n_fft, hop),
+                f"{phase}: launches per served call {per_call}")
         model, _ = load_best_model(frozen, exp, "cuda")
         live = build_eval_forward(model, make_frontend(frozen))(x)
-        served_vs_live = {**check_served("other geometry", served, live, "float32"),
+        served_vs_live = {**check_served(f"geometry {tag}", served, live, "float32"),
                           "bit_equal": bool(torch.equal(served, live))}
-        emit({"phase": "cli_other_geometry",
-              "geometry": {"n_fft": OTHER_N_FFT, "hop": c.data.hop_length,
-                           "win_length": OTHER_WIN},
+        emit({"phase": phase,
+              "geometry": {"n_fft": n_fft, "hop": hop, "win_length": win, "sr": sr},
               "losses": {s: logs[f"logs/{s}/loss"] for s in ("train", "val", "test")},
               "launches": {"train": train, "val": val, "infer": infer_n,
                            "served_call": per_call},
@@ -2314,7 +2426,8 @@ def phase_train_cli(smi, cfg, bare_step_ms):
         require(any(e["frames"] > attention.BLOCK_THRESHOLD for e in rec["evals"]),
                 "no eval clip on route k4")
         for name, n in launched.items():  # float32 at n_fft 2 hop: no bf16 route, no frames kernel
-            require((n == 0) if name.endswith("_bf16") or name == "stft_frames" else (n > 0),
+            require((n == 0) if name.endswith("_bf16") or name.startswith("stft_frames")
+                    else (n > 0),
                     f"train_cli: kernel route {name} launched {n} times")
 
         # the resume: epoch 11 from the stored pool, file list, best_log, generator
@@ -3940,6 +4053,7 @@ def main():
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
     tau = pick_threshold(cfg, phase_forward(smi, fe, dft, model, "forward"))
     other_fwd = phase_forward_other_geometry(smi, cfg, model)
+    g3_fwd = phase_forward_other_geometry(smi, cfg, model, "G3")
     conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
     conf_tau = pick_threshold(conf_cfg, phase_forward(smi, fe, dft, conformer,
                                                       "forward_conformer"))
@@ -3959,6 +4073,7 @@ def main():
     conf_bf16 = phase_train_conformer_bf16(smi, conf_cfg, fe)
     se_cli = phase_train_cli_se_bf16(smi, cfg)
     other_cli = phase_cli_other_geometry(smi, cfg)
+    g3_cli = phase_cli_other_geometry(smi, cfg, "G3")
     mic = phase_preprocess_mic(smi, cfg)
     formats = phase_train_cli_formats(smi, cfg)
     ddp = phase_ddp(smi, cfg, conf_cfg)
@@ -3981,6 +4096,7 @@ def main():
              "train_cli": engine, "train_seresnet34_bf16": se_train,
              "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli,
              "forward_other_geometry": other_fwd, "cli_other_geometry": other_cli,
+             "forward_G3": g3_fwd, "cli_G3": g3_cli,
              "preprocess_mic": mic,
              "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
                                    for n in formats["accdoa"]},
@@ -3988,8 +4104,9 @@ def main():
              "tp": tp, "tp_replicated": tp_replicated, "bench": bench}
     for p in ("preprocess_mic", "train_cli_formats", "train_cli_formats_conformer"):
         require(paths[p]["stft"] > 0, f"{p}: K1 never launched")
-    require(paths["cli_other_geometry"]["stft_frames"] > 0,
-            "cli_other_geometry: K1's frames kernel never launched")
+    for p in ("cli_other_geometry", "cli_G3"):
+        require(paths[p]["stft_frames"] > 0 and paths[p]["stft"] == 0,
+                f"{p}: K1's frames kernel never launched, or the hop-block kernel did")
     require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),
             f"export: a kernel of the path never launched: {paths['export']}")
     require(paths["train_cli_formats_conformer"]["k2_dropout"] > 0
@@ -4012,8 +4129,20 @@ def main():
         {"name": "stft_frames", "route": "cuda",
          "source": "adyolo_tpu_torch/csrc/stft.cu",
          "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
-         **launches("stft_frames", "cli_other_geometry"),
-         **{n: frames_k[n] for n in keys_k1}},
+         **launches("stft_frames", "cli_G3"),
+         **{n: frames_k[n] for n in keys_k1},
+         # the same kernel at the other timed geometries (G1 is the row's
+         # own), and its routes: shared memory (stft_frames_fft_kernel) and,
+         # above it, global (stft_frames_pass_kernel, stft_frames_split_kernel;
+         # on no path here, held in phase kernel at n_fft 16384)
+         "geometry": frames_k["geometry"], "geometries": frames_k["geometries"],
+         "routes": {"shared": {"kernels": ["stft_frames_fft_kernel"],
+                               "launches_by_path": {p: n["stft_frames"]
+                                                    for p, n in paths.items()}},
+                    "global": {"kernels": ["stft_frames_pass_kernel",
+                                           "stft_frames_split_kernel"],
+                               "launches_by_path": {p: n["stft_frames_global"]
+                                                    for p, n in paths.items()}}}},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
          **launches("k2"), **{n: attn_k["k2"][n] for n in keys_a}},

@@ -14,8 +14,9 @@ attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
 ResNet-Conformer models, thresholds from one B=16 forward each),
 ``order``: attn_launch_order (the train attention pairs in a fresh
 process after a large plain attention), ``geometry``:
-forward_other_geometry and cli_other_geometry (SE-ResNet34 and the entry
-points at n_fft 2048, win 1200, on K1's frames kernel), ``ddp``:
+forward_other_geometry and cli_other_geometry at G1 and at G3
+(SE-ResNet34 and the entry points at n_fft 2048, win 1200, and at 44.1
+kHz, n_fft 2204, hop 1102, on K1's frames kernel), ``ddp``:
 ddp (two ranks spawned on the card), ``tp``: tp (the head-shard kernel
 checks, then two ranks of one model group spawned on the card),
 ``tp_replicated``: tp_replicated (the conformer at N = 3 and, cut to 2
@@ -63,9 +64,12 @@ def main():
         cs.phase_attn_launch_order(smi); print("t", time.time() - t0, flush=True)
     if "geometry" in which:
         model = build_model(cfg, generator=torch.Generator().manual_seed(0))
-        cs.phase_forward_other_geometry(smi, cfg, model)
+        for tag in ("G1", "G3"):
+            cs.phase_forward_other_geometry(smi, cfg, model, tag)
         del model
-        cs.phase_cli_other_geometry(smi, cfg); print("t", time.time() - t0, flush=True)
+        for tag in ("G1", "G3"):
+            cs.phase_cli_other_geometry(smi, cfg, tag)
+        print("t", time.time() - t0, flush=True)
     if "se" in which:
         print(cs.phase_train_seresnet34(smi, cfg, fe)); print("t", time.time() - t0, flush=True)
     if "conf" in which:

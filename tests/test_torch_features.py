@@ -19,6 +19,7 @@ from adyolo_tpu.config import DataConfig
 from adyolo_tpu.ops.features import FeatureFrontend as JaxFrontend
 from adyolo_tpu.ops.features import Scaler as JaxScaler
 from adyolo_tpu_torch.config import DataConfig as PortDataConfig
+from adyolo_tpu_torch.ops import hopper_stft
 from adyolo_tpu_torch.ops.features import FeatureFrontend, Scaler, power_to_db
 
 MEL_DB_TOL = 5e-5
@@ -111,20 +112,27 @@ def test_mic_not_ported():
 def test_geometries_the_kernels_do_not_take_raise():
     """Any hop frames flat audio (``tests/test_torch_geometry.py`` holds it
     against JAX), but hop-block audio needs n_fft == 2 * hop, as JAX's
-    ``framed_dft_chunked``; an n_fft with a prime factor above 5, or above
-    4096, is refused when the front-end is built, on the CPU as on the
-    card, naming the geometry; the shipped DCASE geometries construct."""
+    ``framed_dft_chunked``: that input still raises.  Every n_fft the JAX
+    package computes builds: 1400 (a prime factor 7) and 4800 (above the
+    first frames kernel's 4096) match JAX's front-end on flat audio and run
+    on the frames kernel; the shipped DCASE geometries construct."""
     other = dataclasses.replace(PortDataConfig(), n_fft=2048, win_length=1200)
     fe = FeatureFrontend(other, device="cpu")
     assert fe(torch.zeros(1, 4 * HOP + 5, 4)).shape == (1, 4, 64, 7)
     with pytest.raises(ValueError, match="n_fft == 2\\*hop"):
         fe(torch.zeros(1, 4, HOP, 4))
-    for n_fft, why in ((1400, "2, 3 and 5"), (4800, "n_fft <= 4096")):  # 1400 = 8 * 7 * 25
+    d = _scaler_dict(seed=4)
+    rng = np.random.default_rng(11)
+    a = ((rng.standard_normal((2, 8 * HOP + 5, 4)) * 1500).astype(np.int16) / 32768.0
+         + 1e-8).astype(np.float32)
+    for n_fft in (1400, 4800):  # 1400 = 8 * 7 * 25
         cfg = dataclasses.replace(PortDataConfig(), n_fft=n_fft, win_length=1200)
-        for device in ("cpu", "cuda"):
-            with pytest.raises(NotImplementedError,
-                               match=f"n_fft={n_fft}, hop_length=600, win_length=1200: .*{why}"):
-                FeatureFrontend(cfg, device=device)
+        jcfg = dataclasses.replace(DataConfig(), n_fft=n_fft, win_length=1200)
+        got = FeatureFrontend(cfg, Scaler.from_dict(d), device="cpu")(torch.tensor(a))
+        want = JaxFrontend(jcfg, JaxScaler.from_dict(d))(jnp.asarray(a))
+        assert got.shape == (2, 8, 64, 7)
+        _compare(got, want, d)
+        assert hopper_stft.kernels_of(n_fft, HOP) == {"stft_frames_fft_kernel": 1}
     for year in (2020, 2021, 2022):
         with open(f"configs/hyp_data_DCASE{year}.yaml") as f:
             shipped = yaml.safe_load(f)

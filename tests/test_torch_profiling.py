@@ -7,7 +7,8 @@
   lost the split kernel's events is profiled again and then comes back
   void, never as the merge's time; user annotations and host events stay
   out of the sums; a reading below its bound or above 1.05 x its single
-  call is void.
+  call is void; a library call's profile of n calls must hold n times the
+  device kernels of one profiled call, else it is void.
 * ``model_flops``: the closed forms, exactly, for the plain attention,
   ``adyolo::mhsa_eval``, the training attention's forward and backward
   (both CPU routes, and the train pair's ops whatever runs inside them),
@@ -111,7 +112,7 @@ def test_wrapper_counts_name_the_kernels_each_launch_runs():
     launched = set()
     for name in ("attention.cu", "stft.cu"):
         with open(os.path.join(csrc, name)) as f:
-            launched |= set(re.findall(r"(\w+)(?:<\w+>)?<<<", f.read()))
+            launched |= set(re.findall(r"(\w+)(?:<[\w, ]+>)?<<<", f.read()))
     assert launched == set(hopper_attention.KERNELS) | set(hopper_stft.KERNELS)
     groups = {k: profiling.group_of(f"void {k}(float const*)") for k in launched}
     assert groups == {k: "K1 STFT" if "stft" in k else
@@ -256,6 +257,42 @@ def test_check_device_ms_voids_below_the_bound_and_above_the_single_call(ms, wan
     assert got == want and (why is None) == (want is not None)
     if ms is not None and want is None:
         assert ("below the bound" in why) == (ms < 0.089)
+
+
+def _sdpa_dropout_events(n, lose=0, gain=0):
+    """A library call's device kernels, n calls: the flash forward, the
+    dropout mask, a copy; ``lose`` of the masks missing, ``gain`` stray
+    copies more."""
+    ev = []
+    for i in range(n):
+        ev += [DeviceEvent("void pytorch_flash::flash_fwd_kernel<Flash_fwd_traits>", CUDA, 80.0)]
+        ev += [] if i < lose else [
+            DeviceEvent("void at::native::(anonymous namespace)::fused_dropout_kernel", CUDA, 30.0)]
+        ev += [DeviceEvent("void at::native::vectorized_elementwise_kernel", CUDA, 5.0)]
+    return ev + [DeviceEvent("void at::native::vectorized_elementwise_kernel", CUDA, 5.0)] * gain
+
+
+def test_library_readings_are_held_to_their_kernel_count():
+    """A library call's kernels are not the port's, so no name says which
+    it launches: one profiled call gives its count (3 here), and a profile
+    of 10 calls is read only where it holds 30.  One that lost some calls'
+    dropout kernels (a lossy profile, whose time a call reads low) or
+    gained a stray kernel is void with its reason, and so is a profile with
+    no count (timed with CUDA events) or no count of one call."""
+    one = summarize_events(_sdpa_dropout_events(1), 1, 1.0)
+    per_call = one["kernels_per_step"]
+    assert per_call == 3
+    whole = summarize_events(_sdpa_dropout_events(10), 10, 20.0)
+    assert profiling.library_count_void(whole, per_call) is None
+    assert whole["busy_ms_per_step"] == pytest.approx(0.115)
+    lossy = summarize_events(_sdpa_dropout_events(10, lose=4), 10, 20.0)
+    why = profiling.library_count_void(lossy, per_call)
+    assert why == "2.6 device kernels a call, not the 3 of one profiled call"
+    assert profiling.library_count_void(summarize_events(_sdpa_dropout_events(10, gain=1), 10,
+                                                         20.0), per_call)
+    assert "not counted" in profiling.library_count_void(
+        {"source": "cuda_events", "kernels_per_step": None}, per_call)
+    assert profiling.library_count_void(whole, None) == "no profiled count of one call's kernels"
 
 
 @pytest.mark.cuda

@@ -6,13 +6,20 @@ wrapper's CPU dispatch are held against JAX ``framed_dft_chunked`` /
 (float32 sums over 1200 taps in different orders; measured ~1e-6).
 A numpy model of the kernel's FFT (the radix plan, the float32 table of
 ``fft_plan``, the pass order and the channel-pair split) is held against
-JAX ``framed_dft_chunked`` within the same bound.  The frames kernel (flat
-audio at any hop): a numpy model of its edge rules and radix plan against
-JAX ``framed_dft`` under ``jax.enable_x64`` within 2.5e-7 x max at its four
-geometries (a left reflection off by one fails it), and the CPU dispatch
-against JAX's front-end STFT within 2e-5 x max.  The launchers' failure
-reports are read through a fake library.  The kernels themselves run only
-on a CUDA device (``-m cuda``).
+JAX ``framed_dft_chunked`` within the same bound.  The frames kernel (every
+other geometry): a numpy model of its tiles (``hopper_stft.frames_config``:
+each tile's span staged from the same index arithmetic, reflected at the
+left edge, zeros from N on), its radix plan (register radices as R-point
+DFTs after the pass's twiddles, other primes as the generic pass's direct
+sums, whose roots sit at ``r s mod p``) and the pair split against JAX
+``framed_dft`` under ``jax.enable_x64`` within 2.5e-7 x max: at the four
+geometries of its first design, at 2204 / 1102 (G3), 4800 / 2400 (G4),
+2205 / 1102 (G5), 2402 / 1201 (a prime 1201) and an odd 75 / 30, and on
+its global route (frames read straight from the clip); a left reflection
+off by one, or a root index off by one in the generic pass, fails it.  The
+CPU dispatch against JAX's front-end STFT within 2e-5 x max.  The
+launchers' failure reports are read through a fake library.  The kernels
+themselves run only on a CUDA device (``-m cuda``).
 """
 import types
 
@@ -233,12 +240,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         hopper_stft.stft_hop_blocks(x.transpose(0, 1), plan)
     with pytest.raises(ValueError, match="n_fft == 2"):
         hopper_stft.stft_hop_blocks(x, hopper_stft.fft_plan(np.ones(1000, np.float32), "cpu"))
-    with pytest.raises(ValueError, match="2, 3 and 5"):
-        hopper_stft.fft_plan(np.ones(1204, np.float32), "cpu")  # 4 * 7 * 43
-    with pytest.raises(ValueError, match="n_fft <= 4096"):
-        hopper_stft.fft_plan(np.ones(4500, np.float32), "cpu")  # 4 * 9 * 125
-    with pytest.raises(ValueError, match="even n_fft"):
-        hopper_stft.fft_plan(np.ones(1125, np.float32), "cpu")
+    # every n_fft >= 2 has a plan: another prime factor than 2, 3 and 5, above
+    # 4096, odd (the frames kernel's, at any hop)
+    for n, radices in ((1204, (4, 7, 43)), (4500, (4, 3, 3, 5, 5, 5)), (1125, (3, 3, 5, 5, 5))):
+        p = hopper_stft.fft_plan(np.ones(n, np.float32), "cpu")
+        assert p.frames_radices == radices and hopper_stft.kernels_of(n, n // 2) == {
+            "stft_frames_fft_kernel": 1}
+    with pytest.raises(ValueError, match="n_fft >= 2"):
+        hopper_stft.fft_plan(np.ones(1, np.float32), "cpu")
     with pytest.raises(ValueError, match="hop-block width"):
         hopper_stft.stft_hop_blocks(x, plan, 300)
     with pytest.raises(ValueError, match="too short"):  # N <= n_fft / 2: no reflection
@@ -331,35 +340,102 @@ def test_kernel_flat_input_matches_plain_on_cuda(cuda_device):
 # 2400 window in its own n_fft, 48-kHz audio's 2400 window in 4096
 FRAME_GEOMETRIES = [(2048, 600, 1200), (1024, 600, 1024), (2400, 600, 2400),
                     (4096, 1200, 2400)]
+# the geometries only the frames kernel takes: the DCASE preset's 25 / 50 ms
+# at 44.1 kHz as n_fft = 2 hop = 2^2 19 29 (G3), at 96 kHz (G4, above the
+# first design's 4096), its exact 50-ms window at 44.1 kHz (G5, odd, 3^2 5
+# 7^2), a large prime (2402 = 2 x 1201) and a small odd n_fft
+NEW_GEOMETRIES = [(2204, 1102, 2204), (4800, 2400, 4800), (2205, 1102, 2205),
+                  (2402, 1201, 2402), (75, 30, 60)]
 MODEL_TOL = 2.5e-7  # the numpy model against float64 JAX, x max
+
+# the edges of the shared routes: shared_wide at one span slot (8192, and
+# the prime 7919 in a generic pass), then the global route (9600 in
+# register radices, 11274 = 2 x 3 x 1879 with a generic pass)
+EDGE_GEOMETRIES = [(8192, 2048, 8192), (7919, 1980, 7919), (9600, 2400, 9600),
+                   (11274, 4000, 11274)]
 
 
 def _frames_plan(n_fft, win, device="cpu"):
     return hopper_stft.fft_plan(port_window("han", win, n_fft), device)
 
 
-def _flat_frames_audio(n_fft, hop, seed):
-    """(2, 203 hops + 17, 4) audio whose first n_fft samples, the ones the
-    reflected left edge reads, are unlike the rest."""
+def _flat_frames_audio(n_fft, hop, seed, frames=203):
+    """(2, frames hops + 17, 4) audio whose first n_fft samples, the ones
+    the reflected left edge reads, are unlike the rest."""
     rng = np.random.default_rng(seed)
-    a = (rng.standard_normal((2, 203 * hop + 17, 4)) * 0.1).astype(np.float32)
+    a = (rng.standard_normal((2, frames * hop + 17, 4)) * 0.1).astype(np.float32)
     a[:, :n_fft] = rng.uniform(-0.8, 0.8, (2, n_fft, 4))
     return a
 
 
-def _frames_model(x, plan, hop, reflect_shift=0):
-    """The frames kernel as it computes, in numpy float32/complex64: frame
-    t's sample m reads s = t hop + m - n_fft/2 of the flat clip, x[-s +
-    reflect_shift] left of 0 (0: librosa's reflection), zero from N on;
-    the table's window; then :func:`_fft_passes`.  ``x``: (B, N, 4)."""
+def _frames_model(x, plan, hop, reflect_shift=0, root_shift=0, route=None):
+    """The frames kernel as it computes, in numpy float32/complex64 (the
+    generic pass's sums in complex128): on its shared routes tiles of F
+    frames (``frames_config``), each tile's span of (nf - 1) hop + n_fft
+    samples staged from signal sample t0 hop - n_fft // 2 on, x[-s +
+    reflect_shift] left of 0 (0: librosa's reflection), zero from N on, and
+    frame f's sample m read at f hop + m; on the global route (``route`` 2)
+    each frame read from the clip by the same rule; the table's window;
+    then :func:`_frames_fft`.  ``x``: (B, N, 4)."""
     B, N, _ = x.shape
     n = plan.n_fft
     T = N // hop
-    s = np.arange(T)[:, None] * hop + np.arange(n)[None, :] - n // 2
-    src = np.where(s < 0, -s + reflect_shift, s)
-    frames = np.where((src < N)[None, :, :, None], x[:, np.minimum(src, N - 1)], 0.0)
-    return _fft_passes((frames * plan.table.numpy()[2 * n:][None, None, :, None])
-                       .astype(np.float32), plan)
+    cfg = hopper_stft.frames_config(n, hop)
+    route = cfg.route if route is None else route
+    frames = np.zeros((B, T, n, 4), np.float32)
+
+    def staged(b, first, length):
+        s = first + np.arange(length)
+        src = np.where(s < 0, -s + reflect_shift, s)
+        return np.where((src < N)[:, None], x[b, np.minimum(src, N - 1)], 0.0)
+
+    for b in range(B):
+        if route == 2:
+            for t in range(T):
+                frames[b, t] = staged(b, t * hop - n // 2, n)
+            continue
+        for t0 in range(0, T, cfg.frames):
+            nf = min(cfg.frames, T - t0)
+            span = staged(b, t0 * hop - n // 2, (nf - 1) * hop + n)
+            for f in range(nf):
+                frames[b, t0 + f] = span[f * hop:f * hop + n]
+    return _frames_fft((frames * plan.table.numpy()[2 * n:][None, None, :, None])
+                       .astype(np.float32), plan, root_shift)
+
+
+def _frames_fft(frames, plan, root_shift=0):
+    """The frames kernel's FFT of windowed ``frames`` (B, T, n_fft, 4): the
+    channel pairs, the Stockham passes of ``plan.frames_radices`` (a register
+    radix R: input r of butterfly j turned by table[r k stride], k = j mod
+    ns, then the R-point DFT; any other p: output s the sum over r of that
+    input times table[((r s + root_shift) mod p) n/p]), then the split."""
+    n = plan.n_fft
+    table = plan.table.numpy()
+    tw = (table[0:2 * n:2] + 1j * table[1:2 * n:2]).astype(np.complex64)
+    x = np.stack([frames[..., 0] + 1j * frames[..., 1],
+                  frames[..., 2] + 1j * frames[..., 3]], axis=2).astype(np.complex64)
+    ns = 1
+    for R in plan.frames_radices:
+        m = n // R
+        j = np.arange(m)
+        k = j % ns
+        v = np.stack([x[..., j + r * m] * tw[r * k * (n // (ns * R))] for r in range(R)])
+        if R in hopper_stft._REGISTER_RADICES:
+            w = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+            y = np.einsum("sr,r...->s...", w.astype(np.complex64), v)
+        else:
+            rs = (np.outer(np.arange(R), np.arange(R)) + root_shift) % R
+            y = np.einsum("sr,r...->s...", tw[rs * m].astype(np.complex128),
+                          v.astype(np.complex128)).astype(np.complex64)
+        out = np.empty_like(x)
+        for r in range(R):
+            out[..., (j - k) * R + k + r * ns] = y[r]
+        x, ns = out, ns * R
+    kk = np.arange(n // 2 + 1)
+    z, c = x[..., kk], np.conj(x[..., (-kk) % n])
+    xa, xb = (z + c) / 2, (z - c) / 2j
+    chans = np.stack([xa[:, :, 0], xb[:, :, 0], xa[:, :, 1], xb[:, :, 1]], axis=-1)
+    return chans.real.astype(np.float32), chans.imag.astype(np.float32)
 
 
 def _jax_framed_dft64(x, n_fft, hop, win):
@@ -380,38 +456,103 @@ def _jax_framed_dft64(x, n_fft, hop, win):
         return np.asarray(re), np.asarray(im)
 
 
-@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES)
-def test_frames_model_matches_jax_framed_dft(n_fft, hop, win):
-    """The frames kernel's radix plan and edge rules, modelled, against
-    JAX ``framed_dft`` in float64 within 2.5e-7 x max; the same model with
-    the left reflection off by one sample is far outside it."""
-    plan = _frames_plan(n_fft, win)
-    assert plan.radices == hopper_stft.radix_plan(n_fft)
-    assert hopper_stft.kernel_of(n_fft, hop) == "stft_frames_fft_kernel"
-    a = _flat_frames_audio(n_fft, hop, seed=n_fft)
+def _frames_case(n_fft, hop, win, seed):
+    """Audio of a frames case (203 frames; 23 at the new geometries, whose
+    float64 references cost more) and its float64 JAX STFT."""
+    frames = 203 if (n_fft, hop, win) in FRAME_GEOMETRIES else 23
+    a = _flat_frames_audio(n_fft, hop, seed=seed, frames=frames)
     jr, ji = _jax_framed_dft64(a, n_fft, hop, win)
-    assert jr.shape == (2, 203, n_fft // 2 + 1, 4)
-    scale = max(float(np.abs(jr).max()), float(np.abs(ji).max()))
-    mr, mi = _frames_model(a, plan, hop)
-    err = max(float(np.abs(mr - jr).max()), float(np.abs(mi - ji).max()))
+    assert jr.shape == (2, frames, n_fft // 2 + 1, 4)
+    return a, jr, ji, max(float(np.abs(jr).max()), float(np.abs(ji).max()))
+
+
+def _model_err(got, jr, ji):
+    return max(float(np.abs(got[0] - jr).max()), float(np.abs(got[1] - ji).max()))
+
+
+@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES + NEW_GEOMETRIES)
+def test_frames_model_matches_jax_framed_dft(n_fft, hop, win):
+    """The frames kernel's tiles, edge rules and radix plan, modelled,
+    against JAX ``framed_dft`` in float64 within 2.5e-7 x max; the same
+    model with the left reflection off by one sample is far outside it."""
+    plan = _frames_plan(n_fft, win)
+    assert plan.frames_radices == hopper_stft.frames_radix_plan(n_fft)
+    assert hopper_stft.kernel_of(n_fft, hop) == "stft_frames_fft_kernel"
+    a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft)
+    err = _model_err(_frames_model(a, plan, hop), jr, ji)
     assert err <= MODEL_TOL * scale, (err, scale)
-    br, bi = _frames_model(a, plan, hop, reflect_shift=1)
-    bad = max(float(np.abs(br - jr).max()), float(np.abs(bi - ji).max()))
+    bad = _model_err(_frames_model(a, plan, hop, reflect_shift=1), jr, ji)
     assert bad > 1e4 * MODEL_TOL * scale, (bad, scale)
 
 
-@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES)
+@pytest.mark.parametrize("n_fft,hop,win", [(2205, 1102, 2205), (75, 30, 60)])
+def test_frames_model_global_route_matches_jax(n_fft, hop, win):
+    """The global route's framing (each frame read from the clip, no
+    tiles) with the same passes, against float64 JAX within 2.5e-7 x max."""
+    a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft + 3)
+    err = _model_err(_frames_model(a, _frames_plan(n_fft, win), hop, route=2), jr, ji)
+    assert err <= MODEL_TOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("n_fft,hop,win", [(2204, 1102, 2204), (2205, 1102, 2205)])
+def test_frames_model_catches_a_wrong_root(n_fft, hop, win):
+    """A root index one off in the generic pass (``r s + 1`` for ``r s``)
+    puts the model far outside the bound, so the bound sees that fault."""
+    plan = _frames_plan(n_fft, win)
+    assert any(r not in hopper_stft._REGISTER_RADICES for r in plan.frames_radices)
+    a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft + 4)
+    bad = _model_err(_frames_model(a, plan, hop, root_shift=1), jr, ji)
+    assert bad > 1e4 * MODEL_TOL * scale, (bad, scale)
+
+
+def test_frames_routes_and_tiles():
+    """Which kernel takes a geometry, decided by the geometry alone: the
+    hop-block kernel exactly at n_fft == 2 * hop <= 2400 with factors 2, 3
+    and 5; the frames kernel elsewhere, in shared memory (16 or 32 values
+    a thread) where a tile fits, as at every n_fft up to 5,642, and on the
+    global route where none does, one pass kernel a radix and one split;
+    every tile within 227 KB and the registers of 256 threads."""
+    of = hopper_stft.kernels_of
+    for n, hop in ((1200, 600), (600, 300), (2400, 1200), (1024, 512), (150, 75)):
+        assert of(n, hop) == {"stft_hop_blocks_fft_kernel": 1}
+    for n, hop in ((2048, 600), (2204, 1102), (2205, 1102), (4800, 2400), (2402, 1201),
+                   (4000, 2000), (1400, 700), (1201, 600), (5642, 2821), (7919, 1980),
+                   (8192, 2048)):
+        assert of(n, hop) == {"stft_frames_fft_kernel": 1}, (n, hop)
+    assert of(16384, 4096) == {"stft_frames_pass_kernel": 4, "stft_frames_split_kernel": 1}
+    assert of(14088, 3000) == {"stft_frames_pass_kernel": 3, "stft_frames_split_kernel": 1}
+    assert of(5643, 1411) == {"stft_frames_pass_kernel": 5, "stft_frames_split_kernel": 1}
+    cfg = hopper_stft.frames_config
+    assert cfg(2048, 600)[:3] == (0, 2, 2)
+    assert cfg(4800, 2400)[:3] == (1, 1, 2)
+    assert [cfg(n, hop)[:3] for n, hop, _ in EDGE_GEOMETRIES] == [
+        (1, 1, 1), (1, 1, 1), (2, 0, 0), (2, 0, 0)]
+    assert hopper_stft.FRAME_ROUTES[2] == "global"
+    assert cfg(9000, 3000).route == 2 and cfg(14087, 3000).route == 2
+    for n in range(2, 5643):
+        c = cfg(n, max(1, n // 3))
+        assert c.route in (0, 1) and 1 <= c.frames <= 8 and c.smem_bytes <= 232448
+        assert hopper_stft._frames_fit(hopper_stft.frames_radix_plan(n), n, c.frames,
+                                       hopper_stft._FR_EPT[c.route])
+    assert hopper_stft.frames_radix_plan(2048) == (16, 16, 8)
+    assert hopper_stft.frames_radix_plan(2204) == (4, 19, 29)
+    assert hopper_stft.frames_radix_plan(2205) == (3, 3, 5, 7, 7)
+    assert hopper_stft.frames_radix_plan(4800) == (16, 4, 3, 5, 5)
+
+
+@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES + NEW_GEOMETRIES)
 def test_flat_any_hop_matches_jax_front_end_stft(n_fft, hop, win):
     """The wrapper's CPU dispatch on flat audio at n_fft != 2 * hop (the
     plain flat framing, no launch) against the JAX front-end's STFT of flat
     audio within 2e-5 x max."""
     w_re, w_im = dft_matrices(n_fft, analysis_window("han", win, n_fft))
-    a = _flat_frames_audio(n_fft, hop, seed=n_fft + 1)
+    frames = 203 if (n_fft, hop, win) in FRAME_GEOMETRIES else 23
+    a = _flat_frames_audio(n_fft, hop, seed=n_fft + 1, frames=frames)
     jr, ji = jax_stft_re_im(jnp.asarray(a), n_fft, hop, jnp.asarray(w_re), jnp.asarray(w_im))
     before = dict(hopper_stft.KERNELS)
     re, im = hopper_stft.stft_hop_blocks(torch.tensor(a), _frames_plan(n_fft, win), hop)
     assert hopper_stft.KERNELS == before
-    assert re.shape == (2, 203, n_fft // 2 + 1, 4)
+    assert re.shape == (2, frames, n_fft // 2 + 1, 4)
     _close(re, jr)
     _close(im, ji)
 
@@ -498,17 +639,23 @@ def test_every_c_entry_point_records_where_it_failed():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES)
+@pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES + NEW_GEOMETRIES
+                         + EDGE_GEOMETRIES + [(16384, 4096, 16384)])
 def test_frames_kernel_matches_plain_on_cuda(cuda_device, n_fft, hop, win):
     """The frames kernel on flat audio against the plain flat framing of
-    the same samples, one launch a call."""
+    the same samples, with the launches ``kernels_of`` names (one span slot
+    at 8192 and 7919; 9600, 11274 and 16384: the global route, one pass
+    kernel a radix and the split)."""
     w_re, w_im = (torch.tensor(w, device=cuda_device)
                   for w in dft_matrices(n_fft, analysis_window("han", win, n_fft)))
-    x = torch.tensor(_flat_frames_audio(n_fft, hop, seed=n_fft + 2), device=cuda_device)
-    before = hopper_stft.KERNELS["stft_frames_fft_kernel"]
+    frames = 203 if (n_fft, hop, win) in FRAME_GEOMETRIES else 23
+    x = torch.tensor(_flat_frames_audio(n_fft, hop, seed=n_fft + 2, frames=frames),
+                     device=cuda_device)
+    before = dict(hopper_stft.KERNELS)
     kr, ki = hopper_stft.stft_hop_blocks(x, _frames_plan(n_fft, win, cuda_device), hop)
     torch.cuda.synchronize()
-    assert hopper_stft.KERNELS["stft_frames_fft_kernel"] == before + 1
+    assert {k: c - before[k] for k, c in hopper_stft.KERNELS.items()
+            if c != before[k]} == hopper_stft.kernels_of(n_fft, hop)
     pr, pi = port_stft.framed_dft_flat(x, w_re, w_im, hop)
     _close(kr.cpu(), pr.cpu())
     _close(ki.cpu(), pi.cpu())
