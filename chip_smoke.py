@@ -14,8 +14,10 @@ before the last line:
               one nvcc per source, all at once; per kernel its registers,
               spills and shared memory (ptxas, and the dynamic size the
               launch asks for); the frames kernel's route, tile, span
-              slots and shared memory by its C rule against the wrapper's
-              ``frames_config`` at every n_fft of FRAMES_RULE_SWEEP.
+              slots and shared memory (on the global route its split,
+              units, Bluestein blocks and input slots) by its C rule
+              against the wrapper's ``frames_config`` at every n_fft of
+              FRAMES_RULE_SWEEP.
 3. kernel  -- the Hopper STFT kernel (an FFT) vs its plain PyTorch
               version at the serving shape (16, 800, 600, 4), a ragged
               (3, 803) case, the shortest (1, 2) and (2, 1201), whose last
@@ -31,17 +33,24 @@ before the last line:
               geometry): (2, 203 * hop + 17, 4) at (n_fft, hop, win) =
               (2048, 600, 1200), (1024, 600, 1024), (2400, 600, 2400),
               (4096, 1200, 2400), G3 (2204, 1102, 2204), G4 (4800, 2400,
-              4800), G5 (2205, 1102, 2205), (2402, 1201, 2402) (a generic
-              1201-point pass), (8192, 2048, 8192) and (7919, 1980, 7919)
-              (one span slot), and (9600, 2400, 9600), (11274, 4000,
-              11274) and (16384, 4096, 16384) (the global route) against ``framed_dft_flat`` within 2e-5 * max, with
-              the launches ``hopper_stft.kernels_of`` names; the timed
-              rows ``frames_serving`` at (16, 800 * 600, 4), n_fft 2048,
-              win 1200 (G1), and ``frames_G3``, ``frames_G5``,
-              ``frames_G4`` at 16 x 20 s of 44.1- and 96-kHz audio, each
-              beside the plain version and ``torch.stft`` (held to the
-              function on the frames before the last: its right edge is
-              reflected, JAX's zeros).
+              4800), G5 (2205, 1102, 2205) (prime passes at G3 and G5),
+              (8192, 2048, 8192) (one span slot), (9600, 2400, 9600) on
+              route four_step (one frame a block), and on the global route
+              (two launches, the four-step FFT) (2402, 1201, 2402) and
+              (7919, 1980, 7919) (Bluestein), (11274, 4000, 11274)
+              (Bluestein columns) and (16384, 4096, 16384), and the prime
+              (14087, 3522, 14087) on the global route's whole-frame
+              Bluestein (two launches),
+              against ``framed_dft_flat`` within 2e-5 * max, with the
+              launches ``hopper_stft.kernels_of`` names; the timed rows
+              ``frames_serving`` at (16, 800 * 600, 4), n_fft 2048, win
+              1200 (G1), and ``frames_G3``, ``frames_G5``, ``frames_G4``,
+              ``frames_G6``, ``frames_G7``, ``frames_N16384`` and
+              ``frames_N14087`` at 16 x
+              20 s of 44.1- and 96-kHz audio, each beside the plain
+              version and ``torch.stft`` (held to the function on the
+              frames before the last: its right edge is reflected, JAX's
+              zeros).
 4. attn_kernel -- the Hopper attention kernel (3xTF32 tensor cores) vs
               the plain attention at (B, T, 4, 64): (16, 800) all keys
               valid and with random kv_len (one row 0), (1, 1200) len 920,
@@ -83,7 +92,10 @@ before the last line:
               1200 on flat 16 x 20-s clips (K1's frames kernel once),
               within 1e-3 * max of the all-plain forward; median of 10, a
               profile of 2 that holds the frames kernel; forward_G3 the
-              same at 44.1 kHz, hop 1102, n_fft = win = 2204.
+              same at 44.1 kHz, hop 1102, n_fft = win = 2204; forward_G6
+              the same at 96 kHz, hop 2400, n_fft = win = 9600 (800
+              frames, 200 label frames; the frames kernel's route
+              four_step, one launch, held in the profile).
 7. forward_conformer -- the same with ResNet-Conformer + AD-YOLO (emb 256,
               8 blocks, 4 heads): the STFT kernel launched once and the
               attention kernel 8 times (route k2), within 1e-3 *
@@ -289,10 +301,13 @@ fatal.  Every profile of a step or a forward holds the same count of the
 kernels one unprofiled call launched, or its groups are void.
 Then one line ``{"kernels": [...]}`` (``launches`` counted over each
 kernel's main path, phase train_cli, or train_conformer_bf16 for the bf16
-training routes, export for k2_bf16 and cli_G3 for K1's frames kernel,
-with every path's count beside it in ``launches_by_path``; the frames
-kernel's entry also carries its G3, G5 and G4 rows and its routes' counts
-by path), the card's nvidia-smi line, and last
+training routes, export for k2_bf16, cli_G3 for K1's frames kernel and
+forward_G6 for its route four_step, with every path's count beside it in
+``launches_by_path``; the frames kernel's entry also carries its other
+timed geometries' rows; its global route and the route's whole-frame
+Bluestein, on no model's path, count the launches of phase kernel's frames
+cases), the card's nvidia-smi line, and
+last
 ``{"ok": true, "device": {...}}``.  Before those two lines the helper
 processes that ``multiprocessing`` started for the ranks are ended, and
 the script fails if any process it started (a grandchild included: it
@@ -364,16 +379,25 @@ HOP = 600
 OTHER_N_FFT, OTHER_WIN = 2048, 1200
 # (n_fft, hop, win_length, sr) of the frames kernel's timed geometries: G1
 # the baseline's above; the DCASE preset's 25 / 50 ms at 44.1 kHz as n_fft
-# = 2 hop = 2^2 19 29 (G3, the slice's path) and as the exact 50-ms window,
-# odd (G5, 3^2 5 7^2); at 96 kHz (G4, 4800)
+# = 2 hop = 2^2 19 29 (G3, the slice's path, prime passes) and as the exact
+# 50-ms window, odd (G5, 3^2 5 7^2); at 96 kHz (G4, 4800); at 96 kHz, a
+# 100-ms window (G6, 9600 = 120 x 80, route four_step, phase forward_G6's
+# path); and 11274 / 4000 on the global route (G7, 1879 x 6: Bluestein
+# columns)
 GEOMETRY = {"G1": (OTHER_N_FFT, HOP, OTHER_WIN, 24000), "G3": (2204, 1102, 2204, 44100),
-            "G5": (2205, 1102, 2205, 44100), "G4": (4800, 2400, 4800, 96000)}
+            "G5": (2205, 1102, 2205, 44100), "G4": (4800, 2400, 4800, 96000),
+            "G6": (9600, 2400, 9600, 96000), "G7": (11274, 4000, 11274, 96000)}
+# timed beside GEOMETRY in phase kernel, at no model's geometry: the global
+# route at 16384 = 128 x 128, and at the prime 14087 its whole-frame
+# Bluestein
+TIMED_FRAMES = {**GEOMETRY, "N16384": (16384, 4096, 16384, 96000),
+                "N14087": (14087, 3522, 14087, 96000)}
 # n_fft at which phase build holds the frames kernel's route rule in C (what
 # a launch checks) to the wrapper's copy: every n_fft below 300, a stride
 # through the rest up to the global route, and each route's edges
 FRAMES_RULE_SWEEP = sorted(set(range(2, 300)) | set(range(300, 16500, 97)) | {
     1023, 1201, 2047, 2048, 2204, 2205, 2402, 4096, 4097, 4800, 5534, 5535, 5642, 5643, 7680,
-    7681, 7919, 8192, 8193, 9600, 11274, 16384})
+    7681, 7919, 8192, 8193, 9600, 11274, 12703, 12707, 14087, 16384, 37083, 65537})
 KERNEL_TOL = 2e-5
 GRAD_KERNEL_TOL = 1e-4  # kernel vs plain attention gradients, x max|grad|
 LIBRARY_TOL = 1e-4  # torch.stft / SDPA vs the plain version, x max|plain|
@@ -575,11 +599,18 @@ def zero_counts():
 def counts():
     """Launches by route: ``stft`` K1's hop-block kernel, ``stft_frames``
     its frames kernel in shared memory (every other geometry),
-    ``stft_frames_global`` the frames kernel's global route (its pass and
-    split kernels), then the attention routes."""
+    ``stft_frames_4step`` its route four_step (one frame a block),
+    ``stft_frames_global`` its global route (two launches,
+    ``stft_frames_cols_kernel`` and ``stft_frames_rows_kernel``),
+    ``stft_frames_chirp`` the global route's whole-frame Bluestein (two
+    launches, ``stft_frames_chirp_in_kernel`` and
+    ``stft_frames_chirp_out_kernel``), then the attention routes."""
     k = hopper_stft.KERNELS
     return {"stft": k["stft_hop_blocks_fft_kernel"], "stft_frames": k["stft_frames_fft_kernel"],
-            "stft_frames_global": k["stft_frames_pass_kernel"] + k["stft_frames_split_kernel"],
+            "stft_frames_4step": k["stft_frames_4step_kernel"],
+            "stft_frames_global": k["stft_frames_cols_kernel"] + k["stft_frames_rows_kernel"],
+            "stft_frames_chirp": (k["stft_frames_chirp_in_kernel"]
+                                  + k["stft_frames_chirp_out_kernel"]),
             **hopper_attention.LAUNCHES}
 
 
@@ -588,7 +619,10 @@ def expected_counts(n_fft, hop, calls=1):
     hop)``, every other route 0 (``hopper_stft.kernels_of``)."""
     want = dict.fromkeys(counts(), 0)
     for name, n in hopper_stft.kernels_of(n_fft, hop).items():
-        key = {"stft_hop_blocks_fft_kernel": "stft", "stft_frames_fft_kernel": "stft_frames"}
+        key = {"stft_hop_blocks_fft_kernel": "stft", "stft_frames_fft_kernel": "stft_frames",
+               "stft_frames_4step_kernel": "stft_frames_4step",
+               "stft_frames_chirp_in_kernel": "stft_frames_chirp",
+               "stft_frames_chirp_out_kernel": "stft_frames_chirp"}
         want[key.get(name, "stft_frames_global")] += calls * n
     return want
 
@@ -607,6 +641,14 @@ def foa_audio(rng, shape):
     """int16-range noise normalised like the loaders (/32768 + 1e-8)."""
     a = (rng.standard_normal(shape) * 1500).astype(np.int16)
     return (a / 32768.0 + 1e-8).astype(np.float32)
+
+
+def foa_audio_cuda(seed, shape):
+    """:func:`foa_audio`'s noise made on the card from ``seed`` (a 16 x
+    20-s clip batch at 96 kHz is 123 M samples: seconds on the host)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = (torch.randn(shape, generator=g, device="cuda") * 1500).to(torch.int16)
+    return a.float() / 32768.0 + 1e-8
 
 
 def phase_env():
@@ -637,17 +679,30 @@ def ptxas_kernels(log):
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             name = next(k for k in ("stft_hop_blocks_fft_kernel",
-                                    "stft_frames_fft_kernelILi16E",
-                                    "stft_frames_fft_kernelILi32E", "stft_frames_pass_kernel",
-                                    "stft_frames_split_kernel", "mhsa_fwd_kernelILb1",
+                                    "stft_frames_fft_kernelILi16ELb0E",
+                                    "stft_frames_fft_kernelILi16ELb1E",
+                                    "stft_frames_fft_kernelILi32ELb0E",
+                                    "stft_frames_fft_kernelILi32ELb1E",
+                                    "stft_frames_chirp_in_kernel",
+                                    "stft_frames_chirp_out_kernel",
+                                    "stft_frames_cols_kernelILb0ELb0E",
+                                    "stft_frames_cols_kernelILb1ELb0E",
+                                    "stft_frames_cols_kernelILb0ELb1E",
+                                    "stft_frames_rows_kernelILb0E",
+                                    "stft_frames_rows_kernelILb1E",
+                                    "stft_frames_4step_kernel", "mhsa_fwd_kernelILb1",
                                     "mhsa_fwd_kernelILb0", "mhsa_fwd_merge_kernel",
                                     "mhsa_bwd_dq_kernel", "mhsa_bwd_dkdv_kernel",
                                     "mhsa_fwd_bf16_kernelILb1", "mhsa_fwd_bf16_kernelILb0",
                                     "mhsa_bwd_dq_bf16_kernel",
                                     "mhsa_bwd_dkdv_bf16_kernel", mangled)
                         if k in mangled)
-            name = (name.replace("ILb1", "<true>").replace("ILb0", "<false>")
-                    .replace("ILi16E", "<16>").replace("ILi32E", "<32>"))
+            name = (name.replace("ILi16ELb0E", "<16, false>").replace("ILi16ELb1E", "<16, true>")
+                    .replace("ILi32ELb0E", "<32, false>").replace("ILi32ELb1E", "<32, true>")
+                    .replace("ILb0ELb0E", "<false, false>").replace("ILb1ELb0E", "<true, false>")
+                    .replace("ILb0ELb1E", "<false, true>")
+                    .replace("ILb1E", "<true>").replace("ILb0E", "<false>")
+                    .replace("ILb1", "<true>").replace("ILb0", "<false>"))
             out[name] = {}
         elif name and "spill stores" in ln:
             out[name]["spill_store_bytes"] = int(ln.split("bytes spill stores")[0].split(",")[-1])
@@ -670,23 +725,37 @@ def phase_build():
 
     def c_config(n_fft, hop):
         radices, n_pass = hopper_stft._radices_c(hopper_stft.frames_radix_plan(n_fft))
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 12)()
         smem = lib.adyolo_stft_frames_config(n_fft, hop, radices, n_pass, out)
-        return hopper_stft.FramesConfig(out[0], out[1], out[2], smem)
+        return None if smem < 0 else hopper_stft.FramesConfig(out[0], out[1], out[2], smem,
+                                                              *out[3:12])
 
-    # the frames kernel's route, tile, ring and shared memory by the C rule
-    # (what a launch checks) against the wrapper's copy (frames_config,
-    # which decides the launches), over FRAMES_RULE_SWEEP
+    def py_config(n_fft, hop):
+        return hopper_stft.frames_config(n_fft, hop)
+
+    # the frames kernel's route, tile, ring and shared memory (on the global
+    # route its split, units, Bluestein blocks and slots) by the C rule (what
+    # a launch checks) against the wrapper's copy (frames_config, which
+    # decides the launches), over FRAMES_RULE_SWEEP
     for n_fft in FRAMES_RULE_SWEEP:
         for hop in sorted({max(1, n_fft // 4), max(1, n_fft // 2), HOP}):
-            c, py = c_config(n_fft, hop), hopper_stft.frames_config(n_fft, hop)
+            c, py = c_config(n_fft, hop), py_config(n_fft, hop)
             require(c == py, f"frames kernel at {n_fft}/{hop}: {c} by the C rule, {py} by "
                     "frames_config")
-    # each shared instance's shared memory at G1 and G4
-    frames_smem = {"stft_frames_fft_kernel<16>": c_config(*GEOMETRY["G1"][:2]).smem_bytes,
-                   "stft_frames_fft_kernel<32>": c_config(*GEOMETRY["G4"][:2]).smem_bytes}
-    dyn = {"stft_hop_blocks_fft_kernel": lib.adyolo_stft_smem_bytes(),
-           **frames_smem, "stft_frames_pass_kernel": 0, "stft_frames_split_kernel": 0,
+    # the shared memory of each instance at a geometry that runs it
+    g7, n16384 = c_config(*GEOMETRY["G7"][:2]), c_config(16384, 4096)
+    n14087 = c_config(*TIMED_FRAMES["N14087"][:2])
+    # (instances <n, false/true>: without and with the prime passes)
+    frames_smem = {"stft_frames_fft_kernel<16, false>": c_config(*GEOMETRY["G1"][:2]).smem_bytes,
+                   "stft_frames_fft_kernel<16, true>": c_config(*GEOMETRY["G3"][:2]).smem_bytes,
+                   "stft_frames_fft_kernel<32, false>": c_config(*GEOMETRY["G4"][:2]).smem_bytes,
+                   "stft_frames_4step_kernel": c_config(*GEOMETRY["G6"][:2]).smem_bytes,
+                   "stft_frames_cols_kernel<false, false>": n16384.smem_bytes,
+                   "stft_frames_rows_kernel<false>": n16384.rows_smem_bytes,
+                   "stft_frames_cols_kernel<false, true>": g7.smem_bytes,
+                   "stft_frames_chirp_in_kernel": n14087.smem_bytes,
+                   "stft_frames_chirp_out_kernel": n14087.rows_smem_bytes}
+    dyn = {"stft_hop_blocks_fft_kernel": lib.adyolo_stft_smem_bytes(), **frames_smem,
            "mhsa_fwd_kernel<true>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_kernel<false>": lib.adyolo_mhsa_smem_bytes(0),
            "mhsa_fwd_merge_kernel": 0,
@@ -797,16 +866,17 @@ def phase_kernel(smi, fe, dft):
 # (n_fft, hop, win_length) of the frames kernel's cases: the DCASE
 # baseline's 2048 / 600 / 1200, a power-of-two n_fft equal to the window,
 # a 2400 window in its own n_fft, 48-kHz audio's 2400 window in 4096; G3,
-# G4 and G5 (GEOMETRY); a large prime factor (2402 = 2 x 1201: a generic
-# 1201-point pass); shared_wide at one span slot, 8192 and the prime 7919
-# (a generic 7919-point pass); and the global route (a pass kernel a radix
-# and the split kernel) at 9600, 96-kHz audio's 100-ms window (register
-# radices 16, 8, 3, 5, 5), 11274 = 2 x 3 x 1879 (a generic pass) and 16384
+# G4 and G5 (GEOMETRY, prime passes at G3 and G5); shared_wide at one span
+# slot, 8192; route four_step at 9600, 96-kHz audio's 100-ms window (120 x
+# 80); and the global route (two launches) at 2402 = 2 x 1201 and the prime
+# 7919 (Bluestein, 7919 in two output blocks), 11274 = 6 x 1879 (Bluestein
+# columns) and 16384 (128 x 128); and the whole-frame Bluestein at the prime
+# 14087
 OTHER_GEOMETRIES = ((OTHER_N_FFT, HOP, OTHER_WIN), (1024, HOP, 1024), (2400, HOP, 2400),
                     (4096, 2 * HOP, 2400), GEOMETRY["G3"][:3], GEOMETRY["G4"][:3],
                     GEOMETRY["G5"][:3], (2402, 1201, 2402), (8192, 2048, 8192),
                     (7919, 1980, 7919), (9600, 2400, 9600), (11274, 4000, 11274),
-                    (16384, 4096, 16384))
+                    (16384, 4096, 16384), (14087, 3522, 14087))
 
 
 def frames_row(smi, rng, window, tag, n_fft, hop, win, sr):
@@ -818,7 +888,7 @@ def frames_row(smi, rng, window, tag, n_fft, hop, win, sr):
     so it is held to the function on the frames before the last."""
     plan = hopper_stft.fft_plan(analysis_window(window, win, n_fft), "cuda")
     mats = window_dft(window, win, n_fft)
-    x = torch.tensor(foa_audio(rng, (16, 20 * sr, 4)), device="cuda")
+    x = foa_audio_cuda(int(rng.integers(1 << 31)), (16, 20 * sr, 4))
     B, N = x.shape[:2]
     T, K = N // hop, n_fft // 2 + 1
     kr, ki = hopper_stft.stft_hop_blocks(x, plan, hop)
@@ -843,22 +913,30 @@ def frames_row(smi, rng, window, tag, n_fft, hop, win, sr):
             f"> {LIBRARY_TOL} * {scale}")
     del lib, pr, pi
     k_ms, p_ms, l_ms = [], [], []
+    plain_runs = 10 if n_fft <= 4800 else 1  # the plain contraction takes 0.2-0.4 s above
     for _ in range(3):  # in turns: kernel, plain, library, ...
         k_ms += cuda_ms(lambda: hopper_stft.stft_hop_blocks(x, plan, hop), 10)
-        p_ms += cuda_ms(lambda: plain_stft.framed_dft_flat(x, *mats, hop), 10)
+        p_ms += cuda_ms(lambda: plain_stft.framed_dft_flat(x, *mats, hop), plain_runs)
         l_ms += cuda_ms(library, 10)
     # the function's least work: a real FFT per frame and channel, audio in
     # once, re/im out once
     fft_flop = B * T * 4 * (2.5 * n_fft * np.log2(n_fft) + n_fft)
     nbytes = 4.0 * (B * N * 4 + 3 * n_fft + 2 * B * T * K * 4)
     cfg = hopper_stft.frames_config(n_fft, hop)
+    route = {"route": hopper_stft.FRAME_ROUTES[cfg.route], "frames_a_tile": cfg.frames,
+             "span_slots": cfg.ring, "smem_bytes": cfg.smem_bytes}
+    if cfg.route == hopper_stft.FRAME_ROUTES.index("global"):
+        g = hopper_stft.global_config(n_fft)
+        route.update({"n1": g.n1, "n2": g.n2, "columns_a_unit": g.cols, "rows_a_unit": g.rows,
+                      "bluestein": {"q": g.q, "m_len": g.m_len, "blocks": g.blocks,
+                                    "whole_frame_output_blocks": g.segments} if g.q
+                      else None, "input_slots": [g.ring_cols, g.ring_rows],
+                      "smem_bytes": [g.smem_cols, g.smem_rows]})
     row = {"phase": "kernel", "case": "frames_serving" if tag == "G1" else f"frames_{tag}",
            "shape": [B, N, 4], "geometry": {"n_fft": n_fft, "hop": hop, "win_length": win,
                                             "sr": sr},
-           "radices": list(plan.frames_radices),
-           "frames_route": {"route": hopper_stft.FRAME_ROUTES[cfg.route],
-                            "frames_a_tile": cfg.frames, "span_slots": cfg.ring,
-                            "smem_bytes": cfg.smem_bytes},
+           "radices": list(plan.frames_radices), "kernels": hopper_stft.kernels_of(n_fft, hop),
+           "frames_route": route,
            "max_abs_err": err, "max_abs_plain": scale,
            "tol_rel": KERNEL_TOL, "ms": float(np.median(k_ms)),
            "plain_ms": float(np.median(p_ms)), "library_ms": float(np.median(l_ms)),
@@ -881,6 +959,7 @@ def phase_kernel_frames(smi, rng, window):
     (:func:`frames_row`).  G1's row is the kernel's headline; the others
     stand under ``geometries``."""
     res = {"max_abs_err": 0.0}
+    first = counts()
     for n_fft, hop, win in OTHER_GEOMETRIES:
         plan = hopper_stft.fft_plan(analysis_window(window, win, n_fft), "cuda")
         mats = window_dft(window, win, n_fft)
@@ -908,13 +987,15 @@ def phase_kernel_frames(smi, rng, window):
               "frames_route": hopper_stft.FRAME_ROUTES[cfg.route], "max_abs_err": err,
               "max_abs_plain": scale, "tol_rel": KERNEL_TOL})
         del x, kr, ki, pr, pi, mats
+    res["launches"] = {n: c - first[n] for n, c in counts().items()}
 
     res["geometries"] = {}
-    for tag, (n_fft, hop, win, sr) in GEOMETRY.items():
+    for tag, (n_fft, hop, win, sr) in TIMED_FRAMES.items():
         row = frames_row(smi, rng, window, tag, n_fft, hop, win, sr)
         res["max_abs_err"] = max(res["max_abs_err"], row["max_abs_err"])
         keep = {n: row[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                    "geometry", "frames_route", "radices") + DEVICE_KEYS}
+                                    "geometry", "frames_route", "radices", "kernels")
+                + DEVICE_KEYS}
         if tag == "G1":
             res.update(keep)
         else:
@@ -1656,7 +1737,7 @@ def phase_forward_other_geometry(smi, cfg, model, tag="G1"):
     fwd = build_eval_forward(model, fe)
     dft = window_dft(c.data.window, c.data.win_length, c.data.n_fft)
     rng = np.random.default_rng(20)
-    x = torch.tensor(foa_audio(rng, (16, 20 * c.data.sr, 4)), device="cuda")
+    x = foa_audio_cuda(int(rng.integers(1 << 31)), (16, 20 * c.data.sr, 4))
     zero_counts()
     logits = fwd(x)
     torch.cuda.synchronize()
@@ -1676,8 +1757,9 @@ def phase_forward_other_geometry(smi, cfg, model, tag="G1"):
     t = float(np.median(cuda_ms(lambda: fwd(x), 10)))
     prof = profile_steps(lambda b, _: fwd(b), [x], None, 2)
     require(prof["source"] == "cuda_events"
-            or "stft_frames_fft_kernel" in (prof["kernel_counts"] or {}),
-            f"{phase}: the profile holds no frames kernel: {prof['kernel_counts']}")
+            or set(hopper_stft.kernels_of(c.data.n_fft, hop)) <= set(prof["kernel_counts"] or {}),
+            f"{phase}: the profile holds not every frames kernel of "
+            f"{hopper_stft.kernels_of(c.data.n_fft, hop)}: {prof['kernel_counts']}")
     emit({"phase": phase, "shape": list(x.shape),
           "geometry": {"n_fft": c.data.n_fft, "hop": hop, "win_length": c.data.win_length,
                        "sr": c.data.sr},
@@ -4054,6 +4136,7 @@ def main():
     tau = pick_threshold(cfg, phase_forward(smi, fe, dft, model, "forward"))
     other_fwd = phase_forward_other_geometry(smi, cfg, model)
     g3_fwd = phase_forward_other_geometry(smi, cfg, model, "G3")
+    g6_fwd = phase_forward_other_geometry(smi, cfg, model, "G6")
     conformer = build_model(conf_cfg, generator=torch.Generator().manual_seed(0))
     conf_tau = pick_threshold(conf_cfg, phase_forward(smi, fe, dft, conformer,
                                                       "forward_conformer"))
@@ -4096,7 +4179,7 @@ def main():
              "train_cli": engine, "train_seresnet34_bf16": se_train,
              "train_conformer_bf16": conf_bf16, "train_cli_se_bf16": se_cli,
              "forward_other_geometry": other_fwd, "cli_other_geometry": other_cli,
-             "forward_G3": g3_fwd, "cli_G3": g3_cli,
+             "forward_G3": g3_fwd, "cli_G3": g3_cli, "forward_G6": g6_fwd,
              "preprocess_mic": mic,
              "train_cli_formats": {n: sum(formats[f][n] for f in DENSE_LOSSES)
                                    for n in formats["accdoa"]},
@@ -4107,6 +4190,8 @@ def main():
     for p in ("cli_other_geometry", "cli_G3"):
         require(paths[p]["stft_frames"] > 0 and paths[p]["stft"] == 0,
                 f"{p}: K1's frames kernel never launched, or the hop-block kernel did")
+    require(paths["forward_G6"]["stft_frames_4step"] == 1,
+            f"forward_G6: route four_step's one launch, got {paths['forward_G6']}")
     require(all(paths["export"][r] > 0 for r in ("stft", "k2", "k2_bf16", "k4")),
             f"export: a kernel of the path never launched: {paths['export']}")
     require(paths["train_cli_formats_conformer"]["k2_dropout"] > 0
@@ -4132,17 +4217,41 @@ def main():
          **launches("stft_frames", "cli_G3"),
          **{n: frames_k[n] for n in keys_k1},
          # the same kernel at the other timed geometries (G1 is the row's
-         # own), and its routes: shared memory (stft_frames_fft_kernel) and,
-         # above it, global (stft_frames_pass_kernel, stft_frames_split_kernel;
-         # on no path here, held in phase kernel at n_fft 16384)
+         # own); its routes four_step and global are the next two entries
          "geometry": frames_k["geometry"], "geometries": frames_k["geometries"],
-         "routes": {"shared": {"kernels": ["stft_frames_fft_kernel"],
-                               "launches_by_path": {p: n["stft_frames"]
-                                                    for p, n in paths.items()}},
-                    "global": {"kernels": ["stft_frames_pass_kernel",
-                                           "stft_frames_split_kernel"],
-                               "launches_by_path": {p: n["stft_frames_global"]
-                                                    for p, n in paths.items()}}}},
+         "kernel_names": ["stft_frames_fft_kernel"]},
+        {"name": "stft_frames_four_step", "route": "cuda",
+         "source": "adyolo_tpu_torch/csrc/stft.cu",
+         "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
+         # the frames kernel's route four_step (one frame a block, one
+         # launch), on forward_G6's path; the numbers are G6's
+         **launches("stft_frames_4step", "forward_G6"),
+         **{n: frames_k["geometries"]["G6"][n] for n in keys_k1},
+         "kernel_names": ["stft_frames_4step_kernel"]},
+        {"name": "stft_frames_global", "route": "cuda",
+         "source": "adyolo_tpu_torch/csrc/stft.cu",
+         "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
+         # the global route (two launches a call), on no model's path: its
+         # launches are phase kernel's frames cases (2402, 7919, 11274,
+         # 16384); the numbers are G7's
+         "launches": frames_k["launches"]["stft_frames_global"],
+         "main_path": "kernel_frames",
+         "launches_by_path": {"kernel_frames": frames_k["launches"]["stft_frames_global"],
+                              **{p: n["stft_frames_global"] for p, n in paths.items()}},
+         **{n: frames_k["geometries"]["G7"][n] for n in keys_k1},
+         "kernel_names": ["stft_frames_cols_kernel", "stft_frames_rows_kernel"]},
+        {"name": "stft_frames_chirp", "route": "cuda",
+         "source": "adyolo_tpu_torch/csrc/stft.cu",
+         "replaces": "adyolo_tpu/ops/pallas_stft.py:68",
+         # the global route's whole-frame Bluestein (two launches a call),
+         # where no split fits the tiles, on no model's path: its launches
+         # are phase kernel's frames case at 14087; the numbers are N14087's
+         "launches": frames_k["launches"]["stft_frames_chirp"],
+         "main_path": "kernel_frames",
+         "launches_by_path": {"kernel_frames": frames_k["launches"]["stft_frames_chirp"],
+                              **{p: n["stft_frames_chirp"] for p, n in paths.items()}},
+         **{n: frames_k["geometries"]["N14087"][n] for n in keys_k1},
+         "kernel_names": ["stft_frames_chirp_in_kernel", "stft_frames_chirp_out_kernel"]},
         {**attn, "name": "flash_attention/k2",
          "replaces": "adyolo_tpu/ops/flash_mhsa.py:180",
          **launches("k2"), **{n: attn_k["k2"][n] for n in keys_a}},

@@ -14,9 +14,10 @@ attn_eval_bf16_kernel, ``export``: export (on seeded SE-ResNet34 and
 ResNet-Conformer models, thresholds from one B=16 forward each),
 ``order``: attn_launch_order (the train attention pairs in a fresh
 process after a large plain attention), ``geometry``:
-forward_other_geometry and cli_other_geometry at G1 and at G3
-(SE-ResNet34 and the entry points at n_fft 2048, win 1200, and at 44.1
-kHz, n_fft 2204, hop 1102, on K1's frames kernel), ``ddp``:
+forward_other_geometry at G1, G3 and G6 and cli_other_geometry at G1
+and G3 (SE-ResNet34 and the entry points at n_fft 2048, win 1200, at
+44.1 kHz, n_fft 2204, hop 1102, and the forward at 96 kHz, n_fft 9600,
+hop 2400, on K1's frames kernel and its global route), ``ddp``:
 ddp (two ranks spawned on the card), ``tp``: tp (the head-shard kernel
 checks, then two ranks of one model group spawned on the card),
 ``tp_replicated``: tp_replicated (the conformer at N = 3 and, cut to 2
@@ -64,7 +65,7 @@ def main():
         cs.phase_attn_launch_order(smi); print("t", time.time() - t0, flush=True)
     if "geometry" in which:
         model = build_model(cfg, generator=torch.Generator().manual_seed(0))
-        for tag in ("G1", "G3"):
+        for tag in ("G1", "G3", "G6"):
             cs.phase_forward_other_geometry(smi, cfg, model, tag)
         del model
         for tag in ("G1", "G3"):

@@ -28,8 +28,9 @@ it is not), and G5, the exact 50-ms window, an odd 2205 = 3^2 5 7^2:
 * ``FeatureFrontend``, FOA and MIC, with and without ``valid_frames``, at
   G3 and G5 on flat audio, and at G3 on hop-block audio, within the bounds
   above;
-* SE-ResNet34 + AD-YOLO logits at G3 on seeded variables, 32 frames,
-  within 1e-4 abs;
+* SE-ResNet34 + AD-YOLO logits at G3, and at G6 (96 kHz, n_fft = win =
+  9600, hop 2400: the frames kernel's route four_step on the card), on
+  seeded variables, 32 frames, within 1e-4 abs;
 * ``cli train --quick_test`` + ``cli export`` at G3 (flat 1-s artifact),
   served within 1e-6 of the live forward; ``export_model`` at G5, whose
   traced STFT op gives n_fft // 2 + 1 = 1103 bins, served within 1e-6 of
@@ -71,9 +72,11 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 HOP = 600
 # (n_fft, win_length) at the 600-sample hop
 GEOMETRIES = [(2048, 1200), (1024, 1024), (2400, 2400)]
-# (sr, hop, n_fft, win_length) of G3 and G5
+# (sr, hop, n_fft, win_length) of G3, G5 and G6 (96 kHz, a 100-ms window:
+# the frames kernel's route four_step)
 G3 = (44100, 1102, 2204, 2204)
 G5 = (44100, 1102, 2205, 2205)
+G6 = (96000, 2400, 9600, 9600)
 FRAMES = 30
 LIVE_TOL = 1e-6  # served vs live, as tests/test_torch_export.py
 
@@ -196,10 +199,11 @@ def test_frontend_hop_blocks_match_jax_at_g3():
     assert hopper_stft.kernels_of(n_fft, hop) == {"stft_frames_fft_kernel": 1}
 
 
-def test_se_resnet34_logits_match_jax_at_g3():
-    """Flat audio -> features -> SE-ResNet34 + AD-YOLO at G3, on seeded
-    variables carried across."""
-    sr, hop, n_fft, win = G3
+def _logits_at(geometry, var_seed, audio_seed):
+    """JAX's and the port's SE-ResNet34 + AD-YOLO logits from flat audio
+    of 32 frames at ``geometry`` (sr, hop, n_fft, win), on seeded variables
+    carried across."""
+    sr, hop, n_fft, win = geometry
     jcfg, cfg = _cfgs(n_fft, win, sr=sr, hop=hop)
     d = _scaler_dict(seed=3)
     jf = jax_features.FeatureFrontend(jcfg.data, jax_features.Scaler.from_dict(d))
@@ -208,41 +212,42 @@ def test_se_resnet34_logits_match_jax_at_g3():
     jm = jax_build_model(jcfg, "float32")
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
                                             jnp.zeros((1, 32, 64, 7)), False))
-    variables = _seeded_tree(shapes, np.random.default_rng(8))
-    a = _flat_audio(seed=6, frames=32, extra=77, hop=hop)
+    variables = _seeded_tree(shapes, np.random.default_rng(var_seed))
+    a = _flat_audio(seed=audio_seed, frames=32, extra=77, hop=hop)
     want = np.asarray(jax.jit(lambda v, x: jm.apply(v, jf(x), False))(
         variables, jnp.asarray(a)))
     tm = port_wrapper.build_model(cfg, device="cpu")
     tm.load_state_dict(state_dict_from_flax(variables), strict=True)
     with torch.no_grad():
         got = tm(pf(torch.tensor(a))).numpy()
+    return got, want
+
+
+def _check_logits(got, want):
     assert got.shape == want.shape == (2, 8, 8 * 4 * 5 * 16)
     assert np.isfinite(want).all() and float(np.abs(want).max()) > 0.1
     assert float(np.abs(got - want).max()) <= LOGIT_TOL
+
+
+def test_se_resnet34_logits_match_jax_at_g6():
+    """Flat audio -> features -> SE-ResNet34 + AD-YOLO at G6 (96 kHz, n_fft
+    = win = 9600, hop 2400, 32 frames), on seeded variables carried across,
+    within G3's bound; on the card the frames kernel's route four_step (one
+    frame a block, one launch) frames it."""
+    _check_logits(*_logits_at(G6, var_seed=9, audio_seed=16))
+    assert hopper_stft.kernels_of(G6[2], G6[1]) == {"stft_frames_4step_kernel": 1}
+
+
+def test_se_resnet34_logits_match_jax_at_g3():
+    """Flat audio -> features -> SE-ResNet34 + AD-YOLO at G3, on seeded
+    variables carried across."""
+    _check_logits(*_logits_at(G3, var_seed=8, audio_seed=6))
 
 
 def test_se_resnet34_logits_match_jax_at_n_fft_2048():
     """Flat audio -> features -> SE-ResNet34 + AD-YOLO at (2048, 600, 1200),
     on seeded variables carried across."""
-    jcfg, cfg = _cfgs(2048, 1200)
-    d = _scaler_dict(seed=3)
-    jf = jax_features.FeatureFrontend(jcfg.data, jax_features.Scaler.from_dict(d))
-    pf = port_features.FeatureFrontend(cfg.data, port_features.Scaler.from_dict(d),
-                                       device="cpu")
-    jm = jax_build_model(jcfg, "float32")
-    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
-                                            jnp.zeros((1, 32, 64, 7)), False))
-    variables = _seeded_tree(shapes, np.random.default_rng(7))
-    a = _flat_audio(seed=5, frames=32, extra=77)
-    want = np.asarray(jax.jit(lambda v, x: jm.apply(v, jf(x), False))(
-        variables, jnp.asarray(a)))
-    tm = port_wrapper.build_model(cfg, device="cpu")
-    tm.load_state_dict(state_dict_from_flax(variables), strict=True)
-    with torch.no_grad():
-        got = tm(pf(torch.tensor(a))).numpy()
-    assert got.shape == want.shape == (2, 8, 8 * 4 * 5 * 16)
-    assert np.isfinite(want).all() and float(np.abs(want).max()) > 0.1
-    assert float(np.abs(got - want).max()) <= LOGIT_TOL
+    _check_logits(*_logits_at((24000, HOP, 2048, 1200), var_seed=7, audio_seed=5))
 
 
 def test_cli_train_and_export_at_n_fft_2048(scratch_path):

@@ -10,15 +10,20 @@ JAX ``framed_dft_chunked`` within the same bound.  The frames kernel (every
 other geometry): a numpy model of its tiles (``hopper_stft.frames_config``:
 each tile's span staged from the same index arithmetic, reflected at the
 left edge, zeros from N on), its radix plan (register radices as R-point
-DFTs after the pass's twiddles, other primes as the generic pass's direct
-sums, whose roots sit at ``r s mod p``) and the pair split against JAX
-``framed_dft`` under ``jax.enable_x64`` within 2.5e-7 x max: at the four
-geometries of its first design, at 2204 / 1102 (G3), 4800 / 2400 (G4),
-2205 / 1102 (G5), 2402 / 1201 (a prime 1201) and an odd 75 / 30, and on
-its global route (frames read straight from the clip); a left reflection
-off by one, or a root index off by one in the generic pass, fails it.  The
-CPU dispatch against JAX's front-end STFT within 2e-5 x max.  The
-launchers' failure reports are read through a fake library.  The kernels
+DFTs after the pass's twiddles, the primes 7 to 31 as prime passes, whose
+roots sit at ``r s mod p``), the pair split, and its global route (the
+four-step FFT of ``hopper_stft.global_config``: columns of n1 points,
+Bluestein's chirp-z from ``hopper_stft.chirp_table`` where n1 is the
+product of primes above 31, the W_n^(b c) twiddles, rows of n2 points)
+against JAX ``framed_dft`` under ``jax.enable_x64`` within 2.5e-7 x max: at
+the four geometries of its first design, at 2204 / 1102 (G3), 4800 / 2400
+(G4), 2205 / 1102 (G5), 2402 / 1201 (Bluestein on 1201) and an odd 75 /
+30, on the global route at 2205 and 75, and at 7919, 9600, 11274 and 16384;
+a left reflection off by one, a root index off by one in a prime pass, or
+the chirp's index off by one, fails it.  The in-place passes of Bluestein's
+FFTs, emulated, leave the order the filters are stored in.  The CPU
+dispatch against JAX's front-end STFT within 2e-5 x max.  The launchers'
+failure reports are read through a fake library.  The kernels
 themselves run only on a CUDA device (``-m cuda``).
 """
 import types
@@ -240,12 +245,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         hopper_stft.stft_hop_blocks(x.transpose(0, 1), plan)
     with pytest.raises(ValueError, match="n_fft == 2"):
         hopper_stft.stft_hop_blocks(x, hopper_stft.fft_plan(np.ones(1000, np.float32), "cpu"))
-    # every n_fft >= 2 has a plan: another prime factor than 2, 3 and 5, above
-    # 4096, odd (the frames kernel's, at any hop)
-    for n, radices in ((1204, (4, 7, 43)), (4500, (4, 3, 3, 5, 5, 5)), (1125, (3, 3, 5, 5, 5))):
+    # every n_fft >= 2 has a plan: another prime factor than 2, 3 and 5 (43:
+    # Bluestein on the global route), above 4096, odd (at any hop)
+    frames = {"stft_frames_fft_kernel": 1}
+    for n, radices, kernels in (
+            (1204, (4, 7, 43), {"stft_frames_cols_kernel": 1, "stft_frames_rows_kernel": 1}),
+            (4500, (4, 3, 3, 5, 5, 5), frames), (1125, (3, 3, 5, 5, 5), frames)):
         p = hopper_stft.fft_plan(np.ones(n, np.float32), "cpu")
-        assert p.frames_radices == radices and hopper_stft.kernels_of(n, n // 2) == {
-            "stft_frames_fft_kernel": 1}
+        assert p.frames_radices == radices and hopper_stft.kernels_of(n, n // 2) == kernels
     with pytest.raises(ValueError, match="n_fft >= 2"):
         hopper_stft.fft_plan(np.ones(1, np.float32), "cpu")
     with pytest.raises(ValueError, match="hop-block width"):
@@ -343,16 +350,21 @@ FRAME_GEOMETRIES = [(2048, 600, 1200), (1024, 600, 1024), (2400, 600, 2400),
 # the geometries only the frames kernel takes: the DCASE preset's 25 / 50 ms
 # at 44.1 kHz as n_fft = 2 hop = 2^2 19 29 (G3), at 96 kHz (G4, above the
 # first design's 4096), its exact 50-ms window at 44.1 kHz (G5, odd, 3^2 5
-# 7^2), a large prime (2402 = 2 x 1201) and a small odd n_fft
+# 7^2), a large prime (2402 = 2 x 1201, Bluestein on the global route) and a
+# small odd n_fft
 NEW_GEOMETRIES = [(2204, 1102, 2204), (4800, 2400, 4800), (2205, 1102, 2205),
                   (2402, 1201, 2402), (75, 30, 60)]
 MODEL_TOL = 2.5e-7  # the numpy model against float64 JAX, x max
 
-# the edges of the shared routes: shared_wide at one span slot (8192, and
-# the prime 7919 in a generic pass), then the global route (9600 in
-# register radices, 11274 = 2 x 3 x 1879 with a generic pass)
+# the edges of the shared routes: shared_wide at one span slot (8192), then
+# the global route: the prime 7919 (Bluestein in two output blocks), 9600
+# (100 x 96 in register radices) and 11274 = 1879 x 6 (Bluestein columns)
 EDGE_GEOMETRIES = [(8192, 2048, 8192), (7919, 1980, 7919), (9600, 2400, 9600),
                    (11274, 4000, 11274)]
+# the global route's model cases (three frames each: float64 DFT matrices
+# of 16384 points are 2 GB); the prime 14087 on its whole-frame Bluestein
+GLOBAL_GEOMETRIES = [(7919, 1980, 7919), (9600, 2400, 9600), (11274, 4000, 11274),
+                     (16384, 4096, 16384), (14087, 3522, 14087)]
 
 
 def _frames_plan(n_fft, win, device="cpu"):
@@ -364,19 +376,24 @@ def _flat_frames_audio(n_fft, hop, seed, frames=203):
     the reflected left edge reads, are unlike the rest."""
     rng = np.random.default_rng(seed)
     a = (rng.standard_normal((2, frames * hop + 17, 4)) * 0.1).astype(np.float32)
-    a[:, :n_fft] = rng.uniform(-0.8, 0.8, (2, n_fft, 4))
+    a[:, :n_fft] = rng.uniform(-0.8, 0.8, (2, min(n_fft, a.shape[1]), 4))
     return a
 
 
-def _frames_model(x, plan, hop, reflect_shift=0, root_shift=0, route=None):
+def _frames_model(x, plan, hop, reflect_shift=0, root_shift=0, route=None, chirp_shift=0,
+                  whole_m=None):
     """The frames kernel as it computes, in numpy float32/complex64 (the
-    generic pass's sums in complex128): on its shared routes tiles of F
-    frames (``frames_config``), each tile's span of (nf - 1) hop + n_fft
-    samples staged from signal sample t0 hop - n_fft // 2 on, x[-s +
+    prime passes' and Bluestein's sums in complex128): on its shared routes
+    tiles of F frames (``frames_config``), each tile's span of (nf - 1) hop
+    + n_fft samples staged from signal sample t0 hop - n_fft // 2 on, x[-s +
     reflect_shift] left of 0 (0: librosa's reflection), zero from N on, and
     frame f's sample m read at f hop + m; on the global route (``route`` 2)
     each frame read from the clip by the same rule; the table's window;
-    then :func:`_frames_fft`.  ``x``: (B, N, 4)."""
+    then :func:`_passes` or, on the global route, :func:`_four_step`, and
+    :func:`_split`; on the global route's whole-frame Bluestein (or with
+    ``whole_m``, that plan at M = ``whole_m`` whatever the route)
+    :func:`_chirp_blocks` and the split of its bins and mirrors.
+    ``x``: (B, N, 4)."""
     B, N, _ = x.shape
     n = plan.n_fft
     T = N // hop
@@ -390,7 +407,7 @@ def _frames_model(x, plan, hop, reflect_shift=0, root_shift=0, route=None):
         return np.where((src < N)[:, None], x[b, np.minimum(src, N - 1)], 0.0)
 
     for b in range(B):
-        if route == 2:
+        if route >= 2:  # global, four_step
             for t in range(T):
                 frames[b, t] = staged(b, t * hop - n // 2, n)
             continue
@@ -399,40 +416,159 @@ def _frames_model(x, plan, hop, reflect_shift=0, root_shift=0, route=None):
             span = staged(b, t0 * hop - n // 2, (nf - 1) * hop + n)
             for f in range(nf):
                 frames[b, t0 + f] = span[f * hop:f * hop + n]
-    return _frames_fft((frames * plan.table.numpy()[2 * n:][None, None, :, None])
-                       .astype(np.float32), plan, root_shift)
+    frames = (frames * plan.table.numpy()[2 * n:][None, None, :, None]).astype(np.float32)
+    pairs = np.stack([frames[..., 0] + 1j * frames[..., 1],
+                      frames[..., 2] + 1j * frames[..., 3]], axis=2).astype(np.complex64)
+    if whole_m is not None or (route == 2 and hopper_stft.global_config(n).segments):
+        g = (hopper_stft.global_config(n) if whole_m is None
+             else hopper_stft._chirp_config(n, whole_m))
+        return _split_pairs(*_chirp_blocks(pairs, g, chirp_shift))
+    z = (_four_step(pairs, plan, root_shift, chirp_shift) if route >= 2
+         else _passes(pairs, plan, n, 1, root_shift))
+    return _split(z)
 
 
-def _frames_fft(frames, plan, root_shift=0):
-    """The frames kernel's FFT of windowed ``frames`` (B, T, n_fft, 4): the
-    channel pairs, the Stockham passes of ``plan.frames_radices`` (a register
-    radix R: input r of butterfly j turned by table[r k stride], k = j mod
-    ns, then the R-point DFT; any other p: output s the sum over r of that
-    input times table[((r s + root_shift) mod p) n/p]), then the split."""
+def _table_twiddles(plan):
     n = plan.n_fft
     table = plan.table.numpy()
-    tw = (table[0:2 * n:2] + 1j * table[1:2 * n:2]).astype(np.complex64)
-    x = np.stack([frames[..., 0] + 1j * frames[..., 1],
-                  frames[..., 2] + 1j * frames[..., 3]], axis=2).astype(np.complex64)
+    return (table[0:2 * n:2] + 1j * table[1:2 * n:2]).astype(np.complex64)
+
+
+def _passes(x, plan, length, step, root_shift=0):
+    """The kernel's Stockham passes of the plan rule's radices over the
+    last axis of ``x`` (transforms of ``length`` points; the table's
+    twiddles at step ``step``, as ``gather_tables`` reads them): a register
+    radix R turns input r of butterfly j by tw[r k stride], k = j mod ns,
+    then takes the R-point DFT; a prime p (7 to 31) the same twiddles, then
+    output s the sum over r of its input times the root tw[((r s +
+    root_shift) mod p) length/p step]."""
+    tw = _table_twiddles(plan)
     ns = 1
-    for R in plan.frames_radices:
-        m = n // R
+    for R in hopper_stft._radix_rule(length):
+        m = length // R
         j = np.arange(m)
         k = j % ns
-        v = np.stack([x[..., j + r * m] * tw[r * k * (n // (ns * R))] for r in range(R)])
+        v = np.stack([x[..., j + r * m] * tw[r * k * (length // (ns * R)) * step]
+                      for r in range(R)])
         if R in hopper_stft._REGISTER_RADICES:
             w = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
             y = np.einsum("sr,r...->s...", w.astype(np.complex64), v)
         else:
+            assert R in hopper_stft._PRIME_RADICES, R
             rs = (np.outer(np.arange(R), np.arange(R)) + root_shift) % R
-            y = np.einsum("sr,r...->s...", tw[rs * m].astype(np.complex128),
+            y = np.einsum("sr,r...->s...", tw[rs * m * step].astype(np.complex128),
                           v.astype(np.complex128)).astype(np.complex64)
         out = np.empty_like(x)
         for r in range(R):
             out[..., (j - k) * R + k + r * ns] = y[r]
         x, ns = out, ns * R
+    return x
+
+
+def _bluestein(x, g, chirps, chirp_shift=0):
+    """Bluestein's chirp-z over the last axis of ``x`` (q points) as the
+    kernel computes it from the float32 chirp table: u = x conj(b), zeros
+    to M; per output block j, v = IDFT(DFT(u) H_j) with H_j read from the
+    table's digit-reversed order; bin s = conj(b_s) v_{s - j S}.
+    ``chirp_shift``: the chirp's index one off, (r + 1)^2 for r^2."""
+    q, M = g.q, g.m_len
+    t = chirps.numpy().astype(np.float64)
+    c = t[0::2] + 1j * t[1::2]
+    cc = c[:q]
+    h = c[q + M:].reshape(g.blocks, M)
+    if chirp_shift:
+        r = np.arange(q, dtype=np.int64) + chirp_shift
+        cc = np.exp(-1j * np.pi * ((r * r) % (2 * q)) / q).astype(np.complex64)
+    order = hopper_stft._dif_order(M, g.m_radices)
+    u = np.zeros(x.shape[:-1] + (M,), np.complex128)
+    u[..., :q] = x * cc
+    U = np.fft.fft(u, axis=-1)
+    y = np.empty(x.shape, np.complex128)
+    for j in range(g.blocks):
+        hn = np.empty(M, np.complex128)
+        hn[order] = h[j]
+        v = np.fft.ifft(U * hn, axis=-1) * M
+        s = np.arange(j * g.outs, min(q, (j + 1) * g.outs))
+        y[..., s] = cc[s] * v[..., s - j * g.outs]
+    return y.astype(np.complex64)
+
+
+def _chirp_blocks(x, g, chirp_shift=0):
+    """The global route's whole-frame Bluestein over the last axis of ``x``
+    (n points) as its two kernels compute it, from the chirp table rounded
+    to float32 (:func:`hopper_stft._chirp_values`): u = x conj(b); each
+    input block i of S = M / 2 samples, zeros to M, transformed; for each
+    lower output block s, the sum over i of U_i times the filter of offset
+    (s - i) S, transformed back, times conj(b_k) at bins k = sS + t; its
+    mirror block the same with the filter of offset n + 1 - (s + i + 1) S,
+    read at t' = S - 1 - t for bin n - k.  Returns the bins k <= n/2 and
+    their mirrors X[n - k] (X[n] for k = 0).  ``chirp_shift``: the chirp's
+    index one off, (r + 1)^2 for r^2."""
+    q, M, S, P, O = g.q, g.m_len, g.outs, g.blocks, g.segments
+    c = hopper_stft._chirp_values(g).astype(np.complex64).astype(np.complex128)
+    cc = c[:q + 1]
+    if chirp_shift:
+        r = np.arange(q + 1, dtype=np.int64) + chirp_shift
+        cc = np.exp(-1j * np.pi * ((r * r) % (2 * q)) / q).astype(np.complex64)
+    h = np.empty((2 * (P + O - 1), M), np.complex128)
+    h[:, hopper_stft._dif_order(M, g.m_radices)] = c[q + 1 + M:].reshape(-1, M)
+    u = np.zeros(x.shape[:-1] + (P, M), np.complex128)
+    for i in range(P):
+        part = x[..., i * S:(i + 1) * S] * cc[i * S:i * S + S][:x.shape[-1] - i * S]
+        u[..., i, :part.shape[-1]] = part
+    U = np.fft.fft(u, axis=-1)
+    K = q // 2 + 1
+    low = np.empty(x.shape[:-1] + (K,), np.complex128)
+    mirror = np.empty_like(low)
+    for s in range(O):
+        k = np.arange(s * S, min(K, (s + 1) * S))
+        t = k - s * S
+        v = np.fft.ifft(np.einsum("...im,im->...m", U, h[s - np.arange(P) + P - 1]), axis=-1)
+        low[..., k] = cc[k] * v[..., t] * M
+        v = np.fft.ifft(np.einsum("...im,im->...m", U, h[P + O - 1 + s + np.arange(P)]),
+                        axis=-1)
+        mirror[..., k] = cc[q - k] * v[..., S - 1 - t] * M
+    return low.astype(np.complex64), mirror.astype(np.complex64)
+
+
+def _four_step_twiddles(tw, e):
+    """W_n^e as the kernel forms it from its two-level table
+    (``stft.cu::four_step_twiddle``): tw[e mod 128] tw[128 floor(e / 128)],
+    multiplied in complex64."""
+    return (tw[e % 128] * tw[(e // 128) * 128]).astype(np.complex64)
+
+
+def _four_step(x, plan, root_shift=0, chirp_shift=0):
+    """The global route over the last axis of ``x`` (n_fft points): column
+    b of sample n2 a + b, its n1-point transform (the passes, or Bluestein),
+    times W_n^(b c) (:func:`_four_step_twiddles`); then row c's n2-point
+    transform over b, bin c + n1 d."""
+    n = plan.n_fft
+    g = hopper_stft.global_config(n)
+    n1, n2 = g.n1, g.n2
+    tw = _table_twiddles(plan)
+    cols = np.swapaxes(x.reshape(x.shape[:-1] + (n1, n2)), -1, -2)  # (..., b, a)
+    if g.q:
+        y = _bluestein(cols, g, hopper_stft.chirp_table(n, "cpu"), chirp_shift)
+    else:
+        y = _passes(cols, plan, n1, n2, root_shift)
+    y = y * _four_step_twiddles(tw, np.outer(np.arange(n2), np.arange(n1)))
+    rows = _passes(np.swapaxes(y, -1, -2), plan, n2, n1, root_shift)  # (..., c, d)
+    return np.swapaxes(rows, -1, -2).reshape(x.shape)  # bin c + n1 d
+
+
+def _split(x):
+    """The channel-pair split of Z (..., 2, n) into bins 0..n/2 of the four
+    channels, re and im."""
+    n = x.shape[-1]
     kk = np.arange(n // 2 + 1)
-    z, c = x[..., kk], np.conj(x[..., (-kk) % n])
+    return _split_pairs(x[..., kk], x[..., (-kk) % n])
+
+
+def _split_pairs(z, mirror):
+    """The split of bins Z[k] (..., 2, n/2 + 1) and their mirrors Z[n - k]
+    into the four channels, re and im."""
+    c = np.conj(mirror)
     xa, xb = (z + c) / 2, (z - c) / 2j
     chans = np.stack([xa[:, :, 0], xb[:, :, 0], xa[:, :, 1], xb[:, :, 1]], axis=-1)
     return chans.real.astype(np.float32), chans.imag.astype(np.float32)
@@ -458,8 +594,10 @@ def _jax_framed_dft64(x, n_fft, hop, win):
 
 def _frames_case(n_fft, hop, win, seed):
     """Audio of a frames case (203 frames; 23 at the new geometries, whose
-    float64 references cost more) and its float64 JAX STFT."""
-    frames = 203 if (n_fft, hop, win) in FRAME_GEOMETRIES else 23
+    float64 references cost more; 3 at the global route's) and its float64
+    JAX STFT."""
+    frames = (203 if (n_fft, hop, win) in FRAME_GEOMETRIES
+              else 3 if (n_fft, hop, win) in GLOBAL_GEOMETRIES else 23)
     a = _flat_frames_audio(n_fft, hop, seed=seed, frames=frames)
     jr, ji = _jax_framed_dft64(a, n_fft, hop, win)
     assert jr.shape == (2, frames, n_fft // 2 + 1, 4)
@@ -472,12 +610,14 @@ def _model_err(got, jr, ji):
 
 @pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES + NEW_GEOMETRIES)
 def test_frames_model_matches_jax_framed_dft(n_fft, hop, win):
-    """The frames kernel's tiles, edge rules and radix plan, modelled,
-    against JAX ``framed_dft`` in float64 within 2.5e-7 x max; the same
-    model with the left reflection off by one sample is far outside it."""
+    """The frames kernel's tiles, edge rules and radix plan (on the global
+    route at 2402: Bluestein on 1201), modelled, against JAX ``framed_dft``
+    in float64 within 2.5e-7 x max; the same model with the left reflection
+    off by one sample is far outside it."""
     plan = _frames_plan(n_fft, win)
     assert plan.frames_radices == hopper_stft.frames_radix_plan(n_fft)
-    assert hopper_stft.kernel_of(n_fft, hop) == "stft_frames_fft_kernel"
+    want = ("stft_frames_cols_kernel" if n_fft == 2402 else "stft_frames_fft_kernel")
+    assert hopper_stft.kernel_of(n_fft, hop) == want
     a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft)
     err = _model_err(_frames_model(a, plan, hop), jr, ji)
     assert err <= MODEL_TOL * scale, (err, scale)
@@ -487,53 +627,161 @@ def test_frames_model_matches_jax_framed_dft(n_fft, hop, win):
 
 @pytest.mark.parametrize("n_fft,hop,win", [(2205, 1102, 2205), (75, 30, 60)])
 def test_frames_model_global_route_matches_jax(n_fft, hop, win):
-    """The global route's framing (each frame read from the clip, no
-    tiles) with the same passes, against float64 JAX within 2.5e-7 x max."""
+    """The global route's four-step model (each frame read from the clip,
+    columns of n1 points, twiddles, rows of n2) at geometries the shared
+    routes take (2205 = 49 x 45 with prime passes, 75 = 15 x 5), against
+    float64 JAX within 2.5e-7 x max."""
     a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft + 3)
     err = _model_err(_frames_model(a, _frames_plan(n_fft, win), hop, route=2), jr, ji)
     assert err <= MODEL_TOL * scale, (err, scale)
 
 
+@pytest.mark.parametrize("n_fft,hop,win", GLOBAL_GEOMETRIES)
+def test_frames_model_four_step_matches_jax(n_fft, hop, win):
+    """Where no tile of frames fits: 9600 on route four_step (120 x 80,
+    one frame a block, one launch), and on the global route (two launches)
+    7919 (Bluestein, M = 12288 in two output blocks), 11274 (Bluestein
+    columns of 1879, M = 4096), 16384 (128 x 128) and the prime 14087
+    (whole-frame Bluestein: 4 input and 2 lower output blocks of 4096): the
+    model against float64 JAX within 2.5e-7 x max."""
+    assert hopper_stft.kernels_of(n_fft, hop) == (
+        {"stft_frames_4step_kernel": 1} if n_fft == 9600
+        else {"stft_frames_chirp_in_kernel": 1, "stft_frames_chirp_out_kernel": 1}
+        if n_fft == 14087 else {"stft_frames_cols_kernel": 1, "stft_frames_rows_kernel": 1})
+    a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft + 5)
+    err = _model_err(_frames_model(a, _frames_plan(n_fft, win), hop), jr, ji)
+    assert err <= MODEL_TOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("n_fft,hop,win,m_len", [(75, 30, 60, 64), (2205, 1102, 2205, 256),
+                                                (300, 75, 300, 32)])
+def test_frames_model_whole_frame_bluestein_matches_jax(n_fft, hop, win, m_len):
+    """The whole-frame Bluestein (its input blocks, lower and mirror output
+    blocks and the filters of their offsets) at a small M, so that a frame
+    spans several blocks of each (75: 3 input, 2 output blocks; 2205: 18
+    and 9; 300: 19 and 10), against float64 JAX within 2.5e-7 x max; the
+    chirp's index one off is far outside it."""
+    g = hopper_stft._chirp_config(n_fft, m_len)
+    assert g.blocks > 2 and g.segments > 1
+    plan = _frames_plan(n_fft, win)
+    a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft + 7)
+    err = _model_err(_frames_model(a, plan, hop, route=2, whole_m=m_len), jr, ji)
+    assert err <= MODEL_TOL * scale, (err, scale)
+    bad = _model_err(_frames_model(a, plan, hop, route=2, whole_m=m_len, chirp_shift=1), jr, ji)
+    assert bad > 1e4 * MODEL_TOL * scale, (bad, scale)
+
+
 @pytest.mark.parametrize("n_fft,hop,win", [(2204, 1102, 2204), (2205, 1102, 2205)])
 def test_frames_model_catches_a_wrong_root(n_fft, hop, win):
-    """A root index one off in the generic pass (``r s + 1`` for ``r s``)
-    puts the model far outside the bound, so the bound sees that fault."""
+    """A root index one off in a prime pass (``r s + 1`` for ``r s``) puts
+    the model far outside the bound, so the bound sees that fault."""
     plan = _frames_plan(n_fft, win)
-    assert any(r not in hopper_stft._REGISTER_RADICES for r in plan.frames_radices)
+    assert any(r in hopper_stft._PRIME_RADICES for r in plan.frames_radices)
     a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft + 4)
     bad = _model_err(_frames_model(a, plan, hop, root_shift=1), jr, ji)
     assert bad > 1e4 * MODEL_TOL * scale, (bad, scale)
 
 
+@pytest.mark.parametrize("n_fft,hop,win", [(2402, 1201, 2402), (11274, 4000, 11274)])
+def test_frames_model_catches_a_wrong_chirp(n_fft, hop, win):
+    """Bluestein's chirp with its index one off (``(r + 1)^2`` for ``r^2``)
+    puts the model far outside the bound."""
+    plan = _frames_plan(n_fft, win)
+    assert hopper_stft.global_config(n_fft).q > 0
+    a, jr, ji, scale = _frames_case(n_fft, hop, win, seed=n_fft + 6)
+    bad = _model_err(_frames_model(a, plan, hop, chirp_shift=1), jr, ji)
+    assert bad > 1e4 * MODEL_TOL * scale, (bad, scale)
+
+
+@pytest.mark.parametrize("m_len", [80, 2560, 3840, 12288])
+def test_chirp_passes_leave_the_dif_order(m_len):
+    """Bluestein's in-place passes (``stft.cu::chirp_pass``) emulated in
+    numpy: decimation in frequency leaves bin ``_dif_order(M)[i]`` at place
+    i, and decimation in time of that order gives the DFT in natural order;
+    the chirp table's filters are stored in that order."""
+    radices = hopper_stft._radix_rule(m_len)
+    twm = np.exp(-2j * np.pi * np.arange(m_len) / m_len)
+    rng = np.random.default_rng(m_len)
+    x = rng.standard_normal(m_len) + 1j * rng.standard_normal(m_len)
+
+    def passes(a, dit):
+        a = a.copy()
+        spans, L = [], m_len
+        for r in radices:
+            spans.append((r, L))
+            L //= r
+        for r, L in (spans[::-1] if dit else spans):
+            m = L // r
+            for base in range(0, m_len, L):
+                j = np.arange(m)
+                idx = base + j[None, :] + m * np.arange(r)[:, None]  # (r, m)
+                tws = twm[(j[None, :] * np.arange(r)[:, None]) * (m_len // L)]
+                v = a[idx] * tws if dit else a[idx]
+                v = np.fft.fft(v, axis=0)
+                a[idx] = v if dit else v * tws
+        return a
+
+    order = hopper_stft._dif_order(m_len, radices)
+    want = np.fft.fft(x)
+    assert np.abs(passes(x, dit=False) - want[order]).max() <= 1e-9 * m_len
+    assert np.abs(passes(x[order], dit=True) - want).max() <= 1e-9 * m_len
+    g = hopper_stft.global_config(11274)
+    assert g.m_radices == hopper_stft._radix_rule(g.m_len)
+
+
 def test_frames_routes_and_tiles():
     """Which kernel takes a geometry, decided by the geometry alone: the
     hop-block kernel exactly at n_fft == 2 * hop <= 2400 with factors 2, 3
-    and 5; the frames kernel elsewhere, in shared memory (16 or 32 values
-    a thread) where a tile fits, as at every n_fft up to 5,642, and on the
-    global route where none does, one pass kernel a radix and one split;
-    every tile within 227 KB and the registers of 256 threads."""
+    and 5; the frames kernel in shared memory (16 or 32 values a thread)
+    where every prime is at most 31 and a tile fits, as at every such n_fft
+    up to 5,543; route four_step (one frame a block, one launch) where a
+    frame of register radices fits a block; elsewhere the global route, two
+    launches whatever the radices (the whole-frame Bluestein's two where no
+    split fits the tiles, as at the prime 14087); every tile within 227 KB
+    and the registers of 256 threads; a route for every n_fft."""
     of = hopper_stft.kernels_of
+    glob = {"stft_frames_cols_kernel": 1, "stft_frames_rows_kernel": 1}
     for n, hop in ((1200, 600), (600, 300), (2400, 1200), (1024, 512), (150, 75)):
         assert of(n, hop) == {"stft_hop_blocks_fft_kernel": 1}
-    for n, hop in ((2048, 600), (2204, 1102), (2205, 1102), (4800, 2400), (2402, 1201),
-                   (4000, 2000), (1400, 700), (1201, 600), (5642, 2821), (7919, 1980),
-                   (8192, 2048)):
+    for n, hop in ((2048, 600), (2204, 1102), (2205, 1102), (4800, 2400), (4000, 2000),
+                   (1400, 700), (5400, 1800), (8192, 2048)):
         assert of(n, hop) == {"stft_frames_fft_kernel": 1}, (n, hop)
-    assert of(16384, 4096) == {"stft_frames_pass_kernel": 4, "stft_frames_split_kernel": 1}
-    assert of(14088, 3000) == {"stft_frames_pass_kernel": 3, "stft_frames_split_kernel": 1}
-    assert of(5643, 1411) == {"stft_frames_pass_kernel": 5, "stft_frames_split_kernel": 1}
+    for n, hop in ((16384, 4096), (14088, 3000), (5643, 1411), (2402, 1201), (1201, 600),
+                   (7919, 1980), (11274, 4000), (37, 10), (5544, 1848)):
+        assert of(n, hop) == glob, (n, hop)
+    for n, hop in ((9600, 2400), (9000, 3000), (12000, 3000)):
+        assert of(n, hop) == {"stft_frames_4step_kernel": 1}, (n, hop)
     cfg = hopper_stft.frames_config
     assert cfg(2048, 600)[:3] == (0, 2, 2)
     assert cfg(4800, 2400)[:3] == (1, 1, 2)
     assert [cfg(n, hop)[:3] for n, hop, _ in EDGE_GEOMETRIES] == [
-        (1, 1, 1), (1, 1, 1), (2, 0, 0), (2, 0, 0)]
-    assert hopper_stft.FRAME_ROUTES[2] == "global"
-    assert cfg(9000, 3000).route == 2 and cfg(14087, 3000).route == 2
-    for n in range(2, 5643):
+        (1, 1, 1), (2, 0, 0), (3, 1, 1), (2, 0, 0)]
+    assert hopper_stft.FRAME_ROUTES[2:] == ("global", "four_step")
+    assert hopper_stft.four_step_config(9600)[:4] == (120, 80, 27, 40)
+    g = hopper_stft.global_config
+    assert g(16384)[:2] == (128, 128)
+    assert (g(11274).n1, g(11274).n2, g(11274).q, g(11274).m_len) == (1879, 6, 1879, 4096)
+    assert (g(7919).q, g(7919).blocks, g(7919).m_len) == (7919, 2, 12288)
+    assert cfg(9000, 3000).route == 3 and cfg(14087, 3000).route == 2
+    chirp = {"stft_frames_chirp_in_kernel": 1, "stft_frames_chirp_out_kernel": 1}
+    for n, hop in ((14087, 3000), (12707, 3000), (37083, 9000), (65537, 16384)):
+        assert of(n, hop) == chirp, (n, hop)
+        gc = g(n)
+        assert (gc.m_len, gc.outs, gc.blocks, gc.segments) == (
+            8192, 4096, -(-n // 4096), -(-(n // 2 + 1) // 4096))
+        assert cfg(n, hop).rows_smem_bytes <= 232448
+    assert g(12703).segments == 0 and g(12703).q == 12703
+    for n in range(2, 5544):
+        radices = hopper_stft.frames_radix_plan(n)
         c = cfg(n, max(1, n // 3))
-        assert c.route in (0, 1) and 1 <= c.frames <= 8 and c.smem_bytes <= 232448
-        assert hopper_stft._frames_fit(hopper_stft.frames_radix_plan(n), n, c.frames,
-                                       hopper_stft._FR_EPT[c.route])
+        if all(r <= hopper_stft._PRIME_MAX for r in radices):
+            assert c.route in (0, 1) and 1 <= c.frames <= 8 and c.smem_bytes <= 232448
+            assert hopper_stft._frames_fit(radices, n, c.frames, hopper_stft._FR_EPT[c.route])
+        else:
+            gc = g(n)
+            assert c.route == 2 and gc.q * gc.n2 == n
+            assert gc.m_len >= gc.q + -(-gc.q // gc.blocks) - 1
+            assert max(c.smem_bytes, c.rows_smem_bytes) <= 232448
     assert hopper_stft.frames_radix_plan(2048) == (16, 16, 8)
     assert hopper_stft.frames_radix_plan(2204) == (4, 19, 29)
     assert hopper_stft.frames_radix_plan(2205) == (3, 3, 5, 7, 7)
@@ -640,12 +888,12 @@ def test_every_c_entry_point_records_where_it_failed():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,hop,win", FRAME_GEOMETRIES + NEW_GEOMETRIES
-                         + EDGE_GEOMETRIES + [(16384, 4096, 16384)])
+                         + EDGE_GEOMETRIES + [(16384, 4096, 16384), (14087, 3522, 14087)])
 def test_frames_kernel_matches_plain_on_cuda(cuda_device, n_fft, hop, win):
     """The frames kernel on flat audio against the plain flat framing of
     the same samples, with the launches ``kernels_of`` names (one span slot
-    at 8192 and 7919; 9600, 11274 and 16384: the global route, one pass
-    kernel a radix and the split)."""
+    at 8192; 9600 on route four_step; 2402, 7919, 11274 and 16384 on the
+    global route, two launches; 14087 on its whole-frame Bluestein)."""
     w_re, w_im = (torch.tensor(w, device=cuda_device)
                   for w in dft_matrices(n_fft, analysis_window("han", win, n_fft)))
     frames = 203 if (n_fft, hop, win) in FRAME_GEOMETRIES else 23
