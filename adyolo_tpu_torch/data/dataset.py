@@ -39,6 +39,7 @@ from ..config import Config
 from ..ops.grid import GridGeometry
 from ..ops.rotation import RotationAug
 from ..parallel.mesh import check_batch
+from ..utils.profiling import span
 from . import io
 from .labels import (encode_accdoa, encode_adpit, encode_adyolo, encode_seddoa,
                      pad_yolo_targets)
@@ -376,26 +377,30 @@ class EvalLoader:
     def __iter__(self):
         hop = self.cfg.data.hop_length
         for name in self.dataset.get_filelist():
-            audio, label, nb_label_frames = self.dataset.load_clip(name)
-            n_valid = len(audio)
-            n_bucket = bucket_samples(n_valid, hop, self.buckets)
-            padded = np.zeros((1, n_bucket, audio.shape[1]), np.float32)
-            padded[0, :n_valid] = audio
-            if self.cfg.data.n_fft == 2 * hop:
-                # hop-block layout (1, T, hop, C): a free view (buckets are
-                # hop multiples)
-                padded = padded.reshape(1, -1, hop, audio.shape[1])
-            item = {"name": name, "audio": padded,
-                    "valid_feat_frames": np.array([n_valid // hop], np.int32),
-                    "nb_label_frames": nb_label_frames}
-            enc = self.dataset.encode_label(label, nb_label_frames)
-            if self.dataset.loss_nm == "adyolo":
-                chunks = -(-nb_label_frames // self.cfg.data.chunk_label_frames)
-                item["targets"], item["target_mask"] = pad_yolo_targets(
-                    [enc], max(1, chunks) * self.max_targets_per_chunk)
-            else:  # the bucket's label frames (adyolo_tpu/data/dataset.py:401-407)
-                dense = np.zeros((n_bucket // self.cfg.data.label_hop_len,)
-                                 + enc.shape[1:], np.float32)
-                dense[:nb_label_frames] = enc
-                item["targets"] = dense[None]
+            # closed before the yield: the span never holds the consumer's work
+            with span("eval.load"):
+                with span("eval.normalize"):
+                    audio, label, nb_label_frames = self.dataset.load_clip(name)
+                n_valid = len(audio)
+                n_bucket = bucket_samples(n_valid, hop, self.buckets)
+                with span("eval.pad"):
+                    padded = np.zeros((1, n_bucket, audio.shape[1]), np.float32)
+                    padded[0, :n_valid] = audio
+                if self.cfg.data.n_fft == 2 * hop:
+                    # hop-block layout (1, T, hop, C): a free view (buckets are
+                    # hop multiples)
+                    padded = padded.reshape(1, -1, hop, audio.shape[1])
+                item = {"name": name, "audio": padded,
+                        "valid_feat_frames": np.array([n_valid // hop], np.int32),
+                        "nb_label_frames": nb_label_frames}
+                enc = self.dataset.encode_label(label, nb_label_frames)
+                if self.dataset.loss_nm == "adyolo":
+                    chunks = -(-nb_label_frames // self.cfg.data.chunk_label_frames)
+                    item["targets"], item["target_mask"] = pad_yolo_targets(
+                        [enc], max(1, chunks) * self.max_targets_per_chunk)
+                else:  # the bucket's label frames (adyolo_tpu/data/dataset.py:401-407)
+                    dense = np.zeros((n_bucket // self.cfg.data.label_hop_len,)
+                                     + enc.shape[1:], np.float32)
+                    dense[:nb_label_frames] = enc
+                    item["targets"] = dense[None]
             yield item

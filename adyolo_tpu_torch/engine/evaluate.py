@@ -39,6 +39,7 @@ from ..metrics.seld import SegmentScorer
 from ..models.wrapper import SELDModel
 from ..ops.decode import PostProcessor
 from ..ops.features import FeatureFrontend, Scaler, identity_scaler
+from ..utils.profiling import COUNTERS, span
 
 __all__ = ["make_frontend", "build_eval_forward", "test_epoch",
            "cached_eval_outputs", "decode_cached_to_csv", "test_model", "infer",
@@ -84,11 +85,13 @@ def build_eval_forward(model: SELDModel, frontend: FeatureFrontend) -> Callable:
     @torch.inference_mode()
     def fwd(audio, valid_feat_frames=None):
         model.eval()
-        audio = torch.as_tensor(audio, device=device)
-        if valid_feat_frames is not None:
-            valid_feat_frames = torch.as_tensor(valid_feat_frames, device=device)
-        feat = frontend(audio, valid_feat_frames)
-        return model(feat, valid_feat_frames)
+        with span("eval.h2d"):
+            audio = torch.as_tensor(audio, device=device)
+            if valid_feat_frames is not None:
+                valid_feat_frames = torch.as_tensor(valid_feat_frames, device=device)
+        with span("eval.forward"):
+            feat = frontend(audio, valid_feat_frames)
+            return model(feat, valid_feat_frames)
 
     return fwd
 
@@ -204,11 +207,17 @@ def test_model(cfg_args: Dict, results_dir: str = "results",
             raise SystemExit("error: --infer_pth <wav_dir> is required for infer")
         print(f"\n===== INFERENCE ON WAVS UNDER: {infer_pth} =====")
         t0 = time.time()
+        before = dict(COUNTERS)
         times = infer(cfg, model, frontend, postprocessor, infer_pth,
                       os.path.join(output_pth, "output_infer"))
         p50 = np.median([s for _, s in times]) if times else 0.0
         print(f"total inference time: {(time.time() - t0) / 60:0.2f} min "
               f"({len(times)} clips, p50 {p50:0.3f} s/clip)")
+        frames, rows = (COUNTERS.get(k, 0) - before.get(k, 0)
+                        for k in ("decode.label_frames", "decode.candidates"))
+        if frames:  # AD-YOLO: the host NMS's work, which τ sets
+            print(f"decode: {rows / frames:0.4f} candidates over tau a label frame "
+                  f"({rows} over {frames} label frames)")
         print("\nTEST DONE.")
         return {"times": times}
 

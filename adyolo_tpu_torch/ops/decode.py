@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..utils.profiling import count, span
 from . import nms_native
 from .grid import GridGeometry
 
@@ -199,21 +200,22 @@ class PostProcessor:
         are to be decoded again under several thresholds (the cached
         decode of the τ-arbitration): pass the smallest τ of the scan so
         the compaction is exact for all of them."""
-        K = self.nb_classes
-        n_anchors = self.geom.nb_predicts
-        T = output.shape[1]
-        guard = self.conf_thresh if min_conf is None else float(min_conf)
-        k = min(self.decode_topk, n_anchors) if self.decode_topk else n_anchors
-        if k < n_anchors:
-            p = _device_decode_topk(output, self.geom, K, k)[0].cpu().numpy()
-            # truncation guard: exact unless the k-th candidate of some
-            # frame still clears the threshold
-            if float(p[:, -1, 0].max()) <= guard:
-                return p[..., 1:K + 1], p[..., 0], p[..., K + 1:]
-        cls, obj, uv = _device_decode(output, self.geom, K)
-        return (cls[0].reshape(T, -1, K).cpu().numpy(),
-                obj[0].reshape(T, -1).cpu().numpy(),
-                uv[0].reshape(T, -1, 2).cpu().numpy())
+        with span("decode.candidates"):
+            K = self.nb_classes
+            n_anchors = self.geom.nb_predicts
+            T = output.shape[1]
+            guard = self.conf_thresh if min_conf is None else float(min_conf)
+            k = min(self.decode_topk, n_anchors) if self.decode_topk else n_anchors
+            if k < n_anchors:
+                p = _device_decode_topk(output, self.geom, K, k)[0].cpu().numpy()
+                # truncation guard: exact unless the k-th candidate of some
+                # frame still clears the threshold
+                if float(p[:, -1, 0].max()) <= guard:
+                    return p[..., 1:K + 1], p[..., 0], p[..., K + 1:]
+            cls, obj, uv = _device_decode(output, self.geom, K)
+            return (cls[0].reshape(T, -1, K).cpu().numpy(),
+                    obj[0].reshape(T, -1).cpu().numpy(),
+                    uv[0].reshape(T, -1, 2).cpu().numpy())
 
     def _frame_dets(self, cand_cls, cand_uv) -> Optional[List]:
         """Class-threshold filter + per-class NMS of one frame's candidates."""
@@ -251,7 +253,9 @@ class PostProcessor:
         """The detections of a :meth:`candidates` set at the current
         thresholds, over the first ``valid_label_frames`` frames.  Raises
         ``ValueError`` below an AD-YOLO set's ``min_conf``, where it would
-        miss candidates."""
+        miss candidates.  An AD-YOLO decode counts its label frames and
+        the rows the host loop visits (``decode.label_frames`` and
+        ``decode.candidates`` in :data:`~adyolo_tpu_torch.utils.profiling.COUNTERS`)."""
         if self.loss != "adyolo":
             return self.postprocess(cached, valid_label_frames)
         min_conf, T_full, tt, obj, cls, uv = cached
@@ -261,16 +265,19 @@ class PostProcessor:
         T = T_full if valid_label_frames is None else min(T_full, int(valid_label_frames))
         keep = (obj > self.conf_thresh) & (tt < T)
         tt, cls, uv = tt[keep], cls[keep], uv[keep]
+        count("decode.label_frames", T)
+        count("decode.candidates", len(tt))
         res: Dict[int, List] = {}
         if len(tt) == 0:
             return res
-        # rows are frame-major (np.nonzero order): group by frame
-        uniq, starts = np.unique(tt, return_index=True)
-        ends = np.append(starts[1:], len(tt))
-        for t, s, e in zip(uniq, starts, ends):
-            dets = self._frame_dets(cls[s:e], uv[s:e])
-            if dets:
-                res[int(t)] = dets
+        with span("decode.nms"):
+            # rows are frame-major (np.nonzero order): group by frame
+            uniq, starts = np.unique(tt, return_index=True)
+            ends = np.append(starts[1:], len(tt))
+            for t, s, e in zip(uniq, starts, ends):
+                dets = self._frame_dets(cls[s:e], uv[s:e])
+                if dets:
+                    res[int(t)] = dets
         return res
 
     def postprocess(self, output: torch.Tensor,

@@ -76,6 +76,7 @@ from ..models.resnet_conformer import shard_conformer_
 from ..models.wrapper import SELDModel, make_criterion
 from ..ops.features import FeatureFrontend
 from ..ops.specaug import spec_augment
+from ..utils.profiling import span
 from . import mesh
 
 __all__ = ["make_optimizer", "build_step_features", "build_train_step",
@@ -112,16 +113,18 @@ def build_step_features(cfg: Config, frontend: FeatureFrontend) -> Callable:
 
     @torch.no_grad()
     def features(audio, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        audio = torch.as_tensor(audio, device=device)
-        if audio.dtype == torch.int16:  # reference src/datasets.py:147
-            audio = audio.to(torch.float32) / 32768.0 + 1e-8
-        feat = frontend(audio.contiguous())
-        if aug.spec_augment:
-            feat = spec_augment(feat, generator, blocks,
-                                aug.spec_augment_time_mask_param,
-                                aug.spec_augment_freq_mask_param,
-                                aug.spec_augment_thresh)
-        return feat
+        with span("train.features"):
+            with span("train.h2d"):
+                audio = torch.as_tensor(audio, device=device)
+            if audio.dtype == torch.int16:  # reference src/datasets.py:147
+                audio = audio.to(torch.float32) / 32768.0 + 1e-8
+            feat = frontend(audio.contiguous())
+            if aug.spec_augment:
+                feat = spec_augment(feat, generator, blocks,
+                                    aug.spec_augment_time_mask_param,
+                                    aug.spec_augment_freq_mask_param,
+                                    aug.spec_augment_thresh)
+            return feat
 
     return features
 
@@ -149,7 +152,13 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
     within it), every rank passes the same generator, and the loss
     returned is the global batch's, equal on every rank.  Under tensor
     parallelism ``model`` (full and initialised, either encoder) is
-    sharded in place here, as far as its plan shards it."""
+    sharded in place here, as far as its plan shards it.
+
+    Under a ``torch.profiler`` capture the step's parts are the spans
+    (:func:`~adyolo_tpu_torch.utils.profiling.span`) ``train.step`` holding
+    ``train.features`` (which holds the audio's ``train.h2d``),
+    ``train.forward``, the targets' ``train.h2d``, ``train.loss``,
+    ``train.backward`` and ``train.optimizer``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = frontend.device
@@ -185,25 +194,34 @@ def build_train_step(cfg: Config, model: SELDModel, frontend: FeatureFrontend
 
     def train_step(batch: Dict, generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        gen = generator if replicas == 1 else _rank_generator(generator, device)
-        feat = features(batch["audio"], gen)
-        model.train()
-        with synced():  # the remat recompute, in the backward, included
-            out = net(feat, generator=gen)
-            loss = criterion(out, torch.as_tensor(batch["targets"], device=device),
-                             _mask(batch.get("target_mask"), device))
-            optimizer.zero_grad(set_to_none=True)
-            (loss * scale if scale != 1.0 else loss).backward()
-        if tp > 1:
-            mesh.average_replicated_grads(model, plan)
-        optimizer.step()
-        group = optimizer.param_groups[0]
-        group["steps"] = group.get("steps", 0) + 1  # JAX's TrainState.step
-        if replicas == 1:
-            return loss.detach()
-        # the global batch's loss: the AD-YOLO terms add up to it, the
-        # dense means average to it
-        return mesh.all_reduce_counts(loss.detach()) * (scale / replicas)
+        with span("train.step"):
+            gen = generator if replicas == 1 else _rank_generator(generator, device)
+            feat = features(batch["audio"], gen)
+            model.train()
+            with synced():  # the remat recompute, in the backward, included
+                with span("train.forward"):
+                    out = net(feat, generator=gen)
+                with span("train.h2d"):
+                    targets = torch.as_tensor(batch["targets"], device=device)
+                    mask = _mask(batch.get("target_mask"), device)
+                with span("train.loss"):
+                    loss = criterion(out, targets, mask)
+                optimizer.zero_grad(set_to_none=True)
+                # the backward's kernels are launched from autograd's device
+                # thread: the span names host time, it holds none of their device time
+                with span("train.backward"):
+                    (loss * scale if scale != 1.0 else loss).backward()
+            if tp > 1:
+                mesh.average_replicated_grads(model, plan)
+            with span("train.optimizer"):
+                optimizer.step()
+            group = optimizer.param_groups[0]
+            group["steps"] = group.get("steps", 0) + 1  # JAX's TrainState.step
+            if replicas == 1:
+                return loss.detach()
+            # the global batch's loss: the AD-YOLO terms add up to it, the
+            # dense means average to it
+            return mesh.all_reduce_counts(loss.detach()) * (scale / replicas)
 
     train_step.optimizer = optimizer
     train_step.plan = plan

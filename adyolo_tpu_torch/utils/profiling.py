@@ -8,9 +8,12 @@
   bound or above its own single call: ``chip_smoke.py`` (the kernels'
   device time a call, the train and serve profiles) and
   ``scripts/torch_{attention_bf16_check,se_step_profile,ddp_cards}.py``;
-* :func:`trace` -- a ``torch.profiler`` capture written as a Chrome trace;
-* :class:`PhaseTimer` and :func:`throughput_audio_s` -- the coarse
-  per-phase wall-clock timing and the audio-seconds-per-second rate;
+* :func:`span`, :data:`COUNTERS` and :func:`count` -- the program's own
+  spans and counters, placed in the layers that do the work (the train
+  step, the eval loader, the eval forward, the decode): a span is a ``record_function`` range named ``adyolo.<name>`` on the
+  profiler's timeline while a ``torch.profiler`` capture records, and a
+  shared no-op otherwise; the counters are always on;
+* :func:`throughput_audio_s` -- the audio-seconds-per-second rate;
 * :func:`benchmark` -- steady-state seconds a call;
 * :func:`model_flops`, :func:`device_peak_flops` and :func:`mfu` -- the
   model's FLOPs of one call, counted the same whichever route computes
@@ -25,18 +28,17 @@ from __future__ import annotations
 
 import contextlib
 import math
-import os
 import sys
 import time
-from typing import Callable, Dict, Iterator, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 __all__ = ["PROFILE_GROUPS", "OTHER", "DEVICE_SLACK", "group_ms", "profile_calls",
            "kernels_launched", "group_of", "DeviceEvent", "summarize_events",
-           "missing_kernels", "void_profile", "check_device_ms", "library_count_void", "trace",
-           "PhaseTimer", "throughput_audio_s", "benchmark", "model_flops",
-           "stft_flops", "attention_flops", "rnn_flops",
+           "missing_kernels", "void_profile", "check_device_ms", "library_count_void",
+           "SPAN_PREFIX", "span", "COUNTERS", "count", "throughput_audio_s", "benchmark",
+           "model_flops", "stft_flops", "attention_flops", "rnn_flops",
            "device_name", "device_peak_flops", "mfu"]
 
 PROFILE_GROUPS = (  # kernel-name substrings, first match wins
@@ -292,45 +294,27 @@ def _event_timed(fn, n):
             "kernels_per_step": None, "ms_per_step": None, "top_other_ms_per_step": {}}
 
 
-@contextlib.contextmanager
-def trace(logdir: Optional[str]) -> Iterator[None]:
-    """Capture a ``torch.profiler`` trace of the block (CPU activity, and
-    CUDA activity where a card is present) into ``logdir/trace.json``, a
-    Chrome trace; nothing when ``logdir`` is None."""
-    if logdir is None:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.start()
-    try:
-        yield
-    finally:
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+SPAN_PREFIX = "adyolo."
+_NO_SPAN = contextlib.nullcontext()
+# What the program did, by name, since the process started: always on, an
+# int add a site.  ``decode.label_frames`` and ``decode.candidates`` (the
+# rows the host NMS loop visits: PostProcessor), which ``infer`` reports.
+COUNTERS: Dict[str, int] = {}
 
 
-class PhaseTimer:
-    """Accumulates wall-clock seconds per named phase."""
+def span(name: str):
+    """A range named ``adyolo.<name>`` on the profiler's timeline, on the
+    clock of its kernel and memcpy records, while a ``torch.profiler``
+    capture records (``record_function``); otherwise one shared no-op
+    context, so a span costs a flag read when nothing traces."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
 
-    @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> str:
-        return ", ".join(f"{k}: {v:0.2f}s" for k, v in self.totals.items())
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to ``COUNTERS[name]``."""
+    COUNTERS[name] = COUNTERS.get(name, 0) + int(n)
 
 
 def throughput_audio_s(batch: int, clip_seconds: float, step_seconds: float) -> float:

@@ -20,8 +20,14 @@
 * The train pair's ops on the CPU run the plain bfloat16 pair, bit for
   bit.
 * ``mfu`` / ``device_peak_flops``: None off the table, the datasheet
-  ratio for the H100's names.  ``trace`` writes a Chrome trace,
-  ``PhaseTimer`` sums its phases, ``benchmark`` makes warmup + iters calls.
+  ratio for the H100's names.  ``benchmark`` makes warmup + iters calls.
+* The program's spans: ``span`` is one shared no-op without a profiler
+  and an ``adyolo.<name>`` range under a CPU capture; the train step's
+  seven spans nest as they should and leave the loss as it is; the eval
+  loader yields the same items under a capture and its ``eval.load``
+  ranges hold none of the consumer's work; ``count`` adds to
+  ``COUNTERS``, and the decode's counters count its valid label frames
+  and the candidates over τ in them.
 No wall-clock asserts.
 """
 import contextlib
@@ -526,7 +532,7 @@ def test_bf16_conformer_step_count_is_route_independent(small_cfg):
     assert ops == inline > 0
 
 
-# ---- MFU, trace, timers --------------------------------------------------------
+# ---- MFU and the timer --------------------------------------------------------
 
 def test_mfu_against_the_datasheet_peaks():
     assert profiling.mfu(1e12, 1.0, "cpu") is None
@@ -538,27 +544,185 @@ def test_mfu_against_the_datasheet_peaks():
     assert profiling.device_peak_flops("NVIDIA H100 80GB HBM3") == 989.4e12
 
 
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(None):
-        torch.ones(3).sum()
-    logdir = str(tmp_path / "tr")
-    with profiling.trace(logdir):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    with open(os.path.join(logdir, "trace.json")) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
+# ---- the program's spans and counters ----------------------------------------
+
+def _spans(prof, prefix=profiling.SPAN_PREFIX):
+    """``[(name, start_us, end_us)]`` of the capture's host ranges named
+    ``prefix...``, by start."""
+    return sorted(((e.name[len(prefix):], e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.name.startswith(prefix)
+                   and e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda sp: (sp[1], -sp[2]))
 
 
-def test_phase_timer_sums_its_phases(monkeypatch):
-    clock = iter([0.0, 1.0, 1.0, 3.5, 10.0, 10.25])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    timer = profiling.PhaseTimer()
-    for name in ("load", "load", "step"):
-        with timer.phase(name):
-            pass
-    assert timer.totals == {"load": 3.5, "step": 0.25}
-    assert timer.report() == "load: 3.50s, step: 0.25s"
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def _cpu_capture():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_span_is_one_shared_no_op_without_a_profiler():
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert profiling.span("train.step") is profiling.span("eval.load")
+    with profiling.span("train.step") as inner:
+        assert inner is None
+
+
+def test_span_records_its_name_under_a_cpu_capture():
+    with _cpu_capture() as prof:
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                torch.ones(8).sum()
+    spans = _spans(prof)
+    assert [n for n, _, _ in spans] == ["outer", "inner"]
+    assert _inside(spans[1], spans[0])
+    assert profiling.span("outer") is profiling.span("inner")  # off again
+
+
+def test_count_adds_to_the_counters(monkeypatch):
+    monkeypatch.setattr(profiling, "COUNTERS", {})
+    profiling.count("decode.candidates", 3)
+    profiling.count("decode.candidates")
+    profiling.count("decode.label_frames", np.int64(17))
+    assert profiling.COUNTERS == {"decode.candidates": 4, "decode.label_frames": 17}
+    assert all(type(v) is int for v in profiling.COUNTERS.values())
     assert profiling.throughput_audio_s(16, 20.0, 0.5) == 640.0
+
+
+TRAIN_SPANS = ("train.step", "train.features", "train.h2d", "train.forward", "train.loss",
+               "train.backward", "train.optimizer")
+
+
+@pytest.mark.parametrize("encoder", ["se-resnet34", "resnet-conformer"])
+def test_train_step_spans_nest_and_leave_the_loss_as_it_is(encoder, small_cfg):
+    cfg = dataclasses.replace(small_cfg, args=dataclasses.replace(small_cfg.args,
+                                                                  encoder=encoder))
+    fe = _frontend(cfg)
+    rng = np.random.default_rng(5)
+    geom = port_wrapper.make_grid_geometry(cfg)
+    frames = cfg.data.chunk_label_frames
+    targets, mask = pad_yolo_targets(
+        [encode_adyolo({int(rng.integers(frames)): [[2, 0, 30.0, 10.0]]}, frames, geom)
+         for _ in range(2)], 64)
+    batch = {"audio": (rng.standard_normal((2, cfg.data.chunk_feat_frames, 600, 4)) * 3000
+                       ).astype(np.int16), "targets": targets, "target_mask": mask}
+
+    def loss(traced):
+        model = port_wrapper.build_model(cfg, "cpu", generator=torch.Generator().manual_seed(0),
+                                         train=True)
+        step = build_train_step(cfg, model, fe)
+        gen = torch.Generator().manual_seed(1)
+        if not traced:
+            return step(batch, gen), None
+        with _cpu_capture() as prof:
+            out = step(batch, gen)
+        return out, _spans(prof)
+
+    plain, _ = loss(False)
+    traced, spans = loss(True)
+    assert torch.equal(plain, traced)
+    names = [n for n, _, _ in spans]
+    assert sorted(names) == sorted(TRAIN_SPANS + ("train.h2d",))
+    step = spans[names.index("train.step")]
+    feats = spans[names.index("train.features")]
+    assert all(_inside(sp, step) for sp in spans)
+    h2d = [sp for sp in spans if sp[0] == "train.h2d"]
+    assert [_inside(sp, feats) for sp in h2d] == [True, False]  # the audio's, the targets'
+    for name in ("train.forward", "train.loss", "train.backward", "train.optimizer"):
+        sp = spans[names.index(name)]
+        assert not _inside(sp, feats) and feats[2] <= sp[1], name
+    order = [n for n in names if n not in ("train.step", "train.features")]
+    assert order == ["train.h2d", "train.forward", "train.h2d", "train.loss",
+                     "train.backward", "train.optimizer"]
+
+
+def _clip_loader(cfg):
+    """``EvalLoader`` over three in-memory int16 clips of different buckets."""
+    from adyolo_tpu_torch.data import io
+    from adyolo_tpu_torch.data.dataset import EvalLoader, SELDDataset
+    from adyolo_tpu_torch.ops.grid import GridGeometry
+
+    rng = np.random.default_rng(7)
+    clips = {f"clip{i}": (rng.standard_normal((n * 24000, 4)) * 3000).astype(np.int16)
+             for i, n in enumerate((3, 1, 5))}
+
+    class ClipSet(SELDDataset):
+        def __init__(self):
+            self.cfg, self.loss_nm, self.set_type = cfg, cfg.args.loss, "infer"
+            self.is_infer, self.sampler = True, None
+            self.filelist = list(clips)
+            self.geom = GridGeometry(tuple(cfg.train.grid_size), cfg.train.g_overlap,
+                                     cfg.train.nb_anchors)
+
+        def load_clip(self, name, normalize=True, rot_comb=None):
+            audio = clips[name]
+            return io.normalize_audio(audio), {}, len(audio) // self.cfg.data.label_hop_len
+
+    return EvalLoader(ClipSet(), cfg, buckets=(40, 160, 320))
+
+
+def _consume(loader):
+    """The loader's items, the consumer working (a named range) between two."""
+    items = []
+    for item in loader:
+        with torch.profiler.record_function("consumer"):
+            torch.ones(256, 256) @ torch.ones(256, 256)
+        items.append(item)
+    return items
+
+
+def test_eval_loader_yields_the_same_items_under_a_capture(small_cfg):
+    loader = _clip_loader(small_cfg)
+    plain = _consume(loader)
+    with _cpu_capture():
+        traced = _consume(loader)
+    assert [it["name"] for it in plain] == ["clip0", "clip1", "clip2"]
+    for a, b in zip(plain, traced):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert np.array_equal(a[k], b[k]), k
+
+
+def test_eval_load_spans_hold_no_consumer_work(small_cfg):
+    loader = _clip_loader(small_cfg)
+    with _cpu_capture() as prof:
+        _consume(loader)
+    spans = _spans(prof)
+    loads = [sp for sp in spans if sp[0] == "eval.load"]
+    assert len(loads) == 3
+    for name in ("eval.normalize", "eval.pad"):
+        inner = [sp for sp in spans if sp[0] == name]
+        assert len(inner) == 3 and all(any(_inside(sp, ld) for ld in loads) for sp in inner)
+    work = _spans(prof, "consumer")
+    assert len(work) == 3
+    assert all(ld[2] <= w[1] or w[2] <= ld[1] for ld in loads for w in work)
+
+
+@pytest.mark.parametrize("tau", [0.7, 0.2])  # top-k exact; the guard decodes the full grid
+def test_decode_counters_count_the_host_loops_work(tau, monkeypatch):
+    from adyolo_tpu_torch.ops.decode import PostProcessor
+
+    cfg = Config()
+    pp = PostProcessor(cfg)
+    pp.set_conf_thresh(tau)
+    K, n = cfg.data.nb_classes, pp.geom.nb_predicts
+    T, valid = 24, 17
+    logits = torch.randn(1, T, n, K + 3, generator=torch.Generator().manual_seed(11))
+    logits[..., 0] -= 2.0  # objectness: a few anchors a frame over 0.7, dozens over 0.2
+    logits[..., 1:K + 1] *= 3.0
+    logits = logits.reshape(1, T, -1)
+    obj = torch.sigmoid(logits[0].reshape(T, n, K + 3)[..., 0])
+    per_frame = (obj[:valid] > tau).sum(-1)
+    assert (int(per_frame.max()) > cfg.train.decode_topk) == (tau < 0.5)
+    monkeypatch.setattr(profiling, "COUNTERS", {})
+    dets = pp.postprocess(logits, valid_label_frames=valid)
+    assert profiling.COUNTERS["decode.label_frames"] == valid
+    assert profiling.COUNTERS["decode.candidates"] == int(per_frame.sum())
+    assert sum(len(v) for v in dets.values()) > 0
 
 
 def test_benchmark_on_the_cpu_makes_warmup_and_iters_calls():

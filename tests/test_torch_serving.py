@@ -12,6 +12,10 @@ hold the same (frame, class) rows, with xyz within 1e-4.
 The confidence threshold is put in a wide gap of the class-confidence
 values, so float32 differences between the two frameworks (~1e-6) cannot
 move a detection across it.
+
+The port's ``infer`` also reports its decode's work: the candidates over
+τ a label frame, from the decode's counters over the run, the label
+frames being every clip's.
 """
 import dataclasses
 import os
@@ -30,6 +34,7 @@ from adyolo_tpu.engine import evaluate as jax_evaluate
 from adyolo_tpu.models.wrapper import build_model as jax_build_model
 from adyolo_tpu.parallel.train_step import init_state
 from adyolo_tpu_torch import cli
+from adyolo_tpu_torch.config import load_config
 from adyolo_tpu_torch.convert import state_dict_from_flax
 from adyolo_tpu_torch.data.dataset import EvalLoader, SELDDataset
 from adyolo_tpu_torch.engine.checkpoint import (load_jax_checkpoint,
@@ -37,6 +42,7 @@ from adyolo_tpu_torch.engine.checkpoint import (load_jax_checkpoint,
 from adyolo_tpu_torch.engine.evaluate import make_frontend
 from adyolo_tpu_torch.models.wrapper import build_model, make_grid_geometry
 from adyolo_tpu_torch.ops.decode import _device_decode
+from adyolo_tpu_torch.utils import profiling
 
 from tests.synth_data import make_synth_dataset
 from tests.test_torch_config import (  # noqa: F401
@@ -141,6 +147,25 @@ def test_port_infer_matches_jax_infer(experiment):
                                        np.asarray(want)[:, 3:], atol=XYZ_TOL)
         n_rows += len(want)
     assert n_rows > 0  # the threshold lets some detections through
+
+
+def test_port_infer_reports_its_decodes_candidates_a_label_frame(experiment, capsys):
+    results, exp_dir, wav_dir, _ = experiment
+    cfg = load_config(os.path.join(exp_dir, "hyp_exp.yaml"))
+    c_inf = dataclasses.replace(cfg, args=dataclasses.replace(cfg.args, infer_pth=wav_dir))
+    frames = sum(item["nb_label_frames"]
+                 for item in EvalLoader(SELDDataset(c_inf, "infer", is_valid=True), c_inf))
+    before = dict(profiling.COUNTERS)
+    capsys.readouterr()
+    assert cli.main(["infer", "--eval_pth", EXP, "--infer_pth", wav_dir,
+                     "--results_dir", results, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    got = {k: profiling.COUNTERS.get(k, 0) - before.get(k, 0)
+           for k in ("decode.label_frames", "decode.candidates")}
+    rows = got["decode.candidates"]
+    assert got["decode.label_frames"] == frames > 0 and rows > 0
+    assert (f"decode: {rows / frames:0.4f} candidates over tau a label frame "
+            f"({rows} over {frames} label frames)") in out
 
 
 def test_checkpoint_reader_and_writer(experiment, scratch_path):
